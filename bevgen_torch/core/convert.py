@@ -15,10 +15,15 @@ submodules carry the reference's names, so a leaf at
 
 Raises on a leaf the port has no parameter for, on a port parameter left
 unset, and on a shape mismatch.
+
+`export_jax_params(module, tensors=None)` is the inverse: the port's
+parameters (or any tensors by parameter name, such as gradients) as the
+reference's numpy tree, so port-trained weights load into the JAX package
+and the tests compare trees leaf by leaf.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,3 +86,45 @@ def load_jax_params(pipeline: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
         raise KeyError(f"port parameters the tree left unset: "
                        f"{sorted(unset)[:10]} ({len(unset)} in all)")
     return pipeline
+
+
+def _jax_leaf(owner: nn.Module, leaf: str, val: np.ndarray
+              ) -> Tuple[str, np.ndarray]:
+    """(flax leaf name, value in the flax layout) of one port parameter."""
+    if leaf == "weight":
+        if isinstance(owner, nn.Linear):
+            return "kernel", val.T
+        if isinstance(owner, nn.Conv2d):
+            return "kernel", val.transpose(2, 3, 1, 0)
+        if isinstance(owner, nn.Embedding):
+            return "embedding", val
+        if isinstance(owner, (nn.LayerNorm, nn.GroupNorm)):
+            return "scale", val
+    return leaf, val
+
+
+@torch.no_grad()
+def export_jax_params(module: nn.Module,
+                      tensors: Optional[Mapping[str, torch.Tensor]] = None
+                      ) -> Dict[str, Any]:
+    """The inverse of `load_jax_params`: a nested dict of fp32 numpy arrays
+    in the reference's names and layouts, from `module`'s parameters or,
+    when given, from `tensors` (parameter name -> tensor of the
+    parameter's shape, e.g. gradients). A pipeline's parts come out as
+    {"first_stage": {"params": ...}, ...}, the reference pipeline's tree; a
+    submodule (a MaskGit alone) as its bare tree."""
+    tree: Dict[str, Any] = {}
+    for name, p in module.named_parameters():
+        owner_name, _, leaf = name.rpartition(".")
+        val = p if tensors is None else tensors[name]
+        arr = np.asarray(val.detach().float().cpu().numpy())
+        key, arr = _jax_leaf(module.get_submodule(owner_name), leaf, arr)
+        path = owner_name.split(".") if owner_name else []
+        if path and path[0] in PARTS and all(
+                hasattr(module, part) for part in PARTS):
+            path.insert(1, "params")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[key] = np.ascontiguousarray(arr)
+    return tree

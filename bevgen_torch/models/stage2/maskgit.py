@@ -1,7 +1,7 @@
-"""MaskGIT: iterative masked-token generation (serving).
+"""MaskGIT: iterative masked-token generation, and its training objective.
 
-Port of the sampling half of `bevgen_tpu/models/stage2/maskgit.py` with
-the self-critic variant. Per decode step: re-mask the k lowest-scored
+Port of `bevgen_tpu/models/stage2/maskgit.py` with the self-critic
+variant. Per decode step: re-mask the k lowest-scored
 tokens (rank-based, k from a static cosine schedule), one transformer
 forward, top-k filter, gumbel sample, and one critic forward whose scores
 select the next step's re-masking. The last step's critic forward is
@@ -10,13 +10,16 @@ skipped, since its scores feed nothing.
 Serving is cond-only: the reference's classifier-free guidance cancels
 exactly at inference (its null forward only drops the condition in
 training mode), so `cfg_logits`/`cfg_critic` run one forward at 1x batch.
+Training (`maskgit_loss`): cosine-schedule masking per camera image, CE
+on the masked positions, and the self-critic BCE on a gumbel resample.
+
 Not ported yet (raise): `real_cfg`, the separate TokenCritic transformer,
 self-conditioning and the per-step trajectory.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -32,14 +35,14 @@ class MaskGit(nn.Module):
     """Transformer + self-critic head."""
 
     def __init__(self, cfg: MultiViewConfig, muse: MuseConfig,
-                 dtype=torch.float32):
+                 dtype=torch.float32, param_dtype=None):
         super().__init__()
         if muse.token_critic:
             raise NotImplementedError("the TokenCritic variant is not ported yet")
         self.cfg, self.muse, self.dtype = cfg, muse, dtype
-        self.transformer = MultiViewTransformer(cfg, dtype)
+        self.transformer = MultiViewTransformer(cfg, dtype, param_dtype)
         if muse.self_token_critic:
-            self.critic = SelfCriticHead(cfg.num_embed, dtype)
+            self.critic = SelfCriticHead(cfg.num_embed, dtype, param_dtype)
 
     def forward(self, ids, cond_ids, intrinsics_inv, extrinsics_inv,
                 cond_keep=None, cache=None) -> TransformerOutput:
@@ -173,3 +176,87 @@ def generate(model: MaskGit, cond_ids: torch.Tensor,
                                      torch.full_like(scores, -1e5))
     h, w = cfg.cam_latent_res
     return ids.reshape(b, cam, h, w)
+
+
+# ---------------------------------------------------------------------------
+# training objective
+# ---------------------------------------------------------------------------
+
+class MaskGitLoss(NamedTuple):
+    loss: torch.Tensor
+    ce_loss: torch.Tensor
+    critic_loss: torch.Tensor
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         ignore_index: int = -1) -> torch.Tensor:
+    """Mean fp32 cross entropy over the positions whose label is not
+    `ignore_index`."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
+    return nll.sum() / valid.sum().clamp_min(1)
+
+
+def maskgit_loss(model: MaskGit, tokens, cond_ids, intrinsics_inv,
+                 extrinsics_inv, generator: Optional[torch.Generator] = None,
+                 mask_override: Optional[torch.Tensor] = None,
+                 gumbel_noise: Optional[torch.Tensor] = None) -> MaskGitLoss:
+    """Training loss (the reference's `maskgit_loss`, maskgit.py:376-472).
+
+    tokens: (b, cam, hw) ground-truth codebook indices. Per camera image a
+    masking ratio cos(t pi/2), t ~ U(0, 1), picks that many positions at
+    random (rank of uniform noise); `no_mask_token_prob` leaves a fraction
+    of them at their true token while still predicting them. The condition
+    is kept per sample with probability 1 - cond_drop_prob. CE on the
+    masked positions; with the self-critic, the masked positions are
+    resampled (gumbel at a U(0, 1) temperature), a second forward with its
+    own cond_keep scores them through `critic_logits`, and the BCE against
+    "differs from the truth" is added with weight critic_loss_weight.
+
+    All draws come from `generator`. mask_override: (b, cam, hw) bool in
+    place of the random mask; gumbel_noise: (b, cam, hw, vocab) in place of
+    the gumbel draw (zeros make the resample an argmax). For the tests."""
+    cfg, muse = model.cfg, model.muse
+    b, cam, hw = tokens.shape
+    dev = tokens.device
+    tokens = tokens.long()
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=generator, device=dev)
+
+    t = uniform(b, cam)
+    mask_prob = torch.cos(t * math.pi / 2)
+    num_masked = torch.clamp(torch.round(hw * mask_prob), 1, hw)
+    rank = _rank_desc(-uniform(b, cam, hw))          # a random permutation
+    mask = rank < num_masked[..., None]
+    if mask_override is not None:
+        mask = mask_override.to(device=dev, dtype=torch.bool)
+    labels = torch.where(mask, tokens, -1)
+
+    if muse.no_mask_token_prob > 0.0:
+        sub_rank = _rank_desc(torch.where(mask, uniform(b, cam, hw), -1.0))
+        num_keep = mask.sum(-1, keepdim=True) * muse.no_mask_token_prob
+        mask = mask & ~(sub_rank < num_keep)
+
+    x = torch.where(mask, cfg.mask_token_id, tokens)
+    cond_keep = uniform(b) >= muse.cond_drop_prob
+    out = model(x, cond_ids, intrinsics_inv, extrinsics_inv,
+                cond_keep=cond_keep)
+    ce = masked_cross_entropy(out.logits, labels)
+    if not muse.self_token_critic:
+        return MaskGitLoss(ce, ce, torch.zeros_like(ce))
+
+    temp = uniform()
+    sampled = gumbel_sample(out.logits.detach().float(), temp, generator,
+                            noise=gumbel_noise)
+    critic_input = torch.where(mask, sampled, x)
+    critic_labels = (tokens != critic_input).float()
+    cond_keep2 = uniform(b) >= muse.cond_drop_prob
+    logits = model.critic_logits(critic_input, cond_ids, intrinsics_inv,
+                                 extrinsics_inv, cond_keep=cond_keep2).float()
+    bce = torch.mean(logits.clamp_min(0) - logits * critic_labels
+                     + torch.log1p(torch.exp(-logits.abs())))
+    return MaskGitLoss(ce + muse.critic_loss_weight * bce, ce, bce)

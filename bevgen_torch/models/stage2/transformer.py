@@ -16,9 +16,11 @@ Numerics follow the reference: q and k are l2-normalised in fp32 and
 scaled by learned per-dim q_scale/k_scale, logits by a fixed 8; a learned
 null K/V column is prepended to every attention; LayerNorms are
 scale-only with eps 1e-5 and run in fp32. Linear and embedding weights
-are stored in the compute dtype (the reference casts its fp32 params to
-it at use, which gives the same values); norms, scales, null_kv and the
-camera-bias table stay fp32.
+are stored in `param_dtype` and cast to the compute `dtype` at use, as
+the reference casts its fp32 params (`x @ kernel.astype(dtype)`):
+training keeps them fp32 (small AdamW steps would round away in bf16),
+serving defaults `param_dtype` to `dtype`, where the cast is a no-op.
+Norms, scales, null_kv and the camera-bias table are always fp32.
 
 Submodule names mirror the reference's parameter tree (`layers_{i}_attn`,
 `norm.norm`, `to_kv`, ...), so `core/convert.py` maps one onto the other.
@@ -36,6 +38,37 @@ from torch import nn
 from bevgen_torch.core.config import MultiViewConfig
 from bevgen_torch.models import geometry, masks
 from bevgen_torch.ops.cosine_attention import cosine_attention
+
+
+class Dense(nn.Linear):
+    """nn.Linear stored in `param_dtype`; weight, bias and input are cast
+    to the compute `dtype` at use (flax Dense with dtype/param_dtype)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 dtype, param_dtype=None):
+        super().__init__(in_features, out_features, bias=bias,
+                         dtype=param_dtype or dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class Embed(nn.Embedding):
+    """nn.Embedding stored in `param_dtype`, looked up in `dtype` (flax
+    Embed casts the table)."""
+
+    def __init__(self, num: int, dim: int, dtype, param_dtype=None):
+        super().__init__(num, dim, dtype=param_dtype or dtype)
+        self.compute_dtype = dtype
+
+    def table(self) -> torch.Tensor:
+        return self.weight.to(self.compute_dtype)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.table())
 
 
 class LayerNormG(nn.Module):
@@ -62,14 +95,14 @@ class CosineAttention(nn.Module):
     (`ops.cosine_attention.cosine_attention` by default)."""
 
     def __init__(self, dim: int, dim_head: int, heads: int, dtype,
-                 scale: float = 8.0):
+                 scale: float = 8.0, param_dtype=None):
         super().__init__()
         self.heads, self.dim_head, self.scale, self.dtype = heads, dim_head, scale, dtype
         inner = heads * dim_head
         self.norm = LayerNormG(dim)
-        self.to_q = nn.Linear(dim, inner, bias=False, dtype=dtype)
-        self.to_kv = nn.Linear(dim, inner * 2, bias=False, dtype=dtype)
-        self.to_out = nn.Linear(inner, dim, bias=False, dtype=dtype)
+        self.to_q = Dense(dim, inner, False, dtype, param_dtype)
+        self.to_kv = Dense(dim, inner * 2, False, dtype, param_dtype)
+        self.to_out = Dense(inner, dim, False, dtype, param_dtype)
         self.null_kv = nn.Parameter(torch.empty(2, heads, 1, dim_head))
         self.q_scale = nn.Parameter(torch.ones(dim_head))
         self.k_scale = nn.Parameter(torch.ones(dim_head))
@@ -80,7 +113,7 @@ class CosineAttention(nn.Module):
         l2-normalised and k_scale-d, both contiguous."""
         b, m, _ = context.shape
         h, dh = self.heads, self.dim_head
-        kv = self.to_kv(context.to(self.dtype))
+        kv = self.to_kv(context)
         kvt = kv.reshape(b, m, 2, h, dh).permute(2, 0, 3, 1, 4)
         kf = (l2norm(kvt[0]) * self.k_scale).to(self.dtype).contiguous()
         return kf, kvt[1].contiguous()
@@ -114,14 +147,14 @@ class GEGLUFeedForward(nn.Module):
     """LN -> Linear(2*inner) -> gate*gelu(a) -> LN -> Linear(dim), with
     inner = int(dim*mult*2/3) and the exact-erf gelu."""
 
-    def __init__(self, dim: int, mult: int, dtype):
+    def __init__(self, dim: int, mult: int, dtype, param_dtype=None):
         super().__init__()
         inner = int(dim * mult * 2 / 3)
         self.dtype = dtype
         self.norm_in = LayerNormG(dim)
-        self.proj_in = nn.Linear(dim, inner * 2, bias=False, dtype=dtype)
+        self.proj_in = Dense(dim, inner * 2, False, dtype, param_dtype)
         self.norm_mid = LayerNormG(inner)
-        self.proj_out = nn.Linear(inner, dim, bias=False, dtype=dtype)
+        self.proj_out = Dense(inner, dim, False, dtype, param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a, gate = self.proj_in(self.norm_in(x, self.dtype)).chunk(2, dim=-1)
@@ -135,9 +168,12 @@ class TransformerOutput(NamedTuple):
 
 
 class MultiViewTransformer(nn.Module):
-    """The full stage-2 bidirectional transformer."""
+    """The full stage-2 bidirectional transformer. `dtype` is the compute
+    dtype, `param_dtype` (default: `dtype`) the storage of the Linear and
+    embedding weights."""
 
-    def __init__(self, cfg: MultiViewConfig, dtype=torch.float32):
+    def __init__(self, cfg: MultiViewConfig, dtype=torch.float32,
+                 param_dtype=None):
         super().__init__()
         if cfg.num_pad_tokens:
             raise ValueError("the MUSE dense path requires no pad tokens")
@@ -145,20 +181,21 @@ class MultiViewTransformer(nn.Module):
             raise NotImplementedError("self_cond is not ported yet")
         self.cfg, self.dtype = cfg, dtype
         dim, nc, L = cfg.num_embed, cfg.num_cond_tokens, cfg.gpt_block_size
+        pdt = param_dtype
         if cfg.image_embed:
-            self.img_embed = nn.Linear(4, dim, bias=False, dtype=dtype)
-            self.cam_embed = nn.Linear(4, dim, bias=False, dtype=dtype)
+            self.img_embed = Dense(4, dim, False, dtype, pdt)
+            self.cam_embed = Dense(4, dim, False, dtype, pdt)
             self.register_buffer("plane", torch.from_numpy(
                 geometry.image_plane(cfg).reshape(3, -1).copy()), persistent=False)
-        self.cond_token_emb = nn.Embedding(cfg.cond_vocab_size, dim, dtype=dtype)
+        self.cond_token_emb = Embed(cfg.cond_vocab_size, dim, dtype, pdt)
         if cfg.bev_embed:
-            self.bev_embed = nn.Linear(2, dim, bias=True, dtype=dtype)
+            self.bev_embed = Dense(2, dim, True, dtype, pdt)
             self.bev_cam_pos_emb = nn.Parameter(
                 torch.zeros(1, cfg.num_cams, nc, dim))
             self.register_buffer("bev_grid", torch.from_numpy(
                 geometry.get_bev_grid(cfg)[:2].reshape(2, -1).T.copy()),
                 persistent=False)
-        self.cond_pos_emb = nn.Embedding(nc, dim, dtype=dtype)
+        self.cond_pos_emb = Embed(nc, dim, dtype, pdt)
         if cfg.camera_bias:
             # the full (L, L) table, masked by tril at use
             self.camera_bias_emb = nn.Parameter(torch.zeros(L, L))
@@ -166,17 +203,17 @@ class MultiViewTransformer(nn.Module):
                                  persistent=False)
             self.register_buffer("bias_prior", torch.from_numpy(
                 masks.camera_bias_matrix(cfg)), persistent=False)
-        self.token_emb = nn.Embedding(cfg.vocab_size + 1, dim, dtype=dtype)
-        self.pos_emb = nn.Embedding(cfg.num_img_tokens, dim, dtype=dtype)
+        self.token_emb = Embed(cfg.vocab_size + 1, dim, dtype, pdt)
+        self.pos_emb = Embed(cfg.num_img_tokens, dim, dtype, pdt)
         for i in range(cfg.num_layers):
             self.add_module(f"layers_{i}_attn", CosineAttention(
-                dim, cfg.dim_head, cfg.num_heads, dtype))
+                dim, cfg.dim_head, cfg.num_heads, dtype, param_dtype=pdt))
             self.add_module(f"layers_{i}_cross_attn", CosineAttention(
-                dim, cfg.dim_head, cfg.num_heads, dtype))
+                dim, cfg.dim_head, cfg.num_heads, dtype, param_dtype=pdt))
             self.add_module(f"layers_{i}_ff", GEGLUFeedForward(
-                dim, cfg.ff_mult, dtype))
+                dim, cfg.ff_mult, dtype, pdt))
         self.final_norm = LayerNormG(dim)
-        self.to_logits = nn.Linear(dim, cfg.vocab_size, bias=False, dtype=dtype)
+        self.to_logits = Dense(dim, cfg.vocab_size, False, dtype, pdt)
 
     def layer(self, i: int):
         return (getattr(self, f"layers_{i}_attn"),
@@ -208,7 +245,7 @@ class MultiViewTransformer(nn.Module):
             c_exp = c_embed[:, :, None, :] if c_embed is not None else 0.0
             bev_cam = (self.bev_cam_pos_emb.to(dt) + c_exp).sum(dim=1)
             context = context + (grid_embed[None] - bev_cam)
-        context = context + self.cond_pos_emb.weight[None]
+        context = context + self.cond_pos_emb.table()[None]
 
         self_bias = cross_bias = None
         if cfg.camera_bias:
@@ -235,7 +272,7 @@ class MultiViewTransformer(nn.Module):
         x = self.token_emb(ids)                                  # (b,cam,hw,dim)
         if cache["ray"] is not None:
             x = x + cache["ray"].to(dt)
-        x = x.reshape(b, cam * hw, dim) + self.pos_emb.weight[None]
+        x = x.reshape(b, cam * hw, dim) + self.pos_emb.table()[None]
 
         for i in range(cfg.num_layers):
             attn, cross, ff = self.layer(i)
@@ -252,9 +289,9 @@ class MultiViewTransformer(nn.Module):
 class SelfCriticHead(nn.Module):
     """Linear real/fake head over transformer embeddings."""
 
-    def __init__(self, dim: int, dtype):
+    def __init__(self, dim: int, dtype, param_dtype=None):
         super().__init__()
-        self.to_pred = nn.Linear(dim, 1, bias=True, dtype=dtype)
+        self.to_pred = Dense(dim, 1, True, dtype, param_dtype)
 
     def forward(self, embed: torch.Tensor) -> torch.Tensor:
         return self.to_pred(embed)[..., 0]

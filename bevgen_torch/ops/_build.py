@@ -2,8 +2,8 @@
 
 Each source `csrc/<name>.cu` exports plain C functions and becomes one
 shared library `build/lib<name>-<hash>.so`, where the hash covers the
-source and the flags, so an edited source is rebuilt and a stale library
-is never loaded. Libraries are built at first use, never at import: the
+source, the shared headers `csrc/*.cuh` and the flags, so an edited source
+is rebuilt and a stale library is never loaded. Libraries are built at first use, never at import: the
 CPU tests import every module of the package. `build_all` starts one nvcc
 per source at once and waits for all of them.
 
@@ -22,12 +22,12 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Sequence
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("cosine_attention",)
+SOURCES = ("cosine_attention", "attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -42,8 +42,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -80,3 +82,34 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
 def load(name: str) -> ctypes.CDLL:
     """The built library for `csrc/<name>.cu`, building it if needed."""
     return ctypes.CDLL(str(build_all([name])[name]))
+
+
+def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C function `symbol` of the library for `csrc/<name>.cu`, with
+    its argument types set (pointers as c_void_p, so ctypes never cuts one
+    to 32 bits) and an int return code."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+    return fn
+
+
+def ptr(t) -> Optional[ctypes.c_void_p]:
+    """A tensor's device address for a kernel argument (None -> NULL)."""
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def check(name: str, t, dtype, shape, device) -> None:
+    """Raise unless `t` is what a kernel takes: on `device`, of `dtype` and
+    `shape`, contiguous and 16-byte aligned."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")

@@ -20,8 +20,15 @@ about 27 us at 989 TFLOP/s bf16; cross-attention at M=256 moves about
 seeded with the null column, q prologue fused in, K/V tiles in shared
 memory, P kept in registers) is described in `csrc/cosine_attention.cu`.
 
-`cosine_attention` dispatches: CPU tensors take the plain version, CUDA
-tensors launch the kernel or raise. There is no fallback between them.
+Training goes through `CosineAttentionFn`, the counterpart of
+`make_cosine_attention`'s custom_vjp (:1358-1391): its forward is the
+kernel (which then also writes the per-row logsumexp), its backward
+recomputes the prologue under autograd, runs the attention backward
+(`ops/attention_bwd.py`, the port of `fused_bias_attention_bwd` :198) on
+the prologue's outputs and chains the result through the prologue.
+
+`cosine_attention` dispatches: CPU tensors take the plain versions, CUDA
+tensors launch the kernels or raise. There is no fallback between them.
 """
 from __future__ import annotations
 
@@ -29,10 +36,13 @@ import ctypes
 from collections import Counter
 from typing import Optional
 
-import numpy as np
 import torch
+import torch.nn.functional as F
 
-NEG_INF = -0.7 * float(np.finfo(np.float32).max)
+from bevgen_torch.ops import _build
+from bevgen_torch.ops.attention_bwd import attention_bwd
+from bevgen_torch.ops.bias_attention import bias_attention_reference
+
 SOURCE = "bevgen_torch/csrc/cosine_attention.cu"
 REPLACES = "bevgen_tpu/ops/pallas/fused_attention.py:737"
 
@@ -42,17 +52,14 @@ def _l2n(t: torch.Tensor) -> torch.Tensor:
     return t / torch.linalg.vector_norm(t, dim=-1, keepdim=True).clamp_min(1e-12)
 
 
-def cosine_attention_reference(q, k, v, null_kv, q_scale, k_scale,
-                               bias: Optional[torch.Tensor] = None,
-                               keep: Optional[torch.Tensor] = None,
-                               sm_scale: float = 8.0,
-                               k_prenormed: bool = True) -> torch.Tensor:
-    """Plain PyTorch cosine attention, computed in q's dtype with fp32
-    norms, scores and softmax.
-
-    q: (B,H,N,D); k, v: (B,H,M,D) without the null column; null_kv:
-    (2,H,1,D) raw; q_scale, k_scale: (D,); bias: (N,M) or None; keep: (B,)
-    or None. k_prenormed: k is already l2-normalised and k_scale-d."""
+def cosine_prologue(q, k, v, null_kv, q_scale, k_scale,
+                    bias: Optional[torch.Tensor] = None,
+                    k_prenormed: bool = True):
+    """The reference's `_prologue` (fused_attention.py:1335): (qf, kf, vc,
+    biasp) with qf = l2n(q) * q_scale, the null key normed with k_scale and
+    prepended to k (all of k normed too unless k_prenormed), the null value
+    prepended to v, and the bias padded with a zero column 0; in q's dtype
+    (vc in v's), norms in fp32, biasp fp32 or None."""
     B, H, _, D = q.shape
     dt = q.dtype
     nk = null_kv[0][None].expand(B, H, 1, D).to(dt)
@@ -64,54 +71,41 @@ def cosine_attention_reference(q, k, v, null_kv, q_scale, k_scale,
         kf = torch.cat([nkf, k.to(dt)], dim=2)
     else:
         kf = (_l2n(torch.cat([nk, k.to(dt)], dim=2)) * k_scale.float()).to(dt)
-    s = torch.einsum("bhid,bhjd->bhij", qf.float(), kf.float()) * sm_scale
-    if bias is not None:
-        s = s + torch.nn.functional.pad(bias.float(), (1, 0))[None, None]
-    if keep is not None:
-        col = torch.arange(s.shape[-1], device=s.device)
-        valid = (keep.reshape(B, 1) > 0) | (col[None] == 0)
-        s = torch.where(valid[:, None, None, :], s,
-                        torch.full((), NEG_INF, device=s.device))
-    p = torch.softmax(s, dim=-1).to(vc.dtype)
-    return torch.einsum("bhij,bhjd->bhid", p.float(), vc.float()).to(dt)
+    biasp = None if bias is None else F.pad(bias.float(), (1, 0))
+    return qf, kf, vc, biasp
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+def cosine_attention_reference(q, k, v, null_kv, q_scale, k_scale,
+                               bias: Optional[torch.Tensor] = None,
+                               keep: Optional[torch.Tensor] = None,
+                               sm_scale: float = 8.0,
+                               k_prenormed: bool = True) -> torch.Tensor:
+    """Plain PyTorch cosine attention, computed in q's dtype with fp32
+    norms, scores and softmax: the prologue, then plain biased attention.
+
+    q: (B,H,N,D); k, v: (B,H,M,D) without the null column; null_kv:
+    (2,H,1,D) raw; q_scale, k_scale: (D,); bias: (N,M) or None; keep: (B,)
+    or None. k_prenormed: k is already l2-normalised and k_scale-d."""
+    qf, kf, vc, biasp = cosine_prologue(q, k, v, null_kv, q_scale, k_scale,
+                                        bias, k_prenormed)
+    return bias_attention_reference(qf, kf, vc, biasp, keep, sm_scale)
 
 
-def _lib():
-    from bevgen_torch.ops import _build
-    lib = _build.load("cosine_attention")
-    fn = lib.cosine_attention_fwd_bf16
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_void_p])
-    return fn
-
-
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+def _fn():
+    return _build.function("cosine_attention", "cosine_attention_fwd_bf16",
+                           [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                           + [ctypes.c_float, ctypes.c_void_p])
 
 
 def cosine_attention_cuda(q, k, v, null_kv, q_scale, k_scale,
                           bias: Optional[torch.Tensor] = None,
                           keep: Optional[torch.Tensor] = None,
-                          sm_scale: float = 8.0) -> torch.Tensor:
+                          sm_scale: float = 8.0, return_lse: bool = False):
     """Launch the CUDA kernel (k prenormed). q, k, v: contiguous bf16 on
     one CUDA device, D in {32, 64}; null_kv, q_scale, k_scale, bias: fp32;
-    keep: int32 or None. Raises on anything the kernel does not take and
-    on a failed launch."""
+    keep: int32 or None. Returns out, or (out, lse) with lse the (B,H,N)
+    fp32 logsumexp of the scores (null column included) in log2 units.
+    Raises on anything the kernel does not take and on a failed launch."""
     B, H, N, D = q.shape
     M = k.shape[2]
     dev = q.device
@@ -119,29 +113,33 @@ def cosine_attention_cuda(q, k, v, null_kv, q_scale, k_scale,
         raise ValueError(f"cosine_attention_cuda takes CUDA tensors, got {dev}")
     if D not in (32, 64):
         raise ValueError(f"head dim {D} not supported by the kernel (32, 64)")
-    _check("q", q, torch.bfloat16, (B, H, N, D), dev)
-    _check("k", k, torch.bfloat16, (B, H, M, D), dev)
-    _check("v", v, torch.bfloat16, (B, H, M, D), dev)
-    _check("null_kv", null_kv, torch.float32, (2, H, 1, D), dev)
-    _check("q_scale", q_scale, torch.float32, (D,), dev)
-    _check("k_scale", k_scale, torch.float32, (D,), dev)
+    check = _build.check
+    check("q", q, torch.bfloat16, (B, H, N, D), dev)
+    check("k", k, torch.bfloat16, (B, H, M, D), dev)
+    check("v", v, torch.bfloat16, (B, H, M, D), dev)
+    check("null_kv", null_kv, torch.float32, (2, H, 1, D), dev)
+    check("q_scale", q_scale, torch.float32, (D,), dev)
+    check("k_scale", k_scale, torch.float32, (D,), dev)
     if bias is not None:
-        _check("bias", bias, torch.float32, (N, M), dev)
+        check("bias", bias, torch.float32, (N, M), dev)
     if keep is not None:
-        _check("keep", keep, torch.int32, (B,), dev)
+        check("keep", keep, torch.int32, (B,), dev)
     out = torch.empty_like(q)
-    fn = _lib()
+    lse = (torch.empty((B, H, N), dtype=torch.float32, device=dev)
+           if return_lse else None)
+    p = _build.ptr
+    fn = _fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(null_kv), _ptr(q_scale),
-                 _ptr(k_scale), _ptr(bias), _ptr(keep), _ptr(out),
-                 B, H, N, M, D, float(sm_scale), ctypes.c_void_p(stream))
+        err = fn(p(q), p(k), p(v), p(null_kv), p(q_scale), p(k_scale), p(bias),
+                 p(keep), p(out), p(lse), B, H, N, M, D, float(sm_scale),
+                 ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"cosine_attention kernel launch failed: CUDA "
                            f"error {err} at B={B} H={H} N={N} M={M} D={D}")
     cosine_attention_cuda.launches += 1
     cosine_attention_cuda.launches_by_shape[(N, M)] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 cosine_attention_cuda.launches = 0
@@ -153,23 +151,80 @@ def reset_launch_counts() -> None:
     cosine_attention_cuda.launches_by_shape.clear()
 
 
+def _forward(q, k, v, null_kv, q_scale, k_scale, bias, keep, sm_scale,
+             return_lse: bool = False):
+    """Device dispatch of the forward, without autograd: (out, lse or None)."""
+    if q.device.type == "cpu":
+        return (cosine_attention_reference(q, k, v, null_kv, q_scale, k_scale,
+                                           bias, keep, sm_scale), None)
+    if q.device.type != "cuda":
+        raise ValueError(f"no cosine attention for device {q.device}")
+    if keep is not None:
+        keep = (keep > 0).to(torch.int32).contiguous()
+    res = cosine_attention_cuda(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        null_kv.float().contiguous(), q_scale.float().contiguous(),
+        k_scale.float().contiguous(),
+        None if bias is None else bias.float().contiguous(), keep,
+        sm_scale, return_lse=return_lse)
+    return res if return_lse else (res, None)
+
+
+class CosineAttentionFn(torch.autograd.Function):
+    """Cosine attention (k prenormed) with its gradient: the counterpart of
+    `make_cosine_attention`'s custom_vjp. Gradients for q, k, v, null_kv,
+    q_scale, k_scale and bias; none for keep."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, null_kv, q_scale, k_scale, bias, keep,
+                sm_scale):
+        out, lse = _forward(q, k, v, null_kv, q_scale, k_scale, bias, keep,
+                            sm_scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, null_kv, q_scale, k_scale, bias, keep,
+                              out, lse)
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, null_kv, q_scale, k_scale, bias, keep, out, lse = \
+            ctx.saved_tensors
+        need = ctx.needs_input_grad[:7]
+        leaves = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip((q, k, v, null_kv, q_scale, k_scale, bias),
+                                  need)]
+        with torch.enable_grad():
+            prologue = cosine_prologue(*leaves, k_prenormed=True)
+        qf, kf, vc, biasp = (None if t is None else t.detach() for t in prologue)
+        # dq, dk, dv come back in the prologue's dtypes (the kernels write
+        # bf16, as the reference rounds them); dbias stays fp32
+        grads = attention_bwd(qf, kf, vc, biasp, keep, dout.to(qf.dtype),
+                              ctx.sm_scale, out=out, lse=lse)
+        outs = [(t, gt) for t, gt in zip(prologue, grads)
+                if t is not None and t.requires_grad]
+        wanted = [t for t, n in zip(leaves, need) if n]
+        chained = iter(torch.autograd.grad(
+            [t for t, _ in outs], wanted, [gt for _, gt in outs],
+            allow_unused=True) if outs and wanted else ())
+        result = [next(chained) if n else None for n in need]
+        return (*result, None, None)
+
+
 def cosine_attention(q, k, v, null_kv, q_scale, k_scale,
                      bias: Optional[torch.Tensor] = None,
                      keep: Optional[torch.Tensor] = None,
                      sm_scale: float = 8.0) -> torch.Tensor:
     """The attention core of the MUSE transformer, k prenormed. CPU
-    tensors run the plain version; CUDA tensors launch the kernel (or
-    raise)."""
-    if q.device.type == "cpu":
-        return cosine_attention_reference(q, k, v, null_kv, q_scale, k_scale,
-                                          bias, keep, sm_scale)
-    if q.device.type != "cuda":
+    tensors run the plain versions; CUDA tensors launch the kernels (or
+    raise). Under autograd with an input that needs a gradient it goes
+    through `CosineAttentionFn`; otherwise (serving) straight to the
+    forward, with no logsumexp."""
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no cosine attention for device {q.device}")
-    if keep is not None:
-        keep = (keep > 0).to(torch.int32).contiguous()
-    return cosine_attention_cuda(
-        q.contiguous(), k.contiguous(), v.contiguous(),
-        null_kv.float().contiguous(), q_scale.float().contiguous(),
-        k_scale.float().contiguous(),
-        None if bias is None else bias.float().contiguous(), keep,
-        sm_scale)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (q, k, v, null_kv, q_scale, k_scale, bias)):
+        return CosineAttentionFn.apply(q, k, v, null_kv, q_scale, k_scale,
+                                       bias, keep, sm_scale)
+    return _forward(q, k, v, null_kv, q_scale, k_scale, bias, keep,
+                    sm_scale)[0]

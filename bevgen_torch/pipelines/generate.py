@@ -12,7 +12,6 @@ goes through the hand-written CUDA kernel (`ops/cosine_attention.py`).
 """
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -20,6 +19,7 @@ from torch import nn
 
 from bevgen_torch.core.config import PipelineConfig
 from bevgen_torch.core.device import resolve_device, resolve_dtype
+from bevgen_torch.models.init import init_weights
 from bevgen_torch.models.stage1.vq import VQModel, VQSegmentationModel
 from bevgen_torch.models.stage2.maskgit import MaskGit, generate as maskgit_generate
 
@@ -50,41 +50,9 @@ class BEVGenPipeline(nn.Module):
     def device(self) -> torch.device:
         return self.first_stage.codebook.device
 
-    @torch.no_grad()
     def init_params(self, seed: int = 0) -> "BEVGenPipeline":
-        """Seeded random weights, drawn on the CPU so they do not depend on
-        the device: fan-in-scaled truncated normals for linear and conv
-        weights, 1/sqrt(dim)-scaled normals for embeddings, the reference's
-        constants for the rest (unit norm scales and q/k scales, zero
-        biases and camera-bias table, unit-normal null_kv, uniform
-        +-1/n_embed codebooks)."""
-        gen = torch.Generator().manual_seed(seed)
-
-        def normal(shape, std):
-            w = torch.empty(shape)
-            return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                         generator=gen)
-
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            owner = self.get_submodule(name.rsplit(".", 1)[0])
-            if isinstance(owner, (nn.Linear, nn.Conv2d)) and leaf == "weight":
-                val = normal(p.shape, 1.0 / math.sqrt(p[0].numel()))
-            elif isinstance(owner, nn.Embedding):
-                val = torch.randn(p.shape, generator=gen) / math.sqrt(p.shape[1])
-            elif isinstance(owner, (nn.LayerNorm, nn.GroupNorm)) and leaf == "weight":
-                val = torch.ones(p.shape)
-            elif leaf == "null_kv":
-                val = torch.randn(p.shape, generator=gen)
-            elif leaf in ("q_scale", "k_scale"):
-                val = torch.ones(p.shape)
-            elif leaf == "codebook":
-                n = p.shape[0]
-                val = (torch.rand(p.shape, generator=gen) * 2 - 1) / n
-            else:  # biases, camera_bias_emb, bev_cam_pos_emb
-                val = torch.zeros(p.shape)
-            p.copy_(val)
-        return self
+        """Seeded random weights (`models.init.init_weights`)."""
+        return init_weights(self, seed)
 
     # ---- stage-1 wrappers ------------------------------------------------
 

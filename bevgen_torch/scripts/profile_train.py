@@ -1,0 +1,85 @@
+"""Where the time of one stage-2 train step goes on the card.
+
+    python -m bevgen_torch.scripts.profile_train preset=argoverse_muse_7cam \\
+        batch_size=8 seed=0 out=profile_train.json
+
+Builds MaskGit (fp32 parameters, bf16 compute) with seeded random weights,
+runs two warm-up steps of `training.trainer.make_train_step` (the CLI's
+step) on fake token batches, then traces one more with `torch.profiler`
+(CPU and CUDA activities). Prints the step's wall time, the device's busy
+time and idle share, the device time by category (attention forward and
+backward kernels, matrix products, optimizer, the rest), the top kernels
+and the peak device memory of the traced step; writes the same as JSON to
+`out`. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+from typing import List, Optional
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from bevgen_torch.core.config import PRESETS, apply_overrides
+    from bevgen_torch.core.device import resolve_device, resolve_dtype
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.stage2.maskgit import MaskGit
+    from bevgen_torch.scripts.generate import parse_argv
+    from bevgen_torch.scripts.profile_generate import (device_summary,
+                                                       print_summary)
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    from bevgen_torch.training import optim, trainer
+
+    args = parse_argv(sys.argv[1:] if argv is None else argv)
+    preset = args.pop("preset", "argoverse_muse_7cam")
+    batch_size = int(args.pop("batch_size", 8))
+    seed = int(args.pop("seed", 0))
+    out = args.pop("out", "profile_train.json")
+    top = int(args.pop("top", 20))
+    cfg = apply_overrides(PRESETS[preset](), args)
+    tf = cfg.transformer
+    dev = resolve_device("cuda")
+
+    model = MaskGit(tf, cfg.muse, dtype=resolve_dtype(cfg.dtype),
+                    param_dtype=torch.float32)
+    init_weights(model, seed).to(dev)
+    state = trainer.create_train_state(
+        model, optim.maskgit_optimizer(model, 1e-4, warmup_steps=1))
+    step = trainer.make_train_step()
+    batches = fake_batches(tf, batch_size, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def next_batch():
+        return {k: torch.as_tensor(np.asarray(v)).to(dev)
+                for k, v in next(batches).items()}
+
+    for _ in range(2):
+        step(state, next_batch(), gen)
+    batch = next_batch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+
+    result = {"device": torch.cuda.get_device_name(0), "preset": preset,
+              "batch_size": batch_size,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "metrics": {k: float(v) for k, v in metrics.items()},
+              **device_summary(prof, wall_s, top)}
+    print_summary(result, f"{preset} train step b={batch_size}")
+    print(f"[profile] peak memory {result['peak_memory_gb']:.2f} GB; "
+          f"metrics {json.dumps(result['metrics'])}")
+    with open(out, "w") as f:
+        json.dump(result, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,7 +18,26 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      `BEVGenPipeline.generate_fn`; the kernel's launch count over one
      generate must be (18 + 17) * 14 * 2 = 980;
   5. one full-width transformer forward through the kernel and through the
-     plain version, compared by logit cosine similarity and top-1 agreement.
+     plain version, compared by logit cosine similarity and top-1 agreement;
+  6. the training kernels against their plain versions: the attention
+     backward (three kernels) against `attention_bwd_reference` and the
+     forward's plain biased mode against `bias_attention_reference`, at the
+     training shapes (self and cross, b=8), unaligned with a dropped sample,
+     and without bias; times of the kernels, the plain versions and
+     PyTorch's SDPA (its backward minus its forward), and the bounds; then
+     the `bias_attention` op entry driven once forward and backward;
+  7. the cosine attention's autograd Function at the self shape, b=2, against
+     autograd through the plain version: cosine of each of its 7 gradients;
+  8. training end to end: `argoverse_muse_7cam` at full width, fp32
+     parameters and bf16 compute, batch 8, seeded random weights, fake token
+     batches, through `training.trainer.make_train_step` (the CLI's step):
+     one warm-up step, five timed; exactly 56 forward and 168 backward kernel
+     launches per step (14 layers x 2 attentions x 2 forwards, 3 backward
+     kernels each), finite metrics, every update applied;
+  9. one loss backward at b=1 through the kernels and through the plain
+     versions: cosine of the gradient of each parameter group;
+ 10. from the seeded init, the CE falls over 8 steps on one repeated batch
+     under a fixed mask.
 
 Prints the kernels' JSON line, then the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`. Without a CUDA device,
@@ -28,6 +47,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -163,6 +183,419 @@ def check_kernel(name, B, H, N, M, D, with_bias, keep, seed):
             "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
+# Tolerances of the backward kernels against attention_bwd_reference (fp32
+# on the same bf16 inputs). The kernels round P and dS to bf16 before the
+# dv, dq and dk products (relative step 2^-8, random sign) and write dq, dk,
+# dv in bf16; delta comes from the bf16 forward output. Each term is off by
+# at most ~0.4%, the sums by less, so 1e-2 relative L2 leaves a margin of
+# about 3x over what the rounding gives; the largest single error stays
+# under 5% of the largest entry. dbias sums fp32 dS over B*H (no bf16 step),
+# so it is held to the same bounds with a wider margin.
+BWD_REL_L2_TOL = 1e-2
+BWD_MAX_REL_TOL = 5e-2
+# The cosine Function's seven gradients at full width, kernels vs autograd
+# through the plain version (both bf16 inputs): bf16 rounding on both sides,
+# in different places, over 1793 keys.
+GRAD_COS_MIN = 0.995
+# Full-width model gradients (b=1), kernels vs plain attention: the same bf16
+# rounding differences carried through 14 layers, twice (generator and
+# critic), with random weights.
+MODEL_GRAD_COS_MIN = 0.99
+TRAIN_BATCH = 8
+TRAIN_TIMED_STEPS = 5
+CE_STEPS = 8
+
+
+def bwd_inputs(B, H, N, M, D, with_bias, keep, seed):
+    """Post-prologue inputs of the backward: qf unit rows * q_scale, kf with
+    the null column at 0, biasp with a zero column 0, and dO."""
+    import torch
+    from bevgen_torch.ops.cosine_attention import _l2n
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    scale = 1.0 + 0.1 * torch.randn(D, generator=g, device=dev)
+    qf = (_l2n(torch.randn(B, H, N, D, generator=g, device=dev))
+          * scale).to(torch.bfloat16)
+    kf = (_l2n(torch.randn(B, H, M, D, generator=g, device=dev))
+          * scale).to(torch.bfloat16)
+    vc = torch.randn(B, H, M, D, generator=g, device=dev).to(torch.bfloat16)
+    do = (0.1 * torch.randn(B, H, N, D, generator=g, device=dev)).to(torch.bfloat16)
+    biasp = None
+    if with_bias:
+        biasp = torch.rand(N, M, generator=g, device=dev) * 2.0
+        biasp[:, 0] = 0.0
+    keep_t = (None if keep is None
+              else torch.tensor(keep, dtype=torch.int32, device=dev))
+    return qf, kf, vc, biasp, keep_t, do
+
+
+def attention_cols(B, M, keep):
+    """Columns each sample attends to: all M, or the null column alone."""
+    return [1 if (keep is not None and not keep[b]) else M for b in range(B)]
+
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bwd_bound_ms(B, H, N, M, D, with_bias, keep):
+    """Least time of the backward's function: 5 products (S, dP, dq, dk,
+    dv) of N x cols x D multiply-adds per (b, h) over the live columns;
+    q, k, v, dO, bias, keep read once, dq, dk, dv, dbias written once."""
+    cols = sum(attention_cols(B, M, keep))
+    flops = 2.0 * 5 * H * N * D * cols
+    nbytes = (2 * B * H * N * D * 2 + B * H * N * D * 2       # q, dO; dq
+              + 2 * B * H * M * D * 2 + 2 * B * H * M * D * 2  # k, v; dk, dv
+              + (2 * N * M * 4 if with_bias else 0)
+              + (4 * B if keep is not None else 0))
+    return (*bound(flops, nbytes), flops, nbytes)
+
+
+def rel_err(got, want):
+    d = (got.float() - want.float())
+    return (d.abs().max().item(), (d.norm() / want.float().norm().clamp_min(1e-30)).item(),
+            want.float().abs().max().item())
+
+
+def sdpa_bwd_ms(qf, kf, vc, biasp, keep, do, sm_scale=8.0):
+    """library_ms of the backward: torch.autograd.grad through one
+    F.scaled_dot_product_attention call (bias expanded, requiring grad),
+    minus that call's forward. Timed only. Returns (ms, note)."""
+    import torch
+    import torch.nn.functional as F
+    B, H, N, _ = qf.shape
+    M = kf.shape[2]
+    q, k, v = (t.detach().clone().requires_grad_() for t in (qf, kf, vc))
+    add = torch.zeros(B, 1, 1, M, device=qf.device)
+    if keep is not None:
+        col = torch.arange(M, device=qf.device)
+        valid = (keep[:, None] > 0) | (col[None] == 0)
+        add = torch.where(valid, 0.0, float("-inf"))[:, None, None, :]
+    for with_dbias in ((True, False) if biasp is not None else (False,)):
+        bias = (None if biasp is None
+                else biasp.detach().clone().requires_grad_(with_dbias))
+
+        def fwd():
+            mask = (add if bias is None else bias[None, None] + add)
+            mask = mask.to(qf.dtype).expand(B, H, N, M)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  scale=sm_scale)
+
+        wrt = [q, k, v] + ([bias] if with_dbias else [])
+        try:
+            torch.autograd.grad(fwd(), wrt, do)
+            both = time_ms(lambda: torch.autograd.grad(fwd(), wrt, do), iters=5)
+            with torch.no_grad():
+                only = time_ms(fwd, iters=5)
+        except RuntimeError as e:  # no SDPA backend gives this gradient
+            print(f"[kernel] SDPA backward with dbias={with_dbias}: {e}"[:300])
+            continue
+        return both - only, ("with dbias" if with_dbias else "without dbias")
+    return None, "no SDPA backward ran"
+
+
+def check_bwd(name, B, H, N, M, D, with_bias, keep, seed):
+    """Row 8 against attention_bwd_reference, with times and the bound."""
+    import torch
+    from bevgen_torch.ops.attention_bwd import (attention_bwd_cuda,
+                                                attention_bwd_reference)
+    from bevgen_torch.ops.bias_attention import bias_attention_cuda
+    qf, kf, vc, biasp, keep_t, do = bwd_inputs(B, H, N, M, D, with_bias, keep,
+                                               seed)
+    out, lse = bias_attention_cuda(qf, kf, vc, biasp, keep_t, 8.0,
+                                   return_lse=True)
+    got = attention_bwd_cuda(qf, kf, vc, biasp, keep_t, out, do, lse, 8.0)
+    torch.cuda.synchronize()
+    want = attention_bwd_reference(qf.float(), kf.float(), vc.float(), biasp,
+                                   keep_t, do.float(), 8.0)
+    errs, ok, max_err = {}, True, 0.0
+    for key, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if w is None:
+            continue
+        finite = bool(torch.isfinite(a).all())
+        mx, rl2, ref_max = rel_err(a, w)
+        errs[key] = (mx, rl2)
+        max_err = max(max_err, mx)
+        ok = ok and finite and rl2 <= BWD_REL_L2_TOL and mx <= BWD_MAX_REL_TOL * ref_max
+    del want
+    ms = time_ms(lambda: attention_bwd_cuda(qf, kf, vc, biasp, keep_t, out, do,
+                                            lse, 8.0))
+    plain_ms = time_ms(lambda: attention_bwd_reference(
+        qf.float(), kf.float(), vc.float(), biasp, keep_t, do.float(), 8.0),
+        iters=3, warmup=1)
+    lib_ms, lib_note = sdpa_bwd_ms(qf, kf, vc, biasp, keep_t, do)
+    bms, bound_by, flops, nbytes = bwd_bound_ms(B, H, N, M, D, with_bias, keep)
+    print(f"[kernel] attention_bwd {name}: B={B} H={H} N={N} M={M} D={D} "
+          f"bias={with_bias} keep={keep} "
+          + " ".join(f"{k}: max_abs_err={e[0]:.3e} rel_l2={e[1]:.3e}"
+                     for k, e in errs.items())
+          + f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ({lib_note}) "
+          f"bound_ms={bms:.4f} ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB) -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"backward kernel {name} disagrees with its plain "
+                         f"version (rel L2 > {BWD_REL_L2_TOL} or max > "
+                         f"{BWD_MAX_REL_TOL} of the largest entry)")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def check_bias_fwd(name, B, H, N, M, D, with_bias, keep, seed):
+    """Row 7 (the forward kernel's plain mode) against
+    bias_attention_reference, with times and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from bevgen_torch.ops.bias_attention import (bias_attention_cuda,
+                                                 bias_attention_reference)
+    qf, kf, vc, biasp, keep_t, _ = bwd_inputs(B, H, N, M, D, with_bias, keep,
+                                              seed)
+    args = (qf, kf, vc, biasp, keep_t, 8.0)
+    out = bias_attention_cuda(*args)
+    torch.cuda.synchronize()
+    ref = bias_attention_reference(qf.float(), kf.float(), vc.float(), biasp,
+                                   keep_t, 8.0)
+    err = (out.float() - ref).abs()
+    max_err, mean_err = err.max().item(), err.mean().item()
+    ok = bool(torch.isfinite(out).all()) and max_err <= MAX_ABS_TOL \
+        and mean_err <= MEAN_ABS_TOL
+    ms = time_ms(lambda: bias_attention_cuda(*args))
+    plain_ms = time_ms(lambda: bias_attention_reference(
+        qf.float(), kf.float(), vc.float(), biasp, keep_t, 8.0), iters=5)
+    lib_ms = None
+    if keep is None:
+        mask = (None if biasp is None
+                else biasp.to(qf.dtype)[None, None].expand(B, H, N, M))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qf, kf, vc, attn_mask=mask, scale=8.0))
+    cols = sum(attention_cols(B, M, keep))
+    flops = 4.0 * H * N * D * cols
+    nbytes = (2 * B * H * N * D * 2 + 2 * B * H * M * D * 2
+              + (N * M * 4 if with_bias else 0)
+              + (4 * B if keep is not None else 0))
+    bms, bound_by = bound(flops, nbytes)
+    print(f"[kernel] bias_attention_fwd {name}: B={B} H={H} N={N} M={M} D={D} "
+          f"bias={with_bias} keep={keep} max_abs_err={max_err:.3e} "
+          f"mean_abs_err={mean_err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
+          f"bound_ms={bms:.4f} ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB) -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"plain-mode forward {name} disagrees with its plain "
+                         f"version (max {max_err:.3e}, mean {mean_err:.3e})")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def check_function_grads(B, H, N, D, seed=11):
+    """The whole CosineAttentionFn (prologue, forward kernel, backward
+    kernels, prologue chain) against autograd through
+    cosine_attention_reference, on the same bf16 inputs at the self shape."""
+    import torch
+    from bevgen_torch.ops import cosine_attention as ca
+    q, k, v, nkv, qs, ks, bias, _ = attention_inputs(B, H, N, N, D, True,
+                                                     None, seed)
+    leaves = [t.detach().clone().requires_grad_() for t in
+              (q, k, v, nkv, qs, ks, bias)]
+    w = torch.randn(B, H, N, D, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    out = ca.cosine_attention(*leaves)
+    if out.grad_fn is None:
+        raise SystemExit("CUDA cosine attention output has no grad_fn")
+    got = torch.autograd.grad((out.float() * w).sum(), leaves)
+    ref = ca.cosine_attention_reference(*leaves)
+    want = torch.autograd.grad((ref.float() * w).sum(), leaves)
+    names = ("q", "k", "v", "null_kv", "q_scale", "k_scale", "bias")
+    cos = {n: torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0).item()
+        for n, a, b in zip(names, got, want)}
+    worst = min(cos.values())
+    print(f"[grad] CosineAttentionFn vs autograd through the plain version, "
+          f"B={B} H={H} N=M={N}: cosine "
+          + " ".join(f"{n}={c:.6f}" for n, c in cos.items())
+          + f" (min {GRAD_COS_MIN})", flush=True)
+    if not worst >= GRAD_COS_MIN:
+        raise SystemExit("the cosine Function's gradients disagree with the "
+                         "plain version's")
+    return cos
+
+
+def to_device(batch):
+    import numpy as np
+    import torch
+    return {k: torch.as_tensor(np.asarray(v)).to("cuda") for k, v in batch.items()}
+
+
+def train_phase(cfg):
+    """Phase 8: the b=8 full-width train step, timed, with its launch
+    counts. Returns (model, stats)."""
+    import torch
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.stage2.maskgit import MaskGit
+    from bevgen_torch.ops import attention_bwd as ab
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    from bevgen_torch.training import optim, trainer
+    tf = cfg.transformer
+    B = TRAIN_BATCH
+    t0 = time.perf_counter()
+    model = MaskGit(tf, cfg.muse, dtype=torch.bfloat16,
+                    param_dtype=torch.float32)
+    init_weights(model, seed=0).to("cuda")
+    state = trainer.create_train_state(
+        model, optim.maskgit_optimizer(model, 1e-4, warmup_steps=1))
+    step = trainer.make_train_step()
+    batches = fake_batches(tf, B, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[train] MaskGit fp32 params / bf16 compute, {n_params / 1e6:.1f} M "
+          f"params, built in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    step(state, to_device(next(batches)), gen)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    times, rows = [], []
+    for i in range(TRAIN_TIMED_STEPS):
+        batch = to_device(next(batches))
+        torch.cuda.synchronize()
+        if i == 0:
+            ca.reset_launch_counts()
+            ab.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            fwd = dict(ca.cosine_attention_cuda.launches_by_shape)
+            bwd = dict(ab.attention_bwd_cuda.launches_by_shape)
+            n_fwd = ca.cosine_attention_cuda.launches
+            n_bwd = ab.attention_bwd_cuda.launches
+        rows.append({k: float(v) for k, v in m.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = sorted(times)[len(times) // 2]
+    tokens = B * tf.num_cams * tf.num_cam_tokens
+    last = rows[-1]
+    print(f"[train] argoverse_muse_7cam b={B}: warm-up step {warm_s:.3f} s, "
+          f"timed {', '.join(f'{t:.4f}' for t in times)} s, median "
+          f"{med:.4f} s = {tokens / med:.1f} image tokens/s; peak memory "
+          f"{peak_gb:.2f} GB; last step loss {last['loss']:.4f} ce_loss "
+          f"{last['ce_loss']:.4f} critic_loss {last['critic_loss']:.4f} "
+          f"grad_norm {last['grad_norm']:.4f}", flush=True)
+    print(f"[train] kernel launches in the first timed step: forward {n_fwd} "
+          f"{fwd}, backward {n_bwd} {bwd}", flush=True)
+    layers = tf.num_layers
+    if n_fwd != 4 * layers or n_bwd != 3 * 4 * layers:
+        raise SystemExit(f"expected {4 * layers} forward and {12 * layers} "
+                         f"backward kernel launches per step, got {n_fwd} "
+                         f"and {n_bwd}")
+    for r in rows:
+        if not all(math.isfinite(v) for v in r.values()) or \
+                r["update_applied"] != 1.0:
+            raise SystemExit(f"train step metrics not finite or update "
+                             f"skipped: {r}")
+    return model, {"fwd": fwd, "bwd": bwd, "step_s": med,
+                   "tokens_per_s": tokens / med, "peak_gb": peak_gb}
+
+
+def ce_falls_phase(model, cfg):
+    """Phase 10: CE over CE_STEPS steps on one repeated batch, fixed mask
+    and fixed draws, base_lr 3e-4, warm-up 1, from the seeded init (a model
+    that phase 8 moved on random batches need not descend at this rate)."""
+    import torch
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    from bevgen_torch.training import optim, trainer
+    tf = cfg.transformer
+    init_weights(model, seed=0)
+    batch = to_device(next(fake_batches(tf, TRAIN_BATCH, seed=1)))
+    mask = torch.rand(batch["tokens"].shape, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(2)) < 0.5
+    state = trainer.create_train_state(model, optim.maskgit_optimizer(
+        model, 3e-4, warmup_steps=1, total_steps=CE_STEPS))
+    step = trainer.make_train_step()
+    ces = []
+    for _ in range(CE_STEPS):
+        m = step(state, batch, torch.Generator(device="cuda").manual_seed(3),
+                 mask_override=mask)
+        ces.append(float(m["ce_loss"]))
+    print(f"[train] CE on one repeated batch over {CE_STEPS} steps: "
+          f"{' '.join(f'{c:.4f}' for c in ces)}", flush=True)
+    if not (all(math.isfinite(c) for c in ces) and ces[-1] < ces[0]):
+        raise SystemExit("the CE did not fall on a repeated batch")
+    return ces
+
+
+def grad_group(name: str) -> str:
+    parts = name.split(".")
+    if parts[0] != "transformer":
+        return parts[0]
+    if parts[1].startswith("layers_"):
+        return parts[1]
+    if parts[1] in ("final_norm", "to_logits"):
+        return "head"
+    if parts[1] == "camera_bias_emb":
+        return "camera_bias"
+    return "embeddings"
+
+
+def model_grads_phase(model, cfg):
+    """Phase 9: one loss backward at b=1 through the kernels and through
+    the plain versions; cosine of the gradient of each parameter group."""
+    import torch
+    from bevgen_torch.models.stage2.maskgit import maskgit_loss
+    from bevgen_torch.models.stage2.transformer import CosineAttention
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    tf = cfg.transformer
+    batch = to_device(next(fake_batches(tf, 1, seed=4)))
+    mask = torch.rand(batch["tokens"].shape, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(5)) < 0.5
+    noise = torch.zeros(tuple(batch["tokens"].shape) + (tf.vocab_size,),
+                        device="cuda")
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    attn = [m for m in model.modules() if isinstance(m, CosineAttention)]
+
+    def grads():
+        out = maskgit_loss(model, batch["tokens"], batch["cond_ids"],
+                           batch["intrinsics_inv"], batch["extrinsics_inv"],
+                           generator=torch.Generator(device="cuda").manual_seed(6),
+                           mask_override=mask, gumbel_noise=noise)
+        return float(out.loss.detach()), torch.autograd.grad(out.loss, params)
+
+    before = ca.cosine_attention_cuda.launches
+    loss_k, gk = grads()
+    if ca.cosine_attention_cuda.launches == before:
+        raise SystemExit("the kernel path launched no kernel")
+    for m in attn:
+        m.core = ca.cosine_attention_reference
+    try:
+        loss_p, gp = grads()
+    finally:
+        for m in attn:
+            m.core = ca.cosine_attention
+    groups = {}
+    for n, a, b in zip(names, gk, gp):
+        groups.setdefault(grad_group(n), ([], []))
+        groups[grad_group(n)][0].append(a.float().flatten())
+        groups[grad_group(n)][1].append(b.float().flatten())
+    cos = {k: torch.nn.functional.cosine_similarity(
+        torch.cat(a), torch.cat(b), dim=0).item() for k, (a, b) in groups.items()}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:4]
+    print(f"[grad] full-width b=1 loss {loss_k:.5f} (kernels) vs {loss_p:.5f} "
+          f"(plain); gradient cosine over {len(cos)} parameter groups: min "
+          f"{worst[0][1]:.6f} (bound {MODEL_GRAD_COS_MIN}), lowest "
+          + ", ".join(f"{k}={c:.6f}" for k, c in worst)
+          + f", mean {sum(cos.values()) / len(cos):.6f}", flush=True)
+    if not worst[0][1] >= MODEL_GRAD_COS_MIN:
+        raise SystemExit("full-width gradients disagree between the kernels "
+                         "and the plain versions")
+    return cos
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -184,7 +617,7 @@ def main() -> int:
     print(f"[device] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
 
-    # 2. build
+    # 2. build (every source, one nvcc each, started together)
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"[build] {len(libs)} kernel source(s) in "
@@ -303,12 +736,72 @@ def main() -> int:
         raise SystemExit("full-width forward disagrees between the kernel "
                          "and the plain version")
 
+    del pipe, images, ids, cache, lk, lp
+    torch.cuda.empty_cache()
+
+    # 6. the training kernels against their plain versions
+    TB = TRAIN_BATCH
+    train_fwd_stats = {
+        "self": check_kernel("train self", TB, H, N, N, D, True, None, 4),
+        "cross": check_kernel("train cross", TB, H, N, NC, D, True, None, 5),
+    }
+    bwd_stats = {}
+    for name, (n, m, bias, keep, b) in {
+            "self": (N, N + 1, True, None, TB), "cross": (N, NC + 1, True, None, TB),
+            "unaligned+keep": (96, 70, True, [1, 0], 2),
+            "no-bias": (200, 130, False, None, 2)}.items():
+        bwd_stats[name] = check_bwd(name, b, H if b == TB else 4, n, m, D,
+                                    bias, keep, 10)
+        fstat = check_bias_fwd(name, b, H if b == TB else 4, n, m, D, bias,
+                               keep, 10)
+        if name == "self":
+            row7_stats = fstat
+    # the bias_attention op entry, forward and backward, once
+    from bevgen_torch.ops import attention_bwd as ab
+    from bevgen_torch.ops import bias_attention as ba
+    qf, kf, vc, biasp, _, do = bwd_inputs(TB, H, N, N + 1, D, True, None, 12)
+    leaves = [t.requires_grad_() for t in (qf, kf, vc, biasp)]
+    ba.reset_launch_counts()
+    ab.reset_launch_counts()
+    torch.autograd.grad(ba.bias_attention(*leaves, sm_scale=8.0), leaves, do)
+    torch.cuda.synchronize()
+    row7_launches = ba.bias_attention_cuda.launches
+    print(f"[kernel] bias_attention op entry, self b={TB}, forward and "
+          f"backward: {row7_launches} forward and "
+          f"{ab.attention_bwd_cuda.launches} backward kernel launches",
+          flush=True)
+    if row7_launches != 1 or ab.attention_bwd_cuda.launches != 3:
+        raise SystemExit("the bias_attention op did not run its kernels")
+    del qf, kf, vc, biasp, do, leaves
+
+    # 7. the cosine attention's autograd Function at full width
+    check_function_grads(B, H, N, D)
+
+    # 8-10. training end to end
+    model, train = train_phase(cfg)
+    model_grads_phase(model, cfg)
+    ce_falls_phase(model, cfg)
+
     kernels = []
     for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
         kernels.append({
             "name": f"cosine_attention_fwd[{shape} {n}x{m}]",
             "route": "cuda", "source": ca.SOURCE, "replaces": ca.REPLACES,
             "launches": by_shape.get((n, m), 0), **stats[shape]})
+    for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
+        kernels.append({
+            "name": f"cosine_attention_fwd[train {shape} b{TB} {n}x{m}]",
+            "route": "cuda", "source": ca.SOURCE, "replaces": ca.REPLACES,
+            "launches": train["fwd"].get((n, m), 0), **train_fwd_stats[shape]})
+    for shape, (n, m) in (("self", (N, N + 1)), ("cross", (N, NC + 1))):
+        kernels.append({
+            "name": f"attention_bwd[train {shape} b{TB} {n}x{m}, 3 kernels]",
+            "route": "cuda", "source": ab.SOURCE, "replaces": ab.REPLACES,
+            "launches": train["bwd"].get((n, m), 0), **bwd_stats[shape]})
+    kernels.append({
+        "name": f"bias_attention_fwd[op entry, self b{TB} {N}x{N + 1}]",
+        "route": "cuda", "source": ba.SOURCE, "replaces": ba.REPLACES,
+        "launches": row7_launches, **row7_stats})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

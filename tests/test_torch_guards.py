@@ -1,7 +1,9 @@
 """Guards of the PyTorch port: it imports nothing of JAX or of the JAX
 package, `load_jax_params` accepts exactly the reference's tree, entry
-points run on CUDA unless asked for the CPU, and (on a machine with a
-card) the CUDA kernel agrees with its plain version.
+points (serving and training) run on CUDA unless asked for the CPU, the
+attention's autograd Function runs its plain twins on the CPU, and (on a
+machine with a card) the CUDA kernels agree with their plain versions and
+CUDA attention outputs carry gradients.
 
 The module imports JAX only inside the tests that compare with it, so the
 `cuda` test also runs where JAX is missing; there, skip the conftest
@@ -42,6 +44,13 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax_or_reference_package():
     files = _port_files()
     assert len(files) > 10
+    checked = {str(p.relative_to(ROOT)) for p in files}
+    for module in ("ops/attention_bwd.py", "ops/bias_attention.py",
+                   "training/optim.py", "training/trainer.py",
+                   "training/checkpoints.py", "training/preemption.py",
+                   "data/tokens.py", "scripts/train_stage2.py",
+                   "scripts/profile_train.py", "models/init.py"):
+        assert f"bevgen_torch/{module}" in checked, module
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p)) & FORBIDDEN)
            for p in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -67,6 +76,18 @@ def test_load_jax_params_fills_every_parameter():
     np.testing.assert_array_equal(
         pipe.first_stage.encoder.conv_in.weight.detach().numpy(),
         k.transpose(3, 2, 0, 1))
+
+
+def test_export_jax_params_inverts_load():
+    import jax
+    from bevgen_torch.core.convert import export_jax_params
+    tree = tiny_tree()
+    out = export_jax_params(load_jax_params(_tiny_port(), tree))
+    assert (jax.tree_util.tree_structure(out)
+            == jax.tree_util.tree_structure(tree))
+    for (path, a), (_, b) in zip(jax.tree_util.tree_leaves_with_path(out),
+                                 jax.tree_util.tree_leaves_with_path(tree)):
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
 
 
 def test_load_jax_params_raises_on_extra_leaf():
@@ -104,6 +125,41 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
     assert BEVGenPipeline.create(cfg, device="cpu").device.type == "cpu"
 
 
+def test_train_stage2_defaults_to_cuda_and_raises_without_it(monkeypatch,
+                                                            tmp_path):
+    from bevgen_torch.scripts import train_stage2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_stage2.main(["preset=tiny_test", "steps=1",
+                           f"ckpt_dir={tmp_path}"])
+    assert not any(tmp_path.iterdir())
+
+
+def test_cpu_attention_function_runs_the_plain_backward(monkeypatch):
+    from bevgen_torch.ops import attention_bwd as ab
+    from bevgen_torch.ops import cosine_attention as ca
+    calls = []
+    plain = ab.attention_bwd_reference
+    monkeypatch.setattr(ab, "attention_bwd_reference",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 2, 8, 32, generator=g, requires_grad=True)
+    k = ca._l2n(torch.randn(1, 2, 5, 32, generator=g))
+    v = torch.randn(1, 2, 5, 32, generator=g)
+    nkv = torch.randn(2, 2, 1, 32, generator=g, requires_grad=True)
+    out = ca.cosine_attention(q, k, v, nkv, torch.ones(32), torch.ones(32))
+    assert out.requires_grad
+    assert isinstance(out.grad_fn, ca.CosineAttentionFn._backward_cls)
+    launches = ca.cosine_attention_cuda.launches
+    out.sum().backward()
+    assert calls == [1]
+    assert q.grad is not None and nkv.grad is not None
+    assert ca.cosine_attention_cuda.launches == launches
+    with torch.no_grad():  # serving: no Function, no backward state
+        assert ca.cosine_attention(q, k, v, nkv, torch.ones(32),
+                                   torch.ones(32)).grad_fn is None
+
+
 def test_attention_dispatch_has_no_other_device():
     from bevgen_torch.ops.cosine_attention import cosine_attention
     q = torch.zeros(1, 1, 4, 32, device="meta")
@@ -137,3 +193,55 @@ def test_cuda_kernel_matches_plain_version():
         err = (got.float() - want).abs()
         # bf16 rounding of q^, the softmax weights and the output
         assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
+
+
+@pytest.mark.cuda
+def test_cuda_attention_output_has_grad_fn():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from bevgen_torch.ops import cosine_attention as ca
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(2, 4, 96, 64, generator=g, device="cuda").bfloat16()
+    k = ca._l2n(torch.randn(2, 4, 70, 64, generator=g, device="cuda")).bfloat16()
+    v = torch.randn(2, 4, 70, 64, generator=g, device="cuda").bfloat16()
+    nkv = torch.randn(2, 4, 1, 64, generator=g, device="cuda")
+    bias = torch.rand(96, 70, generator=g, device="cuda")
+    leaves = [t.requires_grad_() for t in (q, k, v, nkv, bias)]
+    before = ca.cosine_attention_cuda.launches
+    out = ca.cosine_attention(q, k, v, nkv, torch.ones(64, device="cuda"),
+                              torch.ones(64, device="cuda"), bias,
+                              torch.tensor([1, 0], device="cuda"))
+    assert ca.cosine_attention_cuda.launches == before + 1
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out.float().square().sum(), leaves)
+    assert all(gr is not None and torch.isfinite(gr).all() for gr in grads)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernels_match_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from bevgen_torch.ops import attention_bwd as ab
+    from bevgen_torch.ops import bias_attention as ba
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for B, H, N, M, D, with_bias, keep in [(2, 4, 96, 70, 64, True, [1, 0]),
+                                            (1, 2, 130, 33, 32, False, None)]:
+        q = (0.3 * torch.randn(B, H, N, D, generator=g, device="cuda")).bfloat16()
+        k = (0.3 * torch.randn(B, H, M, D, generator=g, device="cuda")).bfloat16()
+        v = torch.randn(B, H, M, D, generator=g, device="cuda").bfloat16()
+        do = torch.randn(B, H, N, D, generator=g, device="cuda").bfloat16()
+        bias = (torch.rand(N, M, generator=g, device="cuda")
+                if with_bias else None)
+        kp = None if keep is None else torch.tensor(keep, device="cuda")
+        out = ba.bias_attention(q, k, v, bias, kp, 8.0)
+        want_out = ba.bias_attention_reference(q.float(), k.float(), v.float(),
+                                               bias, kp, 8.0)
+        assert (out.float() - want_out).abs().max().item() <= 2e-2
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(ba.bias_attention(*leaves, bias, kp, 8.0),
+                                  leaves, do)
+        want = ab.attention_bwd_reference(q.float(), k.float(), v.float(),
+                                          bias, kp, do.float(), 8.0)
+        # bf16 rounding of P, dS and the outputs: 1e-2 relative L2
+        for a, w in zip(got, want):
+            assert ((a.float() - w).norm() / w.norm()).item() <= 1e-2
