@@ -1,12 +1,13 @@
 """Configuration for bevgen_torch: frozen, hashable dataclasses.
 
 A copy of the reference config (`bevgen_tpu/core/config.py`) restricted to
-what the MUSE serving path reads. Hashable configs key the lru_caches of
-the geometry and mask artifacts (`models/geometry.py`, `models/masks.py`).
-Field names and presets match the reference, so a preset built here and
-one built there describe the same model. The reference's TPU-only knobs
-(`use_fused_attention`, `use_fused_glue`, `remat`, `quant`) are not part
-of the port yet.
+what the port's paths read: MUSE serving and training, and the
+autoregressive sparse-GPT serving path (`nuscenes_ar`, `nuscenes_ar_tpu`).
+Hashable configs key the lru_caches of the geometry and mask artifacts
+(`models/geometry.py`, `models/masks.py`). Field names and presets match
+the reference, so a preset built here and one built there describe the
+same model. The reference's TPU-only knobs (`use_fused_attention`,
+`use_fused_glue`, `remat`, `quant`) are not part of the port yet.
 """
 from __future__ import annotations
 
@@ -271,9 +272,43 @@ def tiny_test_config() -> PipelineConfig:
                           muse=MuseConfig(sample_iterations=4))
 
 
+def nuscenes_ar_config() -> PipelineConfig:
+    """The autoregressive sparse-GPT pipeline on the 6-camera nuScenes rig
+    (the reference's configs/model/stage_2.yaml): 24 layers, 16-token
+    sparse blocks at density 1.0, 224x400 images -> 14x25 latents,
+    L = 256 + 6 * 350 = 2356 tokens padded to 2368."""
+    tf = MultiViewConfig(
+        num_layers=24, num_heads=16, num_embed=1024, hidden_size=1024,
+        vocab_size=1024, cond_vocab_size=1024,
+        num_cams=6, cam_names="NUSCENES_CAMERAS", dataset="nuscenes",
+        cam_res=(224, 400), cam_latent_res=(14, 25), bev_latent_res=(16, 16),
+        sparse_block_size=16, window_len=32, density=1.0,
+        causal_order=True, camera_bias=False, image_embed=True, bev_embed=False,
+        legacy_prob_matrix=True,
+    )
+    return PipelineConfig(
+        transformer=tf,
+        first_stage=Stage1Config(cam_res=(224, 400), cam_latent_res=(14, 25)),
+        cond_stage=Stage1Config(in_channels=3, out_ch=3, n_labels=3,
+                                cam_res=(224, 400), cam_latent_res=(14, 25)),
+    )
+
+
+def nuscenes_ar_tpu_config() -> PipelineConfig:
+    """nuscenes_ar with 128-token sparse blocks at density 0.25 (the
+    reference's layout for training from scratch; not layout-compatible
+    with density-1.0 checkpoints)."""
+    cfg = nuscenes_ar_config()
+    return dataclasses.replace(
+        cfg, transformer=cfg.transformer.replace(sparse_block_size=128,
+                                                 density=0.25))
+
+
 PRESETS = {
     "argoverse_muse": argoverse_muse_config,
     "argoverse_muse_7cam": argoverse_muse_7cam_config,
+    "nuscenes_ar": nuscenes_ar_config,
+    "nuscenes_ar_tpu": nuscenes_ar_tpu_config,
     "tiny_test": tiny_test_config,
 }
 

@@ -1,17 +1,21 @@
 """Load the JAX pipeline's parameter tree into the port's modules.
 
 `load_jax_params(pipeline, tree)` takes the reference pipeline's parameter
-dict `{"first_stage", "cond_stage", "maskgit"}` (each optionally wrapped
-in flax's `{"params": ...}`), with every leaf a numpy array. The port's
-submodules carry the reference's names, so a leaf at
-`maskgit/transformer/layers_0_attn/to_q/kernel` lands in
-`maskgit.transformer.layers_0_attn.to_q.weight`. Leaf conversions:
+dict, `{"first_stage", "cond_stage", "maskgit"}` for the MUSE pipeline or
+`{"first_stage", "cond_stage", "gpt"}` for the AR one (each optionally
+wrapped in flax's `{"params": ...}`), or a bare model's own tree, with
+every leaf a numpy array. The port's submodules carry the reference's
+names, so a leaf at `maskgit/transformer/layers_0_attn/to_q/kernel` lands
+in `maskgit.transformer.layers_0_attn.to_q.weight`, and one at
+`gpt/block_0/ln1/norm/bias` in `gpt.block_0.ln1.norm.bias`. Leaf
+conversions:
 
   * Dense kernel (in, out)        -> Linear weight (out, in)
   * Conv kernel HWIO              -> Conv2d weight OIHW
   * LayerNorm/GroupNorm `scale`   -> `weight`;  Embed `embedding` -> `weight`
   * `bias`, `codebook`, `null_kv`, `q_scale`, `k_scale`,
-    `camera_bias_emb`, `bev_cam_pos_emb` as they are.
+    `camera_bias_emb`, `bev_cam_pos_emb`, `x_pos_emb`, `cond_pos_emb` as
+    they are.
 
 Raises on a leaf the port has no parameter for, on a port parameter left
 unset, and on a shape mismatch.
@@ -29,8 +33,17 @@ import numpy as np
 import torch
 from torch import nn
 
-PARTS = ("first_stage", "cond_stage", "maskgit")
 _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+
+
+def pipeline_parts(module: nn.Module) -> Tuple[str, ...]:
+    """The reference pipeline's top-level parts that `module` holds:
+    (first_stage, cond_stage, maskgit) for the MUSE pipeline, (first_stage,
+    cond_stage, gpt) for the AR one; () for a bare model."""
+    parts = ("first_stage", "cond_stage", "maskgit", "gpt")
+    have = tuple(p for p in parts if isinstance(getattr(module, p, None),
+                                                nn.Module))
+    return have if {"first_stage", "cond_stage"} <= set(have) else ()
 
 
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
@@ -50,27 +63,34 @@ def _convert(leaf: str, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
+def _unwrap(tree: Mapping[str, Any]) -> Mapping[str, Any]:
+    return tree["params"] if set(tree) == {"params"} else tree
+
+
 @torch.no_grad()
 def load_jax_params(pipeline: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     """Copy every leaf of `tree` into `pipeline`'s parameters (converting
-    layouts and dtypes); see the module docstring."""
+    layouts and dtypes); see the module docstring. `pipeline` is a serving
+    pipeline (tree: its parts) or a bare model such as a `SparseGPT` (tree:
+    that model's own tree)."""
     params: Dict[str, torch.Tensor] = dict(pipeline.named_parameters())
     unset = set(params)
     unknown = []
-    for part in PARTS:
-        if part not in tree:
-            raise KeyError(f"parameter tree has no {part!r} entry")
-    for part, sub in tree.items():
-        if part not in PARTS:
-            unknown.append(part)
-            continue
-        if set(sub) == {"params"}:
-            sub = sub["params"]
+    parts = pipeline_parts(pipeline)
+    if parts:
+        for part in parts:
+            if part not in tree:
+                raise KeyError(f"parameter tree has no {part!r} entry")
+        unknown.extend(k for k in tree if k not in parts)
+        subtrees = [((part,), _unwrap(tree[part])) for part in parts]
+    else:
+        subtrees = [((), _unwrap(tree))]
+    for prefix, sub in subtrees:
         for path, arr in _leaves(sub):
             leaf = path[-1]
-            name = ".".join((part,) + path[:-1] + (_RENAME.get(leaf, leaf),))
+            name = ".".join(prefix + path[:-1] + (_RENAME.get(leaf, leaf),))
             if name not in params:
-                unknown.append("/".join((part,) + path))
+                unknown.append("/".join(prefix + path))
                 continue
             val = _convert(leaf, arr)
             p = params[name]
@@ -114,14 +134,14 @@ def export_jax_params(module: nn.Module,
     {"first_stage": {"params": ...}, ...}, the reference pipeline's tree; a
     submodule (a MaskGit alone) as its bare tree."""
     tree: Dict[str, Any] = {}
+    parts = pipeline_parts(module)
     for name, p in module.named_parameters():
         owner_name, _, leaf = name.rpartition(".")
         val = p if tensors is None else tensors[name]
         arr = np.asarray(val.detach().float().cpu().numpy())
         key, arr = _jax_leaf(module.get_submodule(owner_name), leaf, arr)
         path = owner_name.split(".") if owner_name else []
-        if path and path[0] in PARTS and all(
-                hasattr(module, part) for part in PARTS):
+        if path and path[0] in parts:
             path.insert(1, "params")
         node = tree
         for part in path:

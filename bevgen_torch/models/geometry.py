@@ -2,8 +2,10 @@
 camera-ray directions.
 
 Pure numpy, cached on the (hashable) MultiViewConfig. A copy of the parts
-of the reference module (`bevgen_tpu/models/geometry.py`) that the MUSE
-serving path reads, including its deliberate quirks (the h/w swap of
+of the reference module (`bevgen_tpu/models/geometry.py`) that the port's
+MUSE and AR sparse-GPT paths read (grids, the decode order with the
+nuScenes outward interleave, `col_angles` for the legacy layout prior,
+the canonical rig), including its deliberate quirks (the h/w swap of
 `image_plane`, the swapped image size in `col_angles`).
 """
 from __future__ import annotations

@@ -1,9 +1,13 @@
-"""The static camera-bias matrix of the MUSE transformer.
+"""The static camera-bias matrix and the block-sparse attention layouts.
 
-Pure numpy, cached on the hashable MultiViewConfig. A copy of the part of
-the reference module (`bevgen_tpu/models/masks.py`) that the MUSE serving
-path reads: `camera_bias_matrix` and what it calls. The legacy probability
-matrix keeps the reference's `rad2deg` of a cosine *distance*, bit for bit.
+Pure numpy, cached on the hashable MultiViewConfig. A copy of the parts of
+the reference module (`bevgen_tpu/models/masks.py`) that the port reads:
+`camera_bias_matrix` (MUSE and the AR GPT's camera bias) and
+`sparse_masks` (the AR GPT's per-head block layouts and multiplicative
+mask), with what they call. The legacy probability matrix keeps the
+reference's `rad2deg` of a cosine *distance*, bit for bit, and the
+per-head layouts are drawn by the same numpy calls from
+`cfg.layout_seed`, so they equal the reference's exactly.
 
 Sequence layout: `[num_cond_tokens BEV | num_img_tokens image | pad]`, with
 image tokens in decode order.
@@ -11,7 +15,7 @@ image tokens in decode order.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 
@@ -28,6 +32,20 @@ def pad_with_cond(pattern: np.ndarray, n_cond: int, value) -> np.ndarray:
     out = np.concatenate([top, pattern], axis=0)
     left = np.full((out.shape[0], n_cond), value, dtype=dtype)
     return np.concatenate([left, out], axis=1)
+
+
+def pattern_to_layout(mask: np.ndarray, block: int) -> np.ndarray:
+    """Block-max-pool a [L,L] pattern into an [L/b, L/b] layout."""
+    L = mask.shape[-1]
+    assert L % block == 0
+    nb = L // block
+    m = mask.reshape(nb, block, nb, block)
+    return m.max(axis=(1, 3)).astype(np.int64)
+
+
+def layout_to_pattern(layout: np.ndarray, block: int) -> np.ndarray:
+    """Kron-expand a layout back to a full pattern."""
+    return np.kron(layout, np.ones((block, block), dtype=layout.dtype))
 
 
 def _cosine_cdist(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -124,3 +142,72 @@ def camera_bias_matrix(cfg: MultiViewConfig) -> np.ndarray:
     end = -p if p else None
     out[cfg.num_cond_tokens:end, :cfg.num_cond_tokens] = sim
     return out.astype(np.float32)
+
+
+class SparseMasks(NamedTuple):
+    """Everything the sparse attention path needs.
+
+    layouts:  [num_heads, nb, nb] int64 — per-head block layout
+    allowed:  [L, L] float32 — multiplicative mask (1 keep / 0 drop)
+    static_layout: [nb, nb] int64 — window+pad blocks every head keeps
+    prob_layout:   [nb, nb] float32 — sampling prior over blocks
+    """
+    layouts: np.ndarray
+    allowed: np.ndarray
+    static_layout: np.ndarray
+    prob_layout: np.ndarray
+
+
+@lru_cache(maxsize=32)
+def sparse_masks(cfg: MultiViewConfig) -> SparseMasks:
+    """The full sparse-attention artifact set. Per-head random layouts are
+    sampled with numpy's generator seeded from cfg.layout_seed."""
+    b = cfg.sparse_block_size
+    p = cfg.num_pad_tokens
+    nc = cfg.num_cond_tokens
+
+    prob = img_prob_matrix(cfg)
+    prob = np.pad(prob, ((0, p), (0, p)))
+    prob = np.clip(prob, 0.0, 1.0)
+    prob_full = pad_with_cond(prob, nc, 0.5)
+    L = prob_full.shape[0]
+    nb = L // b
+    prob_layout = prob_full.reshape(nb, b, nb, b).mean(axis=(1, 3)).astype(np.float32)
+
+    window, allowed = window_and_causal_patterns(cfg)
+    window = np.pad(window, ((0, p), (0, p)))
+    static_pattern = pad_with_cond(window, nc, False)
+    if p:
+        static_pattern[-p:, 0] = True
+        static_pattern[-p:, 1:] = False   # pad rows: >=1 visible key (no NaN rows)
+    static_layout = pattern_to_layout(static_pattern, b)
+    # every row keeps its diagonal block, so every row sees at least one
+    # column (the attention kernels rely on it)
+    np.fill_diagonal(static_layout, 1)
+
+    allowed = np.pad(allowed, ((0, p), (0, p)))
+    allowed_full = pad_with_cond(allowed, nc, True)
+    if p:
+        allowed_full[-p:, 1:] = False
+    allowed_f = allowed_full.astype(np.float32)
+
+    rng = np.random.default_rng(cfg.layout_seed)
+    flat_prob = prob_layout.reshape(-1).astype(np.float64)
+    layouts = []
+    for _ in range(cfg.num_heads):
+        target = int(nb * nb * cfg.density - static_layout.sum())
+        sampled = np.zeros(nb * nb, dtype=bool)
+        nnz = int(np.count_nonzero(flat_prob))
+        n_take = max(0, min(target, nnz))
+        if n_take > 0:
+            pdist = flat_prob / flat_prob.sum()
+            idx = rng.choice(nb * nb, size=n_take, replace=False, p=pdist)
+            sampled[idx] = True
+        sampled = sampled.reshape(nb, nb)
+        sampled[prob_layout == 0] = False
+        layouts.append(static_layout.astype(bool) | sampled)
+    layouts = np.stack(layouts).astype(np.int64)
+
+    return SparseMasks(layouts=layouts, allowed=allowed_f,
+                       static_layout=static_layout,
+                       prob_layout=prob_layout)

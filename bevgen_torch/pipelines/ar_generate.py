@@ -1,0 +1,54 @@
+"""End-to-end AR generation pipeline: BEV raster -> tokens -> images.
+
+Port of `bevgen_tpu/pipelines/ar_generate.py` (`ARPipeline`), the
+nuScenes counterpart of `pipelines/generate.BEVGenPipeline`: BEV VQ-VAE
+encode -> the autoregressive sparse-GPT decode in the outward order
+(KV-cached by default, `models/stage2/ar_cached.py`; or one full forward per
+token, `models/stage2/ar.py`) -> RGB VQ-GAN decode. Partial decoding keeps
+the `init_ids` cameras.
+
+On the card the cached decode runs every layer's attention through the
+decode-attention kernel (`ops/decode_attention.py`) and the full-forward
+sampler through the block-sparse kernel (`ops/block_sparse.py`). The int8
+serving tree (`quantized`) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from bevgen_torch.core.config import PipelineConfig
+from bevgen_torch.models.stage2 import ar, ar_cached
+from bevgen_torch.models.stage2.gpt import SparseGPT
+from bevgen_torch.pipelines.generate import Stage1Pipeline
+
+
+class ARPipeline(Stage1Pipeline):
+    """The two stage-1 models, the sparse GPT and their config."""
+
+    def __init__(self, config: PipelineConfig, dtype: torch.dtype):
+        super().__init__(config, dtype)
+        self.gpt = SparseGPT(config.transformer, dtype)
+
+    def quantized(self, *args, **kwargs):
+        raise NotImplementedError("the int8 AR serving tree is not ported yet")
+
+    @torch.inference_mode()
+    def generate_fn(self, segmentation, intrinsics_inv, extrinsics_inv,
+                    generator: Optional[torch.Generator] = None,
+                    temperature: float = 1.0, top_k: Optional[int] = 100,
+                    init_ids: Optional[torch.Tensor] = None,
+                    cached: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        """BEV raster in, camera images out: (images (b, cam, H, W, 3), ids
+        (b, cam, h, w)). Inputs may be numpy arrays or tensors; they are
+        moved to the pipeline's device. `generator` (on that device) drives
+        the token draws. cached=False runs the reference-parity sampler, one
+        full forward per token."""
+        seg, ii, ei = self.as_inputs(segmentation, intrinsics_inv,
+                                     extrinsics_inv)
+        cond_ids = self.encode_bev(seg)
+        sample = ar_cached.ar_sample_cached if cached else ar.ar_sample
+        ids = sample(self.gpt, cond_ids, ii, ei, generator,
+                     temperature=temperature, top_k=top_k, init_ids=init_ids)
+        return self.decode_tokens(ids), ids

@@ -24,8 +24,9 @@ from bevgen_torch.models.stage1.vq import VQModel, VQSegmentationModel
 from bevgen_torch.models.stage2.maskgit import MaskGit, generate as maskgit_generate
 
 
-class BEVGenPipeline(nn.Module):
-    """The three models + their config."""
+class Stage1Pipeline(nn.Module):
+    """The two stage-1 models, their config and the wrappers that both
+    serving pipelines (MUSE here, AR in `ar_generate.py`) share."""
 
     def __init__(self, config: PipelineConfig, dtype: torch.dtype):
         super().__init__()
@@ -33,12 +34,11 @@ class BEVGenPipeline(nn.Module):
         self.dtype = dtype
         self.first_stage = VQModel(config.first_stage, dtype)
         self.cond_stage = VQSegmentationModel(config.cond_stage, dtype)
-        self.maskgit = MaskGit(config.transformer, config.muse, dtype)
 
     @classmethod
     def create(cls, config: PipelineConfig,
                device: Union[str, torch.device, None] = "cuda",
-               dtype: Union[str, torch.dtype, None] = None) -> "BEVGenPipeline":
+               dtype: Union[str, torch.dtype, None] = None):
         """Build the pipeline on `device` (CUDA unless asked otherwise;
         raises without a GPU) in `dtype` (default: config.dtype). Weights
         are uninitialised until `init_params` or `load_jax_params`."""
@@ -50,9 +50,14 @@ class BEVGenPipeline(nn.Module):
     def device(self) -> torch.device:
         return self.first_stage.codebook.device
 
-    def init_params(self, seed: int = 0) -> "BEVGenPipeline":
+    def init_params(self, seed: int = 0):
         """Seeded random weights (`models.init.init_weights`)."""
         return init_weights(self, seed)
+
+    def as_inputs(self, *arrays) -> Tuple[torch.Tensor, ...]:
+        """Numpy arrays or tensors as fp32 tensors on the pipeline's device."""
+        return tuple(torch.as_tensor(a, device=self.device).float()
+                     for a in arrays)
 
     # ---- stage-1 wrappers ------------------------------------------------
 
@@ -69,6 +74,14 @@ class BEVGenPipeline(nn.Module):
         img = self.first_stage.decode_code(ids.reshape(b * cam, h, w))
         return img.reshape(b, cam, *img.shape[1:])
 
+
+class BEVGenPipeline(Stage1Pipeline):
+    """The three models of the MUSE path + their config."""
+
+    def __init__(self, config: PipelineConfig, dtype: torch.dtype):
+        super().__init__(config, dtype)
+        self.maskgit = MaskGit(config.transformer, config.muse, dtype)
+
     # ---- the headline path ----------------------------------------------
 
     @torch.inference_mode()
@@ -81,9 +94,8 @@ class BEVGenPipeline(nn.Module):
         ids (b, cam, h, w)). Inputs may be numpy arrays or tensors; they
         are moved to the pipeline's device. `generator` (on that device)
         drives the gumbel and critic noise."""
-        dev = self.device
-        seg, ii, ei = (torch.as_tensor(a, device=dev).float()
-                       for a in (segmentation, intrinsics_inv, extrinsics_inv))
+        seg, ii, ei = self.as_inputs(segmentation, intrinsics_inv,
+                                     extrinsics_inv)
         cond_ids = self.encode_bev(seg)
         ids = maskgit_generate(
             self.maskgit, cond_ids, ii, ei, generator, init_ids=init_ids,

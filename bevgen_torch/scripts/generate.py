@@ -2,14 +2,19 @@
 
     python -m bevgen_torch.scripts.generate preset=argoverse_muse_7cam \\
         batch_size=2 fake=2 seed=0 device=cuda out=output/torch_generate
+    python -m bevgen_torch.scripts.generate pipeline=ar preset=nuscenes_ar \\
+        transformer.num_layers=2 device=cpu fake=1
 
-Runs `fake=N` batches of the fake-batch fixture through
-`BEVGenPipeline.generate_fn` with seeded random weights and writes one
-`batch_XXXX.npz` per batch into `out` with the decode `ids`
-(b, cam, h, w) and the `images` (b, cam, H, W, 3). Other `key=value`
-arguments override the preset by dotted path (`transformer.num_layers=2`,
-`muse.sample_iterations=8`). Loading a dataset and a checkpoint comes in a
-later version.
+Runs `fake=N` batches of the fake-batch fixture through the serving
+pipeline with seeded random weights and writes one `batch_XXXX.npz` per
+batch into `out` with the decode `ids` (b, cam, h, w) and the `images`
+(b, cam, H, W, 3). `pipeline=muse` (default; preset argoverse_muse_7cam)
+runs `BEVGenPipeline.generate_fn`; `pipeline=ar` (default preset
+nuscenes_ar) runs `ARPipeline.generate_fn`, KV-cached unless
+`cached=false`, with `top_k` (default 100) and `temperature` (default 1).
+Other `key=value` arguments override the preset by dotted path
+(`transformer.num_layers=2`, `muse.sample_iterations=8`). Loading a dataset
+and a checkpoint comes in a later version.
 """
 from __future__ import annotations
 
@@ -35,10 +40,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     import torch
     from bevgen_torch.core.config import PRESETS, apply_overrides
     from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.pipelines.ar_generate import ARPipeline
     from bevgen_torch.pipelines.generate import BEVGenPipeline
 
     args = parse_argv(sys.argv[1:] if argv is None else argv)
-    preset = args.pop("preset", "argoverse_muse_7cam")
+    pipeline = args.pop("pipeline", "muse")
+    if pipeline not in ("muse", "ar"):
+        raise SystemExit(f"unknown pipeline={pipeline!r} (muse|ar)")
+    ar = pipeline == "ar"
+    preset = args.pop("preset", "nuscenes_ar" if ar else "argoverse_muse_7cam")
     if preset not in PRESETS:
         raise SystemExit(f"unknown preset {preset!r}; one of {sorted(PRESETS)}")
     batch_size = int(args.pop("batch_size", 1))
@@ -48,9 +58,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     seed = int(args.pop("seed", 0))
     device = args.pop("device", "cuda")
     out_dir = args.pop("out", os.path.join("output", "torch_generate"))
+    sample_kw = {}
+    if ar:
+        sample_kw = {"cached": args.pop("cached", "true").lower() == "true",
+                     "top_k": int(args.pop("top_k", 100)),
+                     "temperature": float(args.pop("temperature", 1.0))}
     cfg = apply_overrides(PRESETS[preset](), args)
 
-    pipe = BEVGenPipeline.create(cfg, device=device).init_params(seed)
+    pipe = (ARPipeline if ar else BEVGenPipeline).create(
+        cfg, device=device).init_params(seed)
     os.makedirs(out_dir, exist_ok=True)
     gen = torch.Generator(device=pipe.device).manual_seed(seed)
     for i in range(fake):
@@ -58,7 +74,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         t0 = time.perf_counter()
         images, ids = pipe.generate_fn(batch["segmentation"],
                                        batch["intrinsics_inv"],
-                                       batch["extrinsics_inv"], gen)
+                                       batch["extrinsics_inv"], gen,
+                                       **sample_kw)
         images = images.float().cpu().numpy()
         dt = time.perf_counter() - t0
         path = os.path.join(out_dir, f"batch_{i:04d}.npz")

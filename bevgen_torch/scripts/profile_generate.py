@@ -2,9 +2,14 @@
 
     python -m bevgen_torch.scripts.profile_generate preset=argoverse_muse_7cam \\
         batch_size=2 seed=0 out=profile_generate.json
+    python -m bevgen_torch.scripts.profile_generate pipeline=ar \\
+        batch_size=2 out=profile_generate_ar.json
 
-Builds the pipeline with seeded random weights, runs one warm-up generate,
-then traces one more with `torch.profiler` (CPU and CUDA activities).
+Builds the pipeline (`pipeline=muse`, default, or `pipeline=ar`, whose
+default preset is nuscenes_ar and which decodes KV-cached with top_k=100)
+with seeded random weights, runs one warm-up generate, then traces one more
+with `torch.profiler` (CPU and CUDA activities for MUSE; CUDA alone for AR,
+whose generate launches some 800,000 kernels).
 Prints the wall time, the device's busy time (union of its kernel and copy
 intervals) and idle share, the device time by category (the attention
 kernels, matrix products, convolutions, the rest) and the top kernels;
@@ -23,6 +28,10 @@ def category(name: str) -> str:
     n = name.lower()
     if "attention_fwd_kernel" in n:
         return "attention forward kernel"
+    if "block_sparse_fwd_kernel" in n:
+        return "block-sparse attention kernel"
+    if "decode_attention_kernel" in n:
+        return "decode attention kernel"
     if "attn_bwd" in n:
         return "attention backward kernels"
     if any(t in n for t in ("gemm", "cutlass", "xmma", "cublas", "gemv", "nvjet")):
@@ -92,32 +101,41 @@ def main(argv: Optional[List[str]] = None) -> int:
     from torch.profiler import ProfilerActivity, profile
     from bevgen_torch.core.config import PRESETS, apply_overrides
     from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.pipelines.ar_generate import ARPipeline
     from bevgen_torch.pipelines.generate import BEVGenPipeline
     from bevgen_torch.scripts.generate import parse_argv
 
     args = parse_argv(sys.argv[1:] if argv is None else argv)
-    preset = args.pop("preset", "argoverse_muse_7cam")
+    ar = args.pop("pipeline", "muse") == "ar"
+    preset = args.pop("preset", "nuscenes_ar" if ar else "argoverse_muse_7cam")
     batch_size = int(args.pop("batch_size", 2))
     seed = int(args.pop("seed", 0))
     out = args.pop("out", "profile_generate.json")
     top = int(args.pop("top", 20))
     cfg = apply_overrides(PRESETS[preset](), args)
 
-    pipe = BEVGenPipeline.create(cfg, device="cuda").init_params(seed)
+    pipe = (ARPipeline if ar else BEVGenPipeline).create(
+        cfg, device="cuda").init_params(seed)
     batch = fake_batch(cfg, batch_size, seed=seed)
     inputs = (batch["segmentation"], batch["intrinsics_inv"],
               batch["extrinsics_inv"])
     pipe.generate_fn(*inputs, torch.Generator("cuda").manual_seed(seed))
     torch.cuda.synchronize()
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CUDA] if ar else
+                  [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         pipe.generate_fn(*inputs, torch.Generator("cuda").manual_seed(seed + 1))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary = device_summary(prof, wall_s, top)
+    print(f"[profile] trace summarised in {time.perf_counter() - t0:.1f} s")
 
     result = {"device": torch.cuda.get_device_name(0), "preset": preset,
-              "batch_size": batch_size, **device_summary(prof, wall_s, top)}
+              "pipeline": "ar" if ar else "muse",
+              "batch_size": batch_size, **summary}
     print_summary(result, f"{preset} b={batch_size}")
     with open(out, "w") as f:
         json.dump(result, f, indent=1)

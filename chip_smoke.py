@@ -37,7 +37,30 @@ Phases, each of which fails the run (exit code not 0) when it fails:
   9. one loss backward at b=1 through the kernels and through the plain
      versions: cosine of the gradient of each parameter group;
  10. from the seeded init, the CE falls over 8 steps on one repeated batch
-     under a fixed mask.
+     under a fixed mask;
+ 11. the block-sparse attention kernel against
+     `block_sparse_attention_reference` (fp32 on the same bf16 inputs) at
+     b=2 on the `nuscenes_ar` layout (L=2368, 16-token blocks), on the
+     `nuscenes_ar_tpu` layout (L=2432, 128-token blocks), and with a random
+     (L, L) bias and the logsumexp; times of the kernel, the plain version
+     and PyTorch's SDPA with the expanded additive mask, and the bound from
+     the layout's active blocks;
+ 12. the decode-attention kernel against `decode_attention_reference` at
+     b=2, H=16, dh=64 over cache prefixes of 512, 1024 and 2368 columns,
+     and at b=1, H=3, pl=70; times, SDPA, the bytes bound;
+ 13. `nuscenes_ar` at full width (24 layers, width 1024, 16 heads, 6
+     cameras), b=1, seeded random weights: the SparseGPT forward through the
+     block-sparse kernel (exactly 24 launches) against the same forward with
+     the plain version, then `teacher_forced_logits` through the decode
+     kernel (exactly 24 x 2100 = 50,400 launches) against the full forward;
+ 14. `ARPipeline.generate_fn` end to end at `nuscenes_ar`, b=2, KV-cached,
+     top_k=100: one warm-up, three timed; exactly 50,400 decode and 0
+     block-sparse launches per generate, ids in range, images finite;
+ 15. greedy decoding on the card at nuScenes widths with 2 layers, b=1: the
+     reference-parity sampler (`cached=False`, 2100 full forwards through
+     the block-sparse kernel, exactly 4200 launches) against the KV-cached
+     one, step by step on the full sampler's trajectory, and one full
+     forward over that trajectory, which must replay the sampler's choices.
 
 Prints the kernels' JSON line, then the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`. Without a CUDA device,
@@ -596,6 +619,442 @@ def model_grads_phase(model, cfg):
     return cos
 
 
+# The AR path: kernels against their plain versions (fp32 on the same bf16
+# inputs). The block-sparse kernel rounds the unnormalised softmax weights
+# and its output to bf16, as the forward kernels above do, so the same
+# bounds hold; its logsumexp is fp32 throughout (online in log2 units), so
+# 5e-3 leaves a wide margin. The decode kernel rounds the weights and the
+# output to bf16: one bf16 step of |out|.
+LSE_TOL = 5e-3
+DECODE_TOL = 2e-2
+# Full-width AR logits at b=1: the kernels against the plain versions and
+# the cached decode against the full forward, bf16 through 24 layers.
+AR_COS_MIN = 0.99
+AR_TOP1_MIN = 0.90
+# Greedy decode, the cached decoder against the full-forward sampler: at
+# every step of the full sampler's own trajectory, the token it chose must
+# be among the cached decoder's best (the bound of the reference's
+# kernel-path test). The logits are bf16, so ties are common, and top_k=1
+# keeps every tied token and draws among them. The two free-running
+# trajectories are printed too but not held to it: both samplers round in
+# bf16 in different orders, so with random weights a tie or near-tie
+# resolves differently somewhere in 2100 steps and the trajectories part
+# there.
+GREEDY_AGREE_MIN = 0.97
+AR_BATCH = 2
+# 8 caches of b=2, H=16, 2368 x 64 bf16 K and V: 155 MB, three times the L2
+DECODE_CACHES = 8
+AR_TIMED = 3
+
+
+def ar_layout(preset):
+    from bevgen_torch.core.config import PRESETS
+    from bevgen_torch.models import masks
+    cfg = PRESETS[preset]().transformer
+    return cfg, masks.sparse_masks(cfg).layouts
+
+
+def active_blocks(cfg, layouts):
+    """Blocks of each head's layout that hold a pair the index rule keeps."""
+    import numpy as np
+    from bevgen_torch.ops.block_sparse import allowed_mask
+    L, blk = cfg.gpt_block_size, cfg.sparse_block_size
+    nb = layouts.shape[1]
+    allowed = np.zeros((nb * blk, nb * blk), bool)
+    allowed[:L, :L] = allowed_mask(L, cfg.num_cond_tokens,
+                                   cfg.num_pad_tokens).numpy()
+    ok = allowed.reshape(nb, blk, nb, blk).any(axis=(1, 3))
+    return int(((layouts > 0) & ok[None]).sum())
+
+
+def check_block_sparse(name, preset, B, with_bias, seed):
+    """Row 9 against block_sparse_attention_reference, with times and the
+    bound: 4 * D * block^2 FLOP per active block per (b, h); q, k, v, out
+    (and the bias, the lse) moved once."""
+    import torch
+    import torch.nn.functional as F
+    from bevgen_torch.ops import block_sparse as bs
+    cfg, layouts = ar_layout(preset)
+    H, D = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    L, blk = cfg.gpt_block_size, cfg.sparse_block_size
+    nc, npad = cfg.num_cond_tokens, cfg.num_pad_tokens
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(B, H, L, D, generator=g, device="cuda").bfloat16()
+               for _ in range(3))
+    bias = torch.randn(L, L, generator=g, device="cuda") if with_bias else None
+    attn = bs.SparseAttention(layouts, blk, nc, npad)
+    with torch.inference_mode():
+        out, lse = attn(q, k, v, bias, return_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = bs.block_sparse_attention_reference(
+            q, k, v, torch.from_numpy(layouts), blk, nc, npad, bias,
+            return_lse=True)
+        err = (out.float() - ref.float()).abs()
+        max_err, mean_err = err.max().item(), err.mean().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        del ref, ref_lse, err
+        finite = bool(torch.isfinite(out).all())
+        ms = time_ms(lambda: attn(q, k, v, bias, return_lse=with_bias))
+        plain_ms = time_ms(lambda: bs.block_sparse_attention_reference(
+            q, k, v, torch.from_numpy(layouts), blk, nc, npad, bias),
+            iters=3, warmup=1)
+        scale = 1.0 / math.sqrt(D)
+        keep = (bs.expand_layout_mask(torch.from_numpy(layouts).cuda(), blk, L)
+                & bs.allowed_mask(L, nc, npad, "cuda")[None])
+        add = torch.zeros(L, L, device="cuda") if bias is None else bias * scale
+        mask = torch.where(keep, add[None], torch.full((), bs.NEG_INF,
+                                                       device="cuda"))
+        mask = mask.to(q.dtype)[None].expand(B, H, L, L)
+        del keep, add
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale), iters=5)
+        del mask
+    n_active = active_blocks(cfg, layouts)
+    flops = 4.0 * D * blk * blk * n_active * B
+    nbytes = (4 * B * H * L * D * 2 + (L * L * 4 if with_bias else 0)
+              + (B * H * L * 4 if with_bias else 0) + layouts.size)
+    bms, bound_by = bound(flops, nbytes)
+    ok = (finite and max_err <= MAX_ABS_TOL and mean_err <= MEAN_ABS_TOL
+          and lse_err <= LSE_TOL)
+    print(f"[kernel] block_sparse {name}: {preset} B={B} H={H} L={L} D={D} "
+          f"block={blk} active blocks {n_active} of {H * layouts.shape[1] ** 2} "
+          f"bias={with_bias} max_abs_err={max_err:.3e} mean_abs_err="
+          f"{mean_err:.3e} lse_err={lse_err:.3e} ms={ms:.4f} plain_ms="
+          f"{plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bms:.4f} "
+          f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"block-sparse kernel {name} disagrees with its plain "
+                         f"version (max {max_err:.3e}, mean {mean_err:.3e}, "
+                         f"lse {lse_err:.3e}, finite={finite})")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def check_decode(b, H, pl, cap, seed, dh=64):
+    """Row 11 against decode_attention_reference on prefix views of a
+    cache of `cap` columns, with times and the bytes bound. In a generate
+    each call reads another layer's cache, cold from memory, so the timed
+    calls cycle through DECODE_CACHES caches, more than the card's L2."""
+    import itertools
+    import torch
+    import torch.nn.functional as F
+    from bevgen_torch.ops import decode_attention as da
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, H, dh, generator=g, device="cuda").bfloat16()
+    kvs = []
+    for _ in range(DECODE_CACHES):
+        kc, vc = (torch.randn(b, H, cap, dh, generator=g, device="cuda").bfloat16()
+                  for _ in range(2))
+        kvs.append((kc[:, :, :pl], vc[:, :, :pl]))
+    k, v = kvs[0]
+    # a causal row with a layout: some columns masked, the rest biased
+    addend = 0.1 * torch.randn(H, pl, generator=g, device="cuda")
+    drop = torch.rand(H, pl, generator=g, device="cuda") < 0.3
+    drop[:, 0] = False
+    addend = torch.where(drop, torch.full((), da.NEG_INF, device="cuda"), addend)
+    scale = 1.0 / math.sqrt(dh)
+    out = da.decode_attention(q, k, v, addend, scale)
+    torch.cuda.synchronize()
+    ref = da.decode_attention_reference(q, k, v, addend, scale)
+    max_err = (out.float() - ref.float()).abs().max().item()
+    finite = bool(torch.isfinite(out).all())
+    cycle = itertools.cycle(kvs)
+    ms = time_ms(lambda: da.decode_attention(q, *next(cycle), addend, scale),
+                 iters=200)
+    plain_ms = time_ms(lambda: da.decode_attention_reference(
+        q, *next(cycle), addend, scale), iters=50)
+    mask = addend.to(q.dtype)[None, :, None, :]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], *next(cycle), attn_mask=mask, scale=scale), iters=200)
+    nbytes = 2 * b * H * pl * dh * 2 + 2 * b * H * dh * 2 + H * pl * 4
+    flops = 4.0 * b * H * pl * dh
+    bms, bound_by = bound(flops, nbytes)
+    ok = finite and max_err <= DECODE_TOL
+    print(f"[kernel] decode_attention b={b} H={H} pl={pl} (cache {cap}) "
+          f"dh={dh}: max_abs_err={max_err:.3e} ms={ms:.5f} plain_ms="
+          f"{plain_ms:.5f} library_ms={lib_ms:.5f} bound_ms={bms:.5f} "
+          f"({bound_by}: {nbytes / 1e6:.3f} MB) -> {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit(f"decode kernel disagrees with its plain version at "
+                         f"b={b} H={H} pl={pl} (max {max_err:.3e})")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def block_sparse_phase():
+    """Phase 11: row 9 at both AR layouts, and with a bias and the lse."""
+    return {
+        "nuscenes_ar": check_block_sparse("layout", "nuscenes_ar", AR_BATCH,
+                                          False, 20),
+        "nuscenes_ar_tpu": check_block_sparse("layout", "nuscenes_ar_tpu",
+                                              AR_BATCH, False, 21),
+        "bias+lse": check_block_sparse("bias+lse", "nuscenes_ar", AR_BATCH,
+                                       True, 22),
+    }
+
+
+def decode_phase(cfg):
+    """Phase 12: row 11 over cache prefixes of the decode buckets' widths,
+    and at a row count that is not a multiple of 8."""
+    tf = cfg.transformer
+    L = tf.gpt_block_size
+    stats = {pl: check_decode(AR_BATCH, tf.num_heads, pl, L, 30 + i)
+             for i, pl in enumerate((512, 1024, L))}
+    check_decode(1, 3, 70, 70, 33)
+    return stats
+
+
+def timed_phase(phase, fn, *args):
+    """Run one phase, free the card's cached memory, print its time."""
+    import torch
+    t0 = time.perf_counter()
+    result = fn(*args)
+    torch.cuda.empty_cache()
+    print(f"[time] phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return result
+
+
+def logit_agreement(a, b):
+    import torch
+    a, b = a.float(), b.float()
+    cos = torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(),
+                                                dim=0).item()
+    top1 = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    return cos, top1
+
+
+def ar_inputs(cfg, B, seed):
+    import numpy as np
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    tf = cfg.transformer
+    rng = np.random.default_rng(seed)
+    ids = torch.as_tensor(rng.integers(0, tf.vocab_size, (
+        B, tf.num_cams, tf.num_cam_tokens)), device="cuda")
+    cond = torch.as_tensor(rng.integers(0, tf.cond_vocab_size, (
+        B, tf.num_cond_tokens)), device="cuda")
+    batch = fake_batch(cfg, B, seed=seed)
+    ii, ei = (torch.as_tensor(batch[k], device="cuda")
+              for k in ("intrinsics_inv", "extrinsics_inv"))
+    return ids, cond, ii, ei, batch
+
+
+def ar_forward_phase(cfg):
+    """Phase 13: the full-width SparseGPT at b=1 through the block-sparse
+    kernel, the plain version, and the cached decoder. Returns the kernel
+    forward's launch counts by shape."""
+    import torch
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.stage2 import ar_cached
+    from bevgen_torch.models.stage2.gpt import SparseGPT
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.ops import decode_attention as da
+    tf = cfg.transformer
+    t0 = time.perf_counter()
+    model = init_weights(SparseGPT(tf, torch.bfloat16), seed=0).to("cuda").eval()
+    ids, cond, ii, ei, _ = ar_inputs(cfg, 1, seed=7)
+    layouts = torch.from_numpy(model.attn.layout)
+    blk, nc, npad = tf.sparse_block_size, tf.num_cond_tokens, tf.num_pad_tokens
+    with torch.inference_mode():
+        bs.reset_launch_counts()
+        lk = model(ids, cond, ii, ei, sampling=True)
+        torch.cuda.synchronize()
+        n_fwd = bs.block_sparse_attention_cuda.launches
+        by_shape = dict(bs.block_sparse_attention_cuda.launches_by_shape)
+        kernel_attn = model.attn
+        model.attn = lambda q, k, v, bias: bs.block_sparse_attention_reference(
+            q, k, v, layouts, blk, nc, npad, bias)
+        try:
+            lp = model(ids, cond, ii, ei, sampling=True)
+        finally:
+            model.attn = kernel_attn
+    cos_p, top1_p = logit_agreement(lk, lp)
+    print(f"[ar] full-width SparseGPT b=1 ({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+          f"params, {time.perf_counter() - t0:.1f} s): block-sparse kernel vs "
+          f"plain: cosine {cos_p:.6f} top-1 {top1_p:.4f}; {n_fwd} kernel "
+          f"launches {by_shape}", flush=True)
+    if n_fwd != tf.num_layers:
+        raise SystemExit(f"expected {tf.num_layers} block-sparse launches per "
+                         f"forward, got {n_fwd}")
+    da.reset_launch_counts()
+    t0 = time.perf_counter()
+    lc = ar_cached.teacher_forced_logits(model, ids, cond, ii, ei)
+    torch.cuda.synchronize()
+    tf_s = time.perf_counter() - t0
+    n_dec = da.decode_attention_cuda.launches
+    cos_c, top1_c = logit_agreement(lc, lk)
+    cos_cp, top1_cp = logit_agreement(lc, lp)
+    print(f"[ar] teacher-forced cached decode ({tf_s:.2f} s): vs the kernel "
+          f"forward cosine {cos_c:.6f} top-1 {top1_c:.4f}; vs the plain "
+          f"forward cosine {cos_cp:.6f} top-1 {top1_cp:.4f}; {n_dec} decode "
+          f"launches", flush=True)
+    if n_dec != tf.num_layers * tf.num_img_tokens:
+        raise SystemExit(f"expected {tf.num_layers * tf.num_img_tokens} decode "
+                         f"launches, got {n_dec}")
+    if not (min(cos_p, cos_c) >= AR_COS_MIN and min(top1_p, top1_c) >= AR_TOP1_MIN):
+        raise SystemExit("full-width AR logits disagree (kernel vs plain, or "
+                         "cached vs full forward)")
+    return by_shape
+
+
+def ar_generate_phase(cfg):
+    """Phase 14: ARPipeline.generate_fn end to end at b=2."""
+    import torch
+    from bevgen_torch.models.stage2 import ar_cached
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.ops import decode_attention as da
+    from bevgen_torch.pipelines.ar_generate import ARPipeline
+    tf = cfg.transformer
+    B = AR_BATCH
+    t0 = time.perf_counter()
+    pipe = ARPipeline.create(cfg, device="cuda").init_params(seed=0)
+    _, _, _, _, batch = ar_inputs(cfg, B, seed=0)
+    inputs = (batch["segmentation"], batch["intrinsics_inv"],
+              batch["extrinsics_inv"])
+    print(f"[ar-e2e] pipeline built in {time.perf_counter() - t0:.1f} s "
+          f"({sum(p.numel() for p in pipe.parameters()) / 1e6:.1f} M params)",
+          flush=True)
+
+    def generate(seed):
+        return pipe.generate_fn(*inputs, torch.Generator(
+            device="cuda").manual_seed(seed), top_k=100)
+
+    t0 = time.perf_counter()
+    generate(0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    times = []
+    for i in range(AR_TIMED):
+        torch.cuda.synchronize()
+        if i == 0:
+            da.reset_launch_counts()
+            bs.reset_launch_counts()
+        t0 = time.perf_counter()
+        images, ids = generate(1 + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            n_dec = da.decode_attention_cuda.launches
+            by_pl = dict(da.decode_attention_cuda.launches_by_shape)
+            n_bs = bs.block_sparse_attention_cuda.launches
+    med = sorted(times)[len(times) // 2]
+    n_img = B * tf.num_cams
+    print(f"[ar-e2e] generate_fn b={B} cached top_k=100: warm-up {warm_s:.3f} s, "
+          f"timed {', '.join(f'{t:.4f}' for t in times)} s, median {med:.4f} s "
+          f"= {n_img / med:.4f} images/s; launches in the first timed run: "
+          f"decode {n_dec} {by_pl}, block-sparse {n_bs}", flush=True)
+    if n_dec != tf.num_layers * tf.num_img_tokens or n_bs != 0:
+        raise SystemExit(f"expected {tf.num_layers * tf.num_img_tokens} decode "
+                         f"and 0 block-sparse launches, got {n_dec} and {n_bs}")
+    H_img, W_img = tf.cam_res
+    if tuple(images.shape) != (B, tf.num_cams, H_img, W_img, 3):
+        raise SystemExit(f"bad image shape {tuple(images.shape)}")
+    if not torch.isfinite(images).all():
+        raise SystemExit("non-finite AR images")
+    if ids.min() < 0 or ids.max() >= tf.vocab_size:
+        raise SystemExit("AR ids out of range")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    with torch.inference_mode():
+        seg, ii, ei = pipe.as_inputs(*inputs)
+        t = [time.perf_counter()]
+        cond_ids = pipe.encode_bev(seg)
+        torch.cuda.synchronize(); t.append(time.perf_counter())
+        gids = ar_cached.ar_sample_cached(pipe.gpt, cond_ids, ii, ei, gen,
+                                          top_k=100)
+        torch.cuda.synchronize(); t.append(time.perf_counter())
+        pipe.decode_tokens(gids)
+        torch.cuda.synchronize(); t.append(time.perf_counter())
+    print(f"[ar-e2e] images {tuple(images.shape)} finite, ids in "
+          f"[{ids.min().item()}, {ids.max().item()}]; stages: encode_bev "
+          f"{t[1] - t[0]:.4f} s, ar decode {t[2] - t[1]:.4f} s, "
+          f"decode_tokens {t[3] - t[2]:.4f} s", flush=True)
+    return {"s": med, "images_per_s": n_img / med, "by_pl": by_pl}
+
+
+def ar_greedy_phase(cfg):
+    """Phase 15: greedy decoding at nuScenes widths with 2 layers, b=1, the
+    full-forward sampler (block-sparse kernel) against the cached one."""
+    import dataclasses
+    import torch
+    from bevgen_torch.models.stage2 import ar_cached
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.pipelines.ar_generate import ARPipeline
+    cfg = dataclasses.replace(cfg, transformer=cfg.transformer.replace(
+        num_layers=2))
+    tf = cfg.transformer
+    pipe = ARPipeline.create(cfg, device="cuda").init_params(seed=1)
+    _, _, _, _, batch = ar_inputs(cfg, 1, seed=1)
+    inputs = (batch["segmentation"], batch["intrinsics_inv"],
+              batch["extrinsics_inv"])
+    gen = torch.Generator(device="cuda")
+    bs.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, ids_full = pipe.generate_fn(*inputs, gen.manual_seed(0), top_k=1,
+                                   cached=False)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    n_bs = bs.block_sparse_attention_cuda.launches
+    t0 = time.perf_counter()
+    _, ids_cached = pipe.generate_fn(*inputs, gen.manual_seed(0), top_k=1)
+    torch.cuda.synchronize()
+    cached_s = time.perf_counter() - t0
+    same = (ids_full == ids_cached).flatten()
+    agree = same.float().mean().item()
+    fwd = pipe.gpt.fwd_order
+    in_order = same[fwd]
+    first = (int((~in_order).nonzero()[0, 0]) if not bool(in_order.all())
+             else tf.num_img_tokens)
+    # the cached decoder's greedy choice at every step of the full-forward
+    # sampler's own trajectory (no compounding of an early flip), and one
+    # full forward over that trajectory: by causality its logits at each
+    # step are the ones the sampler chose from
+    traj = ids_full.reshape(1, tf.num_cams, -1)
+    tok = traj.reshape(1, -1)
+    with torch.inference_mode():
+        seg, ii, ei = pipe.as_inputs(*inputs)
+        cond_ids = pipe.encode_bev(seg)
+        lc = ar_cached.teacher_forced_logits(pipe.gpt, traj, cond_ids, ii, ei)
+        lf = pipe.gpt(traj, cond_ids, ii, ei, sampling=True).float()
+    # the logits are bf16 and tie often, and top_k=1 keeps every tied token:
+    # a step agrees when the trajectory's token is among the best of it
+    def best(logits):
+        return logits.gather(-1, tok[..., None])[..., 0] >= logits.amax(-1)
+    step_agree = best(lc).float().mean().item()
+    replay = best(lf).float().mean().item()
+    differ = ~best(lc)
+    # where the choices differ: the full logits' gap between the token and
+    # the cached decoder's choice, beside that step's largest
+    # cached-vs-full logit difference
+    pick = lc.argmax(-1)
+    gap = (lf.gather(-1, tok[..., None]) - lf.gather(-1, pick[..., None]))[..., 0]
+    noise = (lc - lf).abs().amax(-1)
+    top2 = lf.topk(2, dim=-1).values
+    tied = (top2[..., 0] == top2[..., 1]).float().mean().item()
+    n_diff = int(differ.sum())
+    print(f"[ar-greedy] 2 layers b=1 top_k=1: full-forward sampler {full_s:.2f} s "
+          f"({n_bs} block-sparse launches), cached {cached_s:.2f} s; per-step "
+          f"greedy agreement on the full sampler's trajectory {step_agree:.4f} "
+          f"(min {GREEDY_AGREE_MIN}), the full forward replays it at "
+          f"{replay:.4f}; free-running token agreement {agree:.4f}, first "
+          f"differing decode step {first} of {tf.num_img_tokens}; steps whose "
+          f"best two full logits tie {tied:.4f}", flush=True)
+    if n_diff:
+        print(f"[ar-greedy] {n_diff} steps choose differently: full-logit gap "
+              f"between the token and the cached choice max "
+              f"{gap[differ].max().item():.5f}, that step's largest "
+              f"cached-vs-full logit difference max "
+              f"{noise[differ].max().item():.5f}", flush=True)
+    if n_bs != tf.num_layers * tf.num_img_tokens:
+        raise SystemExit(f"expected {tf.num_layers * tf.num_img_tokens} "
+                         f"block-sparse launches, got {n_bs}")
+    if not min(step_agree, replay) >= GREEDY_AGREE_MIN:
+        raise SystemExit("greedy decoding disagrees between the cached and "
+                         "the full-forward sampler")
+    return step_agree
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -781,6 +1240,21 @@ def main() -> int:
     model, train = train_phase(cfg)
     model_grads_phase(model, cfg)
     ce_falls_phase(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+
+    # 11-15. the AR path: its kernels against their plain versions, then
+    # the path at full width
+    from bevgen_torch.core.config import nuscenes_ar_config
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.ops import decode_attention as da
+    ar_cfg = nuscenes_ar_config()
+    L_ar = ar_cfg.transformer.gpt_block_size
+    bs_stats = timed_phase(11, block_sparse_phase)
+    dec_stats = timed_phase(12, decode_phase, ar_cfg)
+    bs_launches = timed_phase(13, ar_forward_phase, ar_cfg)
+    ar_e2e = timed_phase(14, ar_generate_phase, ar_cfg)
+    timed_phase(15, ar_greedy_phase, ar_cfg)
 
     kernels = []
     for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
@@ -802,6 +1276,18 @@ def main() -> int:
         "name": f"bias_attention_fwd[op entry, self b{TB} {N}x{N + 1}]",
         "route": "cuda", "source": ba.SOURCE, "replaces": ba.REPLACES,
         "launches": row7_launches, **row7_stats})
+    tf_ar = ar_cfg.transformer
+    kernels.append({
+        "name": f"block_sparse_fwd[nuscenes_ar b{AR_BATCH} L{L_ar} block "
+                f"{tf_ar.sparse_block_size}]",
+        "route": "cuda", "source": bs.SOURCE, "replaces": bs.REPLACES,
+        "launches": bs_launches.get((L_ar, tf_ar.sparse_block_size), 0),
+        **bs_stats["nuscenes_ar"]})
+    for pl, st in dec_stats.items():
+        kernels.append({
+            "name": f"decode_attention[b{AR_BATCH} H{tf_ar.num_heads} pl{pl}]",
+            "route": "cuda", "source": da.SOURCE, "replaces": da.REPLACES,
+            "launches": ar_e2e["by_pl"].get(pl, 0), **st})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

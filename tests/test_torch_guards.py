@@ -1,9 +1,10 @@
 """Guards of the PyTorch port: it imports nothing of JAX or of the JAX
-package, `load_jax_params` accepts exactly the reference's tree, entry
-points (serving and training) run on CUDA unless asked for the CPU, the
-attention's autograd Function runs its plain twins on the CPU, and (on a
-machine with a card) the CUDA kernels agree with their plain versions and
-CUDA attention outputs carry gradients.
+package, `load_jax_params` accepts exactly the reference's tree (MUSE and
+AR pipelines), entry points (serving, AR serving and training) run on CUDA
+unless asked for the CPU, the attention's autograd Function runs its plain
+twins on the CPU, and (on a machine with a card) the CUDA kernels agree
+with their plain versions, CUDA attention outputs carry gradients, and the
+block-sparse forward refuses a call that needs its unported backward.
 
 The module imports JAX only inside the tests that compare with it, so the
 `cuda` test also runs where JAX is missing; there, skip the conftest
@@ -49,7 +50,10 @@ def test_port_imports_no_jax_or_reference_package():
                    "training/optim.py", "training/trainer.py",
                    "training/checkpoints.py", "training/preemption.py",
                    "data/tokens.py", "scripts/train_stage2.py",
-                   "scripts/profile_train.py", "models/init.py"):
+                   "scripts/profile_train.py", "models/init.py",
+                   "ops/block_sparse.py", "ops/decode_attention.py",
+                   "models/stage2/gpt.py", "models/stage2/ar.py",
+                   "models/stage2/ar_cached.py", "pipelines/ar_generate.py"):
         assert f"bevgen_torch/{module}" in checked, module
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p)) & FORBIDDEN)
            for p in files}
@@ -123,6 +127,68 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["preset=tiny_test", f"out={tmp_path}"])
     assert BEVGenPipeline.create(cfg, device="cpu").device.type == "cpu"
+
+
+def test_ar_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
+                                                             tmp_path):
+    from bevgen_torch.pipelines.ar_generate import ARPipeline
+    from bevgen_torch.scripts import generate as cli
+    from torch_parity import ar_tiny_configs
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ar_tiny_configs()[1]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ARPipeline.create(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["pipeline=ar", "transformer.num_layers=1", f"out={tmp_path}"])
+    assert not any(tmp_path.iterdir())
+    assert ARPipeline.create(cfg, device="cpu").device.type == "cpu"
+
+
+def _tiny_ar_port():
+    from bevgen_torch.pipelines.ar_generate import ARPipeline
+    from torch_parity import ar_tiny_configs
+    return ARPipeline.create(ar_tiny_configs()[1], device="cpu", dtype="float32")
+
+
+def test_load_jax_params_fills_and_exports_the_ar_tree():
+    import jax
+    from bevgen_torch.core.convert import export_jax_params
+    from torch_parity import ar_tiny_tree
+    tree = ar_tiny_tree()
+    pipe = load_jax_params(_tiny_ar_port(), tree)
+    gpt = tree["gpt"]["params"]
+    np.testing.assert_array_equal(pipe.gpt.block_1.mlp_fc.weight.detach().numpy(),
+                                  gpt["block_1"]["mlp_fc"]["kernel"].T)
+    np.testing.assert_array_equal(pipe.gpt.block_0.ln1.norm.bias.detach().numpy(),
+                                  gpt["block_0"]["ln1"]["norm"]["bias"])
+    np.testing.assert_array_equal(pipe.gpt.x_pos_emb.detach().numpy(),
+                                  gpt["x_pos_emb"])
+    out = export_jax_params(pipe)
+    assert (jax.tree_util.tree_structure(out)
+            == jax.tree_util.tree_structure(tree))
+    for (path, a), (_, b) in zip(jax.tree_util.tree_leaves_with_path(out),
+                                 jax.tree_util.tree_leaves_with_path(tree)):
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
+
+
+def test_load_jax_params_raises_on_extra_gpt_leaf():
+    from torch_parity import ar_tiny_tree
+    tree = ar_tiny_tree()
+    tree["gpt"]["params"]["block_0"]["stray"] = np.zeros(3, np.float32)
+    with pytest.raises(KeyError, match="stray"):
+        load_jax_params(_tiny_ar_port(), tree)
+
+
+def test_load_jax_params_raises_on_missing_gpt_leaf():
+    from torch_parity import ar_tiny_tree
+    tree = ar_tiny_tree()
+    del tree["gpt"]["params"]["block_1"]["value"]
+    with pytest.raises(KeyError, match="block_1.value"):
+        load_jax_params(_tiny_ar_port(), tree)
+    tree = ar_tiny_tree()
+    del tree["gpt"]
+    with pytest.raises(KeyError, match="gpt"):
+        load_jax_params(_tiny_ar_port(), tree)
 
 
 def test_train_stage2_defaults_to_cuda_and_raises_without_it(monkeypatch,
@@ -245,3 +311,74 @@ def test_cuda_backward_kernels_match_plain_version():
         # bf16 rounding of P, dS and the outputs: 1e-2 relative L2
         for a, w in zip(got, want):
             assert ((a.float() - w).norm() / w.norm()).item() <= 1e-2
+
+
+def _sparse_cuda_case(g, B, H, L, D, block, nc, num_pad):
+    nb = -(-L // block)
+    rng = np.random.default_rng(L)
+    layout = (rng.uniform(size=(H, nb, nb)) < 0.5) & np.tril(np.ones((nb, nb), bool))
+    layout |= np.eye(nb, dtype=bool)
+    layout[:, (L - num_pad) // block:, 0] = True
+    q, k, v = (torch.randn(B, H, L, D, generator=g, device="cuda").bfloat16()
+               for _ in range(3))
+    return layout.astype(np.int64), q, k, v
+
+
+@pytest.mark.cuda
+def test_cuda_block_sparse_kernel_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from bevgen_torch.ops import block_sparse as bs
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for B, H, L, D, block, nc, num_pad, with_bias in [
+            (2, 3, 200, 64, 8, 24, 8, True), (1, 2, 190, 32, 16, 20, 6, False),
+            (2, 4, 256, 64, 128, 64, 0, True)]:
+        layout, q, k, v = _sparse_cuda_case(g, B, H, L, D, block, nc, num_pad)
+        bias = (torch.randn(L, L, generator=g, device="cuda")
+                if with_bias else None)
+        attn = bs.SparseAttention(layout, block, nc, num_pad)
+        before = bs.block_sparse_attention_cuda.launches
+        with torch.no_grad():
+            out, lse = attn(q, k, v, bias, return_lse=True)
+        assert bs.block_sparse_attention_cuda.launches == before + 1
+        want, want_lse = bs.block_sparse_attention_reference(
+            q, k, v, torch.from_numpy(layout), block, nc, num_pad, bias,
+            return_lse=True)
+        err = (out.float() - want.float()).abs()
+        # bf16 rounding of the softmax weights and the output
+        assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
+        assert (lse - want_lse).abs().max().item() <= 5e-3
+
+
+@pytest.mark.cuda
+def test_cuda_block_sparse_refuses_a_call_that_needs_gradients():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from bevgen_torch.ops import block_sparse as bs
+    g = torch.Generator(device="cuda").manual_seed(4)
+    layout, q, k, v = _sparse_cuda_case(g, 1, 2, 128, 64, 16, 16, 0)
+    q.requires_grad_()
+    with pytest.raises(NotImplementedError, match="backward not ported"):
+        bs.SparseAttention(layout, 16, 16)(q, k, v)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_kernel_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from bevgen_torch.ops import decode_attention as da
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for b, H, pl, cap, dh in [(1, 3, 70, 96, 64), (2, 16, 512, 2368, 64),
+                              (3, 5, 33, 33, 32)]:
+        q = torch.randn(b, H, dh, generator=g, device="cuda").bfloat16()
+        kc, vc = (torch.randn(b, H, cap, dh, generator=g, device="cuda").bfloat16()
+                  for _ in range(2))
+        addend = torch.randn(H, pl, generator=g, device="cuda")
+        addend[:, pl // 2:] = da.NEG_INF
+        before = da.decode_attention_cuda.launches
+        got = da.decode_attention(q, kc[:, :, :pl], vc[:, :, :pl], addend, 0.125)
+        assert da.decode_attention_cuda.launches == before + 1
+        want = da.decode_attention_reference(q, kc[:, :, :pl], vc[:, :, :pl],
+                                             addend, 0.125)
+        # bf16 output: one rounding step of |out|
+        assert (got.float() - want.float()).abs().max().item() <= 2e-2

@@ -85,3 +85,110 @@ def tiny_pipelines(greedy: bool = False, seed: int = 0):
     load_jax_params(tp, tree)
     params = jax.tree_util.tree_map(jnp.asarray, tree)
     return jp, params, tp
+
+
+# ---- the AR sparse-GPT path -------------------------------------------------
+
+def gpt_kwargs(**kw):
+    """The JAX AR tests' tiny GPT (tests/test_ar_cached.py:gpt_cfg)."""
+    base = dict(num_layers=2, num_heads=2, num_embed=64, hidden_size=64,
+                vocab_size=32, cond_vocab_size=32, num_cams=3,
+                cam_names="ARGOVERSE_FRONT_CAMERAS", dataset="argoverse",
+                cam_res=(32, 32), cam_latent_res=(4, 4), bev_latent_res=(4, 4),
+                window_len=4, sparse_block_size=8, density=0.7,
+                causal_order=True, camera_bias=False, image_embed=True,
+                bev_embed=True, legacy_prob_matrix=False)
+    base.update(kw)
+    return base
+
+
+# the nuScenes variant of the JAX AR tests (outward order, pad rows)
+NUSCENES_GPT = dict(dataset="nuscenes", cam_names="NUSCENES_CAMERAS",
+                    num_cams=6, cam_latent_res=(2, 5), sparse_block_size=8,
+                    density=0.8, legacy_prob_matrix=True, bev_embed=False)
+
+
+def gpt_configs(**kw):
+    """(JAX MultiViewConfig, port MultiViewConfig) with the same fields."""
+    kw = gpt_kwargs(**kw)
+    return jcfg.MultiViewConfig(**kw), tcfg.MultiViewConfig(**kw)
+
+
+def gpt_inputs(cfg, b=2, seed=0):
+    """(ids, cond, intrinsics_inv, extrinsics_inv) as numpy, as the JAX
+    AR tests make them."""
+    from bevgen_torch.models import geometry
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size,
+                       (b, cfg.num_cams, cfg.num_cam_tokens)).astype(np.int32)
+    cond = rng.integers(0, cfg.cond_vocab_size,
+                        (b, cfg.num_cond_tokens)).astype(np.int32)
+    intr, extr = geometry.canonical_camera_rig(cfg)
+    ii = np.broadcast_to(np.linalg.inv(intr)[None],
+                         (b, cfg.num_cams, 3, 3)).astype(np.float32)
+    ei = np.broadcast_to(np.linalg.inv(extr)[None],
+                         (b, cfg.num_cams, 4, 4)).astype(np.float32)
+    return ids, cond, ii, ei
+
+
+@functools.lru_cache(maxsize=8)
+def gpt_pair(seed: int = 0, **kw):
+    """(jax model, jax params, port SparseGPT, port cfg) at fp32 on the CPU
+    with one numpy weight tree."""
+    from bevgen_tpu.models.stage2.gpt import SparseGPT as JaxGPT
+    from bevgen_torch.models.stage2.gpt import SparseGPT
+    jc, tc = gpt_configs(**kw)
+    jm = JaxGPT(jc, use_pallas=False)
+    ids, cond, ii, ei = (jnp.asarray(a) for a in gpt_inputs(jc, b=1))
+    tree = random_tree(jax.eval_shape(jm.init, jax.random.PRNGKey(0), ids,
+                                      cond, ii, ei), seed)
+    tm = load_jax_params(SparseGPT(tc, dtype=torch.float32), tree).eval()
+    return jm, jax.tree_util.tree_map(jnp.asarray, tree), tm, tc
+
+
+def ar_tiny_configs():
+    """A tiny AR pipeline on three nuScenes cameras with rectangular 32x48
+    images (4x6 latents) and 16-token blocks, so 88 tokens pad to 96:
+    (JAX PipelineConfig, port PipelineConfig)."""
+    tf = dict(num_layers=2, num_heads=2, num_embed=64, hidden_size=64,
+              vocab_size=32, cond_vocab_size=32, num_cams=3,
+              cam_names="NUSCENES_ABLATION_CAMERAS", dataset="nuscenes",
+              cam_res=(32, 48), cam_latent_res=(4, 6), bev_latent_res=(4, 4),
+              window_len=4, sparse_block_size=16, density=0.8,
+              causal_order=True, camera_bias=True, image_embed=True,
+              bev_embed=False, legacy_prob_matrix=True)
+    s1 = dict(ch=16, ch_mult=(1, 1, 2, 2), num_res_blocks=1, z_channels=16,
+              n_embed=32, embed_dim=16, resolution=32, attn_resolutions=(4,))
+    out = []
+    for m in (jcfg, tcfg):
+        out.append(m.PipelineConfig(
+            transformer=m.MultiViewConfig(**tf),
+            first_stage=m.Stage1Config(cam_res=(32, 48), cam_latent_res=(4, 6),
+                                       **s1),
+            cond_stage=m.Stage1Config(in_channels=3, out_ch=3, n_labels=3,
+                                      **s1)))
+    return tuple(out)
+
+
+def _jax_ar_pipeline():
+    from bevgen_tpu.pipelines.ar_generate import ARPipeline as JaxAR
+    return JaxAR.create(ar_tiny_configs()[0], dtype=jnp.float32,
+                        use_pallas=False)
+
+
+def ar_tiny_tree(seed: int = 0):
+    """A numpy weight tree in the layout of the JAX tiny AR pipeline
+    ({first_stage, cond_stage, gpt})."""
+    return random_tree(jax.eval_shape(_jax_ar_pipeline().init_params,
+                                      jax.random.PRNGKey(0)), seed)
+
+
+@functools.lru_cache(maxsize=1)
+def ar_tiny_pipelines(seed: int = 0):
+    """(jax ARPipeline, jax params, port ARPipeline) at `ar_tiny_configs`,
+    fp32, CPU, with the same weights."""
+    from bevgen_torch.pipelines.ar_generate import ARPipeline
+    tree = ar_tiny_tree(seed)
+    tp = load_jax_params(ARPipeline.create(ar_tiny_configs()[1], device="cpu",
+                                           dtype=torch.float32), tree)
+    return _jax_ar_pipeline(), jax.tree_util.tree_map(jnp.asarray, tree), tp
