@@ -51,8 +51,10 @@ using namespace mma_common;
 
 constexpr float MASKED = -1e9f * LOG2E;  // the reference's -1e9, in log2 units
 constexpr float LN2 = 0.6931471805599453f;
+// head dim: 1024 / 16 heads in every AR configuration (nuscenes_ar,
+// nuscenes_ar_tpu); the wrapper raises for any other
+constexpr int HEAD_DIM = 64;
 
-template <int D>
 __global__ void __launch_bounds__(NUM_THREADS)
 block_sparse_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -65,7 +67,7 @@ block_sparse_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                         float* __restrict__ lse,
                         int H, int L, int nb, int block, int nt, int nc,
                         int pad_start, float scale) {
-  static_assert(D == 32 || D == 64, "head dim: 32 or 64 (static smem < 48 KB)");
+  constexpr int D = HEAD_DIM;
   constexpr int LD = D + 8;      // smem row stride in bf16 (16-byte multiple)
   constexpr int KSTEPS = D / 16; // mma k-steps over the head dim
   constexpr int NT_O = D / 8;    // output n-tiles per warp
@@ -204,13 +206,12 @@ block_sparse_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
 void launch(const void* q, const void* k, const void* v, const void* bias,
             const void* layout, const void* counts, const void* indices,
             void* out, void* lse, int B, int H, int L, int nb, int block,
             int nt, int nc, int pad_start, float scale, cudaStream_t stream) {
   const dim3 grid(nt, H, B);
-  block_sparse_fwd_kernel<D><<<grid, NUM_THREADS, 0, stream>>>(
+  block_sparse_fwd_kernel<<<grid, NUM_THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
       static_cast<const uint8_t*>(layout), static_cast<const int*>(counts),
@@ -236,18 +237,8 @@ extern "C" int block_sparse_fwd_bf16(const void* q, const void* k,
       nb <= 0 || static_cast<long long>(nb) * block < L ||
       nt != (L + BLOCK_ROWS - 1) / BLOCK_ROWS)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      launch<32>(q, k, v, bias, layout, counts, indices, out, lse, B, H, L, nb,
-                 block, nt, nc, pad_start, scale, s);
-      break;
-    case 64:
-      launch<64>(q, k, v, bias, layout, counts, indices, out, lse, B, H, L, nb,
-                 block, nt, nc, pad_start, scale, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (D != HEAD_DIM) return static_cast<int>(cudaErrorInvalidValue);
+  launch(q, k, v, bias, layout, counts, indices, out, lse, B, H, L, nb, block,
+         nt, nc, pad_start, scale, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -44,6 +44,9 @@ namespace {
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int UNROLL = 4;  // cache rows whose loads a thread issues together
+// head dim: 1024 / 16 heads in every AR configuration (nuscenes_ar,
+// nuscenes_ar_tpu); the wrapper raises for any other
+constexpr int HEAD_DIM = 64;
 
 __device__ __forceinline__ void bf16x8(const uint4& u, float f[8]) {
   const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
@@ -69,7 +72,6 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
   return x;
 }
 
-template <int D>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -77,6 +79,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                         const float* __restrict__ addend,
                         __nv_bfloat16* __restrict__ out, int H, int pl,
                         long long row_stride, float scale) {
+  constexpr int D = HEAD_DIM;
   constexpr int G = D / 8;             // threads per cache row (16 B each)
   constexpr int RPP = THREADS / G;     // cache rows per pass of the block
   static_assert(32 % G == 0, "a row's threads share a warp");
@@ -167,19 +170,19 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
 int launch(const void* q, const void* k, const void* v, const void* addend,
            void* out, int rows, int H, int pl, long long row_stride,
            float scale, cudaStream_t stream) {
+  constexpr int D = HEAD_DIM;
   constexpr size_t STATIC_SMEM = (WARPS + (THREADS / (D / 8)) * D) * sizeof(float);
   const size_t dyn = static_cast<size_t>(pl) * sizeof(float);
   if (STATIC_SMEM + dyn > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        decode_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(dyn));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  decode_attention_kernel<D><<<rows, THREADS, dyn, stream>>>(
+  decode_attention_kernel<<<rows, THREADS, dyn, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(addend),
       static_cast<__nv_bfloat16*>(out), H, pl, row_stride, scale);
@@ -201,13 +204,7 @@ extern "C" int decode_attention_bf16(const void* q, const void* k,
   if (b <= 0 || H <= 0 || pl <= 0 || row_stride < static_cast<long long>(pl) * D ||
       static_cast<long long>(b) * H > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      return launch<32>(q, k, v, addend, out, b * H, H, pl, row_stride, scale, s);
-    case 64:
-      return launch<64>(q, k, v, addend, out, b * H, H, pl, row_stride, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (D != HEAD_DIM) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, k, v, addend, out, b * H, H, pl, row_stride, scale,
+                static_cast<cudaStream_t>(stream));
 }

@@ -131,7 +131,7 @@ def block_sparse_attention_cuda(q, k, v, layout, counts, indices, block: int,
                                 scale: Optional[float] = None,
                                 return_lse: bool = False):
     """Launch the CUDA kernel. q, k, v: contiguous bf16 (B,H,L,D) on one
-    CUDA device, D in {32, 64}; layout: uint8 (H,nb,nb); counts, indices:
+    CUDA device, D = 64; layout: uint8 (H,nb,nb); counts, indices:
     int32, `plan_tiles` at tile 64; bias: fp32 (L,L) or None. Returns out,
     or (out, lse) with lse the (B,H,L) fp32 natural-log logsumexp. Raises on
     anything the kernel does not take and on a failed launch."""
@@ -139,8 +139,8 @@ def block_sparse_attention_cuda(q, k, v, layout, counts, indices, block: int,
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"block_sparse_attention_cuda takes CUDA tensors, got {dev}")
-    if D not in (32, 64):
-        raise ValueError(f"head dim {D} not supported by the kernel (32, 64)")
+    if D != 64:
+        raise ValueError(f"head dim {D} not supported by the kernel (64)")
     nb = layout.shape[1]
     nt = -(-L // TILE)
     check = _build.check

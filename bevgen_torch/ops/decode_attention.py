@@ -51,7 +51,7 @@ def _fn():
 
 
 def decode_attention_cuda(q, k, v, addend, sm_scale: float):
-    """Launch the CUDA kernel. q: contiguous bf16 (b,H,dh), dh in {32, 64};
+    """Launch the CUDA kernel. q: contiguous bf16 (b,H,dh), dh = 64;
     k, v: bf16 (b,H,pl,dh) whose last two dims are contiguous and whose
     (b, h) rows are evenly strided (a prefix view of a cache is fine);
     addend: contiguous fp32 (H,pl). Returns (b,H,dh) bf16. Raises on
@@ -62,8 +62,8 @@ def decode_attention_cuda(q, k, v, addend, sm_scale: float):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention_cuda takes CUDA tensors, got {dev}")
-    if dh not in (32, 64):
-        raise ValueError(f"head dim {dh} not supported by the kernel (32, 64)")
+    if dh != 64:
+        raise ValueError(f"head dim {dh} not supported by the kernel (64)")
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 \
             or v.dtype != torch.bfloat16 or addend.dtype != torch.float32:
         raise TypeError("decode_attention_cuda takes bf16 q, k, v and fp32 addend")

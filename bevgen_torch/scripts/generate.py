@@ -10,8 +10,8 @@ pipeline with seeded random weights and writes one `batch_XXXX.npz` per
 batch into `out` with the decode `ids` (b, cam, h, w) and the `images`
 (b, cam, H, W, 3). `pipeline=muse` (default; preset argoverse_muse_7cam)
 runs `BEVGenPipeline.generate_fn`; `pipeline=ar` (default preset
-nuscenes_ar) runs `ARPipeline.generate_fn`, KV-cached unless
-`cached=false`, with `top_k` (default 100) and `temperature` (default 1).
+nuscenes_ar) runs `ARPipeline.generate_fn` (top_k 100, temperature 1),
+KV-cached unless `cached=false`.
 Other `key=value` arguments override the preset by dotted path
 (`transformer.num_layers=2`, `muse.sample_iterations=8`). Loading a dataset
 and a checkpoint comes in a later version.
@@ -36,6 +36,20 @@ def parse_argv(argv: List[str]) -> Dict[str, str]:
     return args
 
 
+def pop_pipeline(args: Dict[str, str]):
+    """Pop `pipeline` (muse|ar) and `preset` (by default the pipeline's own)
+    from `args`; returns (is_ar, preset). Exits on an unknown value."""
+    from bevgen_torch.core.config import PRESETS
+    pipeline = args.pop("pipeline", "muse")
+    if pipeline not in ("muse", "ar"):
+        raise SystemExit(f"unknown pipeline={pipeline!r} (muse|ar)")
+    ar = pipeline == "ar"
+    preset = args.pop("preset", "nuscenes_ar" if ar else "argoverse_muse_7cam")
+    if preset not in PRESETS:
+        raise SystemExit(f"unknown preset {preset!r}; one of {sorted(PRESETS)}")
+    return ar, preset
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     import torch
     from bevgen_torch.core.config import PRESETS, apply_overrides
@@ -44,13 +58,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from bevgen_torch.pipelines.generate import BEVGenPipeline
 
     args = parse_argv(sys.argv[1:] if argv is None else argv)
-    pipeline = args.pop("pipeline", "muse")
-    if pipeline not in ("muse", "ar"):
-        raise SystemExit(f"unknown pipeline={pipeline!r} (muse|ar)")
-    ar = pipeline == "ar"
-    preset = args.pop("preset", "nuscenes_ar" if ar else "argoverse_muse_7cam")
-    if preset not in PRESETS:
-        raise SystemExit(f"unknown preset {preset!r}; one of {sorted(PRESETS)}")
+    ar, preset = pop_pipeline(args)
     batch_size = int(args.pop("batch_size", 1))
     fake = int(args.pop("fake", 1))
     if fake < 1:
@@ -58,11 +66,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     seed = int(args.pop("seed", 0))
     device = args.pop("device", "cuda")
     out_dir = args.pop("out", os.path.join("output", "torch_generate"))
-    sample_kw = {}
-    if ar:
-        sample_kw = {"cached": args.pop("cached", "true").lower() == "true",
-                     "top_k": int(args.pop("top_k", 100)),
-                     "temperature": float(args.pop("temperature", 1.0))}
+    sample_kw = ({"cached": args.pop("cached", "true").lower() == "true"}
+                 if ar else {})
     cfg = apply_overrides(PRESETS[preset](), args)
 
     pipe = (ARPipeline if ar else BEVGenPipeline).create(

@@ -103,11 +103,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     from bevgen_torch.data.fake import fake_batch
     from bevgen_torch.pipelines.ar_generate import ARPipeline
     from bevgen_torch.pipelines.generate import BEVGenPipeline
-    from bevgen_torch.scripts.generate import parse_argv
+    from bevgen_torch.scripts.generate import parse_argv, pop_pipeline
 
     args = parse_argv(sys.argv[1:] if argv is None else argv)
-    ar = args.pop("pipeline", "muse") == "ar"
-    preset = args.pop("preset", "nuscenes_ar" if ar else "argoverse_muse_7cam")
+    ar, preset = pop_pipeline(args)
     batch_size = int(args.pop("batch_size", 2))
     seed = int(args.pop("seed", 0))
     out = args.pop("out", "profile_generate.json")

@@ -624,9 +624,15 @@ def model_grads_phase(model, cfg):
 # and its output to bf16, as the forward kernels above do, so the same
 # bounds hold; its logsumexp is fp32 throughout (online in log2 units), so
 # 5e-3 leaves a wide margin. The decode kernel rounds the weights and the
-# output to bf16: one bf16 step of |out|.
+# output to bf16, as its plain version does, so they part by about one bf16
+# step (2^-8 relative) where a rounding falls the other way: its error is
+# held to 2% of the largest |out| (and at most 2e-2) and its mean error to
+# 1% of the mean |out|, since with unit-normal inputs a long prefix gives
+# outputs of a few hundredths.
 LSE_TOL = 5e-3
 DECODE_TOL = 2e-2
+DECODE_REL_TOL = 2e-2
+DECODE_MEAN_REL_TOL = 1e-2
 # Full-width AR logits at b=1: the kernels against the plain versions and
 # the cached decode against the full forward, bf16 through 24 layers.
 AR_COS_MIN = 0.99
@@ -654,23 +660,10 @@ def ar_layout(preset):
     return cfg, masks.sparse_masks(cfg).layouts
 
 
-def active_blocks(cfg, layouts):
-    """Blocks of each head's layout that hold a pair the index rule keeps."""
-    import numpy as np
-    from bevgen_torch.ops.block_sparse import allowed_mask
-    L, blk = cfg.gpt_block_size, cfg.sparse_block_size
-    nb = layouts.shape[1]
-    allowed = np.zeros((nb * blk, nb * blk), bool)
-    allowed[:L, :L] = allowed_mask(L, cfg.num_cond_tokens,
-                                   cfg.num_pad_tokens).numpy()
-    ok = allowed.reshape(nb, blk, nb, blk).any(axis=(1, 3))
-    return int(((layouts > 0) & ok[None]).sum())
-
-
 def check_block_sparse(name, preset, B, with_bias, seed):
     """Row 9 against block_sparse_attention_reference, with times and the
-    bound: 4 * D * block^2 FLOP per active block per (b, h); q, k, v, out
-    (and the bias, the lse) moved once."""
+    bound: 4 * D FLOP per (row, column) pair that the layout and the index
+    rule keep, per (b, h); q, k, v, out (and the bias, the lse) moved once."""
     import torch
     import torch.nn.functional as F
     from bevgen_torch.ops import block_sparse as bs
@@ -701,6 +694,7 @@ def check_block_sparse(name, preset, B, with_bias, seed):
         scale = 1.0 / math.sqrt(D)
         keep = (bs.expand_layout_mask(torch.from_numpy(layouts).cuda(), blk, L)
                 & bs.allowed_mask(L, nc, npad, "cuda")[None])
+        kept = int(keep.sum())
         add = torch.zeros(L, L, device="cuda") if bias is None else bias * scale
         mask = torch.where(keep, add[None], torch.full((), bs.NEG_INF,
                                                        device="cuda"))
@@ -709,15 +703,14 @@ def check_block_sparse(name, preset, B, with_bias, seed):
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=scale), iters=5)
         del mask
-    n_active = active_blocks(cfg, layouts)
-    flops = 4.0 * D * blk * blk * n_active * B
+    flops = 4.0 * D * kept * B
     nbytes = (4 * B * H * L * D * 2 + (L * L * 4 if with_bias else 0)
               + (B * H * L * 4 if with_bias else 0) + layouts.size)
     bms, bound_by = bound(flops, nbytes)
     ok = (finite and max_err <= MAX_ABS_TOL and mean_err <= MEAN_ABS_TOL
           and lse_err <= LSE_TOL)
     print(f"[kernel] block_sparse {name}: {preset} B={B} H={H} L={L} D={D} "
-          f"block={blk} active blocks {n_active} of {H * layouts.shape[1] ** 2} "
+          f"block={blk} kept pairs {kept} of {H * L * L} "
           f"bias={with_bias} max_abs_err={max_err:.3e} mean_abs_err="
           f"{mean_err:.3e} lse_err={lse_err:.3e} ms={ms:.4f} plain_ms="
           f"{plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bms:.4f} "
@@ -757,7 +750,9 @@ def check_decode(b, H, pl, cap, seed, dh=64):
     out = da.decode_attention(q, k, v, addend, scale)
     torch.cuda.synchronize()
     ref = da.decode_attention_reference(q, k, v, addend, scale)
-    max_err = (out.float() - ref.float()).abs().max().item()
+    err = (out.float() - ref.float()).abs()
+    max_err, mean_err = err.max().item(), err.mean().item()
+    max_ref, mean_ref = ref.abs().max().item(), ref.abs().mean().item()
     finite = bool(torch.isfinite(out).all())
     cycle = itertools.cycle(kvs)
     ms = time_ms(lambda: da.decode_attention(q, *next(cycle), addend, scale),
@@ -770,15 +765,19 @@ def check_decode(b, H, pl, cap, seed, dh=64):
     nbytes = 2 * b * H * pl * dh * 2 + 2 * b * H * dh * 2 + H * pl * 4
     flops = 4.0 * b * H * pl * dh
     bms, bound_by = bound(flops, nbytes)
-    ok = finite and max_err <= DECODE_TOL
+    ok = (finite and max_err <= min(DECODE_TOL, DECODE_REL_TOL * max_ref)
+          and mean_err <= DECODE_MEAN_REL_TOL * mean_ref)
     print(f"[kernel] decode_attention b={b} H={H} pl={pl} (cache {cap}) "
-          f"dh={dh}: max_abs_err={max_err:.3e} ms={ms:.5f} plain_ms="
+          f"dh={dh}: max_abs_err={max_err:.3e} (max |out| {max_ref:.3e}) "
+          f"mean_abs_err={mean_err:.3e} (mean |out| {mean_ref:.3e}) "
+          f"ms={ms:.5f} plain_ms="
           f"{plain_ms:.5f} library_ms={lib_ms:.5f} bound_ms={bms:.5f} "
           f"({bound_by}: {nbytes / 1e6:.3f} MB) -> {'ok' if ok else 'FAIL'}",
           flush=True)
     if not ok:
         raise SystemExit(f"decode kernel disagrees with its plain version at "
-                         f"b={b} H={H} pl={pl} (max {max_err:.3e})")
+                         f"b={b} H={H} pl={pl} (max {max_err:.3e} of "
+                         f"{max_ref:.3e}, mean {mean_err:.3e} of {mean_ref:.3e})")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
 

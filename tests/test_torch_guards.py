@@ -331,7 +331,7 @@ def test_cuda_block_sparse_kernel_matches_plain_version():
     from bevgen_torch.ops import block_sparse as bs
     g = torch.Generator(device="cuda").manual_seed(3)
     for B, H, L, D, block, nc, num_pad, with_bias in [
-            (2, 3, 200, 64, 8, 24, 8, True), (1, 2, 190, 32, 16, 20, 6, False),
+            (2, 3, 200, 64, 8, 24, 8, True), (1, 2, 190, 64, 16, 20, 6, False),
             (2, 4, 256, 64, 128, 64, 0, True)]:
         layout, q, k, v = _sparse_cuda_case(g, B, H, L, D, block, nc, num_pad)
         bias = (torch.randn(L, L, generator=g, device="cuda")
@@ -369,7 +369,7 @@ def test_cuda_decode_kernel_matches_plain_version():
     from bevgen_torch.ops import decode_attention as da
     g = torch.Generator(device="cuda").manual_seed(5)
     for b, H, pl, cap, dh in [(1, 3, 70, 96, 64), (2, 16, 512, 2368, 64),
-                              (3, 5, 33, 33, 32)]:
+                              (3, 5, 33, 33, 64)]:
         q = torch.randn(b, H, dh, generator=g, device="cuda").bfloat16()
         kc, vc = (torch.randn(b, H, cap, dh, generator=g, device="cuda").bfloat16()
                   for _ in range(2))
@@ -380,5 +380,8 @@ def test_cuda_decode_kernel_matches_plain_version():
         assert da.decode_attention_cuda.launches == before + 1
         want = da.decode_attention_reference(q, kc[:, :, :pl], vc[:, :, :pl],
                                              addend, 0.125)
-        # bf16 output: one rounding step of |out|
-        assert (got.float() - want.float()).abs().max().item() <= 2e-2
+        # both round the weights and the output to bf16 and part by about
+        # one bf16 step (2^-8 relative) where a rounding falls the other way
+        err = (got.float() - want.float()).abs()
+        assert err.max().item() <= 2e-2 * want.float().abs().max().item()
+        assert err.mean().item() <= 1e-2 * want.float().abs().mean().item()
