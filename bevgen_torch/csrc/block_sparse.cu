@@ -36,13 +36,15 @@
 // with an online softmax in fp32 (log2 units). Inside a visited tile the
 // mask comes from the row and column indices and the layout bytes of this
 // head (read through the read-only cache), so no (L, L) mask is read from
-// memory. What this first version leaves on the table: synchronous loads
-// (no cp.async/TMA pipeline), mma.sync instead of wgmma, and a per-element
+// memory (the rule is `block_sparse_mask.cuh`, shared with the backward).
+// What this first version leaves on the table: synchronous loads (no
+// cp.async/TMA pipeline), mma.sync instead of wgmma, and a per-element
 // layout lookup.
 //
 // C interface: block_sparse_fwd_bf16(...) returns cudaGetLastError() after
 // the launch; the Python wrapper raises if it is not 0.
 
+#include "block_sparse_mask.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -96,10 +98,9 @@ block_sparse_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   load_a<D>(qa, q_s, wr, g, t);
 
   const int row0 = q0 + wr + g, row1 = row0 + 8;
-  // rows past L (the ragged last tile) are computed and never stored;
-  // their layout row is clamped so every read stays in bounds
-  const uint8_t* lay0 = layout + (static_cast<size_t>(h) * nb + min(row0 / block, nb - 1)) * nb;
-  const uint8_t* lay1 = layout + (static_cast<size_t>(h) * nb + min(row1 / block, nb - 1)) * nb;
+  // rows past L (the ragged last tile) are computed and never stored
+  const uint8_t* lay0 = block_sparse::layout_row(layout, h, nb, row0, block);
+  const uint8_t* lay1 = block_sparse::layout_row(layout, h, nb, row1, block);
   const bool pad0 = row0 >= pad_start, pad1 = row1 >= pad_start;
   const float sc = scale * LOG2E;
 
@@ -131,9 +132,9 @@ block_sparse_fwd_kernel(const __nv_bfloat16* __restrict__ q,
         if (col < L) {
           const int cb = col / block;
           const bool k0 = __ldg(lay0 + cb) != 0 &&
-                          (pad0 ? col == 0 : (col < nc || col <= row0));
+                          BLOCK_SPARSE_ALLOWED(pad0, row0, col, nc);
           const bool k1 = __ldg(lay1 + cb) != 0 &&
-                          (pad1 ? col == 0 : (col < nc || col <= row1));
+                          BLOCK_SPARSE_ALLOWED(pad1, row1, col, nc);
           float b0 = 0.f, b1 = 0.f;
           if (bias != nullptr) {
             if (row0 < L) b0 = __ldg(bias + static_cast<size_t>(row0) * L + col);

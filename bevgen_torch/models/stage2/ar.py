@@ -1,14 +1,15 @@
-"""Autoregressive sampling for the sparse GPT, one full forward per token.
+"""Autoregressive sampling and the training objective of the sparse GPT.
 
-Port of `bevgen_tpu/models/stage2/ar.py` (`top_k_logits`, `ar_sample`): the
+Port of `bevgen_tpu/models/stage2/ar.py`: `top_k_logits`, `ar_sample` (the
 reference-parity sampler, which decodes the camera tokens one at a time in
-the outward decode order and runs the whole L-position forward for each
-(the reference's cond_transformer_multi_view `sample`). The KV-cached
-decoder in `ar_cached.py` gives the same tokens with one position per step.
-Sampling draws from an explicit `torch.Generator`; its numbers differ from
-JAX's keys, so the tests compare greedy (top_k=1) trajectories.
-
-The training objective (`ar_loss`, `bbox_token_weights`) is not ported yet.
+the outward decode order and runs the whole L-position forward for each,
+the reference's cond_transformer_multi_view `sample`), `ar_loss` (the
+teacher-forced cross-entropy) and `bbox_token_weights` (its optional
+per-token weights). The KV-cached decoder in `ar_cached.py` gives the same
+tokens as `ar_sample` with one position per step. Sampling and dropout
+draw from an explicit `torch.Generator`; its numbers differ from JAX's
+keys, so the tests compare greedy (top_k=1) trajectories and
+deterministic losses.
 """
 from __future__ import annotations
 
@@ -16,7 +17,53 @@ from typing import Optional
 
 import torch
 
+from bevgen_torch.core.config import MultiViewConfig
 from bevgen_torch.models.stage2.gpt import SparseGPT
+
+
+def bbox_token_weights(cfg: MultiViewConfig, bboxes, weight: float) -> torch.Tensor:
+    """Per-token CE weights from 2-D boxes (the reference's
+    cond_transformer:281-347): latent cells whose centre lies in any box get
+    `1 + weight`, the others 1.
+
+    bboxes: (b, cam, k, 4) pixel boxes (left, top, right, bottom) in cam_res
+    coordinates. Returns (b, cam * hw) float32."""
+    H, W = cfg.cam_res
+    h, w = cfg.cam_latent_res
+    bb = torch.as_tensor(bboxes, dtype=torch.float32)
+    dev = bb.device
+    cy = ((torch.arange(h, dtype=torch.float32, device=dev) + 0.5)
+          * (H / h)).reshape(1, 1, h, 1, 1)                     # cell centres
+    cx = ((torch.arange(w, dtype=torch.float32, device=dev) + 0.5)
+          * (W / w)).reshape(1, 1, 1, w, 1)
+    left, top, right, bottom = (bb[..., i][:, :, None, None, :] for i in range(4))
+    inside = (cx >= left) & (cx <= right) & (cy >= top) & (cy <= bottom)
+    hit = inside.any(dim=-1)                                    # (b,cam,h,w)
+    return (1.0 + weight * hit.float()).reshape(bb.shape[0], -1)
+
+
+def ar_loss(model: SparseGPT, tokens, bev_indices, intrinsics_inv,
+            extrinsics_inv, weights: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None,
+            deterministic: bool = False) -> torch.Tensor:
+    """Teacher-forced CE over all image tokens (the reference's
+    cond_transformer:277-347): the fp32 log-softmax of the raw-order logits
+    of one `sampling=False` forward, at the ground-truth tokens.
+
+    tokens: (b, cam, hw). weights: optional (b, cam * hw) per-token
+    multipliers (`bbox_token_weights`); the weighted loss is
+    sum(nll * w) / tokens.numel(). generator: the dropout masks' source
+    when not deterministic (JAX's `rng`)."""
+    b = tokens.shape[0]
+    logits = model(tokens, bev_indices, intrinsics_inv, extrinsics_inv,
+                   sampling=False, deterministic=deterministic,
+                   generator=generator)
+    targets = tokens.reshape(b, -1).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    if weights is not None:
+        return (nll * weights).sum() / targets.numel()
+    return nll.mean()
 
 
 def top_k_logits(logits: torch.Tensor, k: int) -> torch.Tensor:

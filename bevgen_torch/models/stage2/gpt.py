@@ -18,7 +18,9 @@ The reference's quirks, kept for checkpoint fidelity:
   * the camera bias is the full (L, L) parameter times the static tril plus
     `camera_bias_matrix`, added to the RAW attention scores;
   * logits shift by `[nc-1:-1]` (position p predicts token p+1), then are
-    un-permuted to raw (cam, h, w) order.
+    un-permuted to raw (cam, h, w) order;
+  * dropout (`embd_pdrop` on the padded sequence, `resid_pdrop` on each MLP
+    output) only when the forward is not deterministic.
 
 Linear and embedding weights and the positional tables are stored in
 `param_dtype` and cast to the compute `dtype` at use (the reference keeps
@@ -31,6 +33,9 @@ the other.
 """
 from __future__ import annotations
 
+import functools
+from typing import Callable, Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -39,6 +44,16 @@ from bevgen_torch.core.config import MultiViewConfig
 from bevgen_torch.models import geometry, masks
 from bevgen_torch.models.stage2.transformer import Dense, Embed
 from bevgen_torch.ops.block_sparse import SparseAttention
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax `nn.Dropout`: keep each entry with probability 1 - rate and scale
+    the kept ones by 1 / (1 - rate); the mask is drawn from `generator`."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 class TorchLayerNorm(nn.Module):
@@ -71,7 +86,8 @@ class SparseGPTBlock(nn.Module):
         h = F.gelu(self.mlp_fc(self.ln2(x, self.dtype)), approximate="none")
         return self.mlp_proj(h)
 
-    def forward(self, x: torch.Tensor, bias, attn_fn) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias, attn_fn,
+                resid_drop: Optional[Callable] = None) -> torch.Tensor:
         cfg = self.cfg
         h = cfg.num_heads
         dh = cfg.hidden_size // h
@@ -83,7 +99,10 @@ class SparseGPTBlock(nn.Module):
         attn = attn.transpose(1, 2).reshape(b, L, cfg.hidden_size)
         # reference quirk: the residual adds onto the normalised input
         x = xn + attn.to(self.dtype)
-        return x + self.mlp(x)
+        mh = self.mlp(x)
+        if resid_drop is not None:
+            mh = resid_drop(mh)
+        return x + mh
 
 
 class SparseGPT(nn.Module):
@@ -172,10 +191,26 @@ class SparseGPT(nn.Module):
         return cond + self.cond_pos_emb.to(dt)
 
     def forward(self, cam_indices, bev_indices, intrinsics_inv,
-                extrinsics_inv, sampling: bool = False) -> torch.Tensor:
+                extrinsics_inv, sampling: bool = False,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """cam_indices (b, cam, hw), bev_indices (b, nc) -> logits
-        (b, num_img_tokens, vocab) in raw (cam, h, w) order."""
+        (b, num_img_tokens, vocab) in raw (cam, h, w) order.
+        deterministic=False applies `embd_pdrop` to the padded sequence and
+        `resid_pdrop` to every MLP output, with masks drawn from
+        `generator` (which it then needs, where a rate is above 0)."""
         cfg, dt = self.cfg, self.dtype
+        embd_drop = resid_drop = None
+        if not deterministic and max(cfg.embd_pdrop, cfg.resid_pdrop) > 0:
+            if generator is None:
+                raise ValueError("dropout (deterministic=False) draws its "
+                                 "masks from a torch.Generator: pass one")
+            if cfg.embd_pdrop > 0:
+                embd_drop = functools.partial(dropout, rate=cfg.embd_pdrop,
+                                              generator=generator)
+            if cfg.resid_pdrop > 0:
+                resid_drop = functools.partial(dropout, rate=cfg.resid_pdrop,
+                                               generator=generator)
         b, cam, hw = cam_indices.shape
         d, nc, L = cfg.num_embed, cfg.num_cond_tokens, cfg.gpt_block_size
         if not sampling:
@@ -194,8 +229,10 @@ class SparseGPT(nn.Module):
                                  dtype=torch.long, device=seq.device)
             seq = torch.cat([seq, self.x_tok_emb(pad_ids)], dim=1)
         bias = self.camera_bias()
+        if embd_drop is not None:
+            seq = embd_drop(seq)
         for blk in self.blocks():
-            seq = blk(seq, bias, self.attn)
+            seq = blk(seq, bias, self.attn, resid_drop)
         logits = self.head(self.ln_f(seq, dt))
         logits = logits[:, :L - pad_len]
         # logits at position p predict token p+1

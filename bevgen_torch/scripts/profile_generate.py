@@ -29,7 +29,9 @@ def category(name: str) -> str:
     if "attention_fwd_kernel" in n:
         return "attention forward kernel"
     if "block_sparse_fwd_kernel" in n:
-        return "block-sparse attention kernel"
+        return "block-sparse attention forward kernel"
+    if "block_sparse_bwd" in n:
+        return "block-sparse attention backward kernels"
     if "decode_attention_kernel" in n:
         return "decode attention kernel"
     if "attn_bwd" in n:

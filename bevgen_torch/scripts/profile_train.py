@@ -2,15 +2,21 @@
 
     python -m bevgen_torch.scripts.profile_train preset=argoverse_muse_7cam \\
         batch_size=8 seed=0 out=profile_train.json
+    python -m bevgen_torch.scripts.profile_train pipeline=ar \\
+        batch_size=4 out=profile_train_ar.json
 
-Builds MaskGit (fp32 parameters, bf16 compute) with seeded random weights,
-runs two warm-up steps of `training.trainer.make_train_step` (the CLI's
-step) on fake token batches, then traces one more with `torch.profiler`
-(CPU and CUDA activities). Prints the step's wall time, the device's busy
-time and idle share, the device time by category (attention forward and
-backward kernels, matrix products, optimizer, the rest), the top kernels
-and the peak device memory of the traced step; writes the same as JSON to
-`out`. Needs a CUDA device.
+`pipeline=muse` (default; preset argoverse_muse_7cam, batch 8) builds
+MaskGit and runs `training.trainer.make_train_step` (the CLI's step);
+`pipeline=ar` (default preset nuscenes_ar, batch 4) builds the SparseGPT
+and runs `make_ar_train_step` (the counterpart of the JAX
+`scripts/inference.py mode=ar_train`). Both keep fp32 parameters and compute
+in bf16, with seeded random weights and fake token batches: two warm-up
+steps, then one more traced with `torch.profiler` (CPU and CUDA
+activities). Prints the step's wall time, the device's busy time and idle
+share, the device time by category (the attention forward and backward
+kernels, the block-sparse ones apart, matrix products, optimizer, the
+rest), the top kernels and the peak device memory of the traced step;
+writes the same as JSON to `out`. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -27,29 +33,40 @@ def main(argv: Optional[List[str]] = None) -> int:
     from bevgen_torch.core.config import PRESETS, apply_overrides
     from bevgen_torch.core.device import resolve_device, resolve_dtype
     from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.stage2.gpt import SparseGPT
     from bevgen_torch.models.stage2.maskgit import MaskGit
-    from bevgen_torch.scripts.generate import parse_argv
+    from bevgen_torch.scripts.generate import parse_argv, pop_pipeline
     from bevgen_torch.scripts.profile_generate import (device_summary,
                                                        print_summary)
     from bevgen_torch.scripts.train_stage2 import fake_batches
     from bevgen_torch.training import optim, trainer
 
     args = parse_argv(sys.argv[1:] if argv is None else argv)
-    preset = args.pop("preset", "argoverse_muse_7cam")
-    batch_size = int(args.pop("batch_size", 8))
+    ar, preset = pop_pipeline(args)
+    batch_size = int(args.pop("batch_size", 4 if ar else 8))
     seed = int(args.pop("seed", 0))
     out = args.pop("out", "profile_train.json")
     top = int(args.pop("top", 20))
     cfg = apply_overrides(PRESETS[preset](), args)
     tf = cfg.transformer
     dev = resolve_device("cuda")
+    dtype = resolve_dtype(cfg.dtype)
 
-    model = MaskGit(tf, cfg.muse, dtype=resolve_dtype(cfg.dtype),
-                    param_dtype=torch.float32)
+    if ar:
+        model = SparseGPT(tf, dtype=dtype, param_dtype=torch.float32)
+    else:
+        model = MaskGit(tf, cfg.muse, dtype=dtype, param_dtype=torch.float32)
     init_weights(model, seed).to(dev)
-    state = trainer.create_train_state(
-        model, optim.maskgit_optimizer(model, 1e-4, warmup_steps=1))
-    step = trainer.make_train_step()
+    opt = optim.maskgit_optimizer(model, 1e-4, warmup_steps=1)
+    if ar:
+        state = trainer.create_ar_train_state(model, opt)
+        ar_step = trainer.make_ar_train_step()
+
+        def step(state, batch, gen):  # the AR loss draws nothing
+            return ar_step(state, batch)
+    else:
+        state = trainer.create_train_state(model, opt)
+        step = trainer.make_train_step()
     batches = fake_batches(tf, batch_size, seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -69,7 +86,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         wall_s = time.perf_counter() - t0
 
     result = {"device": torch.cuda.get_device_name(0), "preset": preset,
-              "batch_size": batch_size,
+              "pipeline": "ar" if ar else "muse", "batch_size": batch_size,
               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
               "metrics": {k: float(v) for k, v in metrics.items()},
               **device_summary(prof, wall_s, top)}

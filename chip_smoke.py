@@ -60,7 +60,28 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      reference-parity sampler (`cached=False`, 2100 full forwards through
      the block-sparse kernel, exactly 4200 launches) against the KV-cached
      one, step by step on the full sampler's trajectory, and one full
-     forward over that trajectory, which must replay the sampler's choices.
+     forward over that trajectory, which must replay the sampler's choices;
+ 16. the block-sparse backward (two kernels, three with a bias) against
+     `block_sparse_attention_bwd_reference` (fp32 on the same bf16 inputs,
+     with the forward kernel's out and lse) at `nuscenes_ar` b=4 (the
+     training shape), at the `nuscenes_ar_tpu` layout, with a random (L, L)
+     bias (b=2) and at L=200 with condition columns and pad rows; times of
+     the kernels, the plain version and autograd through PyTorch's SDPA, and
+     the bound from the kept pairs; and the forward kernel with the lse at
+     b=4;
+ 17. `BlockSparseAttentionFn` at the `nuscenes_ar` shape, b=1, without and
+     with a bias, against autograd through the plain forward: cosine of
+     each gradient;
+ 18. AR training end to end: `nuscenes_ar` at full width and depth, fp32
+     parameters and bf16 compute, b=4, seeded random weights, fake token
+     batches, through `training.trainer.make_ar_train_step`: one warm-up
+     step, five timed; exactly 24 forward and 48 backward block-sparse
+     launches and 0 decode launches per step, finite metrics;
+ 19. one AR loss backward at b=1, full width cut to 8 layers, through the
+     kernels and through the plain versions: cosine of the gradient of
+     each parameter group;
+ 20. from the seeded init, the AR CE falls over 8 steps on one repeated
+     batch.
 
 Prints the kernels' JSON line, then the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`. Without a CUDA device,
@@ -660,10 +681,11 @@ def ar_layout(preset):
     return cfg, masks.sparse_masks(cfg).layouts
 
 
-def check_block_sparse(name, preset, B, with_bias, seed):
+def check_block_sparse(name, preset, B, with_bias, seed, time_lse=None):
     """Row 9 against block_sparse_attention_reference, with times and the
     bound: 4 * D FLOP per (row, column) pair that the layout and the index
-    rule keep, per (b, h); q, k, v, out (and the bias, the lse) moved once."""
+    rule keep, per (b, h); q, k, v, out (and the bias, the lse) moved once.
+    The timed calls write the lse when `time_lse` (default: with a bias)."""
     import torch
     import torch.nn.functional as F
     from bevgen_torch.ops import block_sparse as bs
@@ -687,7 +709,8 @@ def check_block_sparse(name, preset, B, with_bias, seed):
         lse_err = (lse - ref_lse).abs().max().item()
         del ref, ref_lse, err
         finite = bool(torch.isfinite(out).all())
-        ms = time_ms(lambda: attn(q, k, v, bias, return_lse=with_bias))
+        time_lse = with_bias if time_lse is None else time_lse
+        ms = time_ms(lambda: attn(q, k, v, bias, return_lse=time_lse))
         plain_ms = time_ms(lambda: bs.block_sparse_attention_reference(
             q, k, v, torch.from_numpy(layouts), blk, nc, npad, bias),
             iters=3, warmup=1)
@@ -705,13 +728,13 @@ def check_block_sparse(name, preset, B, with_bias, seed):
         del mask
     flops = 4.0 * D * kept * B
     nbytes = (4 * B * H * L * D * 2 + (L * L * 4 if with_bias else 0)
-              + (B * H * L * 4 if with_bias else 0) + layouts.size)
+              + (B * H * L * 4 if time_lse else 0) + layouts.size)
     bms, bound_by = bound(flops, nbytes)
     ok = (finite and max_err <= MAX_ABS_TOL and mean_err <= MEAN_ABS_TOL
           and lse_err <= LSE_TOL)
     print(f"[kernel] block_sparse {name}: {preset} B={B} H={H} L={L} D={D} "
           f"block={blk} kept pairs {kept} of {H * L * L} "
-          f"bias={with_bias} max_abs_err={max_err:.3e} mean_abs_err="
+          f"bias={with_bias} lse={time_lse} max_abs_err={max_err:.3e} mean_abs_err="
           f"{mean_err:.3e} lse_err={lse_err:.3e} ms={ms:.4f} plain_ms="
           f"{plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bms:.4f} "
           f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) -> "
@@ -1054,6 +1077,345 @@ def ar_greedy_phase(cfg):
     return step_agree
 
 
+# The AR training path. The block-sparse backward against its plain version
+# (fp32 on the same bf16 inputs, with the forward kernel's out and lse) is
+# held to row 8's bounds, BWD_REL_L2_TOL and BWD_MAX_REL_TOL, for the same
+# reason: P and dS are rounded to bf16 before the products and dq, dk, dv
+# are written in bf16; dbias sums fp32 dS. The Function's gradients and the
+# model's are held to GRAD_COS_MIN and MODEL_GRAD_COS_MIN: bf16 rounding on
+# both sides, in different places, through 2368 keys and (phase 19) 8
+# layers of random weights.
+AR_TRAIN_BATCH = 4
+AR_TRAIN_TIMED = 5
+# phase 19's depth cut, 8 of nuscenes_ar's 24 layers at full width: the
+# plain path keeps (1, 16, 2368, 2368) fp32 scores and weights of every
+# layer for its backward, about 1.5 GB a layer
+AR_GRAD_LAYERS = 8
+
+
+def sparse_bwd_inputs(H, L, B, with_bias, seed, D=64):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(B, H, L, D, generator=g, device="cuda").bfloat16()
+               for _ in range(3))
+    do = (0.1 * torch.randn(B, H, L, D, generator=g, device="cuda")).bfloat16()
+    bias = torch.randn(L, L, generator=g, device="cuda") if with_bias else None
+    return q, k, v, do, bias
+
+
+def sparse_sdpa_bwd_ms(q, k, v, keep, bias, do):
+    """library_ms of the block-sparse backward: torch.autograd.grad of q,
+    k, v through one F.scaled_dot_product_attention call with the expanded
+    additive mask (a constant: no dbias), minus that call's forward. Timed
+    only."""
+    import torch
+    import torch.nn.functional as F
+    from bevgen_torch.ops import block_sparse as bs
+    B, H, L, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    add = torch.zeros(L, L, device="cuda") if bias is None else bias * scale
+    mask = torch.where(keep, add[None], torch.full((), bs.NEG_INF, device="cuda"))
+    mask = mask.to(q.dtype)[None].expand(B, H, L, L)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=scale)
+
+    both = time_ms(lambda: torch.autograd.grad(fwd(), leaves, do), iters=5)
+    with torch.no_grad():
+        only = time_ms(fwd, iters=5)
+    return both - only
+
+
+def check_block_sparse_bwd(name, layouts, L, blk, nc, npad, B, with_bias, seed):
+    """Row 10 against block_sparse_attention_bwd_reference, with times and
+    the bound: 5 products of D multiply-adds (10 D FLOP) per kept (row,
+    column) pair per (b, h); q, k, v, out, dO, lse (and the bias) read once,
+    dq, dk, dv (and dbias) written once."""
+    import torch
+    from bevgen_torch.ops import block_sparse as bs
+    H = layouts.shape[0]
+    q, k, v, do, bias = sparse_bwd_inputs(H, L, B, with_bias, seed)
+    D = q.shape[-1]
+    attn = bs.SparseAttention(layouts, blk, nc, npad)
+    plan = attn.device_plan(L, q.device)
+    lt = torch.from_numpy(layouts)
+    with torch.no_grad():
+        out, lse = attn(q, k, v, bias, return_lse=True)
+        args = (q, k, v, plan.layout, plan.counts, plan.indices, plan.counts_t,
+                plan.indices_t, blk, nc, npad, bias, out, do, lse)
+        got = bs.block_sparse_attention_bwd_cuda(*args)
+        torch.cuda.synchronize()
+        want = bs.block_sparse_attention_bwd_reference(
+            q.float(), k.float(), v.float(), lt, blk, nc, npad, bias, out, do, lse)
+        errs, ok, max_err = {}, True, 0.0
+        for key, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+            if w is None:
+                continue
+            mx, rl2, ref_max = rel_err(a, w)
+            errs[key] = (mx, rl2)
+            max_err = max(max_err, mx)
+            ok = (ok and bool(torch.isfinite(a).all()) and rl2 <= BWD_REL_L2_TOL
+                  and mx <= BWD_MAX_REL_TOL * ref_max)
+        del want, got
+        ms = time_ms(lambda: bs.block_sparse_attention_bwd_cuda(*args))
+        plain_ms = time_ms(lambda: bs.block_sparse_attention_bwd_reference(
+            q.float(), k.float(), v.float(), lt, blk, nc, npad, bias, out, do,
+            lse), iters=3, warmup=1)
+        keep = bs.keep_mask(lt, blk, L, nc, npad, "cuda")
+        kept = int(keep.sum())
+    lib_ms = sparse_sdpa_bwd_ms(q, k, v, keep, bias, do)
+    del keep
+    flops = 10.0 * D * kept * B
+    nbytes = (8 * B * H * L * D * 2 + B * H * L * 4
+              + (2 * L * L * 4 if with_bias else 0) + layouts.size)
+    bms, bound_by = bound(flops, nbytes)
+    print(f"[kernel] block_sparse_bwd {name}: B={B} H={H} L={L} D={D} "
+          f"block={blk} kept pairs {kept} bias={with_bias} "
+          + " ".join(f"{k_}: max_abs_err={e[0]:.3e} rel_l2={e[1]:.3e}"
+                     for k_, e in errs.items())
+          + f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+          f"(no dbias) bound_ms={bms:.4f} ({bound_by}: {flops / 1e9:.2f} "
+          f"GFLOP, {nbytes / 1e6:.2f} MB) -> {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit(f"block-sparse backward {name} disagrees with its "
+                         f"plain version (rel L2 > {BWD_REL_L2_TOL} or max > "
+                         f"{BWD_MAX_REL_TOL} of the largest entry)")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def block_sparse_bwd_phase():
+    """Phase 16: row 10 at nuscenes_ar b=4 (the training shape), at the
+    nuscenes_ar_tpu layout, with an (L, L) bias, and at a small unaligned
+    case with condition columns and pad rows; and row 9 with the lse at the
+    training shape."""
+    import numpy as np
+
+    def preset_case(name, preset, B, with_bias, seed):
+        cfg, layouts = ar_layout(preset)
+        return check_block_sparse_bwd(
+            name, layouts, cfg.gpt_block_size, cfg.sparse_block_size,
+            cfg.num_cond_tokens, cfg.num_pad_tokens, B, with_bias, seed)
+
+    stats = {
+        "nuscenes_ar": preset_case("train", "nuscenes_ar", AR_TRAIN_BATCH,
+                                   False, 50),
+        "fwd+lse": check_block_sparse("train b4 +lse", "nuscenes_ar",
+                                      AR_TRAIN_BATCH, False, 53, time_lse=True),
+    }
+    preset_case("layout", "nuscenes_ar_tpu", AR_TRAIN_BATCH, False, 51)
+    preset_case("bias", "nuscenes_ar", AR_BATCH, True, 52)
+    # unaligned: L = 200 (not a multiple of 64), 8-token blocks, 24
+    # condition columns, 8 pad rows, a random causal layout
+    L, blk, nc, npad, H = 200, 8, 24, 8, 4
+    nb = -(-L // blk)
+    rng = np.random.default_rng(54)
+    layout = (rng.uniform(size=(H, nb, nb)) < 0.5) & np.tril(np.ones((nb, nb), bool))
+    layout |= np.eye(nb, dtype=bool)
+    layout[:, (L - npad) // blk:, 0] = True
+    check_block_sparse_bwd("unaligned+pad", layout.astype(np.int64), L, blk,
+                           nc, npad, 2, True, 55)
+    return stats
+
+
+def ar_function_grads_phase(cfg):
+    """Phase 17: BlockSparseAttentionFn's gradients at the nuscenes_ar shape,
+    b=1, against autograd through the plain forward on the same bf16
+    inputs, without and with an (L, L) bias; the output carries the
+    Function's grad_fn."""
+    import torch
+    from bevgen_torch.models import masks
+    from bevgen_torch.ops import block_sparse as bs
+    tf = cfg.transformer
+    layouts = masks.sparse_masks(tf).layouts
+    L, blk = tf.gpt_block_size, tf.sparse_block_size
+    nc, npad = tf.num_cond_tokens, tf.num_pad_tokens
+    attn = bs.SparseAttention(layouts, blk, nc, npad)
+    lt = torch.from_numpy(layouts)
+    result = {}
+    for with_bias in (False, True):
+        q, k, v, do, bias = sparse_bwd_inputs(tf.num_heads, L, 1, with_bias,
+                                              60 + with_bias)
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (q, k, v, bias) if t is not None]
+        b = leaves[3] if with_bias else None
+        out = attn(*leaves[:3], b)
+        if not isinstance(out.grad_fn, bs.BlockSparseAttentionFn._backward_cls):
+            raise SystemExit("the CUDA block-sparse output has no "
+                             "BlockSparseAttentionFn grad_fn")
+        got = torch.autograd.grad(out, leaves, do)
+        ref = bs.block_sparse_attention_reference(*leaves[:3], lt, blk, nc,
+                                                  npad, b)
+        want = torch.autograd.grad(ref, leaves, do)
+        cos = {n: torch.nn.functional.cosine_similarity(
+            a.float().flatten(), w.float().flatten(), dim=0).item()
+            for n, a, w in zip(("dq", "dk", "dv", "dbias"), got, want)}
+        print(f"[grad] BlockSparseAttentionFn vs autograd through the plain "
+              f"forward, nuscenes_ar b=1 bias={with_bias}: cosine "
+              + " ".join(f"{n}={c:.6f}" for n, c in cos.items())
+              + f" (min {GRAD_COS_MIN})", flush=True)
+        if not min(cos.values()) >= GRAD_COS_MIN:
+            raise SystemExit("BlockSparseAttentionFn's gradients disagree "
+                             "with the plain version's")
+        result[with_bias] = cos
+    return result
+
+
+def ar_train_phase(cfg):
+    """Phase 18: the full-width, full-depth nuscenes_ar train step at b=4,
+    timed, with its launch counts. Returns (model, stats)."""
+    import torch
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.stage2.gpt import SparseGPT
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.ops import decode_attention as da
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    from bevgen_torch.training import optim, trainer
+    tf = cfg.transformer
+    B = AR_TRAIN_BATCH
+    t0 = time.perf_counter()
+    model = init_weights(SparseGPT(tf, torch.bfloat16, param_dtype=torch.float32),
+                         seed=0).to("cuda")
+    state = trainer.create_ar_train_state(
+        model, optim.maskgit_optimizer(model, 1e-4, warmup_steps=1))
+    step = trainer.make_ar_train_step()
+    batches = fake_batches(tf, B, seed=0)
+    print(f"[ar-train] SparseGPT fp32 params / bf16 compute, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    step(state, to_device(next(batches)))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    times, rows = [], []
+    for i in range(AR_TRAIN_TIMED):
+        batch = to_device(next(batches))
+        torch.cuda.synchronize()
+        if i == 0:
+            bs.reset_launch_counts()
+            da.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            fwd = dict(bs.block_sparse_attention_cuda.launches_by_shape)
+            bwd = dict(bs.block_sparse_attention_bwd_cuda.launches_by_shape)
+            n_fwd = bs.block_sparse_attention_cuda.launches
+            n_bwd = bs.block_sparse_attention_bwd_cuda.launches
+            n_dec = da.decode_attention_cuda.launches
+        rows.append({k: float(v) for k, v in m.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = sorted(times)[len(times) // 2]
+    tokens = B * tf.num_img_tokens
+    print(f"[ar-train] nuscenes_ar b={B}: warm-up step {warm_s:.3f} s, timed "
+          f"{', '.join(f'{t:.4f}' for t in times)} s, median {med:.4f} s = "
+          f"{tokens / med:.1f} image tokens/s; peak memory {peak_gb:.2f} GB; "
+          f"loss {' '.join('%.4f' % r['loss'] for r in rows)}, grad_norm "
+          f"{' '.join('%.4f' % r['grad_norm'] for r in rows)}", flush=True)
+    print(f"[ar-train] kernel launches in the first timed step: block-sparse "
+          f"forward {n_fwd} {fwd}, backward {n_bwd} {bwd}, decode {n_dec}",
+          flush=True)
+    layers = tf.num_layers
+    if n_fwd != layers or n_bwd != 2 * layers or n_dec != 0:
+        raise SystemExit(f"expected {layers} block-sparse forward, "
+                         f"{2 * layers} backward and 0 decode launches per "
+                         f"step, got {n_fwd}, {n_bwd} and {n_dec}")
+    if not all(math.isfinite(v) for r in rows for v in r.values()):
+        raise SystemExit(f"AR train step metrics not finite: {rows}")
+    return model, {"fwd": fwd, "bwd": bwd, "step_s": med,
+                   "tokens_per_s": tokens / med, "peak_gb": peak_gb}
+
+
+def ar_grad_group(name: str) -> str:
+    head = name.split(".")[0]
+    if head.startswith("block_"):
+        return head
+    if head in ("ln_f", "head"):
+        return "head"
+    return "camera_bias" if head == "camera_bias_emb" else "embeddings"
+
+
+def ar_model_grads_phase(cfg):
+    """Phase 19: one AR loss backward at b=1, full width and AR_GRAD_LAYERS
+    layers, through the kernels and through the plain versions; cosine of
+    the gradient of each parameter group."""
+    import torch
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.stage2.ar import ar_loss
+    from bevgen_torch.models.stage2.gpt import SparseGPT
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    tf = cfg.transformer.replace(num_layers=AR_GRAD_LAYERS)
+    model = init_weights(SparseGPT(tf, torch.bfloat16, param_dtype=torch.float32),
+                         seed=1).to("cuda")
+    batch = to_device(next(fake_batches(tf, 1, seed=4)))
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    layouts = torch.from_numpy(model.attn.layout)
+    blk, nc, npad = tf.sparse_block_size, tf.num_cond_tokens, tf.num_pad_tokens
+
+    def grads():
+        loss = ar_loss(model, batch["tokens"], batch["cond_ids"],
+                       batch["intrinsics_inv"], batch["extrinsics_inv"],
+                       deterministic=True)
+        return float(loss.detach()), torch.autograd.grad(loss, params)
+
+    before = bs.block_sparse_attention_bwd_cuda.launches
+    loss_k, gk = grads()
+    if bs.block_sparse_attention_bwd_cuda.launches != before + 2 * AR_GRAD_LAYERS:
+        raise SystemExit("the kernel path did not launch the backward kernels")
+    kernel_attn = model.attn
+    model.attn = lambda q, k, v, bias: bs.block_sparse_attention_reference(
+        q, k, v, layouts, blk, nc, npad, bias)
+    try:
+        loss_p, gp = grads()
+    finally:
+        model.attn = kernel_attn
+    groups = {}
+    for n, a, b in zip(names, gk, gp):
+        ga, gb = groups.setdefault(ar_grad_group(n), ([], []))
+        ga.append(a.float().flatten())
+        gb.append(b.float().flatten())
+    cos = {k: torch.nn.functional.cosine_similarity(
+        torch.cat(a), torch.cat(b), dim=0).item() for k, (a, b) in groups.items()}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:4]
+    print(f"[ar-grad] {AR_GRAD_LAYERS}-layer full-width b=1 loss {loss_k:.5f} "
+          f"(kernels) vs {loss_p:.5f} (plain); gradient cosine over "
+          f"{len(cos)} parameter groups: min {worst[0][1]:.6f} (bound "
+          f"{MODEL_GRAD_COS_MIN}), lowest "
+          + ", ".join(f"{k}={c:.6f}" for k, c in worst)
+          + f", mean {sum(cos.values()) / len(cos):.6f}", flush=True)
+    if not worst[0][1] >= MODEL_GRAD_COS_MIN:
+        raise SystemExit("AR gradients disagree between the kernels and the "
+                         "plain versions")
+    return cos
+
+
+def ar_ce_falls_phase(model, cfg):
+    """Phase 20: from the seeded init, the AR CE over CE_STEPS steps on one
+    repeated b=4 batch, base_lr 3e-4, warm-up 1 (the first update has lr
+    0)."""
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    from bevgen_torch.training import optim, trainer
+    tf = cfg.transformer
+    init_weights(model, seed=0)
+    batch = to_device(next(fake_batches(tf, AR_TRAIN_BATCH, seed=1)))
+    state = trainer.create_ar_train_state(model, optim.maskgit_optimizer(
+        model, 3e-4, warmup_steps=1, total_steps=CE_STEPS))
+    step = trainer.make_ar_train_step()
+    ces = [float(step(state, batch)["loss"]) for _ in range(CE_STEPS)]
+    print(f"[ar-train] CE on one repeated batch over {CE_STEPS} steps: "
+          f"{' '.join(f'{c:.4f}' for c in ces)}", flush=True)
+    if not (all(math.isfinite(c) for c in ces) and ces[-1] < ces[0]):
+        raise SystemExit("the AR CE did not fall on a repeated batch")
+    return ces
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1255,6 +1617,15 @@ def main() -> int:
     ar_e2e = timed_phase(14, ar_generate_phase, ar_cfg)
     timed_phase(15, ar_greedy_phase, ar_cfg)
 
+    # 16-20. AR training: the backward kernels against their plain version,
+    # the autograd Function, then the train step at full width
+    bsb_stats = timed_phase(16, block_sparse_bwd_phase)
+    timed_phase(17, ar_function_grads_phase, ar_cfg)
+    model, ar_train = timed_phase(18, ar_train_phase, ar_cfg)
+    timed_phase(19, ar_model_grads_phase, ar_cfg)
+    timed_phase(20, ar_ce_falls_phase, model, ar_cfg)
+    del model
+
     kernels = []
     for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
         kernels.append({
@@ -1282,6 +1653,22 @@ def main() -> int:
         "route": "cuda", "source": bs.SOURCE, "replaces": bs.REPLACES,
         "launches": bs_launches.get((L_ar, tf_ar.sparse_block_size), 0),
         **bs_stats["nuscenes_ar"]})
+    TAB = AR_TRAIN_BATCH
+    kernels.append({
+        "name": f"block_sparse_fwd[train nuscenes_ar b{TAB} L{L_ar} block "
+                f"{tf_ar.sparse_block_size}, with lse]",
+        "route": "cuda", "source": bs.SOURCE, "replaces": bs.REPLACES,
+        "launches": ar_train["fwd"].get((L_ar, tf_ar.sparse_block_size), 0),
+        **bsb_stats["fwd+lse"]})
+    # the nuscenes_ar_tpu and biased checks of phase 16 run no path: they
+    # stay in their printed lines, as the forward's do
+    kernels.append({
+        "name": f"block_sparse_bwd[train nuscenes_ar b{TAB} L{L_ar} block "
+                f"{tf_ar.sparse_block_size}, 2 kernels]",
+        "route": "cuda", "source": bs.BWD_SOURCE, "replaces": bs.BWD_REPLACES,
+        "launches": ar_train["bwd"].get(
+            (L_ar, tf_ar.sparse_block_size, False), 0),
+        **bsb_stats["nuscenes_ar"]})
     for pl, st in dec_stats.items():
         kernels.append({
             "name": f"decode_attention[b{AR_BATCH} H{tf_ar.num_heads} pl{pl}]",

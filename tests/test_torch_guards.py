@@ -3,8 +3,8 @@ package, `load_jax_params` accepts exactly the reference's tree (MUSE and
 AR pipelines), entry points (serving, AR serving and training) run on CUDA
 unless asked for the CPU, the attention's autograd Function runs its plain
 twins on the CPU, and (on a machine with a card) the CUDA kernels agree
-with their plain versions, CUDA attention outputs carry gradients, and the
-block-sparse forward refuses a call that needs its unported backward.
+with their plain versions and CUDA attention outputs carry gradients, the
+block-sparse backward included.
 
 The module imports JAX only inside the tests that compare with it, so the
 `cuda` test also runs where JAX is missing; there, skip the conftest
@@ -142,6 +142,15 @@ def test_ar_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         cli.main(["pipeline=ar", "transformer.num_layers=1", f"out={tmp_path}"])
     assert not any(tmp_path.iterdir())
     assert ARPipeline.create(cfg, device="cpu").device.type == "cpu"
+
+
+def test_profile_train_ar_needs_cuda_and_rejects_unknown_pipelines(monkeypatch):
+    from bevgen_torch.scripts import profile_train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="unknown pipeline"):
+        profile_train.main(["pipeline=bogus"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        profile_train.main(["pipeline=ar"])
 
 
 def _tiny_ar_port():
@@ -350,16 +359,82 @@ def test_cuda_block_sparse_kernel_matches_plain_version():
         assert (lse - want_lse).abs().max().item() <= 5e-3
 
 
+def _rel_errors(got, want):
+    d = got.float() - want.float()
+    return ((d.norm() / want.float().norm()).item(),
+            d.abs().max().item() / want.float().abs().max().item())
+
+
 @pytest.mark.cuda
-def test_cuda_block_sparse_refuses_a_call_that_needs_gradients():
+def test_cuda_block_sparse_backward_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     from bevgen_torch.ops import block_sparse as bs
     g = torch.Generator(device="cuda").manual_seed(4)
-    layout, q, k, v = _sparse_cuda_case(g, 1, 2, 128, 64, 16, 16, 0)
-    q.requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward not ported"):
-        bs.SparseAttention(layout, 16, 16)(q, k, v)
+    for B, H, L, D, block, nc, num_pad, with_bias in [
+            (2, 3, 200, 64, 8, 24, 8, True), (1, 2, 190, 64, 16, 20, 6, False),
+            (2, 4, 256, 64, 128, 64, 0, True)]:
+        layout, q, k, v = _sparse_cuda_case(g, B, H, L, D, block, nc, num_pad)
+        bias = (torch.randn(L, L, generator=g, device="cuda")
+                if with_bias else None)
+        do = torch.randn(B, H, L, D, generator=g, device="cuda").bfloat16()
+        attn = bs.SparseAttention(layout, block, nc, num_pad)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        if with_bias:
+            leaves.append(bias.detach().clone().requires_grad_())
+        fwd, bwd = (bs.block_sparse_attention_cuda.launches,
+                    bs.block_sparse_attention_bwd_cuda.launches)
+        out = attn(*leaves[:3], leaves[3] if with_bias else None)
+        assert out.grad_fn is not None
+        got = torch.autograd.grad(out, leaves, do)
+        assert bs.block_sparse_attention_cuda.launches == fwd + 1
+        assert bs.block_sparse_attention_bwd_cuda.launches == bwd + (3 if with_bias else 2)
+        with torch.no_grad():
+            out, lse = attn(q, k, v, bias, return_lse=True)
+        want = bs.block_sparse_attention_bwd_reference(
+            q.float(), k.float(), v.float(), torch.from_numpy(layout), block,
+            nc, num_pad, bias, out, do, lse)
+        # bf16 rounding of P, dS and the outputs: 1e-2 relative L2, and no
+        # entry off by more than 5% of the largest
+        for a, w in zip(got, want):
+            rel_l2, rel_max = _rel_errors(a, w)
+            assert rel_l2 <= 1e-2 and rel_max <= 5e-2
+        if with_bias:  # a bias that needs no gradient skips the dbias kernel
+            bwd = bs.block_sparse_attention_bwd_cuda.launches
+            again = torch.autograd.grad(attn(*leaves[:3], bias), leaves[:3], do)
+            assert bs.block_sparse_attention_bwd_cuda.launches == bwd + 2
+            for a, w in zip(again, got):
+                assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+def test_cuda_block_sparse_backward_refuses_other_head_dims():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from bevgen_torch.ops import block_sparse as bs
+    g = torch.Generator(device="cuda").manual_seed(6)
+    layout, q, k, v = _sparse_cuda_case(g, 1, 2, 128, 32, 16, 16, 0)
+    plan = bs.SparseAttention(layout, 16, 16).device_plan(128, q.device)
+    lse = torch.zeros(1, 2, 128, device="cuda")
+    with pytest.raises(ValueError, match="head dim 32"):
+        bs.block_sparse_attention_bwd_cuda(q, k, v, plan.layout, plan.counts,
+                                           plan.indices, plan.counts_t,
+                                           plan.indices_t, 16, 16, 0, None,
+                                           q, q, lse)
+
+
+def test_block_sparse_backward_wrapper_raises_for_cpu_tensors():
+    from bevgen_torch.ops import block_sparse as bs
+    layout = np.tril(np.ones((2, 8, 8), np.int64))
+    plan = bs.SparseAttention(layout, 16, 16).device_plan(128, torch.device("cpu"))
+    x = torch.zeros(1, 2, 128, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 128)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bs.block_sparse_attention_bwd_cuda(x, x, x, plan.layout, plan.counts,
+                                           plan.indices, plan.counts_t,
+                                           plan.indices_t, 16, 16, 0, None,
+                                           x, x, lse)
+    assert bs.block_sparse_attention_bwd_cuda.launches == 0
 
 
 @pytest.mark.cuda

@@ -31,7 +31,8 @@ from bevgen_torch.models.stage2 import maskgit as tmg
 from bevgen_torch.training import optim as toptim
 from bevgen_torch.training import trainer as ttrainer
 from bevgen_torch.training.checkpoints import CheckpointManager
-from torch_parity import tiny_configs, tiny_pipelines
+from torch_parity import (assert_steps_close, assert_trees_close,
+                          tiny_configs, tiny_pipelines)
 
 # fp32 on both sides. Loss values: 1e-5 absolute (sums in another order).
 # Gradients: 1e-5 of each leaf's largest entry (at least 1e-6 absolute):
@@ -87,17 +88,6 @@ def _zero_gumbel(model, tokens):
     return torch.zeros(tuple(tokens.shape) + (model.cfg.vocab_size,))
 
 
-def _assert_trees_close(got, want, rtol, atol_min=1e-6, what=""):
-    g = dict(jax.tree_util.tree_leaves_with_path(got))
-    w = dict(jax.tree_util.tree_leaves_with_path(want))
-    assert g.keys() == w.keys()
-    for path, wv in w.items():
-        wv = np.asarray(wv)
-        atol = max(atol_min, rtol * float(np.abs(wv).max()))
-        np.testing.assert_allclose(np.asarray(g[path]), wv, atol=atol, rtol=0,
-                                   err_msg=f"{what} {jax.tree_util.keystr(path)}")
-
-
 @pytest.mark.parametrize("cond_drop_prob", [0.0, 1.0])
 def test_maskgit_loss_and_grads_match_jax(cond_drop_prob, argmax_gumbel):
     jmodel, jparams, tmodel = _models(cond_drop_prob)
@@ -125,7 +115,7 @@ def test_maskgit_loss_and_grads_match_jax(cond_drop_prob, argmax_gumbel):
     assert float(out.critic_loss.detach()) > 0
     names = [n for n, _ in tmodel.named_parameters()]
     grads = torch.autograd.grad(out.loss, [p for _, p in tmodel.named_parameters()])
-    _assert_trees_close(export_jax_params(tmodel, dict(zip(names, grads))),
+    assert_trees_close(export_jax_params(tmodel, dict(zip(names, grads))),
                         jgrads, GRAD_RTOL, what="grad")
 
 
@@ -174,7 +164,7 @@ def test_ema_matches_jax(warmup):
                                    warmup=warmup)
     assert state.count == int(jstate.count) == 2
     ema_model = copy.deepcopy(tmodel)
-    _assert_trees_close(export_jax_params(ema_model, state.params),
+    assert_trees_close(export_jax_params(ema_model, state.params),
                         jstate.params, 1e-6, what="ema")
 
 
@@ -203,9 +193,9 @@ def test_optimizer_matches_optax():
         assert opt.step(grads)
         after = export_jax_params(tmodel)
         if opt.count == 1:  # lr 0: nothing moves
-            _assert_trees_close(after, before, 0.0, atol_min=0.0, what="lr0")
+            assert_trees_close(after, before, 0.0, atol_min=0.0, what="lr0")
         # Adam steps of ~lr per entry: 1e-6 absolute is 1e-4 of one step
-        _assert_trees_close(after, jp, 0.0, atol_min=1e-6,
+        assert_trees_close(after, jp, 0.0, atol_min=1e-6,
                             what=f"params after update {opt.count}")
 
 
@@ -230,19 +220,6 @@ def test_accumulation_equals_one_mean_gradient_update():
         for a, b in zip(acc.params, ref.params):
             torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
     assert acc.count == ref.count == 2
-
-
-def _assert_steps_close(got, want, lr, what):
-    """Parameters after Adam updates of step ~lr: an entry whose gradient is
-    near 0 on both sides can take any normalised step in [-lr, lr] (Adam
-    divides it by its own size), so each entry is held to 2 lr, and all but
-    0.1% of the entries of each leaf to 5e-3 lr."""
-    g = dict(jax.tree_util.tree_leaves_with_path(got))
-    for path, wv in jax.tree_util.tree_leaves_with_path(want):
-        d = np.abs(np.asarray(g[path]) - np.asarray(wv))
-        name = f"{what} {jax.tree_util.keystr(path)}"
-        assert d.max() <= 2 * lr, name
-        assert (d > 5e-3 * lr).mean() <= 1e-3, name
 
 
 def test_train_step_matches_jax(monkeypatch, argmax_gumbel):
@@ -274,9 +251,9 @@ def test_train_step_matches_jax(monkeypatch, argmax_gumbel):
                                    rtol=1e-5)
         assert float(m["update_applied"]) == float(jm["update_applied"]) == 1.0
     assert state.step == int(jstate.step) == 2 and opt.count == 2
-    _assert_steps_close(export_jax_params(tmodel), jstate.params["params"],
+    assert_steps_close(export_jax_params(tmodel), jstate.params["params"],
                         1e-3, "params")
-    _assert_steps_close(export_jax_params(copy.deepcopy(tmodel),
+    assert_steps_close(export_jax_params(copy.deepcopy(tmodel),
                                           state.ema.params),
                         jstate.ema.params, 1e-3, "ema")
 

@@ -87,6 +87,32 @@ def tiny_pipelines(greedy: bool = False, seed: int = 0):
     return jp, params, tp
 
 
+# ---- comparing parameter trees ----------------------------------------------
+
+def assert_trees_close(got, want, rtol, atol_min=1e-6, what=""):
+    g = dict(jax.tree_util.tree_leaves_with_path(got))
+    w = dict(jax.tree_util.tree_leaves_with_path(want))
+    assert g.keys() == w.keys()
+    for path, wv in w.items():
+        wv = np.asarray(wv)
+        atol = max(atol_min, rtol * float(np.abs(wv).max()))
+        np.testing.assert_allclose(np.asarray(g[path]), wv, atol=atol, rtol=0,
+                                   err_msg=f"{what} {jax.tree_util.keystr(path)}")
+
+
+def assert_steps_close(got, want, lr, what):
+    """Parameters after Adam updates of step ~lr: an entry whose gradient is
+    near 0 on both sides can take any normalised step in [-lr, lr] (Adam
+    divides it by its own size), so each entry is held to 2 lr, and all but
+    0.1% of the entries of each leaf to 5e-3 lr."""
+    g = dict(jax.tree_util.tree_leaves_with_path(got))
+    for path, wv in jax.tree_util.tree_leaves_with_path(want):
+        d = np.abs(np.asarray(g[path]) - np.asarray(wv))
+        name = f"{what} {jax.tree_util.keystr(path)}"
+        assert d.max() <= 2 * lr, name
+        assert (d > 5e-3 * lr).mean() <= 1e-3, name
+
+
 # ---- the AR sparse-GPT path -------------------------------------------------
 
 def gpt_kwargs(**kw):
