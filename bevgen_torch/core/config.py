@@ -6,8 +6,8 @@ autoregressive sparse-GPT serving path (`nuscenes_ar`, `nuscenes_ar_tpu`).
 Hashable configs key the lru_caches of the geometry and mask artifacts
 (`models/geometry.py`, `models/masks.py`). Field names and presets match
 the reference, so a preset built here and one built there describe the
-same model. The reference's TPU-only knobs (`use_fused_attention`,
-`use_fused_glue`, `remat`, `quant`) are not part of the port yet.
+same model. The reference's TPU-only knobs `use_fused_attention`, `remat`
+and `quant` are not part of the port yet.
 """
 from __future__ import annotations
 
@@ -128,6 +128,10 @@ class MultiViewConfig:
     self_cond: bool = False
     n_unmasked: int = 0
     layout_seed: int = 0
+    # the fused residual+LayerNorm and GEGLU+LayerNorm passes
+    # (ops/fused_glue.py) with the delta-chaining transformer blocks.
+    # None = off, as in the reference; parameters are the same either way.
+    use_fused_glue: Optional[bool] = None
 
     def __post_init__(self):
         if self.dataset not in DATASETS:

@@ -22,6 +22,12 @@ training keeps them fp32 (small AdamW steps would round away in bf16),
 serving defaults `param_dtype` to `dtype`, where the cast is a no-op.
 Norms, scales, null_kv and the camera-bias table are always fp32.
 
+`cfg.use_fused_glue` (off by default, as in the reference) restructures
+every block into the reference's delta-chaining form: the residual add
+folds into the next norm (`ops/fused_glue.py`'s residual + LayerNorm pass)
+and the GEGLU's gate*gelu and middle norm are one pass; the parameters are
+the same on both forms.
+
 Submodule names mirror the reference's parameter tree (`layers_{i}_attn`,
 `norm.norm`, `to_kv`, ...), so `core/convert.py` maps one onto the other.
 The attention core is `ops.cosine_attention.cosine_attention`: the CUDA
@@ -38,6 +44,8 @@ from torch import nn
 from bevgen_torch.core.config import MultiViewConfig
 from bevgen_torch.models import geometry, masks
 from bevgen_torch.ops.cosine_attention import cosine_attention
+from bevgen_torch.ops.fused_glue import geglu_layernorm, residual_layernorm
+from bevgen_torch.ops.layernorm import layernorm
 
 
 class Dense(nn.Linear):
@@ -72,14 +80,27 @@ class Embed(nn.Embedding):
 
 
 class LayerNormG(nn.Module):
-    """Scale-only LayerNorm, eps 1e-5, computed in fp32."""
+    """Scale-only LayerNorm, eps 1e-5, computed in fp32.
 
-    def __init__(self, dim: int):
+    `residual`: the fused-glue form, which returns (x_new = dtype(x +
+    residual), LN(x_new) * gamma) from one pass (`ops/fused_glue.py`).
+    `use_fused=True` takes the standalone LayerNorm op (`ops/layernorm.py`,
+    output in x's dtype) for inputs of at least 8 rows, as the reference
+    does; no configuration sets it. The parameter is `norm.weight` on every
+    path."""
+
+    def __init__(self, dim: int, use_fused: Optional[bool] = None):
         super().__init__()
         self.norm = nn.LayerNorm(dim, eps=1e-5, bias=False)
+        self.use_fused = bool(use_fused)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                residual: Optional[torch.Tensor] = None):
         n = self.norm
+        if residual is not None:
+            return residual_layernorm(x.to(dtype), residual.to(dtype), n.weight)
+        if self.use_fused and x.ndim >= 2 and x.shape[-2] >= 8:
+            return layernorm(x, n.weight)
         return F.layer_norm(x.float(), n.normalized_shape, n.weight, None,
                             n.eps).to(dtype)
 
@@ -120,14 +141,23 @@ class CosineAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
                 attn_bias: Optional[torch.Tensor] = None,
-                cached_kv=None) -> torch.Tensor:
+                cached_kv=None, residual_delta: Optional[torch.Tensor] = None,
+                return_residual: bool = False):
         """x: (b, n, dim). Self-attention over x, or cross-attention to the
         context whose (k^, v) `precompute_kv` gave as `cached_kv`. keep:
         (b,) per-sample cond flag or None (all kept); attn_bias: (n, m)
-        fp32 or None."""
+        fp32 or None.
+
+        The fused-glue convention: x is the stream before the residual add
+        and `residual_delta` the previous block's output, added inside the
+        norm (`LayerNormG(residual=)`); `return_residual` returns (x_new,
+        out), so the caller chains the deltas."""
         b, n, _ = x.shape
         h, dh = self.heads, self.dim_head
-        xn = self.norm(x, self.dtype)
+        if residual_delta is not None:
+            x_new, xn = self.norm(x, self.dtype, residual=residual_delta)
+        else:
+            x_new, xn = x, self.norm(x, self.dtype)
         q = self.to_q(xn).reshape(b, n, h, dh).transpose(1, 2)
         if cached_kv is None:
             k, v = self.to_kv(xn).chunk(2, dim=-1)
@@ -140,26 +170,44 @@ class CosineAttention(nn.Module):
             k, v = cached_kv
         out = self.core(q, k, v, self.null_kv, self.q_scale, self.k_scale,
                         attn_bias, keep, sm_scale=self.scale)
-        return self.to_out(out.transpose(1, 2).reshape(b, n, h * dh))
+        out = self.to_out(out.transpose(1, 2).reshape(b, n, h * dh))
+        return (x_new, out) if return_residual else out
 
 
 class GEGLUFeedForward(nn.Module):
     """LN -> Linear(2*inner) -> gate*gelu(a) -> LN -> Linear(dim), with
-    inner = int(dim*mult*2/3) and the exact-erf gelu."""
+    inner = int(dim*mult*2/3) and the exact-erf gelu.
 
-    def __init__(self, dim: int, mult: int, dtype, param_dtype=None):
+    `use_glue`: gate*gelu and norm_mid in one pass (`ops/fused_glue.py`)
+    between the unpadded projections. `residual_delta` / `return_residual`:
+    the fused-glue convention of `CosineAttention.forward`."""
+
+    def __init__(self, dim: int, mult: int, dtype, param_dtype=None,
+                 use_glue: bool = False):
         super().__init__()
         inner = int(dim * mult * 2 / 3)
-        self.dtype = dtype
+        self.dtype, self.use_glue = dtype, use_glue
         self.norm_in = LayerNormG(dim)
         self.proj_in = Dense(dim, inner * 2, False, dtype, param_dtype)
         self.norm_mid = LayerNormG(inner)
         self.proj_out = Dense(inner, dim, False, dtype, param_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a, gate = self.proj_in(self.norm_in(x, self.dtype)).chunk(2, dim=-1)
-        hid = gate * F.gelu(a, approximate="none")
-        return self.proj_out(self.norm_mid(hid, self.dtype))
+    def forward(self, x: torch.Tensor,
+                residual_delta: Optional[torch.Tensor] = None,
+                return_residual: bool = False):
+        if residual_delta is not None:
+            x_new, h = self.norm_in(x, self.dtype, residual=residual_delta)
+        else:
+            x_new, h = x, self.norm_in(x, self.dtype)
+        y = self.proj_in(h)
+        if self.use_glue:
+            hid = geglu_layernorm(y, self.norm_mid.norm.weight)
+        else:
+            a, gate = y.chunk(2, dim=-1)
+            hid = self.norm_mid(gate * F.gelu(a, approximate="none"),
+                                self.dtype)
+        out = self.proj_out(hid)
+        return (x_new, out) if return_residual else out
 
 
 class TransformerOutput(NamedTuple):
@@ -180,6 +228,7 @@ class MultiViewTransformer(nn.Module):
         if cfg.self_cond:
             raise NotImplementedError("self_cond is not ported yet")
         self.cfg, self.dtype = cfg, dtype
+        self.use_glue = bool(cfg.use_fused_glue)
         dim, nc, L = cfg.num_embed, cfg.num_cond_tokens, cfg.gpt_block_size
         pdt = param_dtype
         if cfg.image_embed:
@@ -211,7 +260,7 @@ class MultiViewTransformer(nn.Module):
             self.add_module(f"layers_{i}_cross_attn", CosineAttention(
                 dim, cfg.dim_head, cfg.num_heads, dtype, param_dtype=pdt))
             self.add_module(f"layers_{i}_ff", GEGLUFeedForward(
-                dim, cfg.ff_mult, dtype, pdt))
+                dim, cfg.ff_mult, dtype, pdt, use_glue=self.use_glue))
         self.final_norm = LayerNormG(dim)
         self.to_logits = Dense(dim, cfg.vocab_size, False, dtype, pdt)
 
@@ -274,13 +323,29 @@ class MultiViewTransformer(nn.Module):
             x = x + cache["ray"].to(dt)
         x = x.reshape(b, cam * hw, dim) + self.pos_emb.table()[None]
 
-        for i in range(cfg.num_layers):
-            attn, cross, ff = self.layer(i)
-            x = x + attn(x, attn_bias=cache["self_bias"])
-            x = x + cross(x, keep=cond_keep, attn_bias=cache["cross_bias"],
-                          cached_kv=cache["cross_kv"][i])
-            x = x + ff(x)
-        embed = self.final_norm(x, dt)
+        if self.use_glue:
+            # delta chaining: each block takes (stream, previous block's
+            # output) and folds the residual add into its norm; layer 0's
+            # self-attention has no delta and takes the plain norm
+            d = None
+            for i in range(cfg.num_layers):
+                attn, cross, ff = self.layer(i)
+                x, d = attn(x, attn_bias=cache["self_bias"], residual_delta=d,
+                            return_residual=True)
+                x, d = cross(x, keep=cond_keep, attn_bias=cache["cross_bias"],
+                             cached_kv=cache["cross_kv"][i], residual_delta=d,
+                             return_residual=True)
+                x, d = ff(x, residual_delta=d, return_residual=True)
+            embed = (self.final_norm(x, dt) if d is None
+                     else self.final_norm(x, dt, residual=d)[1])
+        else:
+            for i in range(cfg.num_layers):
+                attn, cross, ff = self.layer(i)
+                x = x + attn(x, attn_bias=cache["self_bias"])
+                x = x + cross(x, keep=cond_keep, attn_bias=cache["cross_bias"],
+                              cached_kv=cache["cross_kv"][i])
+                x = x + ff(x)
+            embed = self.final_norm(x, dt)
         logits = self.to_logits(embed)
         return TransformerOutput(logits=logits.reshape(b, cam, hw, -1),
                                  embed=embed)

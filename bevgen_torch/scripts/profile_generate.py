@@ -4,6 +4,7 @@
         batch_size=2 seed=0 out=profile_generate.json
     python -m bevgen_torch.scripts.profile_generate pipeline=ar \\
         batch_size=2 out=profile_generate_ar.json
+    python -m bevgen_torch.scripts.profile_generate transformer.use_fused_glue=true
 
 Builds the pipeline (`pipeline=muse`, default, or `pipeline=ar`, whose
 default preset is nuscenes_ar and which decodes KV-cached with top_k=100)
@@ -12,7 +13,8 @@ with `torch.profiler` (CPU and CUDA activities for MUSE; CUDA alone for AR,
 whose generate launches some 800,000 kernels).
 Prints the wall time, the device's busy time (union of its kernel and copy
 intervals) and idle share, the device time by category (the attention
-kernels, matrix products, convolutions, the rest) and the top kernels;
+kernels, the glue kernels, matrix products, convolutions, the rest) and
+the top kernels;
 writes the same as JSON to `out`. Needs a CUDA device.
 """
 from __future__ import annotations
@@ -36,6 +38,8 @@ def category(name: str) -> str:
         return "decode attention kernel"
     if "attn_bwd" in n:
         return "attention backward kernels"
+    if "glue_" in n:
+        return "glue kernels (residual/GEGLU + LayerNorm)"
     if any(t in n for t in ("gemm", "cutlass", "xmma", "cublas", "gemv", "nvjet")):
         return "matmul"
     if any(t in n for t in ("conv", "cudnn", "implicit_convolve", "winograd")):

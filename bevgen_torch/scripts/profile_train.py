@@ -4,6 +4,7 @@
         batch_size=8 seed=0 out=profile_train.json
     python -m bevgen_torch.scripts.profile_train pipeline=ar \\
         batch_size=4 out=profile_train_ar.json
+    python -m bevgen_torch.scripts.profile_train transformer.use_fused_glue=true
 
 `pipeline=muse` (default; preset argoverse_muse_7cam, batch 8) builds
 MaskGit and runs `training.trainer.make_train_step` (the CLI's step);
@@ -13,9 +14,9 @@ and runs `make_ar_train_step` (the counterpart of the JAX
 in bf16, with seeded random weights and fake token batches: two warm-up
 steps, then one more traced with `torch.profiler` (CPU and CUDA
 activities). Prints the step's wall time, the device's busy time and idle
-share, the device time by category (the attention forward and backward
-kernels, the block-sparse ones apart, matrix products, optimizer, the
-rest), the top kernels and the peak device memory of the traced step;
+share, the device time by category (`profile_generate.category`: the
+attention forward and backward kernels, the block-sparse ones apart, the
+glue kernels, matrix products, optimizer, the rest), the top kernels and the peak device memory of the traced step;
 writes the same as JSON to `out`. Needs a CUDA device.
 """
 from __future__ import annotations

@@ -81,7 +81,26 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      kernels and through the plain versions: cosine of the gradient of
      each parameter group;
  20. from the seeded init, the AR CE falls over 8 steps on one repeated
-     batch.
+     batch;
+ 21. the glue kernels against their plain twins (fp32 on the same bf16
+     inputs): residual + LayerNorm (x_new bit for bit) at the b=2 and b=8
+     MUSE shapes, 13 rows and an odd width; GEGLU + LayerNorm at F = 2730
+     (b=2, b=8) and F = 170; the standalone LayerNorm at (2, 1792, 1024)
+     and a ragged case; times of the kernels (inputs cold in L2), the twins,
+     F.layer_norm (the standalone norm) or the eager chain the modules run
+     without the glue, and the bytes bound;
+ 22. `generate_fn` with `transformer.use_fused_glue=true` on phase 4's
+     weights and inputs, 10 pairs timed in turns with the switch off: exactly
+     (18 + 17) x 42 = 1470 residual + LayerNorm, 35 x 14 = 490 GEGLU +
+     LayerNorm and 980 attention launches per generate;
+ 23. one full-width forward, glue against no glue, on the same weights and
+     decode cache: logit cosine and top-1 agreement;
+ 24. the b=8 train step with the glue on (exactly 84 and 28 glue launches,
+     56 forward and 168 backward attention launches per step), and at b=1
+     the gradient of each parameter group, glue against no glue;
+ 25. the standalone LayerNorm through `LayerNormG(use_fused=True)` at
+     (2, 1792, 1024) bf16: one launch per call, the forward against its
+     twin and the `LayerNormFn` gradients against autograd through it.
 
 Prints the kernels' JSON line, then the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`. Without a CUDA device,
@@ -90,6 +109,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -473,13 +493,16 @@ def to_device(batch):
 
 
 def train_phase(cfg):
-    """Phase 8: the b=8 full-width train step, timed, with its launch
-    counts. Returns (model, stats)."""
+    """Phases 8 and 24: the b=8 full-width train step, timed, with its
+    launch counts (the glue kernels' too: 0 with the switch off, 6 x
+    num_layers residual + LayerNorm and 2 x num_layers GEGLU + LayerNorm
+    with it on). Returns (model, stats)."""
     import torch
     from bevgen_torch.models.init import init_weights
     from bevgen_torch.models.stage2.maskgit import MaskGit
     from bevgen_torch.ops import attention_bwd as ab
     from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops import fused_glue as fg
     from bevgen_torch.scripts.train_stage2 import fake_batches
     from bevgen_torch.training import optim, trainer
     tf = cfg.transformer
@@ -508,6 +531,7 @@ def train_phase(cfg):
         if i == 0:
             ca.reset_launch_counts()
             ab.reset_launch_counts()
+            fg.reset_launch_counts()
         t0 = time.perf_counter()
         m = step(state, batch, gen)
         torch.cuda.synchronize()
@@ -517,31 +541,42 @@ def train_phase(cfg):
             bwd = dict(ab.attention_bwd_cuda.launches_by_shape)
             n_fwd = ca.cosine_attention_cuda.launches
             n_bwd = ab.attention_bwd_cuda.launches
+            n_res = fg.residual_layernorm_cuda.launches
+            n_geglu = fg.geglu_layernorm_cuda.launches
         rows.append({k: float(v) for k, v in m.items()})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     med = sorted(times)[len(times) // 2]
     tokens = B * tf.num_cams * tf.num_cam_tokens
     last = rows[-1]
-    print(f"[train] argoverse_muse_7cam b={B}: warm-up step {warm_s:.3f} s, "
+    glue = bool(tf.use_fused_glue)
+    print(f"[train] argoverse_muse_7cam b={B} use_fused_glue={glue}: warm-up "
+          f"step {warm_s:.3f} s, "
           f"timed {', '.join(f'{t:.4f}' for t in times)} s, median "
           f"{med:.4f} s = {tokens / med:.1f} image tokens/s; peak memory "
           f"{peak_gb:.2f} GB; last step loss {last['loss']:.4f} ce_loss "
           f"{last['ce_loss']:.4f} critic_loss {last['critic_loss']:.4f} "
           f"grad_norm {last['grad_norm']:.4f}", flush=True)
     print(f"[train] kernel launches in the first timed step: forward {n_fwd} "
-          f"{fwd}, backward {n_bwd} {bwd}", flush=True)
+          f"{fwd}, backward {n_bwd} {bwd}; residual + LayerNorm {n_res}, "
+          f"GEGLU + LayerNorm {n_geglu}", flush=True)
     layers = tf.num_layers
     if n_fwd != 4 * layers or n_bwd != 3 * 4 * layers:
         raise SystemExit(f"expected {4 * layers} forward and {12 * layers} "
                          f"backward kernel launches per step, got {n_fwd} "
                          f"and {n_bwd}")
+    # two forwards per step (generator and critic)
+    want_glue = (2 * 3 * layers, 2 * layers) if glue else (0, 0)
+    if (n_res, n_geglu) != want_glue:
+        raise SystemExit(f"expected {want_glue} glue kernel launches per "
+                         f"step, got {(n_res, n_geglu)}")
     for r in rows:
         if not all(math.isfinite(v) for v in r.values()) or \
                 r["update_applied"] != 1.0:
             raise SystemExit(f"train step metrics not finite or update "
                              f"skipped: {r}")
     return model, {"fwd": fwd, "bwd": bwd, "step_s": med,
-                   "tokens_per_s": tokens / med, "peak_gb": peak_gb}
+                   "tokens_per_s": tokens / med, "peak_gb": peak_gb,
+                   "residual_ln": n_res, "geglu_ln": n_geglu}
 
 
 def ce_falls_phase(model, cfg):
@@ -1416,6 +1451,382 @@ def ar_ce_falls_phase(model, cfg):
     return ces
 
 
+# The glue kernels against their plain twins (fp32 on the same bf16 inputs;
+# the residual + LayerNorm's normed output against the twin on its rounded
+# x_new, which must equal the twin's bit for bit). Each kernel rounds its
+# output to bf16, half a step: 2^-8 of |out|, so the residual and standalone
+# norms of unit-normal rows (outputs under about 5) are held to 2e-2. The
+# GEGLU's h = gate * gelu(a), a product of two normals, is heavy-tailed:
+# at these sizes its normed values pass 20, where half a bf16 step is 0.06,
+# and the kernel rounds h to bf16 before the statistics too, (2^-8 + 2^-9)
+# of |out| in all; it is held to one bf16 step, max(2e-2, 2^-7 |out|).
+GLUE_MAX_ABS_TOL = 2e-2
+GLUE_MEAN_ABS_TOL = 2e-3
+PEAK_FP32_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
+# the timed calls cycle through enough input sets to exceed the 50 MB L2,
+# as a forward finds its activations
+GLUE_COLD_BYTES = 150e6
+# fp32 operations per output element, erff counted as one: the residual
+# add, the two sums and the normalisation; gelu and the gate product
+# besides; the normalisation alone
+GLUE_FLOPS = {"residual": 7, "geglu": 12, "layernorm": 6}
+
+
+def glue_case(kind, rows, F, seed):
+    """Inputs of one glue kernel: (input sets, gamma, input bytes)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    width = 2 * F if kind == "geglu" else F
+    n_in = 2 if kind == "residual" else 1
+    in_bytes = n_in * rows * width * 2
+    n_sets = max(1, min(16, math.ceil(GLUE_COLD_BYTES / in_bytes)))
+    sets = [tuple(torch.randn(rows, width, generator=g, device="cuda").bfloat16()
+                  for _ in range(n_in)) for _ in range(n_sets)]
+    gamma = 1.0 + 0.1 * torch.randn(F, generator=g, device="cuda")
+    return sets, gamma, in_bytes
+
+
+def glue_calls(kind, gamma):
+    """(kernel, fp32 twin, one PyTorch call or None, eager chain or None)
+    of one glue kernel, each taking an input set."""
+    import torch
+    import torch.nn.functional as F_
+    from bevgen_torch.ops import fused_glue as fg
+    from bevgen_torch.ops import layernorm as ln
+    F = gamma.shape[0]
+
+    def eager_norm(v):
+        # LayerNormG without the glue: fp32 layer_norm, back to bf16
+        return F_.layer_norm(v.float(), (F,), gamma, None, 1e-5).bfloat16()
+
+    if kind == "residual":
+        return (lambda x, d: fg.residual_layernorm_cuda(x, d, gamma),
+                lambda x, d: fg.residual_layernorm_reference(x.float(), d.float(),
+                                                             gamma),
+                None, lambda x, d: eager_norm(x + d))
+    if kind == "geglu":
+        def chain(y):
+            a, gate = y.chunk(2, dim=-1)
+            return eager_norm(gate * F_.gelu(a, approximate="none"))
+        return (lambda y: fg.geglu_layernorm_cuda(y, gamma),
+                lambda y: fg.geglu_layernorm_reference(y.float(), gamma),
+                None, chain)
+    # layer_norm takes no fp32 weight with a bf16 input: gamma is cast
+    # outside the timed call
+    gamma_bf16 = gamma.bfloat16()
+    return (lambda x: ln.layernorm_cuda(x, gamma),
+            lambda x: ln.layernorm_reference(x.float(), gamma),
+            lambda x: F_.layer_norm(x, (F,), gamma_bf16, None, 1e-5), None)
+
+
+def check_glue(name, kind, rows, F, seed):
+    """Rows 12-14 against their twins, with times and the bound: the bytes
+    of the inputs read once and the outputs written once (gamma too), and
+    GLUE_FLOPS fp32 operations per output element."""
+    import itertools
+    import torch
+    from bevgen_torch.ops import fused_glue as fg
+    from bevgen_torch.ops import layernorm as ln
+    sets, gamma, in_bytes = glue_case(kind, rows, F, seed)
+    kernel, twin, library, chain = glue_calls(kind, gamma)
+    args = sets[0]
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    exact = True
+    if kind == "residual":
+        want_x, _ = fg.residual_layernorm_reference(*args, gamma)
+        exact = torch.equal(out[0], want_x)
+        got, want = out[1], ln.layernorm_reference(want_x.float(), gamma)
+    else:
+        got, want = out, twin(*args)
+    err = (got.float() - want).abs()
+    max_err, mean_err = err.max().item(), err.mean().item()
+    tol = (torch.clamp(2.0 ** -7 * want.abs(), min=GLUE_MAX_ABS_TOL)
+           if kind == "geglu" else torch.full_like(want, GLUE_MAX_ABS_TOL))
+    within = bool((err <= tol).all())
+    finite = bool(torch.isfinite(got).all())
+    max_ref = want.abs().max().item()
+    del err, tol, want, out, got
+    cycle = itertools.cycle(sets)
+    ms = time_ms(lambda: kernel(*next(cycle)), iters=50)
+    plain_ms = time_ms(lambda: twin(*next(cycle)), iters=10)
+    lib_ms = (time_ms(lambda: library(*next(cycle)), iters=50)
+              if library is not None else None)
+    chain_ms = (time_ms(lambda: chain(*next(cycle)), iters=50)
+                if chain is not None else None)
+    n_out = 2 if kind == "residual" else 1
+    nbytes = in_bytes + n_out * rows * F * 2 + F * 4
+    flops = GLUE_FLOPS[kind] * rows * F
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    bms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    ok = exact and finite and within and mean_err <= GLUE_MEAN_ABS_TOL
+    print(f"[glue] {kind} {name}: rows={rows} F={F} "
+          + (f"x_new bit-exact={exact} " if kind == "residual" else "")
+          + f"max_abs_err={max_err:.3e} (max |out| {max_ref:.2f}) mean_abs_err="
+          f"{mean_err:.3e} ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms="
+          f"{lib_ms if lib_ms is None else round(lib_ms, 5)} eager_chain_ms="
+          f"{chain_ms if chain_ms is None else round(chain_ms, 5)} bound_ms="
+          f"{bms:.5f} ({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} "
+          f"GFLOP) timed over {len(sets)} input set(s) -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"glue kernel {kind} {name} disagrees with its twin "
+                         f"(x_new exact {exact}, max {max_err:.3e}, mean "
+                         f"{mean_err:.3e}, finite {finite})")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def glue_kernels_phase(cfg):
+    """Phase 21: rows 12-14 at the MUSE serving (b=2) and training (b=8)
+    shapes, and ragged cases."""
+    tf = cfg.transformer
+    n = tf.num_img_tokens
+    dim = tf.num_embed
+    inner = int(dim * tf.ff_mult * 2 / 3)
+    stats = {}
+    for b in (2, TRAIN_BATCH):
+        stats[("residual", b)] = check_glue(f"b{b}", "residual", b * n, dim, 70 + b)
+        stats[("geglu", b)] = check_glue(f"b{b}", "geglu", b * n, inner, 80 + b)
+    check_glue("ragged", "residual", 13, dim, 90)
+    check_glue("odd width", "residual", 9, 1003, 91)
+    check_glue("tiny_test width", "geglu", 37, 170, 92)
+    stats[("layernorm", 2)] = check_glue("(2, 1792, 1024)", "layernorm", 2 * n,
+                                         dim, 93)
+    check_glue("ragged (3, 13, 1003)", "layernorm", 39, 1003, 94)
+    return stats
+
+
+def glue_pipelines(cfg):
+    """The MUSE pipeline of phase 4 (seed-0 weights) and the same weights
+    under use_fused_glue=True."""
+    from bevgen_torch.pipelines.generate import BEVGenPipeline
+    plain = BEVGenPipeline.create(cfg, device="cuda").init_params(seed=0)
+    glue_cfg = dataclasses.replace(cfg, transformer=cfg.transformer.replace(
+        use_fused_glue=True))
+    glue = BEVGenPipeline.create(glue_cfg, device="cuda")
+    glue.load_state_dict(plain.state_dict())
+    return plain, glue
+
+
+# phase 22's A/B: pairs of generates, glue on and off, in turns (which
+# goes first alternates), after two warm-ups of each
+GLUE_AB_PAIRS = 10
+
+
+def glue_generate_phase(cfg, plain, glue, phase4_med):
+    """Phase 22: generate_fn with the glue on against it off, GLUE_AB_PAIRS
+    pairs in turns on the same weights, inputs and seeds; the launch counts
+    of the first timed glue run."""
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops import fused_glue as fg
+    tf = cfg.transformer
+    B = 2
+    batch = fake_batch(cfg, batch_size=B, seed=0)
+    inputs = (batch["segmentation"], batch["intrinsics_inv"],
+              batch["extrinsics_inv"])
+
+    def generate(pipe, seed):
+        t0 = time.perf_counter()
+        out = pipe.generate_fn(*inputs, torch.Generator(
+            device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for seed in (0, 1):
+        generate(glue, seed)
+        generate(plain, seed)
+    times = {"glue": [], "plain": []}
+    for i, seed in enumerate(range(2, 2 + GLUE_AB_PAIRS)):
+        order = ("glue", "plain") if i % 2 == 0 else ("plain", "glue")
+        for which in order:
+            if i == 0 and which == "glue":
+                ca.reset_launch_counts()
+                fg.reset_launch_counts()
+            (images, ids), s = generate(glue if which == "glue" else plain, seed)
+            times[which].append(s)
+            if i == 0 and which == "glue":
+                counts = (fg.residual_layernorm_cuda.launches,
+                          fg.geglu_layernorm_cuda.launches,
+                          ca.cosine_attention_cuda.launches)
+                g_images, g_ids = images, ids
+    n_img = B * tf.num_cams
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    wins = sum(g < p for g, p in zip(times["glue"], times["plain"]))
+    print(f"[glue-e2e] generate_fn b={B}, {GLUE_AB_PAIRS} pairs in turns: "
+          f"use_fused_glue=true {', '.join(f'{t:.4f}' for t in times['glue'])} "
+          f"s, median {med['glue']:.4f} s = {n_img / med['glue']:.3f} "
+          f"images/s; off {', '.join(f'{t:.4f}' for t in times['plain'])} s, "
+          f"median {med['plain']:.4f} s = {n_img / med['plain']:.3f} images/s; "
+          f"glue faster in {wins} of {GLUE_AB_PAIRS} pairs; phase 4 median "
+          f"{phase4_med:.4f} s = {n_img / phase4_med:.3f} images/s", flush=True)
+    steps = cfg.muse.sample_iterations
+    forwards = steps + steps - 1
+    want = (forwards * 3 * tf.num_layers, forwards * tf.num_layers,
+            forwards * 2 * tf.num_layers)
+    print(f"[glue-e2e] launches in the first timed glue generate: residual + "
+          f"LayerNorm {counts[0]}, GEGLU + LayerNorm {counts[1]}, attention "
+          f"{counts[2]} (expected {want})", flush=True)
+    if counts != want:
+        raise SystemExit(f"expected {want} launches per glue generate, got "
+                         f"{counts}")
+    H_img, W_img = tf.cam_res
+    if tuple(g_images.shape) != (B, tf.num_cams, H_img, W_img, 3):
+        raise SystemExit(f"bad image shape {tuple(g_images.shape)}")
+    if not torch.isfinite(g_images).all():
+        raise SystemExit("non-finite images with the glue on")
+    if g_ids.min() < 0 or g_ids.max() >= tf.vocab_size:
+        raise SystemExit("ids out of range with the glue on")
+    return {"residual_ln": counts[0], "geglu_ln": counts[1], "s": med,
+            "images_per_s": {k: n_img / v for k, v in med.items()}}
+
+
+def glue_forward_phase(cfg, plain, glue):
+    """Phase 23: one full-width forward with the glue against the same
+    forward without it, on the same weights and decode cache."""
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    tf = cfg.transformer
+    B = 2
+    batch = fake_batch(cfg, batch_size=B, seed=0)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    fids = torch.randint(0, tf.vocab_size + 1, (B, tf.num_cams,
+                                                tf.num_cam_tokens),
+                         generator=g, device="cuda")
+    with torch.inference_mode():
+        seg, ii, ei = (torch.as_tensor(batch[k], device="cuda") for k in
+                       ("segmentation", "intrinsics_inv", "extrinsics_inv"))
+        cond_ids = plain.encode_bev(seg)
+        cache = plain.maskgit.build_cache(cond_ids, ii, ei)
+        lg = glue.maskgit(fids, cond_ids, ii, ei, cache=cache).logits.float()
+        lp = plain.maskgit(fids, cond_ids, ii, ei, cache=cache).logits.float()
+    cos, top1 = logit_agreement(lg, lp)
+    print(f"[glue-forward] full-width logits, glue vs no glue: cosine "
+          f"{cos:.6f} (min {LOGIT_COS_MIN}), top-1 agreement {top1:.4f} (min "
+          f"{TOP1_AGREE_MIN}), max abs diff {(lg - lp).abs().max().item():.4f}",
+          flush=True)
+    if not (cos >= LOGIT_COS_MIN and top1 >= TOP1_AGREE_MIN):
+        raise SystemExit("full-width forward disagrees between the glue and "
+                         "the plain form")
+    return cos, top1
+
+
+def glue_grads_phase(cfg):
+    """Phase 24's second half: one loss backward at b=1 with the glue and
+    without it, on the same weights and draws; cosine of the gradient of
+    each parameter group."""
+    import torch
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.stage2.maskgit import MaskGit, maskgit_loss
+    from bevgen_torch.ops import fused_glue as fg
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    tf = cfg.transformer
+    models = {}
+    for glue in (False, True):
+        models[glue] = MaskGit(tf.replace(use_fused_glue=glue), cfg.muse,
+                               dtype=torch.bfloat16, param_dtype=torch.float32)
+    init_weights(models[False], seed=0)
+    models[True].load_state_dict(models[False].state_dict())
+    batch = to_device(next(fake_batches(tf, 1, seed=4)))
+    mask = torch.rand(batch["tokens"].shape, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(5)) < 0.5
+    noise = torch.zeros(tuple(batch["tokens"].shape) + (tf.vocab_size,),
+                        device="cuda")
+
+    def grads(model):
+        model.to("cuda")
+        out = maskgit_loss(model, batch["tokens"], batch["cond_ids"],
+                           batch["intrinsics_inv"], batch["extrinsics_inv"],
+                           generator=torch.Generator(device="cuda").manual_seed(6),
+                           mask_override=mask, gumbel_noise=noise)
+        names = [n for n, _ in model.named_parameters()]
+        g = torch.autograd.grad(out.loss, [p for _, p in model.named_parameters()])
+        return float(out.loss.detach()), dict(zip(names, g))
+
+    before = fg.residual_layernorm_cuda.launches
+    loss_g, gg = grads(models[True])
+    if fg.residual_layernorm_cuda.launches == before:
+        raise SystemExit("the glue form launched no glue kernel")
+    loss_p, gp = grads(models[False])
+    groups = {}
+    for n, a in gg.items():
+        ga, gb = groups.setdefault(grad_group(n), ([], []))
+        ga.append(a.float().flatten())
+        gb.append(gp[n].float().flatten())
+    cos = {k: torch.nn.functional.cosine_similarity(
+        torch.cat(a), torch.cat(b), dim=0).item() for k, (a, b) in groups.items()}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:4]
+    print(f"[glue-grad] full-width b=1 loss {loss_g:.5f} (glue) vs {loss_p:.5f} "
+          f"(no glue); gradient cosine over {len(cos)} parameter groups: min "
+          f"{worst[0][1]:.6f} (bound {MODEL_GRAD_COS_MIN}), lowest "
+          + ", ".join(f"{k}={c:.6f}" for k, c in worst)
+          + f", mean {sum(cos.values()) / len(cos):.6f}", flush=True)
+    if not worst[0][1] >= MODEL_GRAD_COS_MIN:
+        raise SystemExit("full-width gradients disagree between the glue and "
+                         "the plain form")
+    return cos
+
+
+# LayerNormFn's gradients against autograd through the twin, on the same bf16
+# input: the backward recomputes through that very twin, so only the forward
+# output differs (kernel against twin, one bf16 step apart here and there)
+LN_GRAD_COS_MIN = 0.999
+
+
+def layernorm_g_phase(cfg):
+    """Phase 25: row 14 through LayerNormG(use_fused=True) at (2, 1792, 1024)
+    bf16: one launch per call, the forward against the twin, the gradients
+    of LayerNormFn against autograd through the twin."""
+    import torch
+    from bevgen_torch.models.stage2.transformer import LayerNormG
+    from bevgen_torch.ops import layernorm as ln
+    tf = cfg.transformer
+    D = tf.num_embed
+    g = torch.Generator(device="cuda").manual_seed(95)
+    mod = LayerNormG(D, use_fused=True).to("cuda")
+    with torch.no_grad():
+        mod.norm.weight.copy_(1.0 + 0.1 * torch.randn(D, generator=g,
+                                                      device="cuda"))
+    x = torch.randn(2, tf.num_img_tokens, D, generator=g, device="cuda").bfloat16()
+    ln.reset_launch_counts()
+    with torch.no_grad():
+        out = mod(x, torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = ln.layernorm_cuda.launches
+    want = ln.layernorm_reference(x.float(), mod.norm.weight.detach())
+    err = (out.float() - want).abs()
+    max_err, mean_err = err.max().item(), err.mean().item()
+    xl = x.clone().requires_grad_()
+    y = mod(xl, torch.bfloat16)
+    if not isinstance(y.grad_fn, ln.LayerNormFn._backward_cls):
+        raise SystemExit("the CUDA LayerNorm output has no LayerNormFn grad_fn")
+    w = torch.randn(y.shape, generator=g, device="cuda")
+    leaves = [xl, mod.norm.weight]
+    got = torch.autograd.grad((y.float() * w).sum(), leaves)
+    ref = ln.layernorm_reference(xl, mod.norm.weight)
+    want_g = torch.autograd.grad((ref.float() * w).sum(), leaves)
+    cos = {n: torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0).item()
+        for n, a, b in zip(("x", "scale"), got, want_g)}
+    per_call = ln.layernorm_cuda.launches - launches
+    print(f"[layernorm] LayerNormG(use_fused=True) (2, {tf.num_img_tokens}, {D}) "
+          f"bf16: {launches} launch without gradients, {per_call} with; "
+          f"max_abs_err={max_err:.3e} mean_abs_err={mean_err:.3e}; "
+          f"LayerNormFn gradient cosine "
+          + " ".join(f"{n}={c:.6f}" for n, c in cos.items())
+          + f" (min {LN_GRAD_COS_MIN})", flush=True)
+    if launches != 1 or per_call != 1:
+        raise SystemExit("LayerNormG(use_fused=True) did not launch its kernel "
+                         "once per call")
+    if not (max_err <= GLUE_MAX_ABS_TOL and mean_err <= GLUE_MEAN_ABS_TOL
+            and min(cos.values()) >= LN_GRAD_COS_MIN):
+        raise SystemExit("LayerNormG(use_fused=True) disagrees with its twin")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1426,6 +1837,8 @@ def main() -> int:
     from bevgen_torch.models.stage2.transformer import CosineAttention
     from bevgen_torch.ops import _build
     from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops import fused_glue as fg
+    from bevgen_torch.ops import layernorm as ln
     from bevgen_torch.pipelines.generate import BEVGenPipeline
 
     # fp32 references stay fp32 (no TF32 in matmuls or convolutions)
@@ -1480,12 +1893,16 @@ def main() -> int:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     ca.reset_launch_counts()
+    fg.reset_launch_counts()
+    ln.reset_launch_counts()
     t0 = time.perf_counter()
     images, ids = generate(1)
     torch.cuda.synchronize()
     gen_s = [time.perf_counter() - t0]
     launches = ca.cosine_attention_cuda.launches
     by_shape = dict(ca.cosine_attention_cuda.launches_by_shape)
+    glue_off = (fg.residual_layernorm_cuda.launches,
+                fg.geglu_layernorm_cuda.launches, ln.layernorm_cuda.launches)
     for seed in (2, 3, 4, 5):  # four more timed runs, for the spread
         t0 = time.perf_counter()
         generate(seed)
@@ -1496,11 +1913,14 @@ def main() -> int:
     print(f"[e2e] generate_fn b={B}: warm-up {warm_s:.3f} s, timed "
           f"{', '.join(f'{t:.4f}' for t in gen_s)} s, median {med:.4f} s = "
           f"{n_img / med:.3f} images/s; kernel launches in the first timed "
-          f"run {launches} {by_shape}", flush=True)
+          f"run {launches} {by_shape}, glue kernels {glue_off}", flush=True)
     steps = cfg.muse.sample_iterations
     expect = (steps + steps - 1) * tf.num_layers * 2
     if launches != expect:
         raise SystemExit(f"expected {expect} kernel launches, got {launches}")
+    if glue_off != (0, 0, 0):
+        raise SystemExit(f"glue kernels launched with use_fused_glue off: "
+                         f"{glue_off}")
     H_img, W_img = tf.cam_res
     if tuple(images.shape) != (B, tf.num_cams, H_img, W_img, 3):
         raise SystemExit(f"bad image shape {tuple(images.shape)}")
@@ -1626,6 +2046,22 @@ def main() -> int:
     timed_phase(20, ar_ce_falls_phase, model, ar_cfg)
     del model
 
+    # 21-25. the glue kernels against their twins, then the MUSE path with
+    # use_fused_glue on: generate (in turns with it off), one forward,
+    # training; and the standalone LayerNorm through LayerNormG
+    glue_stats = timed_phase(21, glue_kernels_phase, cfg)
+    plain_pipe, glue_pipe = glue_pipelines(cfg)
+    glue_e2e = timed_phase(22, glue_generate_phase, cfg, plain_pipe, glue_pipe,
+                           med)
+    timed_phase(23, glue_forward_phase, cfg, plain_pipe, glue_pipe)
+    del plain_pipe, glue_pipe
+    glue_cfg = dataclasses.replace(cfg, transformer=tf.replace(
+        use_fused_glue=True))
+    model, glue_train = timed_phase(24, train_phase, glue_cfg)
+    del model
+    timed_phase(24, glue_grads_phase, cfg)
+    row14_launches = timed_phase(25, layernorm_g_phase, cfg)
+
     kernels = []
     for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
         kernels.append({
@@ -1674,6 +2110,20 @@ def main() -> int:
             "name": f"decode_attention[b{AR_BATCH} H{tf_ar.num_heads} pl{pl}]",
             "route": "cuda", "source": da.SOURCE, "replaces": da.REPLACES,
             "launches": ar_e2e["by_pl"].get(pl, 0), **st})
+    inner = int(tf.num_embed * tf.ff_mult * 2 / 3)
+    for kind, src, rep, width in (
+            ("residual", fg.SOURCE, fg.RES_LN_REPLACES, tf.num_embed),
+            ("geglu", fg.SOURCE, fg.GEGLU_LN_REPLACES, inner)):
+        op = {"residual": "residual_layernorm", "geglu": "geglu_layernorm"}[kind]
+        for b, run, count in ((2, "serve", glue_e2e), (TB, "train", glue_train)):
+            kernels.append({
+                "name": f"{op}[{run} b{b} {b * N}x{width}]", "route": "cuda",
+                "source": src, "replaces": rep,
+                "launches": count[f"{kind}_ln"], **glue_stats[(kind, b)]})
+    kernels.append({
+        "name": f"layernorm[LayerNormG use_fused, 2x{N}x{tf.num_embed}]",
+        "route": "cuda", "source": ln.SOURCE, "replaces": ln.REPLACES,
+        "launches": row14_launches, **glue_stats[("layernorm", 2)]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 """Guards of the PyTorch port: it imports nothing of JAX or of the JAX
 package, `load_jax_params` accepts exactly the reference's tree (MUSE and
 AR pipelines), entry points (serving, AR serving and training) run on CUDA
-unless asked for the CPU, the attention's autograd Function runs its plain
-twins on the CPU, and (on a machine with a card) the CUDA kernels agree
-with their plain versions and CUDA attention outputs carry gradients, the
-block-sparse backward included.
+unless asked for the CPU, the attention's and the glue's autograd Functions
+run their plain twins on the CPU, and (on a machine with a card) the CUDA
+kernels agree with their plain versions and CUDA attention and glue outputs
+carry gradients, the block-sparse backward included.
 
 The module imports JAX only inside the tests that compare with it, so the
 `cuda` test also runs where JAX is missing; there, skip the conftest
@@ -53,7 +53,8 @@ def test_port_imports_no_jax_or_reference_package():
                    "scripts/profile_train.py", "models/init.py",
                    "ops/block_sparse.py", "ops/decode_attention.py",
                    "models/stage2/gpt.py", "models/stage2/ar.py",
-                   "models/stage2/ar_cached.py", "pipelines/ar_generate.py"):
+                   "models/stage2/ar_cached.py", "pipelines/ar_generate.py",
+                   "ops/fused_glue.py", "ops/layernorm.py"):
         assert f"bevgen_torch/{module}" in checked, module
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p)) & FORBIDDEN)
            for p in files}
@@ -460,3 +461,129 @@ def test_cuda_decode_kernel_matches_plain_version():
         err = (got.float() - want.float()).abs()
         assert err.max().item() <= 2e-2 * want.float().abs().max().item()
         assert err.mean().item() <= 1e-2 * want.float().abs().mean().item()
+
+
+def test_glue_cuda_wrappers_raise_for_cpu_tensors():
+    from bevgen_torch.ops import fused_glue as fg
+    from bevgen_torch.ops import layernorm as ln
+    x = torch.zeros(3, 64, dtype=torch.bfloat16)
+    g = torch.ones(64)
+    for call in (lambda: fg.residual_layernorm_cuda(x, x, g),
+                 lambda: fg.geglu_layernorm_cuda(x, g[:32]),
+                 lambda: ln.layernorm_cuda(x, g)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
+    assert fg.residual_layernorm_cuda.launches == 0
+    assert fg.geglu_layernorm_cuda.launches == 0
+    assert ln.layernorm_cuda.launches == 0
+
+
+def test_cpu_glue_functions_run_the_twins(monkeypatch):
+    from bevgen_torch.ops import fused_glue as fg
+    from bevgen_torch.ops import layernorm as ln
+    calls = []
+    twin = fg.residual_layernorm_reference
+    monkeypatch.setattr(fg, "residual_layernorm_reference",
+                        lambda *a: calls.append(1) or twin(*a))
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 9, 64, generator=g, requires_grad=True)
+    d = torch.randn(2, 9, 64, generator=g)
+    gamma = torch.ones(64, requires_grad=True)
+    xo, no = fg.residual_layernorm(x, d, gamma)
+    assert isinstance(no.grad_fn, fg.ResidualLayerNormFn._backward_cls)
+    assert calls == [1]
+    (no.sum() + xo.sum()).backward()
+    assert calls == [1, 1]  # the backward recomputes through the twin
+    assert x.grad is not None and gamma.grad is not None
+    y = torch.randn(2, 9, 128, generator=g, requires_grad=True)
+    assert isinstance(fg.geglu_layernorm(y, gamma).grad_fn,
+                      fg.GegluLayerNormFn._backward_cls)
+    assert isinstance(ln.layernorm(x, gamma).grad_fn,
+                      ln.LayerNormFn._backward_cls)
+    with torch.no_grad():  # serving: no Function, no saved inputs
+        assert fg.residual_layernorm(x, d, gamma)[1].grad_fn is None
+        assert fg.geglu_layernorm(y, gamma).grad_fn is None
+        assert ln.layernorm(x, gamma).grad_fn is None
+    for t in (fg.residual_layernorm_cuda, fg.geglu_layernorm_cuda,
+              ln.layernorm_cuda):
+        assert t.launches == 0
+
+
+def _glue_cases(g):
+    """bf16 inputs at widths even and odd (bf16x2 and scalar accesses)."""
+    for rows, F in [(13, 1024), (9, 1003), (4, 2730), (5, 170)]:
+        x, d = (torch.randn(rows, F, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        y = torch.randn(rows, 2 * F, generator=g, device="cuda").bfloat16()
+        gamma = 1 + 0.2 * torch.randn(F, generator=g, device="cuda")
+        yield x, d, y, gamma
+
+
+@pytest.mark.cuda
+def test_cuda_glue_kernels_match_plain_versions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from bevgen_torch.ops import fused_glue as fg
+    from bevgen_torch.ops import layernorm as ln
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for x, d, y, gamma in _glue_cases(g):
+        counts = (fg.residual_layernorm_cuda.launches,
+                  fg.geglu_layernorm_cuda.launches, ln.layernorm_cuda.launches)
+        xo, no = fg.residual_layernorm(x, d, gamma)
+        z = fg.geglu_layernorm(y, gamma)
+        n = ln.layernorm(x, gamma)
+        assert (fg.residual_layernorm_cuda.launches,
+                fg.geglu_layernorm_cuda.launches,
+                ln.layernorm_cuda.launches) == tuple(c + 1 for c in counts)
+        want_x, _ = fg.residual_layernorm_reference(x, d, gamma)
+        assert torch.equal(xo, want_x)  # bit for bit
+        # against the twins in fp32 on the same bf16 inputs (the rounded
+        # x_new for the residual): the kernels round h and the outputs to
+        # bf16, at most 2^-8 + 2^-9 of |out|, under one bf16 step
+        for got, want in ((no, ln.layernorm_reference(want_x.float(), gamma)),
+                          (z, fg.geglu_layernorm_reference(y.float(), gamma)),
+                          (n, ln.layernorm_reference(x.float(), gamma))):
+            err = (got.float() - want).abs()
+            assert (err <= torch.clamp(2.0 ** -7 * want.abs(), min=2e-2)).all()
+            assert err.mean().item() <= 2e-3
+
+
+@pytest.mark.cuda
+def test_cuda_glue_outputs_have_grad_fn():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from bevgen_torch.ops import fused_glue as fg
+    from bevgen_torch.ops import layernorm as ln
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x, d, y, gamma = next(_glue_cases(g))
+    leaves = [t.requires_grad_() for t in (x, d, y, gamma)]
+    before = fg.residual_layernorm_cuda.launches
+    xo, no = fg.residual_layernorm(x, d, gamma)
+    assert fg.residual_layernorm_cuda.launches == before + 1
+    z = fg.geglu_layernorm(y, gamma)
+    n = ln.layernorm(x, gamma)
+    assert isinstance(no.grad_fn, fg.ResidualLayerNormFn._backward_cls)
+    assert isinstance(z.grad_fn, fg.GegluLayerNormFn._backward_cls)
+    assert isinstance(n.grad_fn, ln.LayerNormFn._backward_cls)
+    loss = sum(t.float().square().sum() for t in (xo, no, z, n))
+    grads = torch.autograd.grad(loss, leaves)
+    assert all(gr is not None and torch.isfinite(gr).all() for gr in grads)
+
+
+@pytest.mark.cuda
+def test_cuda_glue_kernels_refuse_other_dtypes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from bevgen_torch.ops import fused_glue as fg
+    from bevgen_torch.ops import layernorm as ln
+    x = torch.randn(9, 64, device="cuda")           # fp32 activations
+    gamma = torch.ones(64, device="cuda")
+    with pytest.raises(TypeError, match="bfloat16"):
+        fg.residual_layernorm(x, x, gamma)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fg.geglu_layernorm(torch.randn(9, 128, device="cuda"), gamma)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ln.layernorm(x, gamma)
+    xb = x.bfloat16()                               # bf16 gamma
+    with pytest.raises(TypeError, match="float32"):
+        fg.residual_layernorm(xb, xb, gamma.bfloat16())

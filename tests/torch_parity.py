@@ -30,11 +30,17 @@ from bevgen_torch.pipelines.generate import BEVGenPipeline as TorchPipeline
 GREEDY = dict(temperature=0.0, critic_noise_scale=0.0)
 
 
-def tiny_configs(greedy: bool = False):
+def tiny_configs(greedy: bool = False, glue: bool = False):
+    """(JAX, port) tiny_test configs; `glue` sets use_fused_glue on both."""
     jc, tc = jcfg.tiny_test_config(), tcfg.tiny_test_config()
     if greedy:
         jc = dataclasses.replace(jc, muse=dataclasses.replace(jc.muse, **GREEDY))
         tc = dataclasses.replace(tc, muse=dataclasses.replace(tc.muse, **GREEDY))
+    if glue:
+        jc = dataclasses.replace(jc, transformer=jc.transformer.replace(
+            use_fused_glue=True))
+        tc = dataclasses.replace(tc, transformer=tc.transformer.replace(
+            use_fused_glue=True))
     return jc, tc
 
 
@@ -67,20 +73,21 @@ def random_tree(shapes, seed: int):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
-def tiny_tree(seed: int = 0):
-    """A numpy weight tree in the layout of the JAX tiny_test pipeline."""
-    jp = JaxPipeline.create(jcfg.tiny_test_config(), dtype=jnp.float32)
+def tiny_tree(seed: int = 0, glue: bool = False):
+    """A numpy weight tree in the layout of the JAX tiny_test pipeline (the
+    one initialised under use_fused_glue=True with `glue`)."""
+    jp = JaxPipeline.create(tiny_configs(glue=glue)[0], dtype=jnp.float32)
     return random_tree(jax.eval_shape(jp.init_params, jax.random.PRNGKey(0)),
                        seed)
 
 
-@functools.lru_cache(maxsize=2)
-def tiny_pipelines(greedy: bool = False, seed: int = 0):
+@functools.lru_cache(maxsize=4)
+def tiny_pipelines(greedy: bool = False, seed: int = 0, glue: bool = False):
     """(jax_pipe, jax_params, torch_pipe) at tiny_test, fp32, CPU, with the
     same weights."""
-    jc, tc = tiny_configs(greedy)
+    jc, tc = tiny_configs(greedy, glue)
     jp = JaxPipeline.create(jc, dtype=jnp.float32)
-    tree = tiny_tree(seed)
+    tree = tiny_tree(seed, glue)
     tp = TorchPipeline.create(tc, device="cpu", dtype=torch.float32)
     load_jax_params(tp, tree)
     params = jax.tree_util.tree_map(jnp.asarray, tree)
