@@ -21,43 +21,57 @@
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at the
 // nuScenes AR shapes (B=2, H=16, L=2368, D=64, 16-token blocks at density
 // 1.0, so about half of the 148 x 148 blocks active: the causal band and
-// the condition columns) the active blocks cost 4*D*16^2 FLOP each per
-// (b, h), about 23 GFLOP (24 us), against 39 MB of q/k/v/out (12 us):
-// operations. (Estimates from the shapes; chip_smoke.py computes the bound
-// from the layout it runs.)
+// the condition columns) the kept pairs cost 4 D FLOP each, about 23 GFLOP
+// (0.023 ms), against 39 MB of q/k/v/out (0.012 ms): operations. (Estimates
+// from the shapes; chip_smoke.py computes the bound from the layout it
+// runs.) Beyond the bound, time goes to feeding the tensor cores (16 KB of
+// K/V copied in for each 64 x 64 tile's two products), to the
+// exponentials, and to the keep rule wherever it is evaluated.
 //
-// Design. One thread block of 4 warps per (b, h, 64-row query tile); each
-// warp owns 16 query rows, held as mma.sync A fragments for the whole loop.
-// The host lists, once per layout, the 64-wide key tiles that hold any
-// active block for each (head, query tile) (`counts`, `indices`); the block
-// loops over exactly those, in ascending order, which replaces the TPU's
-// scalar-prefetched tile lists. Each visited K/V tile is staged in shared
-// memory; scores and P.V run on the tensor cores (m16n8k16 bf16 -> fp32)
-// with an online softmax in fp32 (log2 units). Inside a visited tile the
-// mask comes from the row and column indices and the layout bytes of this
-// head (read through the read-only cache), so no (L, L) mask is read from
-// memory (the rule is `block_sparse_mask.cuh`, shared with the backward).
-// What this first version leaves on the table: synchronous loads (no
-// cp.async/TMA pipeline), mma.sync instead of wgmma, and a per-element
-// layout lookup.
+// Design. One warpgroup (128 threads) per (b, h, 64-row query tile). The
+// host lists, once per layout, the 64-wide key tiles that hold any active
+// block for each (head, query tile) (`counts`, `indices`), and flags those
+// whose every pair is kept (`full`); the block walks exactly those, in
+// ascending order, which replaces the TPU's scalar-prefetched tile lists.
+//   - Both products run on wgmma (hopper_common.cuh), m64n64k16 bf16 ->
+//     fp32: S = q k^T with q and k as K-major operands in shared memory,
+//     O += P v with P from registers (the fp32 scores rescaled, exponentiated
+//     and packed to bf16 in place) and v as an MN-major operand.
+//   - K/V tiles come through a ring of STAGES stages filled with cp.async in
+//     the 128-byte swizzle: the copy of the next listed tile is in flight
+//     while this tile's products and softmax run.
+//   - A full tile skips the mask: no layout byte, no index rule, no bound
+//     check. A partial tile (the causal diagonal, the pad rows, the
+//     condition edge, the ragged end) applies the rule of
+//     `block_sparse_mask.cuh` to every score, as before. At nuscenes_ar
+//     10,240 of the 11,344 listed tiles (all heads) are full.
+// The online softmax runs in fp32 in log2 units, its exponentials on the
+// special-function unit (`exp2_approx`: weights under 2^-126 flush to 0,
+// below anything the bf16 P keeps). No product runs on mma.sync.
 //
 // C interface: block_sparse_fwd_bf16(...) returns cudaGetLastError() after
 // the launch; the Python wrapper raises if it is not 0.
 
+#include <math_constants.h>
+
 #include "block_sparse_mask.cuh"
-#include "mma_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-using namespace mma_common;
+using namespace hopper;
 
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr float MASKED = -1e9f * LOG2E;  // the reference's -1e9, in log2 units
 constexpr float LN2 = 0.6931471805599453f;
 // head dim: 1024 / 16 heads in every AR configuration (nuscenes_ar,
 // nuscenes_ar_tpu); the wrapper raises for any other
 constexpr int HEAD_DIM = 64;
+constexpr int STAGES = 2;  // K/V ring
+// the q tile and the ring, with slack to align the first tile to 1024
+constexpr int SMEM_BYTES = (1 + 2 * STAGES) * TILE_BYTES + 1024;
 
-__global__ void __launch_bounds__(NUM_THREADS)
+__global__ void __launch_bounds__(WG_THREADS)
 block_sparse_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
@@ -65,39 +79,45 @@ block_sparse_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                         const uint8_t* __restrict__ layout,
                         const int* __restrict__ counts,
                         const int* __restrict__ indices,
+                        const uint8_t* __restrict__ full,
                         __nv_bfloat16* __restrict__ out,
                         float* __restrict__ lse,
                         int H, int L, int nb, int block, int nt, int nc,
                         int pad_start, float scale) {
-  constexpr int D = HEAD_DIM;
-  constexpr int LD = D + 8;      // smem row stride in bf16 (16-byte multiple)
-  constexpr int KSTEPS = D / 16; // mma k-steps over the head dim
-  constexpr int NT_O = D / 8;    // output n-tiles per warp
-
-  __shared__ __align__(16) __nv_bfloat16 q_s[BLOCK_ROWS * LD];
-  __shared__ __align__(16) __nv_bfloat16 k_s[BLOCK_ROWS * LD];
-  __shared__ __align__(16) __nv_bfloat16 v_s[BLOCK_ROWS * LD];
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = smem_addr(align1024(smem_raw));
+  const uint32_t ring = q_s + TILE_BYTES;  // stage st: K, then V
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int qt = blockIdx.x;
-  const int q0 = qt * BLOCK_ROWS;
+  const int q0 = qt * TILE_ROWS;
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t bh = static_cast<size_t>(b) * H + h;
-  const __nv_bfloat16* qb = q + bh * L * D;
-  const __nv_bfloat16* kb = k + bh * L * D;
-  const __nv_bfloat16* vb = v + bh * L * D;
+  const __nv_bfloat16* kb = k + bh * L * HEAD_DIM;
+  const __nv_bfloat16* vb = v + bh * L * HEAD_DIM;
+  const size_t plan = static_cast<size_t>(h) * nt + qt;
+  const int n_tiles = counts[plan];
+  const int* tiles = indices + plan * nt;
+  const uint8_t* tile_full = full + plan * nt;
 
-  // q tile (the second tile of the pair is a scratch copy into k_s,
-  // overwritten by the first K tile)
-  load_tiles<D>(q_s, qb, k_s, qb, q0, L, tid);
-  __syncthreads();
-  const int wr = warp * 16;
-  uint32_t qa[KSTEPS][4];
-  load_a<D>(qa, q_s, wr, g, t);
+  // one commit group per listed tile (empty past the list, so the groups
+  // stay counted alike); the q tile rides with the first
+  auto load_kv = [&](int it) {
+    if (it < n_tiles) {
+      const uint32_t st = ring + (it % STAGES) * 2 * TILE_BYTES;
+      const int kv0 = tiles[it] * TILE_ROWS;
+      load_tile_async(st, kb, kv0, L, tid);
+      load_tile_async(st + TILE_BYTES, vb, kv0, L, tid);
+    }
+    cp_async_commit();
+  };
+  load_tile_async(q_s, q + bh * L * HEAD_DIM, q0, L, tid);
+#pragma unroll
+  for (int it = 0; it < STAGES - 1; ++it) load_kv(it);
 
-  const int row0 = q0 + wr + g, row1 = row0 + 8;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
   // rows past L (the ragged last tile) are computed and never stored
   const uint8_t* lay0 = block_sparse::layout_row(layout, h, nb, row0, block);
   const uint8_t* lay1 = block_sparse::layout_row(layout, h, nb, row1, block);
@@ -105,48 +125,74 @@ block_sparse_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const float sc = scale * LOG2E;
 
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
-  float acc[NT_O][4];
-#pragma unroll
-  for (int j = 0; j < NT_O; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float acc[NT][4];
+  zero(acc);
 
-  const int n_tiles = counts[h * nt + qt];
-  const int* tiles = indices + (static_cast<size_t>(h) * nt + qt) * nt;
   for (int it = 0; it < n_tiles; ++it) {
-    const int kv0 = tiles[it] * BLOCK_ROWS;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tiles<D>(k_s, kb, v_s, vb, kv0, L, tid);
-    __syncthreads();
+    cp_async_wait<STAGES - 2>();
+    fence_proxy_async();
+    __syncthreads();  // tile it is in place; every warp is done with it - 1
+    load_kv(it + STAGES - 1);
+    const uint32_t k_s = ring + (it % STAGES) * 2 * TILE_BYTES;
+    const uint32_t v_s = k_s + TILE_BYTES;
+    const int kv0 = tiles[it] * TILE_ROWS;
 
     float s[NT][4];
-    mma_abt<D>(s, qa, k_s, g, t);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HEAD_DIM / 16; ++kk)
+      wgmma_ss(s, desc_k_major(q_s, kk), desc_k_major(k_s, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
 
-    // + bias on the raw scores, * scale, mask, to log2 units; columns past
-    // L are -inf (exactly 0 weight; every tile holds a column < L)
+    // + bias on the raw scores, * scale, to log2 units; on a partial tile
+    // masked pairs take MASKED and columns past L -inf (exactly 0 weight;
+    // every tile holds a column < L)
     float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+    if (tile_full[it]) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+      for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = kv0 + j * 8 + 2 * t + e;
-        float v0 = -CUDART_INF_F, v1 = -CUDART_INF_F;
-        if (col < L) {
-          const int cb = col / block;
-          const bool k0 = __ldg(lay0 + cb) != 0 &&
-                          BLOCK_SPARSE_ALLOWED(pad0, row0, col, nc);
-          const bool k1 = __ldg(lay1 + cb) != 0 &&
-                          BLOCK_SPARSE_ALLOWED(pad1, row1, col, nc);
+        for (int e = 0; e < 2; ++e) {
           float b0 = 0.f, b1 = 0.f;
           if (bias != nullptr) {
-            if (row0 < L) b0 = __ldg(bias + static_cast<size_t>(row0) * L + col);
-            if (row1 < L) b1 = __ldg(bias + static_cast<size_t>(row1) * L + col);
+            const int col = kv0 + j * 8 + 2 * t + e;
+            b0 = __ldg(bias + static_cast<size_t>(row0) * L + col);
+            b1 = __ldg(bias + static_cast<size_t>(row1) * L + col);
           }
-          v0 = k0 ? (s[j][e] + b0) * sc : MASKED;
-          v1 = k1 ? (s[j][2 + e] + b1) * sc : MASKED;
+          s[j][e] = (s[j][e] + b0) * sc;
+          s[j][2 + e] = (s[j][2 + e] + b1) * sc;
+          mx0 = fmaxf(mx0, s[j][e]);
+          mx1 = fmaxf(mx1, s[j][2 + e]);
         }
-        s[j][e] = v0;
-        s[j][2 + e] = v1;
-        mx0 = fmaxf(mx0, v0);
-        mx1 = fmaxf(mx1, v1);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = kv0 + j * 8 + 2 * t + e;
+          float v0 = -CUDART_INF_F, v1 = -CUDART_INF_F;
+          if (col < L) {
+            const int cb = col / block;
+            const bool k0 = __ldg(lay0 + cb) != 0 &&
+                            BLOCK_SPARSE_ALLOWED(pad0, row0, col, nc);
+            const bool k1 = __ldg(lay1 + cb) != 0 &&
+                            BLOCK_SPARSE_ALLOWED(pad1, row1, col, nc);
+            float b0 = 0.f, b1 = 0.f;
+            if (bias != nullptr) {
+              if (row0 < L) b0 = __ldg(bias + static_cast<size_t>(row0) * L + col);
+              if (row1 < L) b1 = __ldg(bias + static_cast<size_t>(row1) * L + col);
+            }
+            v0 = k0 ? (s[j][e] + b0) * sc : MASKED;
+            v1 = k1 ? (s[j][2 + e] + b1) * sc : MASKED;
+          }
+          s[j][e] = v0;
+          s[j][2 + e] = v1;
+          mx0 = fmaxf(mx0, v0);
+          mx1 = fmaxf(mx1, v1);
+        }
       }
     }
 #pragma unroll
@@ -157,13 +203,13 @@ block_sparse_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     // finite from the first tile on: a tile's first column is < L, so every
     // row has at least the masked value there
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    const float al0 = exp2_approx(m0 - mn0), al1 = exp2_approx(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     l0 *= al0;
     l1 *= al1;
 #pragma unroll
-    for (int j = 0; j < NT_O; ++j) {
+    for (int j = 0; j < NT; ++j) {
       acc[j][0] *= al0;
       acc[j][1] *= al0;
       acc[j][2] *= al1;
@@ -171,17 +217,25 @@ block_sparse_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      s[j][0] = exp2f(s[j][0] - m0);
-      s[j][1] = exp2f(s[j][1] - m0);
-      s[j][2] = exp2f(s[j][2] - m1);
-      s[j][3] = exp2f(s[j][3] - m1);
+      s[j][0] = exp2_approx(s[j][0] - m0);
+      s[j][1] = exp2_approx(s[j][1] - m0);
+      s[j][2] = exp2_approx(s[j][2] - m1);
+      s[j][3] = exp2_approx(s[j][3] - m1);
       l0 += s[j][0] + s[j][1];
       l1 += s[j][2] + s[j][3];
     }
-    uint32_t pa[BLOCK_ROWS / 16][4];
+    uint32_t pa[TILE_ROWS / 16][4];
     pack_a(pa, s);
-    mma_ab<D>(acc, pa, v_s, g, t);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE_ROWS / 16; ++kk)
+      wgmma_rs(acc, pa[kk], desc_mn_major(v_s, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    fence_operands(pa);
   }
+  cp_async_wait<0>();
 
   // ---- epilogue: full row sums across the quad, normalise, store bf16
 #pragma unroll
@@ -190,15 +244,15 @@ block_sparse_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, o);
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  __nv_bfloat16* ob = out + bh * L * D;
+  __nv_bfloat16* ob = out + bh * L * HEAD_DIM;
 #pragma unroll
-  for (int j = 0; j < NT_O; ++j) {
+  for (int j = 0; j < NT; ++j) {
     const int c = j * 8 + 2 * t;
     if (row0 < L)
-      *reinterpret_cast<uint32_t*>(&ob[static_cast<size_t>(row0) * D + c]) =
+      *reinterpret_cast<uint32_t*>(&ob[static_cast<size_t>(row0) * HEAD_DIM + c]) =
           pack_bf16(acc[j][0] * inv0, acc[j][1] * inv0);
     if (row1 < L)
-      *reinterpret_cast<uint32_t*>(&ob[static_cast<size_t>(row1) * D + c]) =
+      *reinterpret_cast<uint32_t*>(&ob[static_cast<size_t>(row1) * HEAD_DIM + c]) =
           pack_bf16(acc[j][2] * inv1, acc[j][3] * inv1);
   }
   if (lse != nullptr && t == 0) {
@@ -207,39 +261,55 @@ block_sparse_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-void launch(const void* q, const void* k, const void* v, const void* bias,
-            const void* layout, const void* counts, const void* indices,
-            void* out, void* lse, int B, int H, int L, int nb, int block,
-            int nt, int nc, int pad_start, float scale, cudaStream_t stream) {
-  const dim3 grid(nt, H, B);
-  block_sparse_fwd_kernel<<<grid, NUM_THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<const uint8_t*>(layout), static_cast<const int*>(counts),
-      static_cast<const int*>(indices), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), H, L, nb, block, nt, nc, pad_start, scale);
+// Lets the kernel take SMEM_BYTES of dynamic shared memory, once per process.
+cudaError_t allow_smem() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      block_sparse_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  return err;
 }
 
 }  // namespace
 
+// The kernel's dynamic shared memory per block and the blocks that fit on
+// one SM (registers and shared memory together), for reports. Returns a
+// cudaError_t.
+extern "C" int block_sparse_fwd_resources(int* smem_bytes, int* blocks_per_sm) {
+  *smem_bytes = SMEM_BYTES;
+  cudaError_t err = allow_smem();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, block_sparse_fwd_kernel, WG_THREADS, SMEM_BYTES);
+  return static_cast<int>(err);
+}
+
 // q, k, v (B,H,L,D) bf16 contiguous; bias (L,L) fp32 or null; layout
-// (H,nb,nb) uint8 with nb * block >= L; counts (H,nt) and indices (H,nt,nt)
-// int32 with nt = ceil(L / 64), the key tiles of each (head, query tile) in
-// ascending order; out (B,H,L,D) bf16; lse (B,H,L) fp32 or null.
-// Returns cudaGetLastError().
+// (H,nb,nb) uint8 with nb * block >= L; counts (H,nt), indices (H,nt,nt)
+// int32 and full (H,nt,nt) uint8 with nt = ceil(L / 64): the key tiles of
+// each (head, query tile) in ascending order and, for each, whether every
+// pair of the 64 x 64 tile is kept; out (B,H,L,D) bf16; lse (B,H,L) fp32 or
+// null. Returns cudaGetLastError().
 extern "C" int block_sparse_fwd_bf16(const void* q, const void* k,
                                      const void* v, const void* bias,
                                      const void* layout, const void* counts,
-                                     const void* indices, void* out, void* lse,
-                                     int B, int H, int L, int D, int nb,
-                                     int block, int nt, int nc, int pad_start,
-                                     float scale, void* stream) {
+                                     const void* indices, const void* full,
+                                     void* out, void* lse, int B, int H, int L,
+                                     int D, int nb, int block, int nt, int nc,
+                                     int pad_start, float scale, void* stream) {
   if (B <= 0 || H <= 0 || L <= 0 || H > 65535 || B > 65535 || block <= 0 ||
       nb <= 0 || static_cast<long long>(nb) * block < L ||
-      nt != (L + BLOCK_ROWS - 1) / BLOCK_ROWS)
+      nt != (L + TILE_ROWS - 1) / TILE_ROWS || full == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (D != HEAD_DIM) return static_cast<int>(cudaErrorInvalidValue);
-  launch(q, k, v, bias, layout, counts, indices, out, lse, B, H, L, nb, block,
-         nt, nc, pad_start, scale, static_cast<cudaStream_t>(stream));
+  const cudaError_t attr = allow_smem();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  block_sparse_fwd_kernel<<<dim3(nt, H, B), WG_THREADS, SMEM_BYTES,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
+      static_cast<const uint8_t*>(layout), static_cast<const int*>(counts),
+      static_cast<const int*>(indices), static_cast<const uint8_t*>(full),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), H, L, nb,
+      block, nt, nc, pad_start, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,51 +25,76 @@
 // that is 115 GFLOP, about 0.116 ms, against 155 MB of q/k/v/out/dO read and
 // dq/dk/dv written (0.046 ms): operations. (Estimates from the shapes;
 // chip_smoke.py computes the bound from the pairs the layout keeps.)
+// Beyond the bound, time goes to feeding the tensor cores (16 KB copied in
+// for each tile pair a pass visits), to the exponentials, to the keep rule
+// wherever it is evaluated, and to the recomputation of the two passes.
 //
 // Design. Blocks of a CUDA grid run in no order, so each sum gets a kernel
 // whose block owns its output tile and loops over the summed axis, with no
-// atomics and a result that does not depend on scheduling (the design of
-// attention_bwd.cu):
+// atomics and a result that does not depend on scheduling (the two passes
+// of the TPU kernel):
 //
-//   1. dq    grid (nt, H, B): a block owns 64 query rows, forms delta =
-//            rowsum(dO * O) for them (written for kernels 2 and 3), and loops
-//            over the key tiles the forward's plan lists for (head, q tile):
-//            S, dP, dS, dq += dS k.
-//   2. dkdv  grid (nt, H, B): a block owns 64 keys (K and V as A fragments
-//            in registers) and loops over the TRANSPOSED plan, the q tiles
-//            whose list holds this key tile: S^T, dP^T, dv += P^T dO,
-//            dk += dS^T q. Each listed (q tile, key tile) pair is visited
-//            once by kernel 1 and once by kernel 2.
+//   1. dq    grid (nt, H, B): a warpgroup owns 64 query rows (q and dO in
+//            shared memory), forms delta = rowsum(dO * O) for them (written
+//            for kernel 2), and walks the key tiles the forward's plan lists
+//            for (head, q tile), K/V through a ring: S = q k^T and dP = dO v^T
+//            (both operands K-major in shared memory), dS, then dq += dS k
+//            (dS from registers, k MN-major).
+//   2. dkdv  grid (nt, H, B): a warpgroup owns 64 keys (k and v in shared
+//            memory) and walks the TRANSPOSED plan, the q tiles whose list
+//            holds this key tile, q/dO with their lse and delta through a
+//            ring: S^T = k q^T, dP^T = v dO^T, then dv += P^T dO and dk +=
+//            dS^T q (P^T, dS^T from registers; dO, q MN-major). Each listed
+//            (q tile, key tile) pair is visited once by kernel 1 and once by
+//            kernel 2.
 //   3. dbias grid (nt, nt): a block owns a 64 x 64 tile of dbias and loops
 //            over the heads whose plan lists that tile and over the batch:
 //            S, dP, dS. A tile no head lists is written as zeros. Launched
-//            only with a bias.
+//            only with a bias; no path has one (no preset has a camera
+//            bias), so it keeps the first version's mma.sync m16n8k16 and
+//            synchronous loads (mma_common.cuh).
 //
-// The price is recomputation: S and dP are formed twice without a bias (7
-// products of D per kept pair where the bound counts 5) and three times
-// with one. P and dS are rounded to bf16 before the dv, dq and dk products;
-// dbias sums fp32 dS. Loads are synchronous and the products mma.sync
-// m16n8k16, with the mask looked up per element: a first version.
+// Kernels 1 and 2 run every product on wgmma m64n64k16 (hopper_common.cuh);
+// none stays on mma.sync. Their rings (STAGES stages, filled with cp.async
+// in the 128-byte swizzle) keep the next tile's copy in flight while this
+// tile's products run, and the products are committed in groups so that
+// the exponentials of P run while dP is formed (and, in kernel 2, dS^T
+// while dv += P^T dO runs). The tile plans flag full tiles (every pair kept):
+// those skip the mask, the partial ones apply the rule to every pair. P is
+// exponentiated on the special-function unit (`exp2_approx`). The
+// fp32 bias tile of kernel 2 lives in dynamic shared memory, allocated only
+// with a bias. The price is recomputation: S and dP are formed in both
+// passes without a bias (7 products of D per kept pair where the bound
+// counts 5) and three times with one. P and dS are rounded to bf16 before
+// the dv, dq and dk products; dbias sums fp32 dS.
 //
 // C interface: block_sparse_bwd_bf16(...) launches the kernels in that
 // order on one stream and returns the first cudaGetLastError() that is not 0.
 
+#include <math_constants.h>
+
 #include "block_sparse_mask.cuh"
+#include "hopper_common.cuh"
 #include "mma_common.cuh"
 
 namespace {
 
-using namespace mma_common;
-
+constexpr float LOG2E = 1.4426950408889634f;
 // head dim: 1024 / 16 heads in every AR configuration; the wrapper raises
 // for any other
 constexpr int D = 64;
-constexpr int LD = D + 8;       // smem row stride in bf16 (16-byte multiple)
-constexpr int KSTEPS = D / 16;  // mma k-steps over the head dim
-constexpr int NT_O = D / 8;     // output n-tiles per warp
+constexpr int KSTEPS = D / 16;  // 16-wide slices of the head dim
+constexpr int STAGES = 2;       // the rings of kernels 1 and 2
+
+namespace wg {
+
+using namespace hopper;
 
 // ---- 1. dq (and delta) ------------------------------------------------------
-__global__ void __launch_bounds__(NUM_THREADS)
+// q, dO, then the ring (stage st: K, then V)
+constexpr int DQ_SMEM = (2 + 2 * STAGES) * TILE_BYTES + 1024;
+
+__global__ void __launch_bounds__(WG_THREADS)
 block_sparse_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
@@ -77,6 +102,7 @@ block_sparse_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                            const uint8_t* __restrict__ layout,
                            const int* __restrict__ counts,
                            const int* __restrict__ indices,
+                           const uint8_t* __restrict__ full,
                            const __nv_bfloat16* __restrict__ o,
                            const __nv_bfloat16* __restrict__ dout,
                            const float* __restrict__ lse,
@@ -85,23 +111,39 @@ block_sparse_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                            int nb, int block, int nt, int nc, int pad_start,
                            float scale) {
   constexpr int HD = D / 2;
-  __shared__ __align__(16) __nv_bfloat16 q_s[BLOCK_ROWS * LD];
-  __shared__ __align__(16) __nv_bfloat16 do_s[BLOCK_ROWS * LD];
-  __shared__ __align__(16) __nv_bfloat16 k_s[BLOCK_ROWS * LD];
-  __shared__ __align__(16) __nv_bfloat16 v_s[BLOCK_ROWS * LD];
-  __shared__ float lse_s[BLOCK_ROWS];
-  __shared__ float dl_s[BLOCK_ROWS];
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float dl_s[TILE_ROWS];
+  const uint32_t q_s = smem_addr(align1024(smem_raw));
+  const uint32_t do_s = q_s + TILE_BYTES;
+  const uint32_t ring = do_s + TILE_BYTES;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int qt = blockIdx.x, q0 = qt * BLOCK_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int qt = blockIdx.x, q0 = qt * TILE_ROWS, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = static_cast<size_t>(b) * H + h;
   const __nv_bfloat16* kb = k + bh * L * D;
   const __nv_bfloat16* vb = v + bh * L * D;
   const __nv_bfloat16* dob = dout + bh * L * D;
+  const size_t plan = static_cast<size_t>(h) * nt + qt;
+  const int n_tiles = counts[plan];
+  const int* tiles = indices + plan * nt;
+  const uint8_t* tile_full = full + plan * nt;
 
-  load_tiles<D>(q_s, q + bh * L * D, do_s, dob, q0, L, tid);
-  {  // delta = rowsum(dO * O), two threads per row
+  auto load_kv = [&](int it) {
+    if (it < n_tiles) {
+      const uint32_t st = ring + (it % STAGES) * 2 * TILE_BYTES;
+      const int kv0 = tiles[it] * TILE_ROWS;
+      load_tile_async(st, kb, kv0, L, tid);
+      load_tile_async(st + TILE_BYTES, vb, kv0, L, tid);
+    }
+    cp_async_commit();
+  };
+  load_tile_async(q_s, q + bh * L * D, q0, L, tid);
+  load_tile_async(do_s, dob, q0, L, tid);
+#pragma unroll
+  for (int it = 0; it < STAGES - 1; ++it) load_kv(it);
+
+  {  // delta = rowsum(dO * O), two threads per row, straight from memory
     const int r = tid / 2, half = tid % 2, row = q0 + r;
     float d = 0.f;
     if (row < L) {
@@ -121,70 +163,112 @@ block_sparse_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     d += __shfl_xor_sync(0xffffffffu, d, 1);
     if (half == 0) {
       dl_s[r] = d;
-      // a row past L gets lse +inf, so its P is 0 and its dS is 0
-      lse_s[r] = row < L ? lse[bh * L + row] * LOG2E : CUDART_INF_F;
       if (row < L) delta[bh * L + row] = d;
     }
   }
-  __syncthreads();
+  __syncthreads();  // dl_s
 
   const int wr = warp * 16;
-  uint32_t qa[KSTEPS][4], da[KSTEPS][4];
-  load_a<D>(qa, q_s, wr, g, t);
-  load_a<D>(da, do_s, wr, g, t);
   const int row0 = q0 + wr + g, row1 = row0 + 8;
   const uint8_t* lay0 = block_sparse::layout_row(layout, h, nb, row0, block);
   const uint8_t* lay1 = block_sparse::layout_row(layout, h, nb, row1, block);
   const bool pad0 = row0 >= pad_start, pad1 = row1 >= pad_start;
-  const float lse0 = lse_s[wr + g], lse1 = lse_s[wr + g + 8];
+  // a row past L gets lse +inf, so its P is 0 and its dS is 0
+  const float lse0 = row0 < L ? lse[bh * L + row0] * LOG2E : CUDART_INF_F;
+  const float lse1 = row1 < L ? lse[bh * L + row1] * LOG2E : CUDART_INF_F;
   const float dl0 = dl_s[wr + g], dl1 = dl_s[wr + g + 8];
   const float sc = scale * LOG2E;
 
-  float acc[NT_O][4];
-#pragma unroll
-  for (int j = 0; j < NT_O; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float acc[NT][4];
+  zero(acc);
 
-  const int n_tiles = counts[h * nt + qt];
-  const int* tiles = indices + (static_cast<size_t>(h) * nt + qt) * nt;
   for (int it = 0; it < n_tiles; ++it) {
-    const int kv0 = tiles[it] * BLOCK_ROWS;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tiles<D>(k_s, kb, v_s, vb, kv0, L, tid);
-    __syncthreads();
+    cp_async_wait<STAGES - 2>();
+    fence_proxy_async();
+    __syncthreads();  // tile it is in place; every warp is done with it - 1
+    load_kv(it + STAGES - 1);
+    const uint32_t k_s = ring + (it % STAGES) * 2 * TILE_BYTES;
+    const uint32_t v_s = k_s + TILE_BYTES;
+    const int kv0 = tiles[it] * TILE_ROWS;
 
+    // S, then dP, as two groups: P is formed while dP is in flight
     float s[NT][4], dp[NT][4];
-    mma_abt<D>(s, qa, k_s, g, t);   // S = q k^T (raw)
-    mma_abt<D>(dp, da, v_s, g, t);  // dP = dO v^T
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+    for (int kk = 0; kk < KSTEPS; ++kk)  // S = q k^T (raw)
+      wgmma_ss(s, desc_k_major(q_s, kk), desc_k_major(k_s, kk), kk);
+    wgmma_commit();
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = kv0 + j * 8 + 2 * t + e;
-        float p0 = 0.f, p1 = 0.f;
-        if (col < L) {
+    for (int kk = 0; kk < KSTEPS; ++kk)  // dP = dO v^T
+      wgmma_ss(dp, desc_k_major(do_s, kk), desc_k_major(v_s, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(s);
+
+    if (tile_full[it]) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
           float b0 = 0.f, b1 = 0.f;
           if (bias != nullptr) {
-            if (row0 < L) b0 = __ldg(bias + static_cast<size_t>(row0) * L + col);
-            if (row1 < L) b1 = __ldg(bias + static_cast<size_t>(row1) * L + col);
+            const int col = kv0 + j * 8 + 2 * t + e;
+            b0 = __ldg(bias + static_cast<size_t>(row0) * L + col);
+            b1 = __ldg(bias + static_cast<size_t>(row1) * L + col);
           }
-          const int cb = col / block;
-          if (__ldg(lay0 + cb) != 0 && BLOCK_SPARSE_ALLOWED(pad0, row0, col, nc))
-            p0 = exp2f((s[j][e] + b0) * sc - lse0);
-          if (__ldg(lay1 + cb) != 0 && BLOCK_SPARSE_ALLOWED(pad1, row1, col, nc))
-            p1 = exp2f((s[j][2 + e] + b1) * sc - lse1);
+          s[j][e] = exp2_approx((s[j][e] + b0) * sc - lse0);
+          s[j][2 + e] = exp2_approx((s[j][2 + e] + b1) * sc - lse1);
         }
-        s[j][e] = p0 * (dp[j][e] - dl0);  // dS
-        s[j][2 + e] = p1 * (dp[j][2 + e] - dl1);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = kv0 + j * 8 + 2 * t + e;
+          float p0 = 0.f, p1 = 0.f;
+          if (col < L) {
+            float b0 = 0.f, b1 = 0.f;
+            if (bias != nullptr) {
+              if (row0 < L) b0 = __ldg(bias + static_cast<size_t>(row0) * L + col);
+              if (row1 < L) b1 = __ldg(bias + static_cast<size_t>(row1) * L + col);
+            }
+            const int cb = col / block;
+            if (__ldg(lay0 + cb) != 0 && BLOCK_SPARSE_ALLOWED(pad0, row0, col, nc))
+              p0 = exp2_approx((s[j][e] + b0) * sc - lse0);
+            if (__ldg(lay1 + cb) != 0 && BLOCK_SPARSE_ALLOWED(pad1, row1, col, nc))
+              p1 = exp2_approx((s[j][2 + e] + b1) * sc - lse1);
+          }
+          s[j][e] = p0;
+          s[j][2 + e] = p1;
+        }
       }
     }
-    uint32_t dsa[BLOCK_ROWS / 16][4];
+    wgmma_wait<0>();
+    fence_operands(dp);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {  // dS = P (dP - delta)
+      s[j][0] *= dp[j][0] - dl0;
+      s[j][1] *= dp[j][1] - dl0;
+      s[j][2] *= dp[j][2] - dl1;
+      s[j][3] *= dp[j][3] - dl1;
+    }
+    uint32_t dsa[TILE_ROWS / 16][4];
     pack_a(dsa, s);
-    mma_ab<D>(acc, dsa, k_s, g, t);  // dq += dS k
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE_ROWS / 16; ++kk)  // dq += dS k
+      wgmma_rs(acc, dsa[kk], desc_mn_major(k_s, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    fence_operands(dsa);
   }
+  cp_async_wait<0>();
 
   __nv_bfloat16* dqb = dq + bh * L * D;
 #pragma unroll
-  for (int j = 0; j < NT_O; ++j) {
+  for (int j = 0; j < NT; ++j) {
     const int c = j * 8 + 2 * t;
     if (row0 < L)
       *reinterpret_cast<uint32_t*>(&dqb[static_cast<size_t>(row0) * D + c]) =
@@ -196,7 +280,15 @@ block_sparse_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---- 2. dk, dv --------------------------------------------------------------
-__global__ void __launch_bounds__(NUM_THREADS)
+// k, v, then the ring (stage st: q, dO), then the lse and delta of each
+// stage's 64 rows (after the tiles, which stay 1024-byte aligned), then,
+// with a bias only, the (64 x 65) fp32 bias tile
+constexpr int VEC_BYTES = 2 * TILE_ROWS * 4;
+constexpr int BLD = TILE_ROWS + 1;  // bias tile stride (fp32)
+constexpr int DKDV_SMEM = (2 + 2 * STAGES) * TILE_BYTES + STAGES * VEC_BYTES + 1024;
+constexpr int DKDV_BIAS_SMEM = DKDV_SMEM + TILE_ROWS * BLD * 4;
+
+__global__ void __launch_bounds__(WG_THREADS)
 block_sparse_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
@@ -204,6 +296,7 @@ block_sparse_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                              const uint8_t* __restrict__ layout,
                              const int* __restrict__ counts_t,
                              const int* __restrict__ indices_t,
+                             const uint8_t* __restrict__ full_t,
                              const __nv_bfloat16* __restrict__ dout,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
@@ -211,103 +304,164 @@ block_sparse_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                              __nv_bfloat16* __restrict__ dv, int H, int L,
                              int nb, int block, int nt, int nc, int pad_start,
                              float scale) {
-  constexpr int BLD = BLOCK_ROWS + 1;  // bias tile stride (fp32)
-  __shared__ __align__(16) __nv_bfloat16 q_s[BLOCK_ROWS * LD];
-  __shared__ __align__(16) __nv_bfloat16 do_s[BLOCK_ROWS * LD];
-  __shared__ float bias_s[BLOCK_ROWS * BLD];
-  __shared__ float lse_s[BLOCK_ROWS];
-  __shared__ float dl_s[BLOCK_ROWS];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t k_s = smem_addr(smem);
+  const uint32_t v_s = k_s + TILE_BYTES;
+  const uint32_t ring = v_s + TILE_BYTES;
+  const uint32_t vecs = ring + STAGES * 2 * TILE_BYTES;
+  const uint8_t* vecs_p = smem + (2 + 2 * STAGES) * TILE_BYTES;
+  float* bias_s = reinterpret_cast<float*>(smem + (2 + 2 * STAGES) * TILE_BYTES +
+                                           STAGES * VEC_BYTES);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int kt = blockIdx.x, k0 = kt * BLOCK_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int kt = blockIdx.x, k0 = kt * TILE_ROWS, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = static_cast<size_t>(b) * H + h;
+  const __nv_bfloat16* qb = q + bh * L * D;
+  const __nv_bfloat16* dob = dout + bh * L * D;
+  const size_t plan = static_cast<size_t>(h) * nt + kt;
+  const int n_tiles = counts_t[plan];
+  const int* tiles = indices_t + plan * nt;
+  const uint8_t* tile_full = full_t + plan * nt;
 
-  // this block's K and V tiles, staged through q_s/do_s, as A fragments
-  load_tiles<D>(q_s, k + bh * L * D, do_s, v + bh * L * D, k0, L, tid);
-  __syncthreads();
+  auto load_qdo = [&](int it) {
+    if (it < n_tiles) {
+      const int st = it % STAGES;
+      const uint32_t s0 = ring + st * 2 * TILE_BYTES;
+      const int r0 = tiles[it] * TILE_ROWS;
+      load_tile_async(s0, qb, r0, L, tid);
+      load_tile_async(s0 + TILE_BYTES, dob, r0, L, tid);
+      // lse (threads 0-63) and delta (64-127) of the 64 rows; zero past L
+      const uint32_t vec = vecs + st * VEC_BYTES + (tid / TILE_ROWS) * TILE_ROWS * 4;
+      load_vec_async(vec, (tid < TILE_ROWS ? lse : delta) + bh * L, r0, L,
+                     tid % TILE_ROWS);
+    }
+    cp_async_commit();
+  };
+  load_tile_async(k_s, k + bh * L * D, k0, L, tid);
+  load_tile_async(v_s, v + bh * L * D, k0, L, tid);
+#pragma unroll
+  for (int it = 0; it < STAGES - 1; ++it) load_qdo(it);
+
   const int wk = warp * 16;
-  uint32_t ka[KSTEPS][4], va[KSTEPS][4];
-  load_a<D>(ka, q_s, wk, g, t);
-  load_a<D>(va, do_s, wk, g, t);
   const int key0 = k0 + wk + g, key1 = key0 + 8;
   // the keys' layout columns; keys past L are never kept
   const int kb0 = key0 < L ? key0 / block : -1;
   const int kb1 = key1 < L ? key1 / block : -1;
   const float sc = scale * LOG2E;
 
-  float dka[NT_O][4], dva[NT_O][4];
-#pragma unroll
-  for (int j = 0; j < NT_O; ++j) {
-    dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.f;
-    dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.f;
-  }
+  float dka[NT][4], dva[NT][4];
+  zero(dka);
+  zero(dva);
 
-  const __nv_bfloat16* qb = q + bh * L * D;
-  const __nv_bfloat16* dob = dout + bh * L * D;
-  const int n_tiles = counts_t[h * nt + kt];
-  const int* tiles = indices_t + (static_cast<size_t>(h) * nt + kt) * nt;
   for (int it = 0; it < n_tiles; ++it) {
-    const int q0 = tiles[it] * BLOCK_ROWS;
-    __syncthreads();  // every warp is done with the previous tiles
-    load_tiles<D>(q_s, qb, do_s, dob, q0, L, tid);
-    if (tid < BLOCK_ROWS) {
-      const int row = q0 + tid;
-      lse_s[tid] = row < L ? lse[bh * L + row] * LOG2E : CUDART_INF_F;
-      dl_s[tid] = row < L ? delta[bh * L + row] : 0.f;
-    }
+    cp_async_wait<STAGES - 2>();
+    fence_proxy_async();
+    __syncthreads();  // tile it is in place; every warp is done with it - 1
+    load_qdo(it + STAGES - 1);
+    const int st = it % STAGES;
+    const uint32_t q_s = ring + st * 2 * TILE_BYTES;
+    const uint32_t do_s = q_s + TILE_BYTES;
+    const float* lse_s = reinterpret_cast<const float*>(vecs_p + st * VEC_BYTES);
+    const float* dl_s = lse_s + TILE_ROWS;
+    const int q0 = tiles[it] * TILE_ROWS;
     if (bias != nullptr) {
-      for (int i = tid; i < BLOCK_ROWS * BLOCK_ROWS; i += NUM_THREADS) {
-        const int r = i / BLOCK_ROWS, c = i % BLOCK_ROWS;
+      for (int i = tid; i < TILE_ROWS * TILE_ROWS; i += WG_THREADS) {
+        const int r = i / TILE_ROWS, c = i % TILE_ROWS;
         bias_s[r * BLD + c] =
             (q0 + r < L && k0 + c < L)
                 ? __ldg(bias + static_cast<size_t>(q0 + r) * L + k0 + c)
                 : 0.f;
       }
+      __syncthreads();
     }
-    __syncthreads();
 
-    // transposed tiles: rows are this warp's 16 keys, columns 64 queries
-    float st[NT][4], dpt[NT][4];
-    mma_abt<D>(st, ka, q_s, g, t);    // S^T = k q^T (raw)
-    mma_abt<D>(dpt, va, do_s, g, t);  // dP^T = v dO^T
+    // transposed tiles: rows are the warpgroup's 64 keys, columns 64
+    // queries. S^T, then dP^T, as two groups: P^T is formed while dP^T is
+    // in flight, and dS^T while dv += P^T dO is.
+    float st_[NT][4], dpt[NT][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)  // S^T = k q^T (raw)
+      wgmma_ss(st_, desc_k_major(k_s, kk), desc_k_major(q_s, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)  // dP^T = v dO^T
+      wgmma_ss(dpt, desc_k_major(v_s, kk), desc_k_major(do_s, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(st_);
+
+    const bool is_full = tile_full[it] != 0;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int qc = j * 8 + 2 * t + e, row = q0 + qc;
-        const float lq = lse_s[qc], dq_ = dl_s[qc];
-        const uint8_t* lay = block_sparse::layout_row(layout, h, nb, row, block);
-        const bool pad = row >= pad_start;
+        const int qc = j * 8 + 2 * t + e;
+        const float lq = lse_s[qc] * LOG2E;
         float b0 = 0.f, b1 = 0.f;
         if (bias != nullptr) {
           b0 = bias_s[qc * BLD + wk + g];
           b1 = bias_s[qc * BLD + wk + g + 8];
         }
-        float p0 = 0.f, p1 = 0.f;
-        if (kb0 >= 0 && __ldg(lay + kb0) != 0 &&
-            BLOCK_SPARSE_ALLOWED(pad, row, key0, nc))
-          p0 = exp2f((st[j][e] + b0) * sc - lq);
-        if (kb1 >= 0 && __ldg(lay + kb1) != 0 &&
-            BLOCK_SPARSE_ALLOWED(pad, row, key1, nc))
-          p1 = exp2f((st[j][2 + e] + b1) * sc - lq);
-        st[j][e] = p0;
-        st[j][2 + e] = p1;
-        dpt[j][e] = p0 * (dpt[j][e] - dq_);  // dS^T
-        dpt[j][2 + e] = p1 * (dpt[j][2 + e] - dq_);
+        float p0, p1;
+        if (is_full) {
+          p0 = exp2_approx((st_[j][e] + b0) * sc - lq);
+          p1 = exp2_approx((st_[j][2 + e] + b1) * sc - lq);
+        } else {
+          // rows past L (zero lse) are never kept
+          const int row = q0 + qc;
+          const uint8_t* lay = block_sparse::layout_row(layout, h, nb, row, block);
+          const bool pad = row >= pad_start;
+          p0 = p1 = 0.f;
+          if (row < L && kb0 >= 0 && __ldg(lay + kb0) != 0 &&
+              BLOCK_SPARSE_ALLOWED(pad, row, key0, nc))
+            p0 = exp2_approx((st_[j][e] + b0) * sc - lq);
+          if (row < L && kb1 >= 0 && __ldg(lay + kb1) != 0 &&
+              BLOCK_SPARSE_ALLOWED(pad, row, key1, nc))
+            p1 = exp2_approx((st_[j][2 + e] + b1) * sc - lq);
+        }
+        st_[j][e] = p0;
+        st_[j][2 + e] = p1;
       }
     }
-    uint32_t pa[BLOCK_ROWS / 16][4], dsa[BLOCK_ROWS / 16][4];
-    pack_a(pa, st);
+    uint32_t pa[TILE_ROWS / 16][4], dsa[TILE_ROWS / 16][4];
+    pack_a(pa, st_);
+    wgmma_wait<0>();
+    fence_operands(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE_ROWS / 16; ++kk)  // dv += P^T dO
+      wgmma_rs(dva, pa[kk], desc_mn_major(do_s, kk));
+    wgmma_commit();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {  // dS^T = P^T (dP^T - delta)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float dq_ = dl_s[j * 8 + 2 * t + e];
+        dpt[j][e] = st_[j][e] * (dpt[j][e] - dq_);
+        dpt[j][2 + e] = st_[j][2 + e] * (dpt[j][2 + e] - dq_);
+      }
+    }
     pack_a(dsa, dpt);
-    mma_ab<D>(dva, pa, do_s, g, t);  // dv += P^T dO
-    mma_ab<D>(dka, dsa, q_s, g, t);  // dk += dS^T q
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE_ROWS / 16; ++kk)  // dk += dS^T q
+      wgmma_rs(dka, dsa[kk], desc_mn_major(q_s, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dva);
+    fence_operands(dka);
+    fence_operands(pa);
+    fence_operands(dsa);
   }
+  cp_async_wait<0>();
 
   __nv_bfloat16* dkb = dk + bh * L * D;
   __nv_bfloat16* dvb = dv + bh * L * D;
 #pragma unroll
-  for (int j = 0; j < NT_O; ++j) {
+  for (int j = 0; j < NT; ++j) {
     const int c = j * 8 + 2 * t;
     if (key0 < L) {
       const size_t off = static_cast<size_t>(key0) * D + c;
@@ -324,7 +478,15 @@ block_sparse_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+}  // namespace wg
+
 // ---- 3. dbias ---------------------------------------------------------------
+namespace sync_mma {
+
+using namespace mma_common;
+
+constexpr int LD = D + 8;  // smem row stride in bf16 (16-byte multiple)
+
 // Does head h's transposed plan list query tile qt for key tile kt? The
 // lists are ascending; the answer is the same for every thread.
 __device__ __forceinline__ bool tile_listed(const int* counts_t,
@@ -440,29 +602,69 @@ block_sparse_bwd_dbias_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+}  // namespace sync_mma
+
+// Lets kernels 1 and 2 take their dynamic shared memory (above the default
+// 48 KB), once per process.
+cudaError_t allow_smem() {
+  static const cudaError_t err[2] = {
+      cudaFuncSetAttribute(wg::block_sparse_bwd_dq_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           wg::DQ_SMEM),
+      cudaFuncSetAttribute(wg::block_sparse_bwd_dkdv_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           wg::DKDV_BIAS_SMEM)};
+  return err[0] != cudaSuccess ? err[0] : err[1];
+}
+
 }  // namespace
+
+// Dynamic shared memory per block and the blocks that fit on one SM
+// (registers and shared memory together) of kernel 0 (dq), 1 (dk/dv) or 2
+// (dk/dv with a bias), for reports. Returns a cudaError_t.
+extern "C" int block_sparse_bwd_resources(int kernel, int* smem_bytes,
+                                          int* blocks_per_sm) {
+  if (kernel < 0 || kernel > 2) return static_cast<int>(cudaErrorInvalidValue);
+  *smem_bytes = kernel == 0 ? wg::DQ_SMEM
+                            : kernel == 1 ? wg::DKDV_SMEM : wg::DKDV_BIAS_SMEM;
+  cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (kernel == 0)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, wg::block_sparse_bwd_dq_kernel, hopper::WG_THREADS,
+        *smem_bytes));
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, wg::block_sparse_bwd_dkdv_kernel, hopper::WG_THREADS,
+      *smem_bytes));
+}
 
 // q, k, v, out, dout, dq, dk, dv (B,H,L,D) bf16 contiguous, D = 64; bias
 // (L,L) fp32 or null, and dbias (L,L) fp32 or null (only with a bias: the
 // dbias kernel runs when it is given);
-// layout (H,nb,nb) uint8 with nb * block >= L; counts/indices (H,nt) and
-// (H,nt,nt) int32, the forward's plan (key tiles of each query tile), and
-// counts_t/indices_t its transpose (query tiles of each key tile), both
-// ascending, nt = ceil(L / 64); lse (B,H,L) fp32 from the forward (natural
-// log); delta (B,H,L) fp32 scratch. Returns the first cudaGetLastError()
-// that is not 0.
+// layout (H,nb,nb) uint8 with nb * block >= L; counts/indices/full (H,nt),
+// (H,nt,nt) int32 and (H,nt,nt) uint8, the forward's plan (key tiles of
+// each query tile, and whether every pair of each is kept), and
+// counts_t/indices_t/full_t its transpose (query tiles of each key tile),
+// both ascending, nt = ceil(L / 64); lse (B,H,L) fp32 from the forward
+// (natural log); delta (B,H,L) fp32 scratch. Returns the first
+// cudaGetLastError() that is not 0.
 extern "C" int block_sparse_bwd_bf16(
     const void* q, const void* k, const void* v, const void* bias,
     const void* layout, const void* counts, const void* indices,
-    const void* counts_t, const void* indices_t, const void* out,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, void* dbias, int B, int H, int L, int hd, int nb, int block,
-    int nt, int nc, int pad_start, float scale, void* stream) {
+    const void* full, const void* counts_t, const void* indices_t,
+    const void* full_t, const void* out, const void* dout, const void* lse,
+    void* delta, void* dq, void* dk, void* dv, void* dbias, int B, int H,
+    int L, int hd, int nb, int block, int nt, int nc, int pad_start,
+    float scale, void* stream) {
+  using hopper::TILE_ROWS;
+  using hopper::WG_THREADS;
   if (B <= 0 || H <= 0 || L <= 0 || H > 65535 || B > 65535 || block <= 0 ||
       nb <= 0 || static_cast<long long>(nb) * block < L ||
-      nt != (L + BLOCK_ROWS - 1) / BLOCK_ROWS || hd != D ||
-      (bias == nullptr && dbias != nullptr))
+      nt != (L + TILE_ROWS - 1) / TILE_ROWS || hd != D || full == nullptr ||
+      full_t == nullptr || (bias == nullptr && dbias != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t attr = allow_smem();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   using bf = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf* qp = static_cast<const bf*>(q);
@@ -476,21 +678,25 @@ extern "C" int block_sparse_bwd_bf16(
   const float* lsep = static_cast<const float*>(lse);
   float* dlp = static_cast<float*>(delta);
 
-  block_sparse_bwd_dq_kernel<<<dim3(nt, H, B), NUM_THREADS, 0, s>>>(
+  wg::block_sparse_bwd_dq_kernel<<<dim3(nt, H, B), WG_THREADS, wg::DQ_SMEM, s>>>(
       qp, kp, vp, bp, lp, static_cast<const int*>(counts),
-      static_cast<const int*>(indices), static_cast<const bf*>(out), dop, lsep,
-      dlp, static_cast<bf*>(dq), H, L, nb, block, nt, nc, pad_start, scale);
+      static_cast<const int*>(indices), static_cast<const uint8_t*>(full),
+      static_cast<const bf*>(out), dop, lsep, dlp, static_cast<bf*>(dq), H, L,
+      nb, block, nt, nc, pad_start, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  block_sparse_bwd_dkdv_kernel<<<dim3(nt, H, B), NUM_THREADS, 0, s>>>(
-      qp, kp, vp, bp, lp, ct, it, dop, lsep, dlp, static_cast<bf*>(dk),
-      static_cast<bf*>(dv), H, L, nb, block, nt, nc, pad_start, scale);
+  const int dkdv_smem = bias != nullptr ? wg::DKDV_BIAS_SMEM : wg::DKDV_SMEM;
+  wg::block_sparse_bwd_dkdv_kernel<<<dim3(nt, H, B), WG_THREADS, dkdv_smem, s>>>(
+      qp, kp, vp, bp, lp, ct, it, static_cast<const uint8_t*>(full_t), dop,
+      lsep, dlp, static_cast<bf*>(dk), static_cast<bf*>(dv), H, L, nb, block,
+      nt, nc, pad_start, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   if (dbias != nullptr) {
-    block_sparse_bwd_dbias_kernel<<<dim3(nt, nt), NUM_THREADS, 0, s>>>(
+    sync_mma::block_sparse_bwd_dbias_kernel<<<dim3(nt, nt), mma_common::NUM_THREADS,
+                                         0, s>>>(
         qp, kp, vp, bp, lp, ct, it, dop, lsep, dlp, static_cast<float*>(dbias),
         B, H, L, nb, block, nt, nc, pad_start, scale);
     err = cudaGetLastError();

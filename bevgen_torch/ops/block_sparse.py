@@ -22,9 +22,10 @@ What bounds the kernels on an H100 and what their design does about it is
 in `csrc/block_sparse.cu` and `csrc/block_sparse_bwd.cu`. The host side
 here plans, once per layout and sequence length, the 64-wide key tiles each
 (head, 64-row query tile) visits (`plan_tiles`): any tile that holds a block
-active in the layout and allowed by the index rule. The dk/dv kernel walks
-the transpose of that plan, so each listed tile pair is visited once by
-each pass.
+active in the layout and allowed by the index rule, each flagged `full`
+when every one of its pairs is kept, so that the kernels evaluate the mask
+on the partial tiles only. The dk/dv kernel walks the transpose of that
+plan, so each listed tile pair is visited once by each pass.
 
 `SparseAttention` dispatches: CPU tensors take the plain forward (which
 autograd differentiates); CUDA tensors launch the kernels or raise, through
@@ -137,6 +138,8 @@ def block_sparse_attention_bwd_reference(q, k, v, layout: torch.Tensor,
 class TilePlan(NamedTuple):
     counts: np.ndarray   # (H, nt) int32: key tiles of each query tile
     indices: np.ndarray  # (H, nt, nt) int32: those tiles, ascending, 0-padded
+    full: np.ndarray     # (H, nt, nt) uint8: 1 where every pair of the
+    # listed tile is kept, in the order of `indices` (0-padded)
     # (transposed: the query tiles of each key tile)
 
 
@@ -146,9 +149,14 @@ def plan_tiles(layout: np.ndarray, block: int, L: int, num_cond_tokens: int,
     """Host side: for each (head, query tile of `tile` rows) the key tiles
     that hold a block active in the layout with at least one pair the index
     rule allows. Every pair the kernels must see lies in a listed tile.
-    transpose=True lists, for each (head, key tile), the query tiles whose
-    list holds it: the dk/dv kernel's traversal, so each listed pair of
-    tiles is visited once by each backward pass."""
+    Each listed tile is flagged `full` when every one of its tile x tile
+    pairs is kept: it lies wholly inside L, the layout keeps every block it
+    touches and the index rule allows every pair (no pad row, no column
+    past the causal band outside the condition columns); the kernels skip
+    the mask there. transpose=True lists, for each (head, key tile), the
+    query tiles whose list holds it, with the same flags: the dk/dv
+    kernel's traversal, so each listed pair of tiles is visited once by
+    each backward pass."""
     layout = np.asarray(layout) > 0
     H, nb, _ = layout.shape
     if nb * block < L:
@@ -161,60 +169,77 @@ def plan_tiles(layout: np.ndarray, block: int, L: int, num_cond_tokens: int,
     nt = -(-L // tile)
     rows = np.zeros((H, nt * tile, nb), bool)
     rows[:, :L] = np.repeat(active, block, axis=1)[:, :L]
-    rows = rows.reshape(H, nt, tile, nb).any(axis=2)          # (H, nt, nb)
-    cols = np.zeros((H, nt, nt * tile), bool)
-    cols[:, :, :L] = np.repeat(rows, block, axis=2)[:, :, :L]
-    coarse = cols.reshape(H, nt, nt, tile).any(axis=3)        # (H, nt, nt)
+    rows = rows.reshape(H, nt, tile, nb)
+
+    def per_tile(row_tiles, reduce):                          # (H, nt, nt)
+        cols = np.zeros((H, nt, nt * tile), bool)
+        cols[:, :, :L] = np.repeat(row_tiles, block, axis=2)[:, :, :L]
+        return reduce(cols.reshape(H, nt, nt, tile), axis=3)
+
+    coarse = per_tile(rows.any(axis=2), np.any)
+    # a tile keeps every pair when every block it touches is active and the
+    # rule allows every pair (an active block holds an allowed pair, so
+    # all(active & rule) = all(layout & rule)); entries past L are False
+    rule = np.zeros((nt * tile, nt * tile), bool)
+    rule[:L, :L] = allowed[:L, :L]
+    rule = rule.reshape(nt, tile, nt, tile).all(axis=(1, 3))  # (nt, nt)
+    full = per_tile(rows.all(axis=2), np.all) & rule[None]
     if transpose:
-        coarse = coarse.transpose(0, 2, 1)
+        coarse, full = coarse.transpose(0, 2, 1), full.transpose(0, 2, 1)
     counts = coarse.sum(-1).astype(np.int32)
     order = np.argsort(~coarse, axis=-1, kind="stable")      # listed first
-    indices = np.where(np.arange(nt) < counts[..., None], order, 0)
-    return TilePlan(counts=counts, indices=indices.astype(np.int32))
+    listed = np.arange(nt) < counts[..., None]
+    indices = np.where(listed, order, 0)
+    flags = np.where(listed, np.take_along_axis(full, order, axis=-1), False)
+    return TilePlan(counts=counts, indices=indices.astype(np.int32),
+                    full=flags.astype(np.uint8))
 
 
 def _fn():
     return _build.function("block_sparse", "block_sparse_fwd_bf16",
-                           [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                           [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                            + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _bwd_fn():
     return _build.function("block_sparse_bwd", "block_sparse_bwd_bf16",
-                           [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9
+                           [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9
                            + [ctypes.c_float, ctypes.c_void_p])
 
 
-def _check_plan(layout, counts, indices, H, L, dev, suffix=""):
+def _check_plan(layout, counts, indices, full, H, L, dev, suffix=""):
     nb = layout.shape[1]
     nt = -(-L // TILE)
     _build.check("layout", layout, torch.uint8, (H, nb, nb), dev)
     _build.check("counts" + suffix, counts, torch.int32, (H, nt), dev)
     _build.check("indices" + suffix, indices, torch.int32, (H, nt, nt), dev)
+    _build.check("full" + suffix, full, torch.uint8, (H, nt, nt), dev)
     return nb, nt
 
 
-def block_sparse_attention_cuda(q, k, v, layout, counts, indices, block: int,
-                                num_cond_tokens: int, num_pad_tokens: int = 0,
+def block_sparse_attention_cuda(q, k, v, layout, counts, indices, full,
+                                block: int, num_cond_tokens: int,
+                                num_pad_tokens: int = 0,
                                 bias: Optional[torch.Tensor] = None,
                                 scale: Optional[float] = None,
                                 return_lse: bool = False):
     """Launch the forward kernel. q, k, v: contiguous bf16 (B,H,L,D) on one
-    CUDA device, D = 64; layout: uint8 (H,nb,nb); counts, indices:
-    int32, `plan_tiles` at tile 64; bias: fp32 (L,L) or None. Returns out,
-    or (out, lse) with lse the (B,H,L) fp32 natural-log logsumexp. Raises on
-    anything the kernel does not take and on a failed launch."""
+    CUDA device, D = 64; layout: uint8 (H,nb,nb); counts, indices (int32)
+    and full (uint8): `plan_tiles` at tile 64; bias: fp32 (L,L) or None.
+    Returns out, or (out, lse) with lse the (B,H,L) fp32 natural-log
+    logsumexp. Raises on anything the kernel does not take and on a failed
+    launch."""
     B, H, L, D = q.shape
     dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check(name, t, torch.bfloat16, (B, H, L, D), dev)
+    nb, nt = _check_plan(layout, counts, indices, full, H, L, dev)
+    if bias is not None:
+        _build.check("bias", bias, torch.float32, (L, L), dev)
     if dev.type != "cuda":
         raise ValueError(f"block_sparse_attention_cuda takes CUDA tensors, got {dev}")
     if D != 64:
         raise ValueError(f"head dim {D} not supported by the kernel (64)")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.check(name, t, torch.bfloat16, (B, H, L, D), dev)
-    nb, nt = _check_plan(layout, counts, indices, H, L, dev)
-    if bias is not None:
-        _build.check("bias", bias, torch.float32, (L, L), dev)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, L), dtype=torch.float32, device=dev)
@@ -222,8 +247,9 @@ def block_sparse_attention_cuda(q, k, v, layout, counts, indices, block: int,
     p = _build.ptr
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _fn()(p(q), p(k), p(v), p(bias), p(layout), p(counts), p(indices),
-                p(out), p(lse), B, H, L, D, nb, block, nt, num_cond_tokens,
-                L - num_pad_tokens, float(scale), ctypes.c_void_p(stream))
+                p(full), p(out), p(lse), B, H, L, D, nb, block, nt,
+                num_cond_tokens, L - num_pad_tokens, float(scale),
+                ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"block_sparse kernel launch failed: CUDA error "
                            f"{err} at B={B} H={H} L={L} D={D} block={block}")
@@ -232,16 +258,16 @@ def block_sparse_attention_cuda(q, k, v, layout, counts, indices, block: int,
     return (out, lse) if return_lse else out
 
 
-def block_sparse_attention_bwd_cuda(q, k, v, layout, counts, indices,
-                                    counts_t, indices_t, block: int,
+def block_sparse_attention_bwd_cuda(q, k, v, layout, counts, indices, full,
+                                    counts_t, indices_t, full_t, block: int,
                                     num_cond_tokens: int, num_pad_tokens: int,
                                     bias: Optional[torch.Tensor], out, do, lse,
                                     scale: Optional[float] = None,
                                     need_dbias: bool = True) -> Grads:
     """Launch the backward kernels. q, k, v, out, do: contiguous bf16
     (B,H,L,D) on one CUDA device, D = 64, with out the forward kernel's
-    output; lse: its (B,H,L) fp32 logsumexp; layout, counts, indices as for
-    the forward and counts_t, indices_t the transposed plan
+    output; lse: its (B,H,L) fp32 logsumexp; layout, counts, indices, full
+    as for the forward and counts_t, indices_t, full_t the transposed plan
     (`plan_tiles(..., transpose=True)`); bias: fp32 (L,L) or None. Returns
     dq, dk, dv (bf16) and dbias ((L,L) fp32; None without a bias or with
     need_dbias False, which skips the dbias kernel). Launch counts are kept
@@ -249,18 +275,18 @@ def block_sparse_attention_bwd_cuda(q, k, v, layout, counts, indices,
     on a failed launch."""
     B, H, L, D = q.shape
     dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("do", do)):
+        _build.check(name, t, torch.bfloat16, (B, H, L, D), dev)
+    _build.check("lse", lse, torch.float32, (B, H, L), dev)
+    nb, nt = _check_plan(layout, counts, indices, full, H, L, dev)
+    _check_plan(layout, counts_t, indices_t, full_t, H, L, dev, "_t")
+    if bias is not None:
+        _build.check("bias", bias, torch.float32, (L, L), dev)
     if dev.type != "cuda":
         raise ValueError(f"block_sparse_attention_bwd_cuda takes CUDA tensors, "
                          f"got {dev}")
     if D != 64:
         raise ValueError(f"head dim {D} not supported by the kernel (64)")
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("do", do)):
-        _build.check(name, t, torch.bfloat16, (B, H, L, D), dev)
-    _build.check("lse", lse, torch.float32, (B, H, L), dev)
-    nb, nt = _check_plan(layout, counts, indices, H, L, dev)
-    _check_plan(layout, counts_t, indices_t, H, L, dev, "_t")
-    if bias is not None:
-        _build.check("bias", bias, torch.float32, (L, L), dev)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, L), dtype=torch.float32, device=dev)
@@ -269,8 +295,9 @@ def block_sparse_attention_bwd_cuda(q, k, v, layout, counts, indices,
     p = _build.ptr
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _bwd_fn()(p(q), p(k), p(v), p(bias), p(layout), p(counts), p(indices),
-                    p(counts_t), p(indices_t), p(out), p(do), p(lse), p(delta),
-                    p(dq), p(dk), p(dv), p(dbias), B, H, L, D, nb, block, nt,
+                    p(full), p(counts_t), p(indices_t), p(full_t), p(out),
+                    p(do), p(lse), p(delta), p(dq), p(dk), p(dv), p(dbias),
+                    B, H, L, D, nb, block, nt,
                     num_cond_tokens, L - num_pad_tokens, float(scale),
                     ctypes.c_void_p(stream))
     if err != 0:
@@ -299,8 +326,10 @@ class DevicePlan(NamedTuple):
     layout: torch.Tensor     # (H, nb, nb) uint8
     counts: torch.Tensor     # the forward's plan
     indices: torch.Tensor
+    full: torch.Tensor
     counts_t: torch.Tensor   # its transpose, for the dk/dv kernel
     indices_t: torch.Tensor
+    full_t: torch.Tensor
 
 
 class BlockSparseAttentionFn(torch.autograd.Function):
@@ -315,7 +344,7 @@ class BlockSparseAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, bias, plan: DevicePlan, block, num_cond_tokens,
                 num_pad_tokens, scale):
         out, lse = block_sparse_attention_cuda(
-            q, k, v, plan.layout, plan.counts, plan.indices, block,
+            q, k, v, plan.layout, plan.counts, plan.indices, plan.full, block,
             num_cond_tokens, num_pad_tokens, bias, scale, return_lse=True)
         ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.plan = plan
@@ -328,8 +357,8 @@ class BlockSparseAttentionFn(torch.autograd.Function):
         q, k, v, bias, out, lse = ctx.saved_tensors
         plan = ctx.plan
         dq, dk, dv, dbias = block_sparse_attention_bwd_cuda(
-            q, k, v, plan.layout, plan.counts, plan.indices, plan.counts_t,
-            plan.indices_t, *ctx.args, bias, out,
+            q, k, v, plan.layout, plan.counts, plan.indices, plan.full,
+            plan.counts_t, plan.indices_t, plan.full_t, *ctx.args, bias, out,
             dout.to(q.dtype).contiguous(), lse, ctx.scale,
             need_dbias=ctx.needs_input_grad[3])
         return dq, dk, dv, dbias, None, None, None, None, None
@@ -350,7 +379,8 @@ class SparseAttention:
         self._device: Dict[Tuple[int, str], DevicePlan] = {}
 
     def device_plan(self, L: int, device: torch.device) -> DevicePlan:
-        """The layout as uint8 and both tile plans on `device` for length L."""
+        """The layout as uint8 and both tile plans, with their full flags,
+        on `device` for length L."""
         key = (L, str(device))
         if key not in self._device:
             args = (self.layout, self.block, L, self.num_cond_tokens,
@@ -359,7 +389,8 @@ class SparseAttention:
             self._device[key] = DevicePlan(*(
                 torch.from_numpy(np.ascontiguousarray(a)).to(device)
                 for a in (self.layout.astype(np.uint8), plan.counts,
-                          plan.indices, plan_t.counts, plan_t.indices)))
+                          plan.indices, plan.full, plan_t.counts,
+                          plan_t.indices, plan_t.full)))
         return self._device[key]
 
     def __call__(self, q, k, v, bias: Optional[torch.Tensor] = None,
@@ -383,6 +414,6 @@ class SparseAttention:
                 q, k, v, bias, plan, self.block, self.num_cond_tokens,
                 self.num_pad_tokens, self.scale)
         return block_sparse_attention_cuda(
-            q, k, v, plan.layout, plan.counts, plan.indices, self.block,
-            self.num_cond_tokens, self.num_pad_tokens, bias, self.scale,
-            return_lse)
+            q, k, v, plan.layout, plan.counts, plan.indices, plan.full,
+            self.block, self.num_cond_tokens, self.num_pad_tokens, bias,
+            self.scale, return_lse)

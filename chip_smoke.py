@@ -38,16 +38,20 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      versions: cosine of the gradient of each parameter group;
  10. from the seeded init, the CE falls over 8 steps on one repeated batch
      under a fixed mask;
- 11. the block-sparse attention kernel against
+ 11. the block-sparse attention kernel's registers, shared memory, spill
+     bytes (none allowed) and blocks per SM, then the kernel against
      `block_sparse_attention_reference` (fp32 on the same bf16 inputs) at
      b=2 on the `nuscenes_ar` layout (L=2368, 16-token blocks), on the
      `nuscenes_ar_tpu` layout (L=2432, 128-token blocks), and with a random
      (L, L) bias and the logsumexp; times of the kernel, the plain version
-     and PyTorch's SDPA with the expanded additive mask, and the bound from
-     the layout's active blocks;
+     and PyTorch's SDPA with the expanded additive mask (and their ratio),
+     the bound from the layout's kept pairs, and the full and partial
+     64 x 64 tiles of the tile plan;
  12. the decode-attention kernel against `decode_attention_reference` at
-     b=2, H=16, dh=64 over cache prefixes of 512, 1024 and 2368 columns,
-     and at b=1, H=3, pl=70; times, SDPA, the bytes bound;
+     b=2, H=16, dh=64 over cache prefixes of every bucket's width (512,
+     1024, 1536, 2048, 2368 columns), and at b=1, H=3, pl=70; times, SDPA,
+     the bytes bound (after phase 14, the times weighted by each bucket's
+     launches in a generate);
  13. `nuscenes_ar` at full width (24 layers, width 1024, 16 heads, 6
      cameras), b=1, seeded random weights: the SparseGPT forward through the
      block-sparse kernel (exactly 24 launches) against the same forward with
@@ -61,7 +65,8 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      the block-sparse kernel, exactly 4200 launches) against the KV-cached
      one, step by step on the full sampler's trajectory, and one full
      forward over that trajectory, which must replay the sampler's choices;
- 16. the block-sparse backward (two kernels, three with a bias) against
+ 16. the block-sparse backward's resources (dq and dk/dv kernels, as in
+     phase 11), then the backward (two kernels, three with a bias) against
      `block_sparse_attention_bwd_reference` (fp32 on the same bf16 inputs,
      with the forward kernel's out and lse) at `nuscenes_ar` b=4 (the
      training shape), at the `nuscenes_ar_tpu` layout, with a random (L, L)
@@ -716,6 +721,68 @@ def ar_layout(preset):
     return cfg, masks.sparse_masks(cfg).layouts
 
 
+def ptxas_report(source):
+    """{kernel name: (registers, static shared bytes, spill store bytes,
+    spill load bytes)} from the ptxas report of `csrc/<source>.cu`'s build
+    (names demangled to the function's own)."""
+    import re
+    from bevgen_torch.ops import _build
+    lib = _build.library_path(source)
+    report, name = {}, None
+    for line in lib.with_name(lib.name + ".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d([a-z][a-z_]*_kernel)E",
+                      line)
+        if m:
+            name = m.group(1)
+            report[name] = [0, 0, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            report[name][2:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name][0] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            report[name][1] = int(sm.group(1)) if sm else 0
+    return {k: tuple(v) for k, v in report.items()}
+
+
+def block_sparse_resources(backward):
+    """Print, for the block-sparse forward kernel or the backward's dq and
+    dk/dv kernels, the registers, shared memory (static + dynamic), spill
+    bytes and resident blocks per SM; fail on a spill."""
+    import ctypes
+    from bevgen_torch.ops import _build
+    source = "block_sparse_bwd" if backward else "block_sparse"
+    report = ptxas_report(source)
+    pint = ctypes.POINTER(ctypes.c_int)
+    query = (_build.function(source, "block_sparse_bwd_resources",
+                             [ctypes.c_int, pint, pint]) if backward else
+             _build.function(source, "block_sparse_fwd_resources", [pint, pint]))
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    kernels = ((("block_sparse_bwd_dq_kernel", (0,)),
+                ("block_sparse_bwd_dkdv_kernel", (1,)))
+               if backward else (("block_sparse_fwd_kernel", ()),))
+    for kernel, which in kernels:
+        err = query(*which, ctypes.byref(smem), ctypes.byref(blocks))
+        if err != 0:
+            raise SystemExit(f"resource query of {kernel} failed: CUDA error {err}")
+        regs, static, spill_st, spill_ld = report[kernel]
+        print(f"[kernel] {kernel}: {regs} registers, {static} + {smem.value} "
+              f"bytes shared memory (static + dynamic), {spill_st} bytes spill "
+              f"stores, {spill_ld} bytes spill loads, {blocks.value} blocks of "
+              f"128 threads per SM", flush=True)
+        if spill_st or spill_ld:
+            raise SystemExit(f"{kernel} spills registers")
+
+
+def tile_counts(plan):
+    """(full, partial) listed 64 x 64 tiles of a device plan, all heads."""
+    listed = int(plan.counts.sum())
+    full = int(plan.full.sum())
+    return full, listed - full
+
+
 def check_block_sparse(name, preset, B, with_bias, seed, time_lse=None):
     """Row 9 against block_sparse_attention_reference, with times and the
     bound: 4 * D FLOP per (row, column) pair that the layout and the index
@@ -733,6 +800,7 @@ def check_block_sparse(name, preset, B, with_bias, seed, time_lse=None):
                for _ in range(3))
     bias = torch.randn(L, L, generator=g, device="cuda") if with_bias else None
     attn = bs.SparseAttention(layouts, blk, nc, npad)
+    full, partial = tile_counts(attn.device_plan(L, q.device))
     with torch.inference_mode():
         out, lse = attn(q, k, v, bias, return_lse=True)
         torch.cuda.synchronize()
@@ -768,10 +836,12 @@ def check_block_sparse(name, preset, B, with_bias, seed, time_lse=None):
     ok = (finite and max_err <= MAX_ABS_TOL and mean_err <= MEAN_ABS_TOL
           and lse_err <= LSE_TOL)
     print(f"[kernel] block_sparse {name}: {preset} B={B} H={H} L={L} D={D} "
-          f"block={blk} kept pairs {kept} of {H * L * L} "
+          f"block={blk} kept pairs {kept} of {H * L * L}, listed tiles "
+          f"{full} full + {partial} partial "
           f"bias={with_bias} lse={time_lse} max_abs_err={max_err:.3e} mean_abs_err="
           f"{mean_err:.3e} lse_err={lse_err:.3e} ms={ms:.4f} plain_ms="
-          f"{plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bms:.4f} "
+          f"{plain_ms:.4f} library_ms={lib_ms:.4f} ms/library_ms="
+          f"{ms / lib_ms:.3f} bound_ms={bms:.4f} "
           f"({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) -> "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
@@ -841,7 +911,9 @@ def check_decode(b, H, pl, cap, seed, dh=64):
 
 
 def block_sparse_phase():
-    """Phase 11: row 9 at both AR layouts, and with a bias and the lse."""
+    """Phase 11: row 9's resources, then the kernel at both AR layouts, and
+    with a bias and the lse."""
+    block_sparse_resources(backward=False)
     return {
         "nuscenes_ar": check_block_sparse("layout", "nuscenes_ar", AR_BATCH,
                                           False, 20),
@@ -853,12 +925,13 @@ def block_sparse_phase():
 
 
 def decode_phase(cfg):
-    """Phase 12: row 11 over cache prefixes of the decode buckets' widths,
-    and at a row count that is not a multiple of 8."""
+    """Phase 12: row 11 over cache prefixes of every decode bucket's width
+    (512, 1024, 1536, 2048 and the whole sequence), and at a row count that
+    is not a multiple of 8."""
     tf = cfg.transformer
     L = tf.gpt_block_size
     stats = {pl: check_decode(AR_BATCH, tf.num_heads, pl, L, 30 + i)
-             for i, pl in enumerate((512, 1024, L))}
+             for i, pl in enumerate((512, 1024, 1536, 2048, L))}
     check_decode(1, 3, 70, 70, 33)
     return stats
 
@@ -1174,11 +1247,13 @@ def check_block_sparse_bwd(name, layouts, L, blk, nc, npad, B, with_bias, seed):
     D = q.shape[-1]
     attn = bs.SparseAttention(layouts, blk, nc, npad)
     plan = attn.device_plan(L, q.device)
+    full, partial = tile_counts(plan)
     lt = torch.from_numpy(layouts)
     with torch.no_grad():
         out, lse = attn(q, k, v, bias, return_lse=True)
-        args = (q, k, v, plan.layout, plan.counts, plan.indices, plan.counts_t,
-                plan.indices_t, blk, nc, npad, bias, out, do, lse)
+        args = (q, k, v, plan.layout, plan.counts, plan.indices, plan.full,
+                plan.counts_t, plan.indices_t, plan.full_t, blk, nc, npad, bias,
+                out, do, lse)
         got = bs.block_sparse_attention_bwd_cuda(*args)
         torch.cuda.synchronize()
         want = bs.block_sparse_attention_bwd_reference(
@@ -1206,11 +1281,13 @@ def check_block_sparse_bwd(name, layouts, L, blk, nc, npad, B, with_bias, seed):
               + (2 * L * L * 4 if with_bias else 0) + layouts.size)
     bms, bound_by = bound(flops, nbytes)
     print(f"[kernel] block_sparse_bwd {name}: B={B} H={H} L={L} D={D} "
-          f"block={blk} kept pairs {kept} bias={with_bias} "
+          f"block={blk} kept pairs {kept}, listed tiles {full} full + "
+          f"{partial} partial, bias={with_bias} "
           + " ".join(f"{k_}: max_abs_err={e[0]:.3e} rel_l2={e[1]:.3e}"
                      for k_, e in errs.items())
           + f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-          f"(no dbias) bound_ms={bms:.4f} ({bound_by}: {flops / 1e9:.2f} "
+          f"(no dbias) ms/library_ms={ms / lib_ms:.3f} bound_ms={bms:.4f} "
+          f"({bound_by}: {flops / 1e9:.2f} "
           f"GFLOP, {nbytes / 1e6:.2f} MB) -> {'ok' if ok else 'FAIL'}",
           flush=True)
     if not ok:
@@ -1222,11 +1299,13 @@ def check_block_sparse_bwd(name, layouts, L, blk, nc, npad, B, with_bias, seed):
 
 
 def block_sparse_bwd_phase():
-    """Phase 16: row 10 at nuscenes_ar b=4 (the training shape), at the
+    """Phase 16: row 10's resources (dq and dk/dv kernels), then the
+    kernels at nuscenes_ar b=4 (the training shape), at the
     nuscenes_ar_tpu layout, with an (L, L) bias, and at a small unaligned
     case with condition columns and pad rows; and row 9 with the lse at the
     training shape."""
     import numpy as np
+    block_sparse_resources(backward=True)
 
     def preset_case(name, preset, B, with_bias, seed):
         cfg, layouts = ar_layout(preset)
@@ -1858,7 +1937,7 @@ def main() -> int:
     for name, path in libs.items():
         log = path.with_name(path.name + ".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "arning" in line:
                 print(f"[build] {name}: {line.strip()}")
 
     # 3. kernel vs plain version at the serving path's shapes
@@ -2035,6 +2114,15 @@ def main() -> int:
     dec_stats = timed_phase(12, decode_phase, ar_cfg)
     bs_launches = timed_phase(13, ar_forward_phase, ar_cfg)
     ar_e2e = timed_phase(14, ar_generate_phase, ar_cfg)
+    # row 11 over one generate: each bucket's phase-12 times weighted by its
+    # phase-14 launches
+    dec_ms = sum(n * dec_stats[pl]["ms"] for pl, n in ar_e2e["by_pl"].items())
+    dec_lib = sum(n * dec_stats[pl]["library_ms"]
+                  for pl, n in ar_e2e["by_pl"].items())
+    print(f"[kernel] decode_attention over one b={AR_BATCH} generate's "
+          f"{sum(ar_e2e['by_pl'].values())} launches: kernel {dec_ms:.1f} ms, "
+          f"library {dec_lib:.1f} ms, ms/library_ms {dec_ms / dec_lib:.3f}",
+          flush=True)
     timed_phase(15, ar_greedy_phase, ar_cfg)
 
     # 16-20. AR training: the backward kernels against their plain version,

@@ -6,6 +6,7 @@ block-sparse attention (against the TPU kernel in interpret mode and the
 dense XLA path) and of the decode attention.
 """
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -103,6 +104,79 @@ def test_tile_plan_covers_every_kept_pair(name):
             assert set(np.nonzero(kt[h, i])[0]) <= set(listed.tolist())
 
 
+PLAN_CASES = ["tiny-nuscenes", "tiny-rect", "nuscenes_ar_tpu", "nuscenes_ar"]
+
+
+@functools.lru_cache(maxsize=None)
+def _plans(name):
+    """Both tile plans of a config, the (H, nt, nt) tiles they list and
+    flag (scattered from their lists), and which tiles keep every pair and
+    which keep any (from the dense keep mask)."""
+    _, tc = CONFIGS[name]
+    L, blk = tc.gpt_block_size, tc.sparse_block_size
+    layouts = tmasks.sparse_masks(tc).layouts
+    args = (layouts, blk, L, tc.num_cond_tokens, tc.num_pad_tokens)
+    plan, plan_t = bs.plan_tiles(*args), bs.plan_tiles(*args, transpose=True)
+    keep = bs.keep_mask(torch.from_numpy(layouts), *args[1:])
+    H, nt = plan.counts.shape
+    pad = nt * bs.TILE - L
+    tiles = torch.nn.functional.pad(keep, (0, pad, 0, pad)).reshape(
+        H, nt, bs.TILE, nt, bs.TILE)
+    all_kept = tiles.all(4).all(2).numpy()
+    any_kept = tiles.any(4).any(2).numpy()
+
+    def scatter(p):
+        listed, flagged = np.zeros((2, H, nt, nt), bool)
+        for h in range(H):
+            for i in range(nt):
+                n = p.counts[h, i]
+                listed[h, i, p.indices[h, i, :n]] = True
+                flagged[h, i, p.indices[h, i, :n]] = p.full[h, i, :n] > 0
+                assert not p.full[h, i, n:].any()  # 0-padded like indices
+        return listed, flagged
+
+    return plan, plan_t, scatter(plan), scatter(plan_t), all_kept, any_kept
+
+
+@pytest.mark.parametrize("name", PLAN_CASES)
+def test_tile_plan_full_tiles_keep_every_pair(name):
+    """A listed tile flagged full keeps every pair of its 64 x 64 (so the
+    kernels may skip the mask there), and every such tile is flagged."""
+    plan, _, (listed, flagged), _, all_kept, _ = _plans(name)
+    assert plan.full.dtype == np.uint8 and plan.full.shape == plan.indices.shape
+    assert all_kept[flagged].all()
+    np.testing.assert_array_equal(flagged, listed & all_kept)
+
+
+@pytest.mark.parametrize("name", PLAN_CASES)
+def test_tile_plan_partial_tiles_drop_a_pair(name):
+    """Every listed tile that is not flagged has a pair that is not kept:
+    the mask is evaluated exactly where it is needed."""
+    _, _, (listed, flagged), _, all_kept, _ = _plans(name)
+    assert not all_kept[listed & ~flagged].any()
+
+
+@pytest.mark.parametrize("name", PLAN_CASES)
+def test_transposed_tile_plan_flags_are_the_forward_flags_transposed(name):
+    plan, plan_t, (listed, flagged), (listed_t, flagged_t), _, _ = _plans(name)
+    assert plan_t.full.dtype == np.uint8
+    np.testing.assert_array_equal(listed_t, listed.transpose(0, 2, 1))
+    np.testing.assert_array_equal(flagged_t, flagged.transpose(0, 2, 1))
+
+
+def test_tile_plan_full_and_partial_counts_at_nuscenes_ar():
+    """Over the 16 heads of nuscenes_ar, 10,240 of the 11,344 listed tiles
+    are full and 1,104 partial (the causal diagonal, the pad rows, the
+    condition edge); nuscenes_ar_tpu lists 430 tiles that keep no pair
+    (half of a diagonal 128-token block), which are partial."""
+    plan = _plans("nuscenes_ar")[0]
+    assert (int(plan.counts.sum()), int(plan.full.sum())) == (11344, 10240)
+    plan, _, (listed, flagged), _, _, any_kept = _plans("nuscenes_ar_tpu")
+    assert (int(plan.counts.sum()), int(plan.full.sum())) == (5248, 4132)
+    assert int((listed & ~any_kept).sum()) == 430
+    assert not flagged[~any_kept].any()
+
+
 def _sparse_case(L, block, nc, num_pad, H=2, B=2, D=32, density=0.5, seed=0):
     """A random causal block layout with its diagonal and, for pad rows,
     block column 0; fp32 q, k, v and a bias, from numpy."""
@@ -124,6 +198,126 @@ SPARSE_CASES = {  # L, block, nc, num_pad: aligned, and unaligned with pad rows
     "b8": (128, 8, 16, 0), "b16": (256, 16, 32, 0),
     "b8-unaligned-pad": (200, 8, 24, 8), "b16-unaligned-pad": (190, 16, 20, 6),
 }
+
+
+def _walk_forward(q, k, v, keep, bias, scale, plan):
+    """The forward tile by tile from the plan, as the kernel walks it: for
+    each (head, query tile) only its listed key tiles, with the mask applied
+    on the partial ones and none on the full ones."""
+    B, H, L, D = q.shape
+    T = bs.TILE
+    out, lse = torch.zeros_like(q), torch.zeros(B, H, L)
+    for h in range(H):
+        for i in range(plan.counts.shape[1]):
+            r = slice(i * T, min(i * T + T, L))
+            scores, vals = [], []
+            for j in range(plan.counts[h, i]):
+                kt = plan.indices[h, i, j]
+                c = slice(kt * T, min(kt * T + T, L))
+                s = q[:, h, r] @ k[:, h, c].transpose(-1, -2)
+                if bias is not None:
+                    s = s + bias[r, c]
+                s = s * scale
+                if not plan.full[h, i, j]:
+                    s = torch.where(keep[h, r, c], s, torch.tensor(bs.NEG_INF))
+                scores.append(s)
+                vals.append(v[:, h, c])
+            s = torch.cat(scores, -1)
+            lse[:, h, r] = torch.logsumexp(s, -1)
+            out[:, h, r] = torch.softmax(s, -1) @ torch.cat(vals, -2)
+    return out, lse
+
+
+def _walk_backward(q, k, v, keep, bias, scale, out, do, lse, plan, plan_t):
+    """The backward tile by tile: dq (and dbias) over the forward's plan,
+    dk and dv over its transpose; P is recomputed from the lse and masked
+    on partial tiles only."""
+    B, H, L, D = q.shape
+    T = bs.TILE
+    delta = (do * out).sum(-1)
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dbias = torch.zeros(L, L) if bias is not None else None
+
+    def tile(h, qt, kt, full):
+        r = slice(qt * T, min(qt * T + T, L))
+        c = slice(kt * T, min(kt * T + T, L))
+        s = q[:, h, r] @ k[:, h, c].transpose(-1, -2)
+        if bias is not None:
+            s = s + bias[r, c]
+        p = torch.exp(s * scale - lse[:, h, r, None])
+        if not full:
+            p = torch.where(keep[h, r, c], p, torch.tensor(0.0))
+        dp = do[:, h, r] @ v[:, h, c].transpose(-1, -2)
+        return r, c, p, p * (dp - delta[:, h, r, None])
+
+    nt = plan.counts.shape[1]
+    for h in range(H):
+        for i in range(nt):
+            for j in range(plan.counts[h, i]):
+                r, c, p, ds = tile(h, i, plan.indices[h, i, j], plan.full[h, i, j])
+                dq[:, h, r] += ds @ k[:, h, c] * scale
+                if dbias is not None:
+                    dbias[r, c] += ds.sum(0) * scale
+            for j in range(plan_t.counts[h, i]):
+                r, c, p, ds = tile(h, plan_t.indices[h, i, j], i,
+                                   plan_t.full[h, i, j])
+                dk[:, h, c] += ds.transpose(-1, -2) @ q[:, h, r] * scale
+                dv[:, h, c] += p.transpose(-1, -2) @ do[:, h, r]
+    return dq, dk, dv, dbias
+
+
+WALK_CASES = dict(SPARSE_CASES, **{
+    # dense causal layouts: every tile below the diagonal is full, but for
+    # the pad rows
+    "dense-b16": (256, 16, 32, 0), "dense-b16-unaligned-pad": (232, 16, 40, 5),
+    "tiny-nuscenes": None})
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_plan_walk_matches_plain_versions(case, with_bias):
+    """The contract the kernels rely on: walking only the listed tiles, and
+    masking only the partial ones, gives the plain forward (out, lse) and
+    backward (dq, dk, dv, dbias), fp32 at 1e-5."""
+    if case == "tiny-nuscenes":
+        _, tc = CONFIGS[case]
+        L, block = tc.gpt_block_size, tc.sparse_block_size
+        nc, num_pad = tc.num_cond_tokens, tc.num_pad_tokens
+        layout = tmasks.sparse_masks(tc).layouts.astype(np.int64)
+        _, q, k, v, bias = _sparse_case(L, block, nc, num_pad, H=layout.shape[0])
+    else:
+        L, block, nc, num_pad = WALK_CASES[case]
+        density = 1.0 if case.startswith("dense") else 0.5
+        layout, q, k, v, bias = _sparse_case(L, block, nc, num_pad,
+                                             density=density)
+    args = (layout, block, L, nc, num_pad)
+    plan, plan_t = bs.plan_tiles(*args), bs.plan_tiles(*args, transpose=True)
+    if case.startswith("dense"):
+        assert plan.full.any()
+    rng = np.random.default_rng(7)
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32))
+    q, k, v, bias = (torch.from_numpy(a) for a in (q, k, v, bias))
+    bias = bias if with_bias else None
+    lt = torch.from_numpy(layout)
+    keep = bs.keep_mask(lt, block, L, nc, num_pad)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    out, lse = _walk_forward(q, k, v, keep, bias, scale, plan)
+    want, want_lse = bs.block_sparse_attention_reference(
+        q, k, v, lt, block, nc, num_pad, bias, return_lse=True)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=TOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), atol=TOL, rtol=1e-6)
+    got = _walk_backward(q, k, v, keep, bias, scale, want, do, want_lse, plan,
+                         plan_t)
+    ref = bs.block_sparse_attention_bwd_reference(q, k, v, lt, block, nc,
+                                                  num_pad, bias, want, do,
+                                                  want_lse)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        if w is None:
+            assert a is None
+            continue
+        np.testing.assert_allclose(a.numpy(), w.numpy(),
+                                   atol=TOL * float(w.abs().max()), rtol=0,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("with_bias", [False, True])

@@ -138,15 +138,16 @@ def test_transposed_tile_plan_visits_every_kept_pair_once(name):
 def _plain_launches(monkeypatch, calls):
     """The Function's two kernel launches, replaced by the plain versions
     (recording the plans they were given)."""
-    def fwd(q, k, v, layout, counts, indices, block, nc, num_pad=0, bias=None,
-            scale=None, return_lse=False):
+    def fwd(q, k, v, layout, counts, indices, full, block, nc, num_pad=0,
+            bias=None, scale=None, return_lse=False):
         calls.append(("fwd", counts, indices))
         return bs.block_sparse_attention_reference(q, k, v, layout, block, nc,
                                                    num_pad, bias, scale,
                                                    return_lse)
 
-    def bwd(q, k, v, layout, counts, indices, counts_t, indices_t, block, nc,
-            num_pad, bias, out, do, lse, scale=None, need_dbias=True):
+    def bwd(q, k, v, layout, counts, indices, full, counts_t, indices_t,
+            full_t, block, nc, num_pad, bias, out, do, lse, scale=None,
+            need_dbias=True):
         calls.append(("bwd", counts_t, indices_t, need_dbias))
         dq, dk, dv, dbias = bs.block_sparse_attention_bwd_reference(
             q, k, v, layout, block, nc, num_pad, bias, out, do, lse, scale)

@@ -419,8 +419,9 @@ def test_cuda_block_sparse_backward_refuses_other_head_dims():
     lse = torch.zeros(1, 2, 128, device="cuda")
     with pytest.raises(ValueError, match="head dim 32"):
         bs.block_sparse_attention_bwd_cuda(q, k, v, plan.layout, plan.counts,
-                                           plan.indices, plan.counts_t,
-                                           plan.indices_t, 16, 16, 0, None,
+                                           plan.indices, plan.full,
+                                           plan.counts_t, plan.indices_t,
+                                           plan.full_t, 16, 16, 0, None,
                                            q, q, lse)
 
 
@@ -432,9 +433,39 @@ def test_block_sparse_backward_wrapper_raises_for_cpu_tensors():
     lse = torch.zeros(1, 2, 128)
     with pytest.raises(ValueError, match="CUDA tensors"):
         bs.block_sparse_attention_bwd_cuda(x, x, x, plan.layout, plan.counts,
-                                           plan.indices, plan.counts_t,
-                                           plan.indices_t, 16, 16, 0, None,
+                                           plan.indices, plan.full,
+                                           plan.counts_t, plan.indices_t,
+                                           plan.full_t, 16, 16, 0, None,
                                            x, x, lse)
+    assert bs.block_sparse_attention_bwd_cuda.launches == 0
+
+
+@pytest.mark.parametrize("which", ["full", "full_t"])
+@pytest.mark.parametrize("bad", ["dtype", "shape"])
+def test_block_sparse_wrappers_refuse_bad_full_flags(which, bad):
+    """A full-flag tensor of the wrong dtype or shape raises in the
+    wrappers' checks, before the device check and before any launch."""
+    from bevgen_torch.ops import block_sparse as bs
+    layout = np.tril(np.ones((2, 8, 8), np.int64))
+    plan = bs.SparseAttention(layout, 16, 16).device_plan(128, torch.device("cpu"))
+    flags = getattr(plan, which)
+    wrong = (flags.to(torch.int32) if bad == "dtype"
+             else flags[:, :, :-1].contiguous())
+    plan = plan._replace(**{which: wrong})
+    x = torch.zeros(1, 2, 128, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 128)
+    err = TypeError if bad == "dtype" else ValueError
+    with pytest.raises(err, match=f"^{which} has {bad}"):
+        bs.block_sparse_attention_bwd_cuda(x, x, x, plan.layout, plan.counts,
+                                           plan.indices, plan.full,
+                                           plan.counts_t, plan.indices_t,
+                                           plan.full_t, 16, 16, 0, None,
+                                           x, x, lse)
+    if which == "full":
+        with pytest.raises(err, match=f"^full has {bad}"):
+            bs.block_sparse_attention_cuda(x, x, x, plan.layout, plan.counts,
+                                           plan.indices, plan.full, 16, 16)
+    assert bs.block_sparse_attention_cuda.launches == 0
     assert bs.block_sparse_attention_bwd_cuda.launches == 0
 
 
