@@ -170,6 +170,8 @@ class CosineAttention(nn.Module):
             k, v = cached_kv
         out = self.core(q, k, v, self.null_kv, self.q_scale, self.k_scale,
                         attn_bias, keep, sm_scale=self.scale)
+        # on the card `out` is a (b, h, n, dh) view of a (b, n, h, dh)
+        # tensor, so the merge of the heads is a view too
         out = self.to_out(out.transpose(1, 2).reshape(b, n, h * dh))
         return (x_new, out) if return_residual else out
 

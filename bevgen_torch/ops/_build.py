@@ -101,16 +101,57 @@ def ptr(t) -> Optional[ctypes.c_void_p]:
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def check(name: str, t, dtype, shape, device) -> None:
-    """Raise unless `t` is what a kernel takes: on `device`, of `dtype` and
-    `shape`, contiguous and 16-byte aligned."""
+def _check_meta(name: str, t, dtype, shape, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def check(name: str, t, dtype, shape, device) -> None:
+    """Raise unless `t` is what a kernel takes: on `device`, of `dtype` and
+    `shape`, contiguous and 16-byte aligned."""
+    _check_meta(name, t, dtype, shape, device)
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def rows_ok(t) -> bool:
+    """Whether a kernel can read `t` row by row (`check_rows`)."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * size % 16 == 0
+                    for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1))
+
+
+def check_rows(name: str, t, dtype, shape, device) -> None:
+    """Raise unless `t` is what a kernel reads row by row: on `device`, of
+    `dtype` and `shape`, its last dim contiguous, its address and every other
+    stride (of a dim longer than 1) a multiple of 16 bytes."""
+    _check_meta(name, t, dtype, shape, device)
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}'s last dim must be contiguous, got strides "
+                         f"{tuple(t.stride())}")
+    if not rows_ok(t):
+        raise ValueError(f"{name}'s address and strides {tuple(t.stride())} "
+                         f"must be multiples of 16 bytes")
+
+
+def rows(t):
+    """`t` itself when a kernel can read it row by row (`check_rows`), else
+    a contiguous copy in new (aligned) memory."""
+    if rows_ok(t):
+        return t
+    return t.clone() if t.is_contiguous() else t.contiguous()
+
+
+def row_strides(*tensors):
+    """The leading strides of each tensor (all dims but the last), in
+    elements, with 0 for a dim of length 1, as one C array of int64."""
+    vals = [0 if n == 1 else st for t in tensors
+            for n, st in zip(t.shape[:-1], t.stride()[:-1])]
+    return (ctypes.c_longlong * len(vals))(*vals)

@@ -24,6 +24,7 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from bevgen_torch.ops import _build
 from bevgen_torch.ops.attention_bwd import (NEG_INF, attention_bwd,
@@ -52,32 +53,81 @@ def bias_attention_reference(q, k, v, bias: Optional[torch.Tensor] = None,
 def _fn():
     return _build.function("cosine_attention", "bias_attention_fwd_bf16",
                            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                           + [ctypes.c_float, ctypes.c_void_p])
+                           + [ctypes.c_void_p, ctypes.c_float,
+                              ctypes.c_void_p])
+
+
+def check_kernel_args(q, k, v, bias: Optional[torch.Tensor] = None,
+                      keep: Optional[torch.Tensor] = None):
+    """Raise unless the forward kernel takes these arguments: q (B,H,N,D),
+    k and v (B,H,M,D) bf16 on one device with D in {32, 64}, each with a
+    contiguous last dim and 16-byte rows (any b, h, row strides); bias fp32
+    (N, M) with a contiguous last dim and 16-byte rows (`bias_rows`) or
+    None; keep int32 (B,) or None. Returns (B, H, N, M, D). A plain
+    function: it runs on any device."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q and k must be (B, H, rows, D), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    B, H, N, D = q.shape
+    M = k.shape[2]
+    dev = q.device
+    if D not in (32, 64):
+        raise ValueError(f"head dim {D} not supported by the kernel (32, 64)")
+    _build.check_rows("q", q, torch.bfloat16, (B, H, N, D), dev)
+    _build.check_rows("k", k, torch.bfloat16, (B, H, M, D), dev)
+    _build.check_rows("v", v, torch.bfloat16, (B, H, M, D), dev)
+    if bias is not None:
+        _build.check_rows("bias", bias, torch.float32, (N, M), dev)
+    if keep is not None:
+        _build.check("keep", keep, torch.int32, (B,), dev)
+    return B, H, N, M, D
+
+
+def bias_rows(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The (N, M) bias as the forward kernel reads it: fp32 rows that start
+    on 16-byte boundaries. A bias whose rows do not (M not a multiple of 4,
+    as plain mode's M = N + 1) is copied into rows padded to a multiple of 4
+    and returned as an (N, M) view of them."""
+    if bias is None:
+        return None
+    bias = bias.float()
+    if _build.rows_ok(bias):
+        return bias
+    return F.pad(bias, (0, -bias.shape[1] % 4))[:, :bias.shape[1]]
+
+
+def kernel_strides(q, k, v, out, bias):
+    """The forward kernel's 13 strides: (b, h, row) of q, k, v and out in
+    elements, then the bias row stride (0 without a bias)."""
+    strides = list(_build.row_strides(q, k, v, out))
+    strides.append(0 if bias is None else bias.stride(0))
+    return (ctypes.c_longlong * 13)(*strides)
+
+
+def new_output(q):
+    """The forward kernel's output for q (B,H,N,D): a (B,H,N,D) view of a
+    (B,N,H,D) tensor, so that the heads' merge back to (B,N,H*D) is a view."""
+    B, H, N, D = q.shape
+    return torch.empty((B, N, H, D), dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
 
 
 def bias_attention_cuda(q, k, v, bias: Optional[torch.Tensor] = None,
                         keep: Optional[torch.Tensor] = None,
                         sm_scale: float = 1.0, return_lse: bool = False):
-    """Launch the forward kernel's plain mode. q, k, v: contiguous bf16 on
-    one CUDA device, D in {32, 64}, M >= 1; bias: fp32 (N, M) or None;
-    keep: int32 (B,) or None. Returns out, or (out, lse) with lse the
-    (B,H,N) fp32 logsumexp in log2 units. Raises on anything the kernel
-    does not take and on a failed launch."""
-    B, H, N, D = q.shape
-    M = k.shape[2]
+    """Launch the forward kernel's plain mode. q, k, v: bf16 on one CUDA
+    device, D in {32, 64}, M >= 1, any (b, h, row) strides with a contiguous
+    last dim (`check_kernel_args`); bias: (N, M) or None, copied into padded
+    rows when M is not a multiple of 4 (`bias_rows`); keep: int32 (B,) or
+    None. Returns out, a (B,H,N,D) view of a (B,N,H,D) tensor, or
+    (out, lse) with lse the (B,H,N) fp32 logsumexp in log2 units. Raises on
+    anything the kernel does not take and on a failed launch."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"bias_attention_cuda takes CUDA tensors, got {dev}")
-    if D not in (32, 64):
-        raise ValueError(f"head dim {D} not supported by the kernel (32, 64)")
-    _build.check("q", q, torch.bfloat16, (B, H, N, D), dev)
-    _build.check("k", k, torch.bfloat16, (B, H, M, D), dev)
-    _build.check("v", v, torch.bfloat16, (B, H, M, D), dev)
-    if bias is not None:
-        _build.check("bias", bias, torch.float32, (N, M), dev)
-    if keep is not None:
-        _build.check("keep", keep, torch.int32, (B,), dev)
-    out = torch.empty_like(q)
+    bias = bias_rows(bias)
+    B, H, N, M, D = check_kernel_args(q, k, v, bias, keep)
+    out = new_output(q)
     lse = (torch.empty((B, H, N), dtype=torch.float32, device=dev)
            if return_lse else None)
     p = _build.ptr
@@ -85,7 +135,8 @@ def bias_attention_cuda(q, k, v, bias: Optional[torch.Tensor] = None,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(p(q), p(k), p(v), p(bias), p(keep), p(out), p(lse),
-                 B, H, N, M, D, float(sm_scale), ctypes.c_void_p(stream))
+                 B, H, N, M, D, kernel_strides(q, k, v, out, bias),
+                 float(sm_scale), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"bias_attention kernel launch failed: CUDA error "
                            f"{err} at B={B} H={H} N={N} M={M} D={D}")
@@ -102,8 +153,7 @@ def reset_launch_counts() -> None:
 
 def _cuda_args(q, k, v, bias, keep):
     keep = None if keep is None else (keep > 0).to(torch.int32).contiguous()
-    return (q.contiguous(), k.contiguous(), v.contiguous(),
-            None if bias is None else bias.float().contiguous(), keep)
+    return _build.rows(q), _build.rows(k), _build.rows(v), bias, keep
 
 
 class BiasAttentionFn(torch.autograd.Function):

@@ -16,9 +16,12 @@ with column 0 the learned null key/value (bias 0) and k^ = l2n(k)*k_scale;
 What bounds the kernel on an H100 (estimates from the shapes, checked in
 `chip_smoke.py`): self-attention at B=2, N=M=1792 is about 26 GFLOP, so
 about 27 us at 989 TFLOP/s bf16; cross-attention at M=256 moves about
-19 MB, so about 6 us at 3.35 TB/s. The kernel's design (online softmax
-seeded with the null column, q prologue fused in, K/V tiles in shared
-memory, P kept in registers) is described in `csrc/cosine_attention.cu`.
+19 MB, so about 6 us at 3.35 TB/s. The kernel's design (blocks of 128 rows
+of two heads on `wgmma`, a `cp.async` ring for K, V and the shared bias
+tile, the q prologue fused in, an online softmax seeded with the null
+column) is described in `csrc/cosine_attention.cu`. q, k, v and out go
+through their (b, h, row) strides: the head transposes of the transformer
+are never copied, and `out` is a (B,H,N,D) view of a (B,N,H,D) tensor.
 
 Training goes through `CosineAttentionFn`, the counterpart of
 `make_cosine_attention`'s custom_vjp (:1358-1391): its forward is the
@@ -41,7 +44,9 @@ import torch.nn.functional as F
 
 from bevgen_torch.ops import _build
 from bevgen_torch.ops.attention_bwd import attention_bwd
-from bevgen_torch.ops.bias_attention import bias_attention_reference
+from bevgen_torch.ops.bias_attention import (
+    bias_attention_reference, bias_rows, check_kernel_args as check_bias_args,
+    kernel_strides, new_output)
 
 SOURCE = "bevgen_torch/csrc/cosine_attention.cu"
 REPLACES = "bevgen_tpu/ops/pallas/fused_attention.py:737"
@@ -94,37 +99,45 @@ def cosine_attention_reference(q, k, v, null_kv, q_scale, k_scale,
 def _fn():
     return _build.function("cosine_attention", "cosine_attention_fwd_bf16",
                            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                           + [ctypes.c_float, ctypes.c_void_p])
+                           + [ctypes.c_void_p, ctypes.c_float,
+                              ctypes.c_void_p])
+
+
+def check_kernel_args(q, k, v, null_kv, q_scale, k_scale,
+                      bias: Optional[torch.Tensor] = None,
+                      keep: Optional[torch.Tensor] = None):
+    """Raise unless the kernel takes these arguments: q, k, v, bias and
+    keep as `bias_attention.check_kernel_args` says (any b, h, row strides
+    with a contiguous last dim); null_kv (2,H,1,D), q_scale and k_scale (D,)
+    fp32 contiguous. Returns (B, H, N, M, D). A plain function: it runs on
+    any device."""
+    B, H, N, M, D = check_bias_args(q, k, v, bias, keep)
+    dev = q.device
+    _build.check("null_kv", null_kv, torch.float32, (2, H, 1, D), dev)
+    _build.check("q_scale", q_scale, torch.float32, (D,), dev)
+    _build.check("k_scale", k_scale, torch.float32, (D,), dev)
+    return B, H, N, M, D
 
 
 def cosine_attention_cuda(q, k, v, null_kv, q_scale, k_scale,
                           bias: Optional[torch.Tensor] = None,
                           keep: Optional[torch.Tensor] = None,
                           sm_scale: float = 8.0, return_lse: bool = False):
-    """Launch the CUDA kernel (k prenormed). q, k, v: contiguous bf16 on
-    one CUDA device, D in {32, 64}; null_kv, q_scale, k_scale, bias: fp32;
-    keep: int32 or None. Returns out, or (out, lse) with lse the (B,H,N)
-    fp32 logsumexp of the scores (null column included) in log2 units.
-    Raises on anything the kernel does not take and on a failed launch."""
-    B, H, N, D = q.shape
-    M = k.shape[2]
+    """Launch the CUDA kernel (k prenormed). q, k, v: bf16 on one CUDA
+    device, D in {32, 64}, any (b, h, row) strides with a contiguous last
+    dim; null_kv, q_scale, k_scale: fp32; bias: (N, M), copied into padded
+    rows when M is not a multiple of 4 (`bias_rows`); keep: int32 or None
+    (`check_kernel_args`). Returns out, a (B,H,N,D) view of a (B,N,H,D)
+    tensor, or (out, lse) with lse the (B,H,N) fp32 logsumexp of the scores
+    (null column included) in log2 units. Raises on anything the kernel
+    does not take and on a failed launch."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"cosine_attention_cuda takes CUDA tensors, got {dev}")
-    if D not in (32, 64):
-        raise ValueError(f"head dim {D} not supported by the kernel (32, 64)")
-    check = _build.check
-    check("q", q, torch.bfloat16, (B, H, N, D), dev)
-    check("k", k, torch.bfloat16, (B, H, M, D), dev)
-    check("v", v, torch.bfloat16, (B, H, M, D), dev)
-    check("null_kv", null_kv, torch.float32, (2, H, 1, D), dev)
-    check("q_scale", q_scale, torch.float32, (D,), dev)
-    check("k_scale", k_scale, torch.float32, (D,), dev)
-    if bias is not None:
-        check("bias", bias, torch.float32, (N, M), dev)
-    if keep is not None:
-        check("keep", keep, torch.int32, (B,), dev)
-    out = torch.empty_like(q)
+    bias = bias_rows(bias)
+    B, H, N, M, D = check_kernel_args(q, k, v, null_kv, q_scale, k_scale,
+                                      bias, keep)
+    out = new_output(q)
     lse = (torch.empty((B, H, N), dtype=torch.float32, device=dev)
            if return_lse else None)
     p = _build.ptr
@@ -132,7 +145,8 @@ def cosine_attention_cuda(q, k, v, null_kv, q_scale, k_scale,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(p(q), p(k), p(v), p(null_kv), p(q_scale), p(k_scale), p(bias),
-                 p(keep), p(out), p(lse), B, H, N, M, D, float(sm_scale),
+                 p(keep), p(out), p(lse), B, H, N, M, D,
+                 kernel_strides(q, k, v, out, bias), float(sm_scale),
                  ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"cosine_attention kernel launch failed: CUDA "
@@ -162,11 +176,10 @@ def _forward(q, k, v, null_kv, q_scale, k_scale, bias, keep, sm_scale,
     if keep is not None:
         keep = (keep > 0).to(torch.int32).contiguous()
     res = cosine_attention_cuda(
-        q.contiguous(), k.contiguous(), v.contiguous(),
+        _build.rows(q), _build.rows(k), _build.rows(v),
         null_kv.float().contiguous(), q_scale.float().contiguous(),
-        k_scale.float().contiguous(),
-        None if bias is None else bias.float().contiguous(), keep,
-        sm_scale, return_lse=return_lse)
+        k_scale.float().contiguous(), bias, keep, sm_scale,
+        return_lse=return_lse)
     return res if return_lse else (res, None)
 
 

@@ -12,7 +12,12 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      `cosine_attention_reference` (fp32 on the same bf16 inputs) at the
      serving path's shapes, plus an unaligned case with a dropped row and
      a case without bias; times of the kernel, the plain version and
-     PyTorch's scaled_dot_product_attention, and the bound from the shapes;
+     PyTorch's scaled_dot_product_attention, the bound from the shapes and
+     the L2 bytes per call from the kernel's tile sizes; then the forward
+     kernel's registers, shared memory, spill bytes (none allowed) and
+     blocks per SM (cosine mode, D = 64 and 32), and the serving shapes
+     again on head-transposed q/k/v views, bias rows off 16 bytes (M = 257)
+     with a partial last tile and a dropped sample, and D = 32;
   4. end to end: `argoverse_muse_7cam` at full width (14 layers, width
      1024, 7 cameras) with seeded random weights, batch 2, through
      `BEVGenPipeline.generate_fn`; the kernel's launch count over one
@@ -24,8 +29,12 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      forward's plain biased mode against `bias_attention_reference`, at the
      training shapes (self and cross, b=8), unaligned with a dropped sample,
      and without bias; times of the kernels, the plain versions and
-     PyTorch's SDPA (its backward minus its forward), and the bounds; then
-     the `bias_attention` op entry driven once forward and backward;
+     PyTorch's SDPA (its backward minus its forward), and the bounds; the
+     plain mode's resources (as in phase 3) and the plain mode on
+     head-transposed views at M = 1793 and 257 (unaligned bias rows,
+     partial last tile) and at D = 32, and its b=8 times at 1792, 1793 and
+     1856 keys with and without a bias; then the `bias_attention` op entry
+     driven once forward and backward;
   7. the cosine attention's autograd Function at the self shape, b=2, against
      autograd through the plain version: cosine of each of its 7 gradients;
   8. training end to end: `argoverse_muse_7cam` at full width, fp32
@@ -163,7 +172,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_inputs(B, H, N, M, D, with_bias, keep, seed):
+def attention_inputs(B, H, N, M, D, with_bias, keep, seed, strided=False):
     import torch
     from bevgen_torch.ops.cosine_attention import _l2n
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -179,7 +188,54 @@ def attention_inputs(B, H, N, M, D, with_bias, keep, seed):
             if with_bias else None)
     keep_t = (None if keep is None
               else torch.tensor(keep, dtype=torch.int32, device=dev))
+    if strided:
+        q, k, v = (heads_view(x) for x in (q, k, v))
     return q, k, v, null_kv, q_scale, k_scale, bias, keep_t
+
+
+# the forward kernel's blocks: 128 query rows of 2 (b, h) pairs, 512
+# threads, 64-key tiles (csrc/cosine_attention.cu)
+FWD_ROWS, FWD_PAIRS, FWD_THREADS, KEY_TILE = 128, 2, 512, 64
+
+
+def fwd_l2_bytes(B, H, N, M, D, with_bias, keep, cosine=True, lse=False,
+                 rows=FWD_ROWS, pairs=FWD_PAIRS):
+    """Bytes the forward kernel's blocks move through L2 per call, from its
+    tile sizes: each block of `rows` query rows and `pairs` (b, h) pairs
+    reads its q rows once, the K and V rows of every key tile its pairs
+    walk and the bias tile (rows x 64 fp32, clipped to N x M) of every key
+    tile the block walks; out (and lse) are written once. A dropped sample
+    walks no key tile (cosine) or the first (plain). rows=64, pairs=1 is
+    the design of one warpgroup per (b, h, 64 rows)."""
+    all_tiles = -(-M // KEY_TILE)
+
+    def tiles(bh):
+        kept = keep is None or keep[bh // H]
+        return all_tiles if kept else (0 if cosine else 1)
+
+    def cols(n):
+        return min(M, KEY_TILE * n)
+
+    row_blocks = -(-N // rows)
+    kv = bias = 0
+    for first in range(0, B * H, pairs):
+        walk = [tiles(bh) for bh in range(first, min(first + pairs, B * H))]
+        kv += row_blocks * sum(cols(n) for n in walk) * D * 2 * 2
+        if with_bias:
+            bias += N * cols(max(walk)) * 4
+    return kv + bias + 2 * B * H * N * D * 2 + (B * H * N * 4 if lse else 0)
+
+
+def l2_note(B, H, N, M, D, with_bias, keep, cosine=True, lse=False):
+    new = fwd_l2_bytes(B, H, N, M, D, with_bias, keep, cosine, lse)
+    old = fwd_l2_bytes(B, H, N, M, D, with_bias, keep, cosine, lse, 64, 1)
+    return f"l2_mb={new / 1e6:.1f} (64-row blocks of one pair: {old / 1e6:.1f})"
+
+
+def heads_view(x):
+    """A (B, H, L, D) tensor as a head-transposed view of a (B, L, H, D)
+    one, as the transformer hands q, k and v to the kernel."""
+    return x.transpose(1, 2).contiguous().transpose(1, 2)
 
 
 def bound_ms(B, H, N, M, D, with_bias, keep):
@@ -217,11 +273,14 @@ def sdpa_call(q, k, v, null_kv, q_scale, k_scale, bias, sm_scale=8.0):
                                                   scale=1.0)
 
 
-def check_kernel(name, B, H, N, M, D, with_bias, keep, seed):
+def check_kernel(name, B, H, N, M, D, with_bias, keep, seed, strided=False):
+    """Row 1 against cosine_attention_reference, with times, the bound and
+    the L2 bytes; `strided`: q, k, v head-transposed views, out read
+    through its own (B,H,N,D) view of (B,N,H,D)."""
     import torch
     from bevgen_torch.ops.cosine_attention import (cosine_attention_cuda,
                                                    cosine_attention_reference)
-    args = attention_inputs(B, H, N, M, D, with_bias, keep, seed)
+    args = attention_inputs(B, H, N, M, D, with_bias, keep, seed, strided)
     q, k, v, null_kv, qs, ks, bias, keep_t = args
     out = cosine_attention_cuda(*args)
     torch.cuda.synchronize()
@@ -239,8 +298,10 @@ def check_kernel(name, B, H, N, M, D, with_bias, keep, seed):
     bms, bound_by, flops, nbytes = bound_ms(B, H, N, M, D, with_bias, keep)
     ok = finite and max_err <= MAX_ABS_TOL and mean_err <= MEAN_ABS_TOL
     print(f"[kernel] {name}: B={B} H={H} N={N} M={M} D={D} "
-          f"bias={with_bias} keep={keep} max_abs_err={max_err:.3e} "
-          f"mean_abs_err={mean_err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bias={with_bias} keep={keep} strided={strided} "
+          f"max_abs_err={max_err:.3e} "
+          f"mean_abs_err={mean_err:.3e} ms={ms:.4f} "
+          f"{l2_note(B, H, N, M, D, with_bias, keep)} plain_ms={plain_ms:.4f} "
           f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
           f"bound_ms={bms:.4f} ({bound_by}: {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB) -> {'ok' if ok else 'FAIL'}", flush=True)
@@ -275,7 +336,7 @@ TRAIN_TIMED_STEPS = 5
 CE_STEPS = 8
 
 
-def bwd_inputs(B, H, N, M, D, with_bias, keep, seed):
+def bwd_inputs(B, H, N, M, D, with_bias, keep, seed, strided=False):
     """Post-prologue inputs of the backward: qf unit rows * q_scale, kf with
     the null column at 0, biasp with a zero column 0, and dO."""
     import torch
@@ -295,6 +356,8 @@ def bwd_inputs(B, H, N, M, D, with_bias, keep, seed):
         biasp[:, 0] = 0.0
     keep_t = (None if keep is None
               else torch.tensor(keep, dtype=torch.int32, device=dev))
+    if strided:
+        qf, kf, vc = (heads_view(x) for x in (qf, kf, vc))
     return qf, kf, vc, biasp, keep_t, do
 
 
@@ -375,6 +438,7 @@ def check_bwd(name, B, H, N, M, D, with_bias, keep, seed):
                                                seed)
     out, lse = bias_attention_cuda(qf, kf, vc, biasp, keep_t, 8.0,
                                    return_lse=True)
+    out = out.contiguous()  # the backward kernels take contiguous tensors
     got = attention_bwd_cuda(qf, kf, vc, biasp, keep_t, out, do, lse, 8.0)
     torch.cuda.synchronize()
     want = attention_bwd_reference(qf.float(), kf.float(), vc.float(), biasp,
@@ -412,15 +476,17 @@ def check_bwd(name, B, H, N, M, D, with_bias, keep, seed):
             "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
-def check_bias_fwd(name, B, H, N, M, D, with_bias, keep, seed):
+def check_bias_fwd(name, B, H, N, M, D, with_bias, keep, seed,
+                   strided=False):
     """Row 7 (the forward kernel's plain mode) against
-    bias_attention_reference, with times and the bound."""
+    bias_attention_reference, with times, the bound and the L2 bytes;
+    `strided`: q, k, v head-transposed views."""
     import torch
     import torch.nn.functional as F
     from bevgen_torch.ops.bias_attention import (bias_attention_cuda,
                                                  bias_attention_reference)
     qf, kf, vc, biasp, keep_t, _ = bwd_inputs(B, H, N, M, D, with_bias, keep,
-                                              seed)
+                                              seed, strided)
     args = (qf, kf, vc, biasp, keep_t, 8.0)
     out = bias_attention_cuda(*args)
     torch.cuda.synchronize()
@@ -446,8 +512,10 @@ def check_bias_fwd(name, B, H, N, M, D, with_bias, keep, seed):
               + (4 * B if keep is not None else 0))
     bms, bound_by = bound(flops, nbytes)
     print(f"[kernel] bias_attention_fwd {name}: B={B} H={H} N={N} M={M} D={D} "
-          f"bias={with_bias} keep={keep} max_abs_err={max_err:.3e} "
-          f"mean_abs_err={mean_err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bias={with_bias} keep={keep} strided={strided} "
+          f"max_abs_err={max_err:.3e} mean_abs_err={mean_err:.3e} ms={ms:.4f} "
+          f"{l2_note(B, H, N, M, D, with_bias, keep, cosine=False)} "
+          f"plain_ms={plain_ms:.4f} "
           f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
           f"bound_ms={bms:.4f} ({bound_by}: {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB) -> {'ok' if ok else 'FAIL'}", flush=True)
@@ -714,6 +782,24 @@ DECODE_CACHES = 8
 AR_TIMED = 3
 
 
+def row7_shapes(B, H, N, D):
+    """Row 7 at N + 1 keys (the plain-mode self shape: a partial last tile,
+    bias rows off 16 bytes, which the wrapper copies into padded rows inside
+    the timed call) beside N and N + 64 keys (aligned, full tiles), with
+    and without a bias."""
+    from bevgen_torch.ops.bias_attention import bias_attention_cuda
+    parts = []
+    for M in (N, N + 1, N + 64):
+        for with_bias in (False, True):
+            qf, kf, vc, biasp, keep_t, _ = bwd_inputs(B, H, N, M, D,
+                                                      with_bias, None, 10)
+            ms = time_ms(lambda: bias_attention_cuda(qf, kf, vc, biasp,
+                                                     keep_t, 8.0))
+            parts.append(f"M={M} bias={with_bias}: {ms:.4f}")
+    print(f"[kernel] bias_attention_fwd b={B} N={N} ms by keys: "
+          + ", ".join(parts), flush=True)
+
+
 def ar_layout(preset):
     from bevgen_torch.core.config import PRESETS
     from bevgen_torch.models import masks
@@ -724,16 +810,18 @@ def ar_layout(preset):
 def ptxas_report(source):
     """{kernel name: (registers, static shared bytes, spill store bytes,
     spill load bytes)} from the ptxas report of `csrc/<source>.cu`'s build
-    (names demangled to the function's own)."""
+    (names demangled to the function's own, with a template instance's
+    integer arguments: `attention_fwd_kernel<64,1>`)."""
     import re
     from bevgen_torch.ops import _build
     lib = _build.library_path(source)
     report, name = {}, None
     for line in lib.with_name(lib.name + ".log").read_text().splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d([a-z][a-z_]*_kernel)E",
-                      line)
+        m = re.search(r"Compiling entry function '\w*?\d([a-z][a-z_]*_kernel)"
+                      r"(?:I((?:L[a-z]+\d+E)+)E)?", line)
         if m:
-            name = m.group(1)
+            args = re.findall(r"L[a-z]+(\d+)E", m.group(2) or "")
+            name = m.group(1) + (f"<{','.join(args)}>" if args else "")
             report[name] = [0, 0, 0, 0]
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -745,6 +833,40 @@ def ptxas_report(source):
             sm = re.search(r"(\d+) bytes smem", line)
             report[name][1] = int(sm.group(1)) if sm else 0
     return {k: tuple(v) for k, v in report.items()}
+
+
+def print_resources(kernel, report, smem, blocks, threads):
+    """One kernel's registers, shared memory (static + dynamic), spill bytes
+    and resident blocks per SM; fail on a spill."""
+    regs, static, spill_st, spill_ld = report[kernel]
+    print(f"[kernel] {kernel}: {regs} registers, {static} + {smem} "
+          f"bytes shared memory (static + dynamic), {spill_st} bytes spill "
+          f"stores, {spill_ld} bytes spill loads, {blocks} blocks of "
+          f"{threads} threads per SM", flush=True)
+    if spill_st or spill_ld:
+        raise SystemExit(f"{kernel} spills registers")
+    return {"registers": regs, "smem": static + smem, "blocks_per_sm": blocks}
+
+
+def attention_fwd_resources(cosine):
+    """Phases 3 (cosine mode) and 6 (plain mode): the forward kernel's
+    resources at D = 64 and D = 32."""
+    import ctypes
+    from bevgen_torch.ops import _build
+    report = ptxas_report("cosine_attention")
+    pint = ctypes.POINTER(ctypes.c_int)
+    query = _build.function("cosine_attention", "attention_fwd_resources",
+                            [ctypes.c_int, ctypes.c_int, pint, pint])
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    res = {}
+    for D in (64, 32):
+        kernel = f"attention_fwd_kernel<{D},{int(cosine)}>"
+        err = query(D, int(cosine), ctypes.byref(smem), ctypes.byref(blocks))
+        if err != 0:
+            raise SystemExit(f"resource query of {kernel} failed: CUDA error {err}")
+        res[D] = print_resources(kernel, report, smem.value, blocks.value,
+                                 FWD_THREADS)
+    return res
 
 
 def block_sparse_resources(backward):
@@ -767,13 +889,7 @@ def block_sparse_resources(backward):
         err = query(*which, ctypes.byref(smem), ctypes.byref(blocks))
         if err != 0:
             raise SystemExit(f"resource query of {kernel} failed: CUDA error {err}")
-        regs, static, spill_st, spill_ld = report[kernel]
-        print(f"[kernel] {kernel}: {regs} registers, {static} + {smem.value} "
-              f"bytes shared memory (static + dynamic), {spill_st} bytes spill "
-              f"stores, {spill_ld} bytes spill loads, {blocks.value} blocks of "
-              f"128 threads per SM", flush=True)
-        if spill_st or spill_ld:
-            raise SystemExit(f"{kernel} spills registers")
+        print_resources(kernel, report, smem.value, blocks.value, 128)
 
 
 def tile_counts(plan):
@@ -1951,6 +2067,16 @@ def main() -> int:
     }
     check_kernel("unaligned+keep", 2, 4, 96, 70, D, True, [1, 0], 2)
     check_kernel("no-bias", 2, 4, 200, 130, D, False, None, 3)
+    # the forward's resources; q, k, v as the transformer's head-transposed
+    # views (out read through its view); bias rows off 16 bytes (M = 257)
+    # with a partial last tile and a dropped sample; D = 32
+    attention_fwd_resources(cosine=True)
+    check_kernel("self strided", B, H, N, N, D, True, None, 6, strided=True)
+    check_kernel("cross strided", B, H, N, NC, D, True, None, 7, strided=True)
+    check_kernel("M=257 partial+keep", 2, H, 300, 257, D, True, [1, 0], 8)
+    check_kernel("D=32 strided+keep", 2, 8, 300, 200, 32, True, [0, 1], 9,
+                 strided=True)
+    check_kernel("D=32 no-bias", 1, 3, 130, 64, 32, False, None, 13)
 
     # 4. end to end: argoverse_muse_7cam, full width, batch 2
     t0 = time.perf_counter()
@@ -2075,6 +2201,13 @@ def main() -> int:
                                keep, 10)
         if name == "self":
             row7_stats = fstat
+    attention_fwd_resources(cosine=False)
+    check_bias_fwd("strided M=1793 partial", 2, H, 300, N + 1, D, True, None,
+                   14, strided=True)
+    check_bias_fwd("strided M=257+keep", 2, 4, 200, NC + 1, D, True, [1, 0],
+                   15, strided=True)
+    check_bias_fwd("D=32", 2, 4, 130, 33, 32, True, [0, 1], 16)
+    row7_shapes(TB, H, N, D)
     # the bias_attention op entry, forward and backward, once
     from bevgen_torch.ops import attention_bwd as ab
     from bevgen_torch.ops import bias_attention as ba

@@ -244,21 +244,37 @@ def test_attention_dispatch_has_no_other_device():
                          torch.ones(32), torch.ones(32))
 
 
+def _cuda_rows(g, B, H, L, D, strided, scale=1.0):
+    """(B, H, L, D) bf16 on the card: contiguous, or a head-transposed view
+    of a (B, L, H, D) tensor as the transformer hands it over."""
+    if strided:
+        x = scale * torch.randn(B, L, H, D, generator=g, device="cuda")
+        return x.bfloat16().transpose(1, 2)
+    return (scale * torch.randn(B, H, L, D, generator=g, device="cuda")).bfloat16()
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     from bevgen_torch.ops import cosine_attention as ca
     g = torch.Generator(device="cuda").manual_seed(0)
-    for B, H, N, M, D, with_bias, keep in [(2, 4, 96, 70, 64, True, [1, 0]),
-                                            (1, 2, 130, 64, 32, False, None),
-                                            (2, 16, 256, 256, 64, True, None)]:
+    for B, H, N, M, D, with_bias, keep, strided in [
+            (2, 4, 96, 70, 64, True, [1, 0], False),
+            (1, 2, 130, 64, 32, False, None, False),
+            (2, 16, 256, 256, 64, True, None, False),
+            (2, 4, 96, 70, 64, True, [1, 0], True),
+            (2, 3, 200, 257, 64, True, [1, 0], True),
+            (1, 4, 130, 1793, 64, True, None, False),
+            (2, 3, 70, 257, 32, True, [0, 1], True)]:
         ks = 1 + 0.1 * torch.randn(D, generator=g, device="cuda")
         qs = 1 + 0.1 * torch.randn(D, generator=g, device="cuda")
-        q = torch.randn(B, H, N, D, generator=g, device="cuda").bfloat16()
-        k = (ca._l2n(torch.randn(B, H, M, D, generator=g, device="cuda"))
+        q = _cuda_rows(g, B, H, N, D, strided)
+        k = (ca._l2n(_cuda_rows(g, B, H, M, D, strided).float())
              * ks).bfloat16()
-        v = torch.randn(B, H, M, D, generator=g, device="cuda").bfloat16()
+        if strided:
+            k = k.transpose(1, 2).contiguous().transpose(1, 2)
+        v = _cuda_rows(g, B, H, M, D, strided)
         nkv = torch.randn(2, H, 1, D, generator=g, device="cuda")
         bias = (torch.rand(N, M, generator=g, device="cuda") * 2
                 if with_bias else None)
@@ -268,7 +284,8 @@ def test_cuda_kernel_matches_plain_version():
                                              nkv, qs, ks, bias, kp)
         err = (got.float() - want).abs()
         # bf16 rounding of q^, the softmax weights and the output
-        assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
+        assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3, \
+            (B, H, N, M, D, strided)
 
 
 @pytest.mark.cuda
@@ -300,11 +317,14 @@ def test_cuda_backward_kernels_match_plain_version():
     from bevgen_torch.ops import attention_bwd as ab
     from bevgen_torch.ops import bias_attention as ba
     g = torch.Generator(device="cuda").manual_seed(2)
-    for B, H, N, M, D, with_bias, keep in [(2, 4, 96, 70, 64, True, [1, 0]),
-                                            (1, 2, 130, 33, 32, False, None)]:
-        q = (0.3 * torch.randn(B, H, N, D, generator=g, device="cuda")).bfloat16()
-        k = (0.3 * torch.randn(B, H, M, D, generator=g, device="cuda")).bfloat16()
-        v = torch.randn(B, H, M, D, generator=g, device="cuda").bfloat16()
+    for B, H, N, M, D, with_bias, keep, strided in [
+            (2, 4, 96, 70, 64, True, [1, 0], False),
+            (1, 2, 130, 33, 32, False, None, False),
+            (2, 3, 96, 257, 64, True, [1, 0], True),
+            (1, 2, 130, 1793, 64, True, None, True)]:
+        q = _cuda_rows(g, B, H, N, D, strided, 0.3)
+        k = _cuda_rows(g, B, H, M, D, strided, 0.3)
+        v = _cuda_rows(g, B, H, M, D, strided)
         do = torch.randn(B, H, N, D, generator=g, device="cuda").bfloat16()
         bias = (torch.rand(N, M, generator=g, device="cuda")
                 if with_bias else None)
