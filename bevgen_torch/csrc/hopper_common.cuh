@@ -101,6 +101,26 @@ __device__ __forceinline__ void load_tile_async(uint32_t dst,
   }
 }
 
+// Rows [r0, r0 + 64) of a (rows, D) bf16 matrix with row stride ld
+// (elements, a multiple of 8) into a 64-wide swizzled tile, 4 chunks of 16
+// bytes for each thread i of a warpgroup; rows at or past `rows` and
+// columns at or past D (D = 32: the upper half) are zero-filled, and
+// nothing is read for them.
+template <int D>
+__device__ __forceinline__ void load_tile_rows_async(uint32_t dst,
+                                                     const __nv_bfloat16* src,
+                                                     long long ld, int r0,
+                                                     int rows, int i) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int idx = i + u * WG_THREADS;
+    const int r = idx >> 3, c = idx & 7;
+    const bool ok = r0 + r < rows && c < D / 8;
+    const __nv_bfloat16* p = ok ? src + (r0 + r) * ld + c * 8 : src;
+    cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4), p, ok ? 16u : 0u);
+  }
+}
+
 // Entries [r0, r0 + 64) of a float vector of length n into 64 floats at
 // shared address dst, one 4-byte copy a thread for threads 0-63; entries
 // at or past n are zero. (4-byte copies: a (B, H, L) row starts 16-byte

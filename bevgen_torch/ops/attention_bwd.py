@@ -20,9 +20,11 @@ in the input dtypes, dbias in fp32, as the TPU kernel's wrapper gives them.
 `_bwd_kernel` :150-195 does. `attention_bwd_cuda` launches the kernels of
 `csrc/attention_bwd.cu`: dq (which also forms delta = rowsum(dO * O) from
 the forward's output), then dk/dv, then dbias; they recompute P from the
-forward's logsumexp. The kernel design, and what bounds it, are described
-in the source. `attention_bwd` dispatches: CPU tensors take the plain
-version, CUDA tensors launch the kernels or raise.
+forward's logsumexp and read q, k, v, out and dO through their (b, h, row)
+strides, so head-transposed views are taken without a copy. The kernel
+design, and what bounds it, are described in the source. `attention_bwd`
+dispatches: CPU tensors take the plain version, CUDA tensors launch the
+kernels or raise.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from bevgen_torch.ops import _build
 
@@ -78,19 +81,46 @@ def attention_bwd_reference(qf, kf, vc, biasp, keep, do,
     return dq.to(qf.dtype), dk.to(kf.dtype), dv.to(vc.dtype), dbias
 
 
+def bias_rows(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The (N, M) bias as the attention kernels read it: fp32 rows that
+    start on 16-byte boundaries. A bias whose rows do not (M not a multiple
+    of 4, as the backward's and plain mode's M = N + 1) is copied into rows
+    padded to a multiple of 4 and returned as an (N, M) view of them."""
+    if bias is None:
+        return None
+    bias = bias.float()
+    if _build.rows_ok(bias):
+        return bias
+    return F.pad(bias, (0, -bias.shape[1] % 4))[:, :bias.shape[1]]
+
+
 def _fn():
     return _build.function("attention_bwd", "attention_bwd_bf16",
                            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
-                           + [ctypes.c_float, ctypes.c_void_p])
+                           + [ctypes.c_void_p, ctypes.c_float,
+                              ctypes.c_void_p])
+
+
+def kernel_strides(qf, kf, vc, out, do, dq, dk, dv, biasp):
+    """The backward kernels' 25 strides: (b, h, row) of qf, kf, vc, out,
+    do, dq, dk and dv in elements, then the bias row stride (0 without a
+    bias)."""
+    strides = list(_build.row_strides(qf, kf, vc, out, do, dq, dk, dv))
+    strides.append(0 if biasp is None else biasp.stride(0))
+    return (ctypes.c_longlong * 25)(*strides)
 
 
 def attention_bwd_cuda(qf, kf, vc, biasp, keep, out, do, lse,
                        sm_scale: float = 8.0) -> Grads:
-    """Launch the backward kernels. qf, kf, vc, out, do: contiguous bf16 on
-    one CUDA device, D in {32, 64}; biasp: fp32 (N, M) or None; keep:
-    int32 (B,) or None; out and lse (B,H,N) fp32 (log2 units): the forward
-    kernel's output and logsumexp on the same inputs. Raises on anything
-    the kernels do not take and on a failed launch."""
+    """Launch the backward kernels. qf, out, do (B,H,N,D) and kf, vc
+    (B,H,M,D): bf16 on one CUDA device, D in {32, 64}, any (b, h, row)
+    strides with a contiguous last dim and 16-byte rows (a head-transposed
+    view is fine); biasp: (N, M) or None, copied into padded rows when M is
+    not a multiple of 4 (`bias_rows`); keep: int32 (B,) or None; out and
+    lse (B,H,N) fp32 (log2 units): the forward kernel's output and
+    logsumexp on the same inputs. dq, dk, dv come back in the layouts of
+    qf, kf, vc (`torch.empty_like`), dbias (N, M) fp32 contiguous. Raises
+    on anything the kernels do not take and on a failed launch."""
     B, H, N, D = qf.shape
     M = kf.shape[2]
     dev = qf.device
@@ -98,13 +128,14 @@ def attention_bwd_cuda(qf, kf, vc, biasp, keep, out, do, lse,
         raise ValueError(f"attention_bwd_cuda takes CUDA tensors, got {dev}")
     if D not in (32, 64):
         raise ValueError(f"head dim {D} not supported by the kernel (32, 64)")
+    biasp = bias_rows(biasp)
     for name, t, shape in (("qf", qf, (B, H, N, D)), ("kf", kf, (B, H, M, D)),
                            ("vc", vc, (B, H, M, D)), ("out", out, (B, H, N, D)),
                            ("do", do, (B, H, N, D))):
-        _build.check(name, t, torch.bfloat16, shape, dev)
+        _build.check_rows(name, t, torch.bfloat16, shape, dev)
     _build.check("lse", lse, torch.float32, (B, H, N), dev)
     if biasp is not None:
-        _build.check("biasp", biasp, torch.float32, (N, M), dev)
+        _build.check_rows("biasp", biasp, torch.float32, (N, M), dev)
     if keep is not None:
         _build.check("keep", keep, torch.int32, (B,), dev)
     dq, dk, dv = torch.empty_like(qf), torch.empty_like(kf), torch.empty_like(vc)
@@ -117,6 +148,7 @@ def attention_bwd_cuda(qf, kf, vc, biasp, keep, out, do, lse,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(p(qf), p(kf), p(vc), p(biasp), p(keep), p(out), p(do), p(lse),
                  p(delta), p(dq), p(dk), p(dv), p(dbias), B, H, N, M, D,
+                 kernel_strides(qf, kf, vc, out, do, dq, dk, dv, biasp),
                  float(sm_scale), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"attention_bwd kernel launch failed: CUDA error "
@@ -153,7 +185,6 @@ def attention_bwd(qf, kf, vc, biasp, keep, do, sm_scale: float = 8.0,
     if keep is not None:
         keep = (keep > 0).to(torch.int32).contiguous()
     return attention_bwd_cuda(
-        qf.contiguous(), kf.contiguous(), vc.contiguous(),
-        None if biasp is None else biasp.float().contiguous(), keep,
-        out.contiguous(), do.to(qf.dtype).contiguous(), lse.contiguous(),
+        _build.rows(qf), _build.rows(kf), _build.rows(vc), biasp, keep,
+        _build.rows(out), _build.rows(do.to(qf.dtype)), lse.contiguous(),
         sm_scale)

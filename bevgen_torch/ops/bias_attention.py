@@ -24,11 +24,10 @@ import ctypes
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from bevgen_torch.ops import _build
 from bevgen_torch.ops.attention_bwd import (NEG_INF, attention_bwd,
-                                            valid_columns)
+                                            bias_rows, valid_columns)
 
 SOURCE = "bevgen_torch/csrc/cosine_attention.cu"
 REPLACES = "bevgen_tpu/ops/pallas/fused_attention.py:84"
@@ -81,19 +80,6 @@ def check_kernel_args(q, k, v, bias: Optional[torch.Tensor] = None,
     if keep is not None:
         _build.check("keep", keep, torch.int32, (B,), dev)
     return B, H, N, M, D
-
-
-def bias_rows(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """The (N, M) bias as the forward kernel reads it: fp32 rows that start
-    on 16-byte boundaries. A bias whose rows do not (M not a multiple of 4,
-    as plain mode's M = N + 1) is copied into rows padded to a multiple of 4
-    and returned as an (N, M) view of them."""
-    if bias is None:
-        return None
-    bias = bias.float()
-    if _build.rows_ok(bias):
-        return bias
-    return F.pad(bias, (0, -bias.shape[1] % 4))[:, :bias.shape[1]]
 
 
 def kernel_strides(q, k, v, out, bias):

@@ -11,11 +11,15 @@ K/V cache,
 with `addend` (H, pl) fp32 carrying bias * scale where the column is visible
 and -1e9 where it is masked. `decode_attention_reference` is the port of
 `decode_attention_reference` (:111). What bounds the kernel on an H100 and
-its design are in `csrc/decode_attention.cu`.
+its design (each row split across a thread block cluster of
+`splits_for(pl)` blocks, one launch per call) are in
+`csrc/decode_attention.cu`; `decode_attention_split_reference` is that
+split in plain PyTorch, for the tests.
 
 `decode_attention` dispatches: CPU tensors take the plain version, CUDA
-tensors launch the kernel (for any b*H; the TPU wrapper fell back to its
-reference unless b*H was a multiple of 8) or raise. K and V may be prefix
+tensors launch the kernel or raise. The kernel takes any b*H (the TPU
+wrapper fell back to its reference unless b*H was a multiple of 8) and pl
+up to MAX_PL = 2560, beyond every AR configuration's sequence. K and V may be prefix
 views `cache[:, :, :pl]` of wider caches: the kernel reads them with their
 row stride, without a copy.
 """
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
+from typing import Optional
 
 import torch
 
@@ -31,6 +36,16 @@ from bevgen_torch.ops import _build
 SOURCE = "bevgen_torch/csrc/decode_attention.cu"
 REPLACES = "bevgen_tpu/ops/pallas/decode_attention.py:72"
 NEG_INF = -1e9
+# the kernel's split of a (b, h) row: a cluster of at most MAX_SPLITS
+# blocks of about ROWS_PER_BLOCK cache rows, at most MAX_ROWS each
+MAX_SPLITS, ROWS_PER_BLOCK, MAX_ROWS = 8, 192, 320
+MAX_PL = MAX_SPLITS * MAX_ROWS
+
+
+def splits_for(pl: int) -> int:
+    """Blocks of the kernel's cluster for prefix length pl (its
+    `splits_for`)."""
+    return min(MAX_SPLITS, max(1, -(-pl // ROWS_PER_BLOCK)))
 
 
 def decode_attention_reference(q, k, v, addend, sm_scale: float):
@@ -43,6 +58,39 @@ def decode_attention_reference(q, k, v, addend, sm_scale: float):
     return out.to(q.dtype)
 
 
+def decode_attention_split_reference(q, k, v, addend, sm_scale: float,
+                                     splits: Optional[int] = None):
+    """The kernel's split of each row in plain PyTorch, for tests: chunk r
+    of `splits` (default `splits_for(pl)`) holds cache rows [r c, (r + 1)
+    c), c = ceil(pl / splits) (empty where pl < splits); each chunk's max
+    and sum of exp(s - max) combine in rank order into the row's max m and
+    sum l; each chunk forms p = exp(s - m) / l rounded to v's dtype and its
+    P.V partial in fp32, and the partials are summed in rank order. Same
+    arguments and result as `decode_attention_reference`."""
+    scores = torch.einsum("bhd,bhjd->bhj", q.to(k.dtype).float(), k.float())
+    scores = scores * sm_scale + addend.float()[None]
+    pl = scores.shape[-1]
+    splits = splits_for(pl) if splits is None else splits
+    c = -(-pl // splits)
+    chunks = [slice(r * c, min(pl, (r + 1) * c)) for r in range(splits)
+              if r * c < pl]
+    stats = []  # (chunk max, chunk sum of exp(s - chunk max))
+    for sl in chunks:
+        mr = scores[..., sl].amax(-1)
+        stats.append((mr, torch.exp(scores[..., sl] - mr[..., None]).sum(-1)))
+    m = stats[0][0]
+    for mr, _ in stats[1:]:
+        m = torch.maximum(m, mr)
+    l = torch.zeros_like(m)
+    for mr, lr in stats:
+        l = l + lr * torch.exp(mr - m)
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for sl in chunks:
+        p = (torch.exp(scores[..., sl] - m[..., None]) / l[..., None]).to(v.dtype)
+        out = out + torch.einsum("bhj,bhjd->bhd", p.float(), v[:, :, sl].float())
+    return out.to(q.dtype)
+
+
 def _fn():
     return _build.function("decode_attention", "decode_attention_bf16",
                            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
@@ -51,7 +99,8 @@ def _fn():
 
 
 def decode_attention_cuda(q, k, v, addend, sm_scale: float):
-    """Launch the CUDA kernel. q: contiguous bf16 (b,H,dh), dh = 64;
+    """Launch the CUDA kernel, one launch of b*H clusters of
+    `splits_for(pl)` blocks. q: contiguous bf16 (b,H,dh), dh = 64;
     k, v: bf16 (b,H,pl,dh) whose last two dims are contiguous and whose
     (b, h) rows are evenly strided (a prefix view of a cache is fine);
     addend: contiguous fp32 (H,pl). Returns (b,H,dh) bf16. Raises on
@@ -64,6 +113,8 @@ def decode_attention_cuda(q, k, v, addend, sm_scale: float):
         raise ValueError(f"decode_attention_cuda takes CUDA tensors, got {dev}")
     if dh != 64:
         raise ValueError(f"head dim {dh} not supported by the kernel (64)")
+    if pl > MAX_PL:
+        raise ValueError(f"prefix length {pl} above the kernel's {MAX_PL}")
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 \
             or v.dtype != torch.bfloat16 or addend.dtype != torch.float32:
         raise TypeError("decode_attention_cuda takes bf16 q, k, v and fp32 addend")

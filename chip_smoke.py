@@ -24,17 +24,22 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      generate must be (18 + 17) * 14 * 2 = 980;
   5. one full-width transformer forward through the kernel and through the
      plain version, compared by logit cosine similarity and top-1 agreement;
-  6. the training kernels against their plain versions: the attention
-     backward (three kernels) against `attention_bwd_reference` and the
-     forward's plain biased mode against `bias_attention_reference`, at the
-     training shapes (self and cross, b=8), unaligned with a dropped sample,
-     and without bias; times of the kernels, the plain versions and
-     PyTorch's SDPA (its backward minus its forward), and the bounds; the
-     plain mode's resources (as in phase 3) and the plain mode on
+  6. the training kernels against their plain versions: the backward
+     kernels' registers, shared memory, spill bytes (none allowed) and
+     blocks per SM (dq, dk/dv, dbias at D = 64 and 32), then the attention
+     backward (three kernels) against `attention_bwd_reference`, two calls
+     bit for bit, and the forward's plain biased mode against
+     `bias_attention_reference`, at the training shapes (self and cross,
+     b=8), unaligned with a dropped sample, and without bias; times of the
+     kernels (the backward's per kernel too, from a profiler trace), the
+     plain versions and PyTorch's SDPA (its backward minus its forward), the
+     bounds and the backward's L2 bytes per call reckoned from its tiles;
+     the plain mode's resources (as in phase 3) and the plain mode on
      head-transposed views at M = 1793 and 257 (unaligned bias rows,
-     partial last tile) and at D = 32, and its b=8 times at 1792, 1793 and
-     1856 keys with and without a bias; then the `bias_attention` op entry
-     driven once forward and backward;
+     partial last tile) and at D = 32; the backward on head-transposed qf,
+     kf, vc and dO (self, cross, unaligned + keep, D = 32); the plain mode's
+     b=8 times at 1792, 1793 and 1856 keys with and without a bias; then
+     the `bias_attention` op entry driven once forward and backward;
   7. the cosine attention's autograd Function at the self shape, b=2, against
      autograd through the plain version: cosine of each of its 7 gradients;
   8. training end to end: `argoverse_muse_7cam` at full width, fp32
@@ -42,7 +47,7 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      batches, through `training.trainer.make_train_step` (the CLI's step):
      one warm-up step, five timed; exactly 56 forward and 168 backward kernel
      launches per step (14 layers x 2 attentions x 2 forwards, 3 backward
-     kernels each), finite metrics, every update applied;
+     kernels each: dq, dk/dv, dbias), finite metrics, every update applied;
   9. one loss backward at b=1 through the kernels and through the plain
      versions: cosine of the gradient of each parameter group;
  10. from the seeded init, the CE falls over 8 steps on one repeated batch
@@ -58,9 +63,11 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      64 x 64 tiles of the tile plan;
  12. the decode-attention kernel against `decode_attention_reference` at
      b=2, H=16, dh=64 over cache prefixes of every bucket's width (512,
-     1024, 1536, 2048, 2368 columns), and at b=1, H=3, pl=70; times, SDPA,
-     the bytes bound (after phase 14, the times weighted by each bucket's
-     launches in a generate);
+     1024, 1536, 2048, 2368 columns), and at b=1, H=3, pl=70: two calls bit
+     for bit, one launch per call; the cluster size, registers, shared
+     memory, blocks per SM and clusters in flight; times, SDPA, the bytes
+     bound (after phase 14, the times weighted by each bucket's launches in
+     a generate);
  13. `nuscenes_ar` at full width (24 layers, width 1024, 16 heads, 6
      cameras), b=1, seeded random weights: the SparseGPT forward through the
      block-sparse kernel (exactly 24 launches) against the same forward with
@@ -357,7 +364,7 @@ def bwd_inputs(B, H, N, M, D, with_bias, keep, seed, strided=False):
     keep_t = (None if keep is None
               else torch.tensor(keep, dtype=torch.int32, device=dev))
     if strided:
-        qf, kf, vc = (heads_view(x) for x in (qf, kf, vc))
+        qf, kf, vc, do = (heads_view(x) for x in (qf, kf, vc, do))
     return qf, kf, vc, biasp, keep_t, do
 
 
@@ -428,22 +435,128 @@ def sdpa_bwd_ms(qf, kf, vc, biasp, keep, do, sm_scale=8.0):
     return None, "no SDPA backward ran"
 
 
-def check_bwd(name, B, H, N, M, D, with_bias, keep, seed):
-    """Row 8 against attention_bwd_reference, with times and the bound."""
+# the backward kernels' blocks: two (b, h) pairs of 64 rows (dq) or 64 keys
+# (dk/dv); dbias blocks of 64 rows x 128 keys (csrc/attention_bwd.cu)
+BWD_PAIRS, BWD_DB_KEYS = 2, 128
+
+
+def bwd_l2_bytes(B, H, N, M, D, with_bias, keep, pairs=BWD_PAIRS,
+                 db_keys=BWD_DB_KEYS):
+    """Bytes the backward kernels' blocks move through L2 per call, from
+    their tile sizes (rows past N or M are not read). dq: each block of
+    `pairs` (b, h) pairs reads its q and dO tiles, the O and dO rows for
+    delta and the lse, the K and V tiles of every key tile its pairs walk
+    and one bias tile per key tile; writes dq and delta. dk/dv: its K and V
+    tiles, then per query tile the q, dO tiles, lse and delta of each
+    active pair and one bias tile; writes dk, dv. dbias: per (b, h) a
+    block walks, the q, dO, lse and delta of its 64 rows and the K, V of its
+    `db_keys` keys; reads the bias and writes dbias once. A dropped sample
+    walks one key tile (dq), only the first key tile's keys (dk/dv) and
+    only the first dbias block. pairs=1, db_keys=64 is the design of one
+    warpgroup per tile."""
+    T, row = KEY_TILE, D * 2
+    nq, nk = -(-N // T), -(-M // T)
+    kept = [keep is None or bool(keep[b]) for b in range(B)]
+
+    def span(r0, n, width=T):
+        return max(0, min(n, r0 + width) - r0)
+
+    total = 0
+    for first in range(0, B * H, pairs):
+        group = range(first, min(first + pairs, B * H))
+        walk = [nk if kept[bh // H] else 1 for bh in group]
+        for i in range(nq):
+            r = span(i * T, N)
+            total += len(group) * r * (4 * row + 8 + row)
+            for j in range(max(walk)):
+                c = span(j * T, M)
+                total += sum(j < n for n in walk) * c * 2 * row
+                total += r * c * 4 if with_bias else 0
+        for j in range(nk):
+            c = span(j * T, M)
+            active = sum(j == 0 or kept[bh // H] for bh in group)
+            total += active * c * 2 * row + len(group) * c * 2 * row
+            if active:
+                for i in range(nq):
+                    r = span(i * T, N)
+                    total += active * r * (2 * row + 8)
+                    total += r * c * 4 if with_bias else 0
+    if with_bias:
+        for i in range(nq):
+            r = span(i * T, N)
+            for y in range(-(-M // db_keys)):
+                c = span(y * db_keys, M, db_keys)
+                walked = sum(y == 0 or kept[bh // H] for bh in range(B * H))
+                total += walked * (r * (2 * row + 8) + c * 2 * row) + 2 * r * c * 4
+    return total
+
+
+def bwd_kernel_ms(call, iters=5):
+    """Device ms per call of each backward kernel (dq, dkdv, dbias), from a
+    torch.profiler trace of `iters` calls; {} when the trace shows no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for key in ("dq", "dkdv", "dbias"):
+            if f"attn_bwd_{key}_kernel" in e.name:
+                ms[key] = ms.get(key, 0.0) + e.device_time_total / 1e3 / iters
+    return ms
+
+
+def attention_bwd_resources(D):
+    """Phase 6: the three backward kernels' registers, shared memory, spill
+    bytes (a spill fails the run) and blocks per SM at head dim D."""
+    import ctypes
+    from bevgen_torch.ops import _build
+    report = ptxas_report("attention_bwd")
+    pint = ctypes.POINTER(ctypes.c_int)
+    query = _build.function("attention_bwd", "attention_bwd_resources",
+                            [ctypes.c_int, ctypes.c_int, pint, pint])
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    res = {}
+    for i, key in enumerate(("dq", "dkdv", "dbias")):
+        kernel = f"attn_bwd_{key}_kernel<{D}>"
+        err = query(i, D, ctypes.byref(smem), ctypes.byref(blocks))
+        if err != 0:
+            raise SystemExit(f"resource query of {kernel} failed: CUDA error {err}")
+        res[key] = print_resources(kernel, report, smem.value, blocks.value,
+                                   2 * 128)
+    return res
+
+
+def check_bwd(name, B, H, N, M, D, with_bias, keep, seed, strided=False):
+    """Row 8 against attention_bwd_reference, with times (per kernel too),
+    the bound, the L2 bytes and a bit-identity check over two calls;
+    `strided`: qf, kf, vc and dO head-transposed views (out is always the
+    forward's (B,H,N,D) view of (B,N,H,D))."""
     import torch
     from bevgen_torch.ops.attention_bwd import (attention_bwd_cuda,
                                                 attention_bwd_reference)
     from bevgen_torch.ops.bias_attention import bias_attention_cuda
     qf, kf, vc, biasp, keep_t, do = bwd_inputs(B, H, N, M, D, with_bias, keep,
-                                               seed)
+                                               seed, strided)
     out, lse = bias_attention_cuda(qf, kf, vc, biasp, keep_t, 8.0,
                                    return_lse=True)
-    out = out.contiguous()  # the backward kernels take contiguous tensors
-    got = attention_bwd_cuda(qf, kf, vc, biasp, keep_t, out, do, lse, 8.0)
+    args = (qf, kf, vc, biasp, keep_t, out, do, lse, 8.0)
+    got = attention_bwd_cuda(*args)
+    again = attention_bwd_cuda(*args)
     torch.cuda.synchronize()
+    same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+    del again
     want = attention_bwd_reference(qf.float(), kf.float(), vc.float(), biasp,
                                    keep_t, do.float(), 8.0)
-    errs, ok, max_err = {}, True, 0.0
+    errs, ok, max_err = {}, same, 0.0
     for key, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
         if w is None:
             continue
@@ -452,26 +565,33 @@ def check_bwd(name, B, H, N, M, D, with_bias, keep, seed):
         errs[key] = (mx, rl2)
         max_err = max(max_err, mx)
         ok = ok and finite and rl2 <= BWD_REL_L2_TOL and mx <= BWD_MAX_REL_TOL * ref_max
-    del want
-    ms = time_ms(lambda: attention_bwd_cuda(qf, kf, vc, biasp, keep_t, out, do,
-                                            lse, 8.0))
+    del want, got
+    ms = time_ms(lambda: attention_bwd_cuda(*args))
+    per_kernel = bwd_kernel_ms(lambda: attention_bwd_cuda(*args))
     plain_ms = time_ms(lambda: attention_bwd_reference(
         qf.float(), kf.float(), vc.float(), biasp, keep_t, do.float(), 8.0),
         iters=3, warmup=1)
     lib_ms, lib_note = sdpa_bwd_ms(qf, kf, vc, biasp, keep_t, do)
     bms, bound_by, flops, nbytes = bwd_bound_ms(B, H, N, M, D, with_bias, keep)
+    l2 = bwd_l2_bytes(B, H, N, M, D, with_bias, keep)
+    l2_old = bwd_l2_bytes(B, H, N, M, D, with_bias, keep, 1, 64)
+    kernel_ms = (" ".join(f"{k}={v:.4f}" for k, v in per_kernel.items())
+                 or "not measured (no device time in the trace)")
     print(f"[kernel] attention_bwd {name}: B={B} H={H} N={N} M={M} D={D} "
-          f"bias={with_bias} keep={keep} "
+          f"bias={with_bias} keep={keep} strided={strided} "
           + " ".join(f"{k}: max_abs_err={e[0]:.3e} rel_l2={e[1]:.3e}"
                      for k, e in errs.items())
-          + f" ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          + f" bit_identical={same} ms={ms:.4f} (per kernel: {kernel_ms}) "
+          f"l2_mb={l2 / 1e6:.1f} (one warpgroup per tile: {l2_old / 1e6:.1f}) "
+          f"plain_ms={plain_ms:.4f} library_ms="
           f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ({lib_note}) "
           f"bound_ms={bms:.4f} ({bound_by}: {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB) -> {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise SystemExit(f"backward kernel {name} disagrees with its plain "
                          f"version (rel L2 > {BWD_REL_L2_TOL} or max > "
-                         f"{BWD_MAX_REL_TOL} of the largest entry)")
+                         f"{BWD_MAX_REL_TOL} of the largest entry) or two "
+                         f"calls differ (bit_identical={same})")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
 
@@ -968,11 +1088,36 @@ def check_block_sparse(name, preset, B, with_bias, seed, time_lse=None):
             "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
+def decode_resources(pl):
+    """Row 11's cluster size, registers, shared memory (static + dynamic at
+    prefix length pl), spill bytes (a spill fails the run), blocks per SM
+    and the clusters the card holds at once."""
+    import ctypes
+    from bevgen_torch.ops import _build
+    regs, static, spill_st, spill_ld = ptxas_report(
+        "decode_attention")["decode_attention_kernel"]
+    pint = ctypes.POINTER(ctypes.c_int)
+    query = _build.function("decode_attention", "decode_attention_resources",
+                            [ctypes.c_int, pint, pint, pint, pint])
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    err = query(pl, *(ctypes.byref(x) for x in vals))
+    if err != 0:
+        raise SystemExit(f"resource query of decode_attention_kernel failed: "
+                         f"CUDA error {err}")
+    if spill_st or spill_ld:
+        raise SystemExit("decode_attention_kernel spills registers")
+    cluster, smem, blocks, clusters = (x.value for x in vals)
+    return {"cluster": cluster, "registers": regs, "smem": static + smem,
+            "blocks_per_sm": blocks, "max_clusters": clusters}
+
+
 def check_decode(b, H, pl, cap, seed, dh=64):
     """Row 11 against decode_attention_reference on prefix views of a
-    cache of `cap` columns, with times and the bytes bound. In a generate
-    each call reads another layer's cache, cold from memory, so the timed
-    calls cycle through DECODE_CACHES caches, more than the card's L2."""
+    cache of `cap` columns, with times, the bytes bound, the kernel's
+    resources, a bit-identity check over two calls and the launches per
+    call. In a generate each call reads another layer's cache, cold from
+    memory, so the timed calls cycle through DECODE_CACHES caches, more
+    than the card's L2."""
     import itertools
     import torch
     import torch.nn.functional as F
@@ -991,13 +1136,18 @@ def check_decode(b, H, pl, cap, seed, dh=64):
     drop[:, 0] = False
     addend = torch.where(drop, torch.full((), da.NEG_INF, device="cuda"), addend)
     scale = 1.0 / math.sqrt(dh)
+    before = da.decode_attention_cuda.launches
     out = da.decode_attention(q, k, v, addend, scale)
+    per_call = da.decode_attention_cuda.launches - before
+    again = da.decode_attention(q, k, v, addend, scale)
     torch.cuda.synchronize()
+    same = torch.equal(out, again)
     ref = da.decode_attention_reference(q, k, v, addend, scale)
     err = (out.float() - ref.float()).abs()
     max_err, mean_err = err.max().item(), err.mean().item()
     max_ref, mean_ref = ref.abs().max().item(), ref.abs().mean().item()
     finite = bool(torch.isfinite(out).all())
+    res = decode_resources(pl)
     cycle = itertools.cycle(kvs)
     ms = time_ms(lambda: da.decode_attention(q, *next(cycle), addend, scale),
                  iters=200)
@@ -1009,19 +1159,26 @@ def check_decode(b, H, pl, cap, seed, dh=64):
     nbytes = 2 * b * H * pl * dh * 2 + 2 * b * H * dh * 2 + H * pl * 4
     flops = 4.0 * b * H * pl * dh
     bms, bound_by = bound(flops, nbytes)
-    ok = (finite and max_err <= min(DECODE_TOL, DECODE_REL_TOL * max_ref)
+    ok = (finite and same and per_call == 1
+          and max_err <= min(DECODE_TOL, DECODE_REL_TOL * max_ref)
           and mean_err <= DECODE_MEAN_REL_TOL * mean_ref)
     print(f"[kernel] decode_attention b={b} H={H} pl={pl} (cache {cap}) "
           f"dh={dh}: max_abs_err={max_err:.3e} (max |out| {max_ref:.3e}) "
           f"mean_abs_err={mean_err:.3e} (mean |out| {mean_ref:.3e}) "
-          f"ms={ms:.5f} plain_ms="
-          f"{plain_ms:.5f} library_ms={lib_ms:.5f} bound_ms={bms:.5f} "
+          f"bit_identical={same} launches_per_call={per_call} "
+          f"cluster={res['cluster']} blocks={b * H * res['cluster']} "
+          f"registers={res['registers']} smem={res['smem']} "
+          f"blocks_per_sm={res['blocks_per_sm']} "
+          f"max_clusters={res['max_clusters']} ms={ms:.5f} plain_ms="
+          f"{plain_ms:.5f} library_ms={lib_ms:.5f} ms/library_ms="
+          f"{ms / lib_ms:.3f} bound_ms={bms:.5f} "
           f"({bound_by}: {nbytes / 1e6:.3f} MB) -> {'ok' if ok else 'FAIL'}",
           flush=True)
     if not ok:
         raise SystemExit(f"decode kernel disagrees with its plain version at "
                          f"b={b} H={H} pl={pl} (max {max_err:.3e} of "
-                         f"{max_ref:.3e}, mean {mean_err:.3e} of {mean_ref:.3e})")
+                         f"{max_ref:.3e}, mean {mean_err:.3e} of {mean_ref:.3e}, "
+                         f"bit_identical={same}, launches per call {per_call})")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
 
@@ -2190,6 +2347,8 @@ def main() -> int:
         "self": check_kernel("train self", TB, H, N, N, D, True, None, 4),
         "cross": check_kernel("train cross", TB, H, N, NC, D, True, None, 5),
     }
+    for d in (64, 32):  # the backward kernels' resources
+        attention_bwd_resources(d)
     bwd_stats = {}
     for name, (n, m, bias, keep, b) in {
             "self": (N, N + 1, True, None, TB), "cross": (N, NC + 1, True, None, TB),
@@ -2207,6 +2366,15 @@ def main() -> int:
     check_bias_fwd("strided M=257+keep", 2, 4, 200, NC + 1, D, True, [1, 0],
                    15, strided=True)
     check_bias_fwd("D=32", 2, 4, 130, 33, 32, True, [0, 1], 16)
+    # row 8 on head-transposed qf, kf, vc and dO: self and cross at b=8, the
+    # unaligned case with a dropped sample, and D = 32
+    check_bwd("self strided", TB, H, N, N + 1, D, True, None, 17, strided=True)
+    check_bwd("cross strided", TB, H, N, NC + 1, D, True, None, 18,
+              strided=True)
+    check_bwd("strided unaligned+keep", 2, 4, 96, 70, D, True, [1, 0], 19,
+              strided=True)
+    check_bwd("D=32 strided+keep", 2, 4, 130, 33, 32, True, [0, 1], 20,
+              strided=True)
     row7_shapes(TB, H, N, D)
     # the bias_attention op entry, forward and backward, once
     from bevgen_torch.ops import attention_bwd as ab
