@@ -110,14 +110,15 @@ def _check_meta(name: str, t, dtype, shape, device) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
 
 
-def check(name: str, t, dtype, shape, device) -> None:
+def check(name: str, t, dtype, shape, device, align: int = 16) -> None:
     """Raise unless `t` is what a kernel takes: on `device`, of `dtype` and
-    `shape`, contiguous and 16-byte aligned."""
+    `shape`, contiguous and `align`-byte aligned (16 unless the kernel
+    says otherwise)."""
     _check_meta(name, t, dtype, shape, device)
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def rows_ok(t) -> bool:

@@ -9,7 +9,11 @@ its public entry `make_layernorm` (:89):
 
 in x's dtype, for x (..., D) and scale (D,). `layernorm_reference` is the
 port of `make_layernorm`'s `_dense` (:95-100). What bounds the kernel on
-an H100 and its design are in `csrc/layernorm.cu`.
+an H100 and its design are in `csrc/layernorm.cu`: a register form (one
+warp per row, 16-byte accesses, a persistent grid) and the general form
+(one block per row) for what the register form does not take; the rule
+between them is `layernorm_variant`, and each variant counts its own
+launches (`layernorm_cuda.launches_by_variant`).
 
 `LayerNormFn` is the counterpart of `make_layernorm`'s custom_vjp
 (:102-115): the kernel forward on CUDA, and a backward that recomputes
@@ -31,6 +35,20 @@ from bevgen_torch.ops import _build
 SOURCE = "bevgen_torch/csrc/layernorm.cu"
 REPLACES = "bevgen_tpu/ops/pallas/layernorm.py:54"
 EPS = 1e-5
+# the register form's widest row: 8 chunks of 8 bf16 per lane (csrc/
+# layernorm.cu:WARP_MAX_WIDTH; chip_smoke.py phase 21 fails on a spill)
+WARP_MAX_WIDTH = 2048
+VARIANTS = ("warp", "block")
+
+
+def layernorm_variant(D: int, *ptrs: int) -> str:
+    """Which form of the kernel takes rows of width D at the addresses
+    `ptrs` (x, scale, out): "warp", the register form, where D is a multiple
+    of 8 up to WARP_MAX_WIDTH and every address is 16-byte aligned; else
+    "block", the general form."""
+    if 0 < D <= WARP_MAX_WIDTH and D % 8 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "warp"
+    return "block"
 
 
 def layernorm_reference(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -57,41 +75,46 @@ def twin_grads(twin, inputs, grads, needs_input_grad):
     return tuple(next(got) if need else None for need in needs_input_grad)
 
 
-def _fn():
-    return _build.function("layernorm", "layernorm_bf16",
+def _fn(variant: str):
+    return _build.function("layernorm", f"layernorm_{variant}_bf16",
                            [ctypes.c_void_p] * 3
                            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
 def layernorm_cuda(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel. x: contiguous bf16 (..., D) on a CUDA device;
-    scale: contiguous fp32 (D,) on the same device. Returns LN(x) * scale
-    in bf16. Raises on anything the kernel does not take and on a failed
-    launch."""
+    """Launch the CUDA kernel in the form `layernorm_variant` picks. x:
+    contiguous bf16 (..., D) on a CUDA device, at any address; scale:
+    contiguous fp32 (D,) on the same device. Returns LN(x) * scale in bf16.
+    Raises on anything the kernel does not take and on a failed launch."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"layernorm_cuda takes CUDA tensors, got {dev}")
     D = x.shape[-1]
-    _build.check("x", x, torch.bfloat16, x.shape, dev)
-    _build.check("scale", scale, torch.float32, (D,), dev)
+    _build.check("x", x, torch.bfloat16, x.shape, dev, align=2)
+    _build.check("scale", scale, torch.float32, (D,), dev, align=4)
     out = torch.empty_like(x)
     rows = x.numel() // D
+    variant = layernorm_variant(D, x.data_ptr(), scale.data_ptr(),
+                                out.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn()(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D,
-                    stream)
+        err = _fn(variant)(x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                           rows, D, stream)
     if err != 0:
-        raise RuntimeError(f"layernorm kernel launch failed: CUDA error {err} "
-                           f"at rows={rows} D={D}")
+        raise RuntimeError(f"layernorm kernel ({variant} form) launch failed: "
+                           f"CUDA error {err} at rows={rows} D={D}")
     layernorm_cuda.launches += 1
+    layernorm_cuda.launches_by_variant[variant] += 1
     return out
 
 
 layernorm_cuda.launches = 0
+layernorm_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def reset_launch_counts() -> None:
     layernorm_cuda.launches = 0
+    layernorm_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def _forward(x, scale):

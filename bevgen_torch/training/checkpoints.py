@@ -9,6 +9,12 @@ each tag `step_XXXXXXXX/` holds one `state.pt` written by `torch.save`,
 the EMA parameters by name. `LATEST` names the tag to resume from; EMA
 siblings never own it. To hand port-trained weights to the reference,
 convert the parameters with `core/convert.py:export_jax_params`.
+
+`load_weights` (counterpart of `bevgen_tpu/training/checkpoints.py:
+load_weights` :193) fills a serving pipeline from a checkpoint: the
+reference's torch checkpoints through `core/checkpoint.py`'s converters,
+or the port's own tags; `resolve_ema_path` (:146) finds a tag's `-EMA`
+sibling.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from pathlib import Path
 from typing import Any, Dict, Optional
 
 import torch
+from torch import nn
 
 STATE_FILE = "state.pt"
 EMA_FILE = "params.pt"
@@ -120,3 +127,100 @@ class CheckpointManager:
         else:
             state.ema = optim.ema_init(state.model)
         return tag
+
+
+def resolve_ema_path(path: str) -> str:
+    """The `-EMA` sibling of one of the port's tags (the reference swaps the
+    EMA weights in for evaluation, modules/stage2/ema.py:94-146): a tag
+    `step_XXXXXXXX` resolves to `step_XXXXXXXX-EMA`, a run directory to the
+    sibling of the tag `LATEST` names, else of its newest `step_*` tag, and
+    an `-EMA` directory to itself. Raises FileNotFoundError when there is no
+    such sibling: serving the plain weights when the EMA ones were asked for
+    would be a silent change of model."""
+    p = Path(path)
+    if p.name.endswith("-EMA"):
+        ema = p
+    elif p.is_dir() and p.name.startswith("step_"):
+        ema = p.with_name(p.name + "-EMA")
+    elif p.is_dir():
+        marker = p / "LATEST"
+        if marker.exists():
+            tag = marker.read_text().strip()
+        else:
+            tags = sorted(d.name for d in p.iterdir() if d.is_dir()
+                          and d.name.startswith("step_")
+                          and not d.name.endswith(("-EMA", ".tmp")))
+            if not tags:
+                raise FileNotFoundError(f"no step_* checkpoints in {p}")
+            tag = tags[-1]
+        ema = p / (tag + "-EMA")
+    else:
+        raise FileNotFoundError(
+            f"ema=true needs a checkpoint directory of the port, got {path}")
+    if not (ema / EMA_FILE).is_file():
+        raise FileNotFoundError(f"no EMA checkpoint {ema / EMA_FILE} for {path}")
+    return str(ema)
+
+
+def _port_file(p: Path) -> Optional[Path]:
+    """The port's own checkpoint file at `p` (a tag directory or the file
+    itself), or None."""
+    for name in (STATE_FILE, EMA_FILE):
+        if p.name == name and p.is_file():
+            return p
+        if p.is_dir() and (p / name).is_file():
+            return p / name
+    return None
+
+
+def load_weights(path: str, pipeline: nn.Module) -> str:
+    """Fill `pipeline` (a `BEVGenPipeline` or an `ARPipeline`) with the
+    weights at `path` and return the checkpoint's family.
+
+    * The port's own tags (a `step_*` directory or its `state.pt`, whose
+      `params` the trainer wrote; an `-EMA` sibling or its `params.pt`) fill
+      the pipeline's `maskgit`, strictly: "port" or "port-ema".
+    * The reference's torch checkpoints (`.ckpt`, `.pt`, `.pth` files and
+      DeepSpeed ZeRO directories, `core/checkpoint.py:load_torch_checkpoint`)
+      are routed by key prefix, as the reference routes them: `maskgit.*` to
+      `convert_net2net` ("muse"), top-level `transformer.*` to
+      `convert_ar_net2net` ("ar"), bare `encoder.`/`decoder.`/`quantize.`
+      to `convert_stage1`, grafted into the pipeline's `first_stage` with
+      every other part kept ("stage1"). Any other family raises ValueError.
+
+    Whether the MUSE converter keeps the `self_cond_to_init_embed.*` keys
+    that every reference checkpoint holds is read from the pipeline, as the
+    reference reads its example tree (:185): only a pipeline that holds the
+    module takes them. A converted tree is loaded by
+    `core/convert.py:load_jax_params`, which raises KeyError naming any leaf
+    the pipeline cannot hold (a TokenCritic, `self_cond`) and any parameter
+    the checkpoint leaves unset."""
+    from bevgen_torch.core import checkpoint as ckpt_io
+    from bevgen_torch.core.convert import export_jax_params, load_jax_params
+    p = Path(path)
+    own = _port_file(p)
+    if own is not None:
+        if not isinstance(getattr(pipeline, "maskgit", None), nn.Module):
+            raise ValueError(f"{own} holds MaskGit parameters (the port's "
+                             f"trainer's); the pipeline has no maskgit")
+        saved = torch.load(own, map_location="cpu", weights_only=False)
+        params = saved["params"] if own.name == STATE_FILE else saved
+        pipeline.maskgit.load_state_dict(params, strict=True)
+        return "port" if own.name == STATE_FILE else "port-ema"
+    state = ckpt_io.load_torch_checkpoint(str(p))
+    keys = list(state)
+    if any(k.startswith("maskgit.") for k in keys):
+        self_cond = any("self_cond_to_init_embed" in name
+                        for name, _ in pipeline.named_parameters())
+        load_jax_params(pipeline, ckpt_io.convert_net2net(state, self_cond))
+        return "muse"
+    if any(k.startswith("transformer.") for k in keys):
+        load_jax_params(pipeline, ckpt_io.convert_ar_net2net(state))
+        return "ar"
+    if any(k.startswith(("encoder.", "decoder.", "quantize.")) for k in keys):
+        tree = export_jax_params(pipeline)
+        tree["first_stage"] = {"params": ckpt_io.convert_stage1(state)}
+        load_jax_params(pipeline, tree)
+        return "stage1"
+    raise ValueError(f"unrecognized torch checkpoint family in {path}: "
+                     f"sample keys {keys[:5]}")

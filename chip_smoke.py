@@ -109,7 +109,11 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      (b=2, b=8) and F = 170; the standalone LayerNorm at (2, 1792, 1024)
      and a ragged case; times of the kernels (inputs cold in L2), the twins,
      F.layer_norm (the standalone norm) or the eager chain the modules run
-     without the glue, and the bytes bound;
+     without the glue, and the bytes bound; row 14's two forms (the
+     register form at (2, 1792, 1024), the general form on the ragged case
+     and on a (2, 1792, 1024) view 4 bytes off 16) with each instance's
+     registers, shared memory, spill bytes (none allowed) and blocks per SM,
+     and the form each case took;
  22. `generate_fn` with `transformer.use_fused_glue=true` on phase 4's
      weights and inputs, 10 pairs timed in turns with the switch off: exactly
      (18 + 17) x 42 = 1470 residual + LayerNorm, 35 x 14 = 490 GEGLU +
@@ -120,8 +124,18 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      56 forward and 168 backward attention launches per step), and at b=1
      the gradient of each parameter group, glue against no glue;
  25. the standalone LayerNorm through `LayerNormG(use_fused=True)` at
-     (2, 1792, 1024) bf16: one launch per call, the forward against its
-     twin and the `LayerNormFn` gradients against autograd through it.
+     (2, 1792, 1024) bf16: one launch per call (the register form), the
+     forward against its twin and the `LayerNormFn` gradients against
+     autograd through it;
+ 26. the reference's torch checkpoints: a seeded `argoverse_muse_7cam`
+     pipeline written as a reference Lightning `.ckpt` (the reference's key
+     names and layouts, `reference_state_dict`), served back by the generate
+     CLI (`scripts/generate.py`, `ckpt_path=`, another seed) at b=2: the
+     parameters equal bit for bit, exactly 980 attention launches, the ids
+     those of the seeded pipeline's `generate_fn` on the same batch and
+     generator; then `nuscenes_ar` the same way through `load_weights`: the
+     parameters bit for bit and a b=1 full forward (exactly 24 block-sparse
+     launches) with the seeded model's logits, bit for bit.
 
 Prints the kernels' JSON line, then the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`. Without a CUDA device,
@@ -136,6 +150,8 @@ import math
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 # Tolerances of the kernel against its plain version (fp32 on the same
 # bf16 inputs). The kernel rounds q^ and the softmax weights to bf16
@@ -1824,16 +1840,23 @@ GLUE_COLD_BYTES = 150e6
 GLUE_FLOPS = {"residual": 7, "geglu": 12, "layernorm": 6}
 
 
-def glue_case(kind, rows, F, seed):
-    """Inputs of one glue kernel: (input sets, gamma, input bytes)."""
+def glue_case(kind, rows, F, seed, offset=0):
+    """Inputs of one glue kernel: (input sets, gamma, input bytes). With
+    `offset`, each input is a contiguous view that starts `offset` bf16
+    into its storage (off 16 bytes unless offset is a multiple of 8)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     width = 2 * F if kind == "geglu" else F
     n_in = 2 if kind == "residual" else 1
     in_bytes = n_in * rows * width * 2
     n_sets = max(1, min(16, math.ceil(GLUE_COLD_BYTES / in_bytes)))
-    sets = [tuple(torch.randn(rows, width, generator=g, device="cuda").bfloat16()
-                  for _ in range(n_in)) for _ in range(n_sets)]
+
+    def one():
+        buf = torch.randn(rows * width + offset, generator=g,
+                          device="cuda").bfloat16()
+        return buf[offset:].view(rows, width)
+
+    sets = [tuple(one() for _ in range(n_in)) for _ in range(n_sets)]
     gamma = 1.0 + 0.1 * torch.randn(F, generator=g, device="cuda")
     return sets, gamma, in_bytes
 
@@ -1871,19 +1894,23 @@ def glue_calls(kind, gamma):
             lambda x: F_.layer_norm(x, (F,), gamma_bf16, None, 1e-5), None)
 
 
-def check_glue(name, kind, rows, F, seed):
+def check_glue(name, kind, rows, F, seed, offset=0):
     """Rows 12-14 against their twins, with times and the bound: the bytes
     of the inputs read once and the outputs written once (gamma too), and
-    GLUE_FLOPS fp32 operations per output element."""
+    GLUE_FLOPS fp32 operations per output element. Row 14 also reports the
+    form of the kernel its first call took (`layernorm_variant`)."""
     import itertools
     import torch
     from bevgen_torch.ops import fused_glue as fg
     from bevgen_torch.ops import layernorm as ln
-    sets, gamma, in_bytes = glue_case(kind, rows, F, seed)
+    sets, gamma, in_bytes = glue_case(kind, rows, F, seed, offset)
     kernel, twin, library, chain = glue_calls(kind, gamma)
     args = sets[0]
+    before = dict(ln.layernorm_cuda.launches_by_variant)
     out = kernel(*args)
     torch.cuda.synchronize()
+    took = [v for v, n in ln.layernorm_cuda.launches_by_variant.items()
+            if n != before[v]]
     exact = True
     if kind == "residual":
         want_x, _ = fg.residual_layernorm_reference(*args, gamma)
@@ -1915,6 +1942,7 @@ def check_glue(name, kind, rows, F, seed):
     ok = exact and finite and within and mean_err <= GLUE_MEAN_ABS_TOL
     print(f"[glue] {kind} {name}: rows={rows} F={F} "
           + (f"x_new bit-exact={exact} " if kind == "residual" else "")
+          + (f"variant={'+'.join(took)} " if kind == "layernorm" else "")
           + f"max_abs_err={max_err:.3e} (max |out| {max_ref:.2f}) mean_abs_err="
           f"{mean_err:.3e} ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms="
           f"{lib_ms if lib_ms is None else round(lib_ms, 5)} eager_chain_ms="
@@ -1927,7 +1955,32 @@ def check_glue(name, kind, rows, F, seed):
                          f"(x_new exact {exact}, max {max_err:.3e}, mean "
                          f"{mean_err:.3e}, finite {finite})")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms,
+            **({"variant": "+".join(took)} if kind == "layernorm" else {})}
+
+
+def layernorm_resources():
+    """Row 14's instances: the register form's (`layernorm_warp_kernel<NCH>`,
+    NCH chunks of 8 a lane: widths up to 256 NCH) and the general form's
+    (`layernorm_block_kernel<V>`, at D = 1024): registers, shared memory,
+    spill bytes and resident blocks per SM; fail on a spill."""
+    import ctypes
+    from bevgen_torch.ops import _build
+    report = ptxas_report("layernorm")
+    pint = ctypes.POINTER(ctypes.c_int)
+    query = _build.function("layernorm", "layernorm_resources",
+                            [ctypes.c_int, ctypes.c_int, pint, pint])
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    res = {}
+    for which, kernel, threads in (
+            [(n, f"layernorm_warp_kernel<{n}>", 256) for n in (1, 2, 4, 8)]
+            + [(-v, f"layernorm_block_kernel<{v}>", 256) for v in (2, 1)]):
+        err = query(which, 1024, ctypes.byref(smem), ctypes.byref(blocks))
+        if err != 0:
+            raise SystemExit(f"resource query of {kernel} failed: CUDA error {err}")
+        res[kernel] = print_resources(kernel, report, smem.value, blocks.value,
+                                      threads)
+    return res
 
 
 def glue_kernels_phase(cfg):
@@ -1944,9 +1997,22 @@ def glue_kernels_phase(cfg):
     check_glue("ragged", "residual", 13, dim, 90)
     check_glue("odd width", "residual", 9, 1003, 91)
     check_glue("tiny_test width", "geglu", 37, 170, 92)
+    # row 14: both forms, their resources, the register form at the
+    # (2, 1792, 1024) shape; the general form on the ragged case and on the
+    # same shape through views 4 bytes off 16
+    layernorm_resources()
     stats[("layernorm", 2)] = check_glue("(2, 1792, 1024)", "layernorm", 2 * n,
                                          dim, 93)
-    check_glue("ragged (3, 13, 1003)", "layernorm", 39, 1003, 94)
+    stats[("layernorm", "ragged")] = check_glue(
+        "ragged (3, 13, 1003)", "layernorm", 39, 1003, 94)
+    stats[("layernorm", "misaligned")] = check_glue(
+        "(2, 1792, 1024) misaligned", "layernorm", 2 * n, dim, 96, offset=2)
+    for key, want in ((2, "warp"), ("ragged", "block"),
+                      ("misaligned", "block")):
+        if stats[("layernorm", key)]["variant"] != want:
+            raise SystemExit(f"row 14 case {key} took the "
+                             f"{stats[('layernorm', key)]['variant']} form, "
+                             f"expected {want}")
     return stats
 
 
@@ -2164,19 +2230,318 @@ def layernorm_g_phase(cfg):
         a.float().flatten(), b.float().flatten(), dim=0).item()
         for n, a, b in zip(("x", "scale"), got, want_g)}
     per_call = ln.layernorm_cuda.launches - launches
+    forms = ln.layernorm_cuda.launches_by_variant
     print(f"[layernorm] LayerNormG(use_fused=True) (2, {tf.num_img_tokens}, {D}) "
-          f"bf16: {launches} launch without gradients, {per_call} with; "
+          f"bf16: {launches} launch without gradients, {per_call} with "
+          f"(by form {forms}); "
           f"max_abs_err={max_err:.3e} mean_abs_err={mean_err:.3e}; "
           f"LayerNormFn gradient cosine "
           + " ".join(f"{n}={c:.6f}" for n, c in cos.items())
           + f" (min {LN_GRAD_COS_MIN})", flush=True)
-    if launches != 1 or per_call != 1:
+    if launches != 1 or per_call != 1 or forms["warp"] != 2:
         raise SystemExit("LayerNormG(use_fused=True) did not launch its kernel "
-                         "once per call")
+                         "(the register form) once per call")
     if not (max_err <= GLUE_MAX_ABS_TOL and mean_err <= GLUE_MEAN_ABS_TOL
             and min(cos.values()) >= LN_GRAD_COS_MIN):
         raise SystemExit("LayerNormG(use_fused=True) disagrees with its twin")
     return launches
+
+
+# Phase 26: the reference's torch checkpoints on the card. The weights of
+# a seeded pipeline are written in the reference's key layout (a Lightning
+# `.ckpt`: the MUSE Net2NetTransformer with its SelfCritic, or the AR one
+# with its sparse GPT) and served back through the port's loader; seeds A
+# and B give the writer and the reader different random weights, so a load
+# that did nothing fails.
+CKPT_SEED_A, CKPT_SEED_B = 0, 1
+
+
+def _flat_tree(tree, prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flat_tree(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def _conv_to_torch(a):
+    return a.transpose(3, 2, 0, 1)          # flax HWIO -> torch OIHW
+
+
+def _linear_to_torch(a):
+    return a.T
+
+
+def _conv1x1_to_torch(a):
+    return a.T[:, :, None, None]            # Dense (in, out) -> 1x1 conv
+
+
+def _tril_to_torch(a):
+    return a[np.tril_indices(a.shape[0])][None]   # (L, L) -> flat tril
+
+
+def _same(a):
+    return a
+
+
+def stage1_ref_key(path):
+    """(reference torch key, layout change) of a leaf of a stage-1 flax tree
+    (taming's VQModel names, modules/stage1/vqgan.py)."""
+    import re
+    if path == ("codebook",):
+        return "quantize.embedding.weight", _same
+    if path[0] in ("quant_conv", "post_quant_conv"):
+        return (f"{path[0]}.weight", _conv_to_torch) if path[1] == "kernel" \
+            else (f"{path[0]}.bias", _same)
+    mod, name, rest = path[0], path[1], path[2:]
+    m = re.fullmatch(r"(down|up)_(\d+)_(block|attn)_(\d+)", name)
+    m2 = re.fullmatch(r"(down|up)_(\d+)_(downsample|upsample)", name)
+    if m:
+        base = f"{mod}.{m[1]}.{m[2]}.{m[3]}.{m[4]}"
+    elif m2:
+        base = f"{mod}.{m2[1]}.{m2[2]}.{m2[3]}"
+    elif name.startswith("mid_"):
+        base = f"{mod}.mid.{name[4:]}"
+    else:
+        base = f"{mod}.{name}"
+    torch_name = {"scale": "weight", "bias": "bias", "kernel": "weight"}
+    if rest[-2:-1] == ("norm",):            # GroupNorm32: <norm>/norm/<leaf>
+        owner = rest[:-2]
+        return ".".join((base,) + owner + (torch_name[rest[-1]],)), _same
+    fn = _conv_to_torch if rest[-1] == "kernel" else _same
+    return ".".join((base,) + rest[:-1] + (torch_name[rest[-1]],)), fn
+
+
+def muse_ref_key(path):
+    """(reference torch key, layout change) of a leaf of the MUSE
+    transformer's flax tree (muse_maskgit_pytorch's TransformerMultiView)."""
+    import re
+    head = path[0]
+    if head in ("token_emb", "cond_token_emb", "pos_emb", "cond_pos_emb"):
+        return f"{head}.weight", _same
+    if head == "to_logits":
+        return "to_logits.weight", _linear_to_torch
+    if head in ("img_embed", "cam_embed"):
+        return f"{head}.weight", _conv1x1_to_torch
+    if head == "bev_embed":
+        return (("bev_embed.weight", _conv1x1_to_torch) if path[1] == "kernel"
+                else ("bev_embed.bias", _same))
+    if head == "camera_bias_emb":
+        return head, _tril_to_torch
+    if head == "bev_cam_pos_emb":
+        return head, _same
+    if head == "final_norm":
+        return "transformer_blocks.norm.gamma", _same
+    m = re.fullmatch(r"layers_(\d+)_(attn|cross_attn|ff)", head)
+    base = (f"transformer_blocks.layers.{m[1]}."
+            f"{ {'attn': 0, 'cross_attn': 1, 'ff': 2}[m[2]] }")
+    sub = path[1]
+    if m[2] == "ff":
+        idx = {"norm_in": 0, "proj_in": 1, "norm_mid": 3, "proj_out": 4}[sub]
+        return ((f"{base}.{idx}.gamma", _same) if sub.startswith("norm")
+                else (f"{base}.{idx}.weight", _linear_to_torch))
+    if sub == "norm":
+        return f"{base}.norm.gamma", _same
+    if sub in ("to_q", "to_kv", "to_out"):
+        return f"{base}.{sub}.weight", _linear_to_torch
+    return f"{base}.{sub}", _same           # q_scale, k_scale, null_kv
+
+
+def gpt_ref_key(path):
+    """(reference torch key, layout change) of a leaf of the sparse GPT's
+    flax tree (mingpt_sparse.py's GPT)."""
+    import re
+    head = path[0]
+    if head in ("x_tok_emb", "cond_tok_emb"):
+        return f"{head}.weight", _same
+    if head in ("x_pos_emb", "cond_pos_emb", "bev_cam_pos_emb"):
+        return head, _same
+    if head == "camera_bias_emb":
+        return head, _tril_to_torch
+    if head in ("img_embed", "cam_embed"):
+        return f"{head}.weight", _conv1x1_to_torch
+    if head == "bev_embed":
+        return (("bev_embed.weight", _conv1x1_to_torch) if path[1] == "kernel"
+                else ("bev_embed.bias", _same))
+    if head == "ln_f":
+        return f"ln_f.{ {'scale': 'weight', 'bias': 'bias'}[path[-1]] }", _same
+    if head == "head":
+        return "head.weight", _linear_to_torch
+    i = re.fullmatch(r"block_(\d+)", head)[1]
+    sub, leaf = path[1], path[-1]
+    if sub in ("ln1", "ln2"):
+        return (f"blocks.{i}.{sub}.{ {'scale': 'weight', 'bias': 'bias'}[leaf] }",
+                _same)
+    owner = (f"attention.{sub}" if sub in ("query", "key", "value") else
+             f"mlp.{ {'mlp_fc': 0, 'mlp_proj': 2}[sub] }")
+    return ((f"blocks.{i}.{owner}.weight", _linear_to_torch) if leaf == "kernel"
+            else (f"blocks.{i}.{owner}.bias", _same))
+
+
+def reference_state_dict(tree):
+    """The reference's Lightning state dict (torch key -> contiguous numpy
+    array in torch's layout) of a serving pipeline's flax-layout tree
+    (`core/convert.py:export_jax_params`): the MUSE Net2NetTransformer,
+    whose SelfCritic holds `token_critic.net.*` aliases of the transformer
+    (the same arrays) and a `to_pred` head, or the AR one, whose sparse GPT
+    sits at top-level `transformer.*`. The inverse of the port's converters;
+    `tests/test_torch_checkpoint.py` holds it to the JAX package's test
+    oracle."""
+    out = {}
+
+    def put(key, arr, fn):
+        out[key] = np.ascontiguousarray(fn(np.asarray(arr)))
+        return out[key]
+
+    for part, prefix in (("first_stage", "first_stage_model."),
+                         ("cond_stage", "cond_stage_model.")):
+        for path, arr in _flat_tree(tree[part]["params"]):
+            key, fn = stage1_ref_key(path)
+            put(prefix + key, arr, fn)
+    if "maskgit" in tree:
+        mg = tree["maskgit"]["params"]
+        for path, arr in _flat_tree(mg["transformer"]):
+            key, fn = muse_ref_key(path)
+            out["maskgit.token_critic.net." + key] = put(
+                "maskgit.transformer." + key, arr, fn)
+        head = mg["critic"]["to_pred"]
+        put("maskgit.token_critic.to_pred.weight", head["kernel"],
+            _linear_to_torch)
+        put("maskgit.token_critic.to_pred.bias", head["bias"], _same)
+    else:
+        for path, arr in _flat_tree(tree["gpt"]["params"]):
+            key, fn = gpt_ref_key(path)
+            put("transformer." + key, arr, fn)
+    return out
+
+
+def write_reference_ckpt(pipe, path):
+    """Write `pipe`'s weights as a reference Lightning `.ckpt` (fp32; the
+    SelfCritic aliases share their tensors, as in the reference's files).
+    Returns the file's bytes."""
+    import os
+    import torch
+    from bevgen_torch.core.convert import export_jax_params
+    tensors, shared = {}, {}
+    for key, arr in reference_state_dict(export_jax_params(pipe)).items():
+        if id(arr) not in shared:
+            shared[id(arr)] = torch.from_numpy(arr)
+        tensors[key] = shared[id(arr)]
+    torch.save({"state_dict": tensors, "epoch": 0, "global_step": 0}, path)
+    return os.path.getsize(path)
+
+
+def params_equal(a, b):
+    """(all parameters of pipelines a and b equal bit for bit, how many
+    differ, how many there are)."""
+    import torch
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    if pa.keys() != pb.keys():
+        raise SystemExit("the two pipelines hold different parameters")
+    diff = [n for n in pa if not torch.equal(pa[n], pb[n])]
+    return not diff, len(diff), len(pa)
+
+
+def checkpoint_phase(cfg, ar_cfg):
+    """Phase 26: reference-format checkpoints through the port's loader at
+    full width: the MUSE generate CLI fed from one (b=2, 980 row-1 launches,
+    the seed-A pipeline's ids), and the AR pipeline loaded from one (a b=1
+    full forward with 24 row-9 launches, the seed-A model's logits)."""
+    import os
+    import tempfile
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.pipelines.ar_generate import ARPipeline
+    from bevgen_torch.pipelines.generate import BEVGenPipeline
+    from bevgen_torch.scripts import generate as cli
+    from bevgen_torch.training.checkpoints import load_weights
+    A, B = CKPT_SEED_A, CKPT_SEED_B
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # MUSE: the generate CLI with ckpt_path=, seed B
+        path = os.path.join(tmp, "muse.ckpt")
+        pipe_a = BEVGenPipeline.create(cfg, device="cuda").init_params(seed=A)
+        t0 = time.perf_counter()
+        size = write_reference_ckpt(pipe_a, path)
+        write_s = time.perf_counter() - t0
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        pipe_b, outs = cli.run([
+            "preset=argoverse_muse_7cam", f"batch_size={AR_BATCH}", "fake=1",
+            f"seed={B}", "device=cuda", f"ckpt_path={path}",
+            f"out={os.path.join(tmp, 'out')}"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = ca.cosine_attention_cuda.launches
+        same, n_diff, n_par = params_equal(pipe_a, pipe_b)
+        del pipe_b
+        batch = fake_batch(cfg, AR_BATCH, seed=B)
+        _, want = pipe_a.generate_fn(
+            batch["segmentation"], batch["intrinsics_inv"],
+            batch["extrinsics_inv"],
+            torch.Generator(device="cuda").manual_seed(B))
+        got = np.load(outs[0])["ids"]
+        agree = float((got == want.cpu().numpy()).mean())
+        tf = cfg.transformer
+        steps = cfg.muse.sample_iterations
+        expect = (steps + steps - 1) * tf.num_layers * 2
+        print(f"[ckpt] MUSE argoverse_muse_7cam: reference .ckpt "
+              f"{size / 1e6:.1f} MB written in {write_s:.1f} s; the generate "
+              f"CLI (seed {B}, ckpt_path) in {cli_s:.1f} s: parameters equal "
+              f"to seed {A}'s bit for bit {same} ({n_diff} of {n_par} "
+              f"differ); {launches} attention launches (expected {expect}); "
+              f"ids identical to the seed-{A} pipeline's generate_fn "
+              f"{agree == 1.0} (agreement {agree:.6f})", flush=True)
+        os.remove(path)
+        del pipe_a
+        torch.cuda.empty_cache()
+        if not same or launches != expect or agree != 1.0:
+            raise SystemExit("the checkpoint-fed MUSE generate does not serve "
+                             "the checkpoint's weights")
+        res["muse_launches"] = launches
+
+        # AR: load_weights at nuscenes_ar, a b=1 full forward
+        path = os.path.join(tmp, "ar.ckpt")
+        ar_a = ARPipeline.create(ar_cfg, device="cuda").init_params(seed=A)
+        t0 = time.perf_counter()
+        size = write_reference_ckpt(ar_a, path)
+        write_s = time.perf_counter() - t0
+        ar_b = ARPipeline.create(ar_cfg, device="cuda").init_params(seed=B)
+        t0 = time.perf_counter()
+        family = load_weights(path, ar_b)
+        load_s = time.perf_counter() - t0
+        same, n_diff, n_par = params_equal(ar_a, ar_b)
+        ids, cond, ii, ei, _ = ar_inputs(ar_cfg, 1, seed=7)
+        counts = []
+        with torch.inference_mode():
+            logits = []
+            for model in (ar_a.gpt, ar_b.gpt):
+                bs.reset_launch_counts()
+                logits.append(model(ids, cond, ii, ei, sampling=True))
+                torch.cuda.synchronize()
+                counts.append(bs.block_sparse_attention_cuda.launches)
+        exact = torch.equal(logits[0], logits[1])
+        cos, top1 = logit_agreement(logits[0], logits[1])
+        print(f"[ckpt] AR nuscenes_ar: reference .ckpt {size / 1e6:.1f} MB "
+              f"written in {write_s:.1f} s, loaded as family {family!r} in "
+              f"{load_s:.1f} s: parameters equal to seed {A}'s bit for bit "
+              f"{same} ({n_diff} of {n_par} differ); b=1 full forward "
+              f"block-sparse launches {counts[1]} (seeded model {counts[0]}); "
+              f"logits identical {exact} (cosine {cos:.6f}, top-1 {top1:.4f})",
+              flush=True)
+        os.remove(path)
+        n_layers = ar_cfg.transformer.num_layers
+        if (family != "ar" or not same or counts != [n_layers, n_layers]
+                or not exact):
+            raise SystemExit("the checkpoint-loaded AR model does not run the "
+                             "checkpoint's weights")
+        res["ar_launches"] = counts[1]
+    print(f"[ckpt] phase 26 in {time.perf_counter() - t_phase:.1f} s; "
+          f"temporary files deleted", flush=True)
+    return res
 
 
 def main() -> int:
@@ -2451,6 +2816,10 @@ def main() -> int:
     timed_phase(24, glue_grads_phase, cfg)
     row14_launches = timed_phase(25, layernorm_g_phase, cfg)
 
+    # 26. the reference's torch checkpoints: the MUSE generate CLI and the AR
+    # model fed from reference-format files
+    timed_phase(26, checkpoint_phase, cfg, ar_cfg)
+
     kernels = []
     for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
         kernels.append({
@@ -2509,10 +2878,12 @@ def main() -> int:
                 "name": f"{op}[{run} b{b} {b * N}x{width}]", "route": "cuda",
                 "source": src, "replaces": rep,
                 "launches": count[f"{kind}_ln"], **glue_stats[(kind, b)]})
+    row14 = dict(glue_stats[("layernorm", 2)])
     kernels.append({
-        "name": f"layernorm[LayerNormG use_fused, 2x{N}x{tf.num_embed}]",
+        "name": f"layernorm[LayerNormG use_fused, 2x{N}x{tf.num_embed}, "
+                f"{row14.pop('variant')} form]",
         "route": "cuda", "source": ln.SOURCE, "replaces": ln.REPLACES,
-        "launches": row14_launches, **glue_stats[("layernorm", 2)]})
+        "launches": row14_launches, **row14})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

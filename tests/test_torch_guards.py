@@ -638,3 +638,32 @@ def test_cuda_glue_kernels_refuse_other_dtypes():
     xb = x.bfloat16()                               # bf16 gamma
     with pytest.raises(TypeError, match="float32"):
         fg.residual_layernorm(xb, xb, gamma.bfloat16())
+
+
+@pytest.mark.cuda
+def test_cuda_layernorm_variants_match_plain_version():
+    """Row 14's two forms on the card, each where `layernorm_variant` sends
+    it (aligned widths up to the cap: the register form; views off 16
+    bytes, odd widths, widths above the cap: the general form), against the
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from bevgen_torch.ops import layernorm as ln
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cases = [((2, 64, 1024), 0, "warp"), ((2, 64, 1024), 1, "block"),
+             ((2, 64, 1024), 2, "block"), ((3, 13, 1003), 0, "block"),
+             ((5, 7, 2048), 0, "warp"), ((4, 9, 4096), 0, "block"),
+             ((1, 300, 64), 0, "warp")]
+    for shape, off, want in cases:
+        n = shape[0] * shape[1] * shape[2]
+        buf = torch.randn(n + off, generator=g, device="cuda").bfloat16()
+        x = buf[off:].view(shape)
+        scale = 1 + 0.1 * torch.randn(shape[-1], generator=g, device="cuda")
+        before = dict(ln.layernorm_cuda.launches_by_variant)
+        got = ln.layernorm(x, scale)
+        after = ln.layernorm_cuda.launches_by_variant
+        assert {k: after[k] - before[k] for k in after} == {
+            v: int(v == want) for v in ln.VARIANTS}, (shape, off)
+        ref = ln.layernorm_reference(x.float(), scale)
+        err = (got.float() - ref).abs()
+        assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
