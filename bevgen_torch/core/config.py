@@ -124,7 +124,8 @@ class MultiViewConfig:
     # measured camera-rig artifact (npz or torch .pt) for the geometric
     # bias path; None -> the canonical synthetic rig
     rig_path: Optional[str] = None
-    # MUSE self-conditioning (not ported yet: the transformer raises)
+    # MUSE self-conditioning: the previous decode step's embeddings enter
+    # through the `self_cond_to_init_embed` feed-forward
     self_cond: bool = False
     n_unmasked: int = 0
     layout_seed: int = 0
@@ -193,8 +194,10 @@ class MuseConfig:
 
     Serving runs cond-only single forwards: the reference's classifier-free
     guidance cancels exactly at inference (see `models/stage2/maskgit.py`).
-    `real_cfg` and `token_critic` are not ported yet; `generate` raises when
-    either is set."""
+    `real_cfg` runs real guidance, cond and null halves at 2x batch mixed by
+    `cond_scale`. The critic is the SelfCritic head (`self_token_critic`) or
+    a separate TokenCritic transformer (`token_critic`), not both: `MaskGit`
+    raises when both are set."""
     sample_iterations: int = 18
     cond_scale: float = 3.0
     real_cfg: bool = False

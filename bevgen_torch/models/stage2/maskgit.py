@@ -1,20 +1,27 @@
 """MaskGIT: iterative masked-token generation, and its training objective.
 
-Port of `bevgen_tpu/models/stage2/maskgit.py` with the self-critic
-variant. Per decode step: re-mask the k lowest-scored
-tokens (rank-based, k from a static cosine schedule), one transformer
-forward, top-k filter, gumbel sample, and one critic forward whose scores
-select the next step's re-masking. The last step's critic forward is
-skipped, since its scores feed nothing.
+Port of `bevgen_tpu/models/stage2/maskgit.py`. Per decode step: re-mask the
+k lowest-scored tokens (rank-based, k from a static cosine schedule), one
+transformer forward, top-k filter, gumbel sample, and one critic forward
+whose scores select the next step's re-masking. The last step's critic
+forward is skipped, since its scores feed nothing.
 
-Serving is cond-only: the reference's classifier-free guidance cancels
-exactly at inference (its null forward only drops the condition in
-training mode), so `cfg_logits`/`cfg_critic` run one forward at 1x batch.
-Training (`maskgit_loss`): cosine-schedule masking per camera image, CE
-on the masked positions, and the self-critic BCE on a gumbel resample.
+The critic is the SelfCritic head over the generator's embeddings
+(`muse.self_token_critic`, the default) or a separate TokenCritic
+transformer with a 1-wide head (`muse.token_critic`); the two exclude each
+other. By default serving is cond-only: the reference's classifier-free
+guidance cancels exactly at inference (its null forward only drops the
+condition in training mode), so `cfg_logits`/`cfg_critic` run one forward
+at 1x batch. `muse.real_cfg` runs real guidance: the cond and null halves
+batched into one 2x-batch forward, the null half's condition dropped to the
+learned null K/V column, mixed by `cond_scale` (the TokenCritic's scores
+too; the SelfCritic's stay cond-only). With `cfg.self_cond` each step's
+forward takes the previous step's cond-pass embeddings (zeros at step 0).
+`generate(return_trajectory=True)` also returns the ids after every step.
 
-Not ported yet (raise): `real_cfg`, the separate TokenCritic transformer,
-self-conditioning and the per-step trajectory.
+Training (`maskgit_loss`): cosine-schedule masking per camera image, an
+optional no-grad self-conditioning pre-forward, CE on the masked positions,
+and the critic's BCE on a gumbel resample.
 """
 from __future__ import annotations
 
@@ -32,43 +39,134 @@ from bevgen_torch.models.stage2.transformer import (MultiViewTransformer,
 
 
 class MaskGit(nn.Module):
-    """Transformer + self-critic head."""
+    """Transformer + its critic: the SelfCritic head or the TokenCritic
+    transformer."""
 
     def __init__(self, cfg: MultiViewConfig, muse: MuseConfig,
                  dtype=torch.float32, param_dtype=None):
         super().__init__()
-        if muse.token_critic:
-            raise NotImplementedError("the TokenCritic variant is not ported yet")
+        if muse.self_token_critic and muse.token_critic:
+            raise ValueError("self_token_critic and token_critic are mutually "
+                             "exclusive (muse_maskgit_pytorch.py:496)")
         self.cfg, self.muse, self.dtype = cfg, muse, dtype
         self.transformer = MultiViewTransformer(cfg, dtype, param_dtype)
         if muse.self_token_critic:
             self.critic = SelfCriticHead(cfg.num_embed, dtype, param_dtype)
+        if muse.token_critic:
+            self.token_critic = MultiViewTransformer(
+                cfg, dtype, param_dtype, dim_out=1, add_mask_id=False)
 
     def forward(self, ids, cond_ids, intrinsics_inv, extrinsics_inv,
-                cond_keep=None, cache=None) -> TransformerOutput:
+                cond_keep=None, self_cond_embed=None,
+                cache=None) -> TransformerOutput:
+        """The generator's forward; `cache` is `build_cache`'s dict."""
         return self.transformer(ids, cond_ids, intrinsics_inv, extrinsics_inv,
-                                cond_keep, cache=cache)
+                                cond_keep, self_cond_embed=self_cond_embed,
+                                cache=None if cache is None else cache["gen"])
 
     def critic_logits(self, ids, cond_ids, intrinsics_inv, extrinsics_inv,
                       cond_keep=None, cache=None) -> torch.Tensor:
+        """(b, cam, hw) critic scores: the TokenCritic's 1-wide head, or the
+        SelfCritic head over a generator forward."""
         b, cam, hw = ids.shape
+        if self.muse.token_critic:
+            out = self.token_critic(
+                ids, cond_ids, intrinsics_inv, extrinsics_inv, cond_keep,
+                cache=None if cache is None else cache["critic"])
+            return out.logits[..., 0]
         out = self.transformer(ids, cond_ids, intrinsics_inv, extrinsics_inv,
-                               cond_keep, cache=cache)
+                               cond_keep,
+                               cache=None if cache is None else cache["gen"])
         return self.critic(out.embed).reshape(b, cam, hw)
 
     def build_cache(self, cond_ids, intrinsics_inv, extrinsics_inv) -> dict:
-        return self.transformer.build_cache(cond_ids, intrinsics_inv,
-                                            extrinsics_inv)
+        """The step-invariant decode cache of each transformer: {"gen": ...,
+        "critic": the TokenCritic's, or None}."""
+        crit = (self.token_critic.build_cache(cond_ids, intrinsics_inv,
+                                              extrinsics_inv)
+                if self.muse.token_critic else None)
+        return {"gen": self.transformer.build_cache(cond_ids, intrinsics_inv,
+                                                    extrinsics_inv),
+                "critic": crit}
 
 
-def cfg_logits(model: MaskGit, ids, cond_ids, ii, ei, cache=None):
-    """Decode-step logits (fp32) and embeddings: one cond-only forward."""
-    out = model(ids, cond_ids, ii, ei, cache=cache)
-    return out.logits.float(), out.embed
+# ---------------------------------------------------------------------------
+# classifier-free-guided forwards (cond + null batched)
+# ---------------------------------------------------------------------------
+
+def _cfg_batch(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, x], dim=0)
 
 
-def cfg_critic(model: MaskGit, ids, cond_ids, ii, ei, cache=None):
-    """Critic scores (fp32) for re-masking: one cond-only forward."""
+def _cfg_keep(b: int, device) -> torch.Tensor:
+    """The cond half keeps its condition, the null half drops it."""
+    return torch.arange(2 * b, device=device) < b
+
+
+def cfg_batch_cache(cache: dict) -> dict:
+    """`MaskGit.build_cache`'s dict for a guided forward's 2b batch: every
+    tensor with a batch axis concatenated with itself once (the keep flag
+    enters only at the attention call, so the cache does not depend on it);
+    the camera-bias slices are shared."""
+    def double(c):
+        if c is None:
+            return None
+        return {"ray": None if c["ray"] is None else _cfg_batch(c["ray"]),
+                "context": _cfg_batch(c["context"]),
+                "self_bias": c["self_bias"], "cross_bias": c["cross_bias"],
+                "cross_kv": tuple((_cfg_batch(k), _cfg_batch(v))
+                                  for k, v in c["cross_kv"])}
+    return {name: double(c) for name, c in cache.items()}
+
+
+def decode_caches(model: MaskGit, cond_ids, ii, ei):
+    """(cache for `cfg_logits`, cache for `cfg_critic`) of one generate:
+    `build_cache`'s dict at 1x, and under real_cfg its 2x form, built once,
+    for the guided forwards (the SelfCritic's stay at 1x)."""
+    cache = model.build_cache(cond_ids, ii, ei)
+    if not model.muse.real_cfg:
+        return cache, cache
+    guided = cfg_batch_cache(cache)
+    return guided, (guided if model.muse.token_critic else cache)
+
+
+def cfg_logits(model: MaskGit, ids, cond_ids, ii, ei, cond_scale: float,
+               self_cond_embed=None, real_cfg: bool = False, cache=None):
+    """Decode-step logits (fp32) and the cond pass's embeddings, which feed
+    the next step's self-conditioning.
+
+    Default: one cond-only forward. real_cfg: cond and null halves batched
+    (cond first) into one 2b forward with keep = [1]*b + [0]*b, mixed as
+    null + (cond - null) * cond_scale. cache: `build_cache`'s dict at the
+    batch the forward runs, so doubled by `cfg_batch_cache` under real_cfg."""
+    if not real_cfg:
+        out = model(ids, cond_ids, ii, ei, self_cond_embed=self_cond_embed,
+                    cache=cache)
+        return out.logits.float(), out.embed
+    b = ids.shape[0]
+    sc = None if self_cond_embed is None else _cfg_batch(self_cond_embed)
+    out = model(_cfg_batch(ids), _cfg_batch(cond_ids), _cfg_batch(ii),
+                _cfg_batch(ei), cond_keep=_cfg_keep(b, ids.device),
+                self_cond_embed=sc, cache=cache)
+    logits = out.logits.float()
+    cond, null = logits[:b], logits[b:]
+    return null + (cond - null) * cond_scale, out.embed[:b]
+
+
+def cfg_critic(model: MaskGit, ids, cond_ids, ii, ei, cond_scale: float,
+               real_cfg: bool = False, cache=None):
+    """Critic scores (fp32) for re-masking: one cond-only forward, except
+    that under real_cfg the TokenCritic's scores are mixed as `cfg_logits`
+    mixes the logits (2b batch; cache doubled then). The SelfCritic's stay
+    cond-only, as in the reference."""
+    if model.muse.token_critic and real_cfg:
+        b = ids.shape[0]
+        scores = model.critic_logits(
+            _cfg_batch(ids), _cfg_batch(cond_ids), _cfg_batch(ii),
+            _cfg_batch(ei), cond_keep=_cfg_keep(b, ids.device),
+            cache=cache).float()
+        cond, null = scores[:b], scores[b:]
+        return null + (cond - null) * cond_scale
     return model.critic_logits(ids, cond_ids, ii, ei, cache=cache).float()
 
 
@@ -118,7 +216,8 @@ def generate(model: MaskGit, cond_ids: torch.Tensor,
              init_ids: Optional[torch.Tensor] = None,
              timesteps: Optional[int] = None,
              force_not_use_token_critic: bool = False,
-             can_remask_prev_masked: bool = False) -> torch.Tensor:
+             can_remask_prev_masked: bool = False,
+             return_trajectory: bool = False):
     """Iteratively decode image tokens for every camera.
 
     cond_ids: (b, num_cond) BEV tokens; intrinsics_inv / extrinsics_inv:
@@ -127,11 +226,12 @@ def generate(model: MaskGit, cond_ids: torch.Tensor,
     force_not_use_token_critic: confidence-based re-masking instead of the
     critic forward; can_remask_prev_masked: in that path, let committed
     tokens compete for re-masking. All random draws come from `generator`.
-    Returns (b, cam, h, w) int64 codebook indices."""
+    Returns (b, cam, h, w) int64 codebook indices, or (ids, trajectory)
+    with return_trajectory: the (T, b, cam, hw) ids after every step, the
+    last equal to the returned ids."""
     cfg, muse = model.cfg, model.muse
-    if muse.real_cfg:
-        raise NotImplementedError("real_cfg is not ported yet")
-    use_critic = muse.self_token_critic and not force_not_use_token_critic
+    use_critic = ((muse.self_token_critic or muse.token_critic)
+                  and not force_not_use_token_critic)
     if can_remask_prev_masked and not use_critic and muse.no_mask_token_prob <= 0.0:
         raise ValueError("can_remask_prev_masked needs a checkpoint trained "
                          "with no_mask_token_prob > 0")
@@ -143,28 +243,41 @@ def generate(model: MaskGit, cond_ids: torch.Tensor,
 
     ids = torch.full((b, cam, hw), mask_id, dtype=torch.long, device=dev)
     scores = torch.zeros((b, cam, hw), dtype=torch.float32, device=dev)
+    # self-conditioning carry: the previous step's cond-pass embeddings
+    sc = (torch.zeros((b, cfg.num_img_tokens, cfg.num_embed),
+                      dtype=torch.float32, device=dev)
+          if cfg.self_cond else None)
     keep_init = None if init_ids is None else init_ids != mask_id
     num_masked, temps, noise = schedules(muse, hw, T)
 
-    cache = model.build_cache(cond_ids, intrinsics_inv, extrinsics_inv)
+    gen_cache, critic_cache = decode_caches(model, cond_ids, intrinsics_inv,
+                                            extrinsics_inv)
+    trajectory = []
     for step in range(T):
         rank = _rank_desc(scores)
         ids = torch.where(rank < int(num_masked[step]), mask_id, ids)
         if keep_init is not None:
             ids = torch.where(keep_init, init_ids, ids)
 
-        logits, _ = cfg_logits(model, ids, cond_ids, intrinsics_inv,
-                               extrinsics_inv, cache=cache)
+        logits, embed = cfg_logits(model, ids, cond_ids, intrinsics_inv,
+                                   extrinsics_inv, muse.cond_scale,
+                                   self_cond_embed=sc, real_cfg=muse.real_cfg,
+                                   cache=gen_cache)
+        if cfg.self_cond:
+            sc = embed.float()
         filtered = top_k_filter(logits, muse.topk_filter_thres)
         pred = gumbel_sample(filtered, float(temps[step]), generator)
 
         is_mask = ids == mask_id
         ids = torch.where(is_mask, pred, ids)
+        if return_trajectory:
+            trajectory.append(ids)
         if step == T - 1:
             break  # the last step's scores would select nothing
         if use_critic:
             scores = cfg_critic(model, ids, cond_ids, intrinsics_inv,
-                                extrinsics_inv, cache=cache)
+                                extrinsics_inv, muse.cond_scale,
+                                real_cfg=muse.real_cfg, cache=critic_cache)
             u = torch.rand(scores.shape, generator=generator, device=dev)
             scores = scores + (u - 0.5) * float(noise[step])
         else:
@@ -175,7 +288,10 @@ def generate(model: MaskGit, cond_ids: torch.Tensor,
                 scores = torch.where(is_mask, scores,
                                      torch.full_like(scores, -1e5))
     h, w = cfg.cam_latent_res
-    return ids.reshape(b, cam, h, w)
+    out = ids.reshape(b, cam, h, w)
+    if return_trajectory:
+        return out, torch.stack(trajectory)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -210,11 +326,14 @@ def maskgit_loss(model: MaskGit, tokens, cond_ids, intrinsics_inv,
     masking ratio cos(t pi/2), t ~ U(0, 1), picks that many positions at
     random (rank of uniform noise); `no_mask_token_prob` leaves a fraction
     of them at their true token while still predicting them. The condition
-    is kept per sample with probability 1 - cond_drop_prob. CE on the
-    masked positions; with the self-critic, the masked positions are
-    resampled (gumbel at a U(0, 1) temperature), a second forward with its
-    own cond_keep scores them through `critic_logits`, and the BCE against
-    "differs from the truth" is added with weight critic_loss_weight.
+    is kept per sample with probability 1 - cond_drop_prob. With
+    `cfg.self_cond`, a flag drawn against self_cond_prob runs a no-grad,
+    cond-only pre-forward whose fp32 embeddings self-condition the main
+    forward (zeros otherwise). CE on the masked positions; with a critic,
+    the masked positions are resampled (gumbel at a U(0, 1) temperature), a
+    critic forward with its own cond_keep scores them through
+    `critic_logits`, and the BCE against "differs from the truth" is added
+    with weight critic_loss_weight.
 
     All draws come from `generator`. mask_override: (b, cam, hw) bool in
     place of the random mask; gumbel_noise: (b, cam, hw, vocab) in place of
@@ -242,11 +361,17 @@ def maskgit_loss(model: MaskGit, tokens, cond_ids, intrinsics_inv,
         mask = mask & ~(sub_rank < num_keep)
 
     x = torch.where(mask, cfg.mask_token_id, tokens)
+    sc_embed = None
+    if cfg.self_cond and bool(uniform() < muse.self_cond_prob):
+        # the pre-forward saves nothing for a backward
+        with torch.no_grad():
+            sc_embed = model(x, cond_ids, intrinsics_inv,
+                             extrinsics_inv).embed.float()
     cond_keep = uniform(b) >= muse.cond_drop_prob
     out = model(x, cond_ids, intrinsics_inv, extrinsics_inv,
-                cond_keep=cond_keep)
+                cond_keep=cond_keep, self_cond_embed=sc_embed)
     ce = masked_cross_entropy(out.logits, labels)
-    if not muse.self_token_critic:
+    if not (muse.self_token_critic or muse.token_critic):
         return MaskGitLoss(ce, ce, torch.zeros_like(ce))
 
     temp = uniform()

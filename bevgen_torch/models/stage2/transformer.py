@@ -22,6 +22,12 @@ training keeps them fp32 (small AdamW steps would round away in bf16),
 serving defaults `param_dtype` to `dtype`, where the cast is a no-op.
 Norms, scales, null_kv and the camera-bias table are always fp32.
 
+`cfg.self_cond` adds the `self_cond_to_init_embed` GEGLU feed-forward
+(always the unfused form), whose output on the previous decode step's
+embeddings (zeros when none are given) joins the stream after the position
+embedding. `dim_out` and `add_mask_id` build the TokenCritic's transformer:
+a 1-wide head and a token table without the mask id's row.
+
 `cfg.use_fused_glue` (off by default, as in the reference) restructures
 every block into the reference's delta-chaining form: the residual add
 folds into the next norm (`ops/fused_glue.py`'s residual + LayerNorm pass)
@@ -220,15 +226,16 @@ class TransformerOutput(NamedTuple):
 class MultiViewTransformer(nn.Module):
     """The full stage-2 bidirectional transformer. `dtype` is the compute
     dtype, `param_dtype` (default: `dtype`) the storage of the Linear and
-    embedding weights."""
+    embedding weights. `dim_out`: the head's width (None: vocab_size; the
+    TokenCritic's is 1). `add_mask_id`: the token table holds a row for the
+    mask id (the generator's does, the TokenCritic's does not)."""
 
     def __init__(self, cfg: MultiViewConfig, dtype=torch.float32,
-                 param_dtype=None):
+                 param_dtype=None, dim_out: Optional[int] = None,
+                 add_mask_id: bool = True):
         super().__init__()
         if cfg.num_pad_tokens:
             raise ValueError("the MUSE dense path requires no pad tokens")
-        if cfg.self_cond:
-            raise NotImplementedError("self_cond is not ported yet")
         self.cfg, self.dtype = cfg, dtype
         self.use_glue = bool(cfg.use_fused_glue)
         dim, nc, L = cfg.num_embed, cfg.num_cond_tokens, cfg.gpt_block_size
@@ -254,8 +261,12 @@ class MultiViewTransformer(nn.Module):
                                  persistent=False)
             self.register_buffer("bias_prior", torch.from_numpy(
                 masks.camera_bias_matrix(cfg)), persistent=False)
-        self.token_emb = Embed(cfg.vocab_size + 1, dim, dtype, pdt)
+        self.token_emb = Embed(cfg.vocab_size + int(add_mask_id), dim, dtype,
+                               pdt)
         self.pos_emb = Embed(cfg.num_img_tokens, dim, dtype, pdt)
+        if cfg.self_cond:
+            # the reference builds it with mult 4 and without the glue
+            self.self_cond_to_init_embed = GEGLUFeedForward(dim, 4, dtype, pdt)
         for i in range(cfg.num_layers):
             self.add_module(f"layers_{i}_attn", CosineAttention(
                 dim, cfg.dim_head, cfg.num_heads, dtype, param_dtype=pdt))
@@ -264,7 +275,8 @@ class MultiViewTransformer(nn.Module):
             self.add_module(f"layers_{i}_ff", GEGLUFeedForward(
                 dim, cfg.ff_mult, dtype, pdt, use_glue=self.use_glue))
         self.final_norm = LayerNormG(dim)
-        self.to_logits = Dense(dim, cfg.vocab_size, False, dtype, pdt)
+        self.to_logits = Dense(dim, cfg.vocab_size if dim_out is None
+                               else dim_out, False, dtype, pdt)
 
     def layer(self, i: int):
         return (getattr(self, f"layers_{i}_attn"),
@@ -311,10 +323,13 @@ class MultiViewTransformer(nn.Module):
     def forward(self, ids: torch.Tensor, cond_ids: torch.Tensor,
                 intrinsics_inv: torch.Tensor, extrinsics_inv: torch.Tensor,
                 cond_keep: Optional[torch.Tensor] = None,
+                self_cond_embed: Optional[torch.Tensor] = None,
                 cache: Optional[dict] = None) -> TransformerOutput:
-        """ids: (b, cam, hw); cond_ids: (b, nc); cond_keep: (b,) or None.
-        `cache` (from `build_cache`) skips the step-invariant work; a
-        cache is built from these very inputs when none is given."""
+        """ids: (b, cam, hw); cond_ids: (b, nc); cond_keep: (b,) or None;
+        self_cond_embed: (b, cam*hw, dim) or None (zeros), read only with
+        `cfg.self_cond`. `cache` (from `build_cache`) skips the
+        step-invariant work; a cache is built from these very inputs when
+        none is given."""
         cfg, dt = self.cfg, self.dtype
         b, cam, hw = ids.shape
         dim = cfg.num_embed
@@ -324,6 +339,10 @@ class MultiViewTransformer(nn.Module):
         if cache["ray"] is not None:
             x = x + cache["ray"].to(dt)
         x = x.reshape(b, cam * hw, dim) + self.pos_emb.table()[None]
+        if cfg.self_cond:
+            sc = (torch.zeros_like(x) if self_cond_embed is None
+                  else self_cond_embed.to(dt))
+            x = x + self.self_cond_to_init_embed(sc)
 
         if self.use_glue:
             # delta chaining: each block takes (stream, previous block's

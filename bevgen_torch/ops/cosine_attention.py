@@ -153,16 +153,19 @@ def cosine_attention_cuda(q, k, v, null_kv, q_scale, k_scale,
                            f"error {err} at B={B} H={H} N={N} M={M} D={D}")
     cosine_attention_cuda.launches += 1
     cosine_attention_cuda.launches_by_shape[(N, M)] += 1
+    cosine_attention_cuda.launches_by_batch_shape[(B, N, M)] += 1
     return (out, lse) if return_lse else out
 
 
 cosine_attention_cuda.launches = 0
 cosine_attention_cuda.launches_by_shape = Counter()
+cosine_attention_cuda.launches_by_batch_shape = Counter()
 
 
 def reset_launch_counts() -> None:
     cosine_attention_cuda.launches = 0
     cosine_attention_cuda.launches_by_shape.clear()
+    cosine_attention_cuda.launches_by_batch_shape.clear()
 
 
 def _forward(q, k, v, null_kv, q_scale, k_scale, bias, keep, sm_scale,

@@ -1,7 +1,7 @@
 """End-to-end generation pipeline: BEV raster -> tokens -> images.
 
 Port of `bevgen_tpu/pipelines/generate.py`: BEV VQ-VAE encode -> the
-MaskGit decode (18 steps on the shipped presets, with the self-critic) ->
+MaskGit decode (18 steps on the shipped presets, with its critic) ->
 RGB VQ-GAN decode. The three models are submodules of one `nn.Module`
 that holds the weights; `core/convert.py` loads a JAX parameter tree into
 it and `init_params` fills it with seeded random weights.
@@ -88,16 +88,21 @@ class BEVGenPipeline(Stage1Pipeline):
     def generate_fn(self, segmentation, intrinsics_inv, extrinsics_inv,
                     generator: Optional[torch.Generator] = None,
                     init_ids: Optional[torch.Tensor] = None,
-                    force_not_use_token_critic: bool = False
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    force_not_use_token_critic: bool = False,
+                    return_trajectory: bool = False
+                    ) -> Tuple[torch.Tensor, ...]:
         """BEV raster in, camera images out: (images (b, cam, H, W, 3),
-        ids (b, cam, h, w)). Inputs may be numpy arrays or tensors; they
-        are moved to the pipeline's device. `generator` (on that device)
-        drives the gumbel and critic noise."""
+        ids (b, cam, h, w)), and with return_trajectory the (T, b, cam, hw)
+        ids after every decode step as a third entry. Inputs may be numpy
+        arrays or tensors; they are moved to the pipeline's device.
+        `generator` (on that device) drives the gumbel and critic noise."""
         seg, ii, ei = self.as_inputs(segmentation, intrinsics_inv,
                                      extrinsics_inv)
         cond_ids = self.encode_bev(seg)
-        ids = maskgit_generate(
+        res = maskgit_generate(
             self.maskgit, cond_ids, ii, ei, generator, init_ids=init_ids,
-            force_not_use_token_critic=force_not_use_token_critic)
-        return self.decode_tokens(ids), ids
+            force_not_use_token_critic=force_not_use_token_critic,
+            return_trajectory=return_trajectory)
+        ids, traj = res if return_trajectory else (res, None)
+        images = self.decode_tokens(ids)
+        return (images, ids, traj) if return_trajectory else (images, ids)

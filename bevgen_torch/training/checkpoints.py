@@ -193,8 +193,9 @@ def load_weights(path: str, pipeline: nn.Module) -> str:
     reference reads its example tree (:185): only a pipeline that holds the
     module takes them. A converted tree is loaded by
     `core/convert.py:load_jax_params`, which raises KeyError naming any leaf
-    the pipeline cannot hold (a TokenCritic, `self_cond`) and any parameter
-    the checkpoint leaves unset."""
+    the pipeline cannot hold (a TokenCritic's, or `self_cond_to_init_embed`'s
+    for a pipeline built without them) and any parameter the checkpoint
+    leaves unset."""
     from bevgen_torch.core import checkpoint as ckpt_io
     from bevgen_torch.core.convert import export_jax_params, load_jax_params
     p = Path(path)

@@ -133,9 +133,33 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      CLI (`scripts/generate.py`, `ckpt_path=`, another seed) at b=2: the
      parameters equal bit for bit, exactly 980 attention launches, the ids
      those of the seeded pipeline's `generate_fn` on the same batch and
-     generator; then `nuscenes_ar` the same way through `load_weights`: the
-     parameters bit for bit and a b=1 full forward (exactly 24 block-sparse
-     launches) with the seeded model's logits, bit for bit.
+     generator; the same for a pipeline with the TokenCritic and
+     self-conditioning (the CLI given their overrides); then `nuscenes_ar`
+     the same way through `load_weights`: the parameters bit for bit and a
+     b=1 full forward (exactly 24 block-sparse launches) with the seeded
+     model's logits, bit for bit;
+ 27. real classifier-free guidance (`muse.real_cfg`) at
+     `argoverse_muse_7cam`: the cosine-attention kernel against its plain
+     version at the guided b=4 shapes (self; cross with keep [1, 1, 0, 0],
+     the null half seeing only the null column; self with that keep too),
+     with times, SDPA's (an additive -inf mask for the dropped half), the
+     bound and the L2 bytes; one decode step's mixed logits through the
+     kernel and the plain version (cosine, top-1); a b=2 generate: exactly
+     504 launches at batch 4 (18 guided forwards) and 476 at batch 2 (17
+     SelfCritic forwards); images/s, median of five after one warm-up;
+ 28. the TokenCritic (`muse.token_critic`): exactly 980 launches per b=2
+     generate, all at batch 2; with `force_not_use_token_critic` 18 x 28 =
+     504; with real_cfg too, 980, all at batch 4; images/s of each;
+ 29. self-conditioning (`transformer.self_cond`): exactly 980 launches per
+     generate; `return_trajectory` gives (18, 2, 7, 256) ids whose last
+     entry equals the returned ids; a nonzero self_cond_embed changes one
+     step's logits; images/s;
+ 30. the b=8 train step with the TokenCritic and self-conditioning at
+     self_cond_prob 1: exactly 84 forward launches (pre-forward, generator,
+     critic) and 168 backward per step, step s, peak GB under the card's
+     memory; the b=1 gradients kernels vs plain per parameter group (the
+     TokenCritic and the self-conditioning feed-forward as groups of their
+     own); the CE falls on a repeated batch.
 
 Prints the kernels' JSON line, then the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`. Without a CUDA device,
@@ -277,9 +301,11 @@ def bound_ms(B, H, N, M, D, with_bias, keep):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
-def sdpa_call(q, k, v, null_kv, q_scale, k_scale, bias, sm_scale=8.0):
+def sdpa_call(q, k, v, null_kv, q_scale, k_scale, bias, sm_scale=8.0,
+              keep=None):
     """The same function as one call of PyTorch's fused attention, on
-    inputs prepared outside the timed call (null column prepended)."""
+    inputs prepared outside the timed call (null column prepended; a
+    dropped sample's real columns masked with -inf in the additive mask)."""
     import torch
     import torch.nn.functional as F
     from bevgen_torch.ops.cosine_attention import _l2n
@@ -292,6 +318,11 @@ def sdpa_call(q, k, v, null_kv, q_scale, k_scale, bias, sm_scale=8.0):
     mask = None
     if bias is not None:
         mask = F.pad(bias, (1, 0)).to(q.dtype)[None, None].expand(B, H, N, -1)
+    if keep is not None:
+        drop = torch.zeros(B, 1, 1, kh.shape[2], dtype=q.dtype, device=q.device)
+        drop[keep == 0, :, :, 1:] = float("-inf")
+        drop = drop.expand(B, H, N, -1)
+        mask = drop if mask is None else (mask + drop).contiguous()
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                   scale=1.0)
 
@@ -316,8 +347,7 @@ def check_kernel(name, B, H, N, M, D, with_bias, keep, seed, strided=False):
     plain_ms = time_ms(lambda: cosine_attention_reference(
         q.float(), k.float(), v.float(), null_kv, qs, ks, bias, keep_t),
         iters=5)
-    lib_ms = (time_ms(sdpa_call(q, k, v, null_kv, qs, ks, bias))
-              if keep is None else None)
+    lib_ms = time_ms(sdpa_call(q, k, v, null_kv, qs, ks, bias, keep=keep_t))
     bms, bound_by, flops, nbytes = bound_ms(B, H, N, M, D, with_bias, keep)
     ok = finite and max_err <= MAX_ABS_TOL and mean_err <= MEAN_ABS_TOL
     print(f"[kernel] {name}: B={B} H={H} N={N} M={M} D={D} "
@@ -702,10 +732,13 @@ def to_device(batch):
 
 
 def train_phase(cfg):
-    """Phases 8 and 24: the b=8 full-width train step, timed, with its
-    launch counts (the glue kernels' too: 0 with the switch off, 6 x
-    num_layers residual + LayerNorm and 2 x num_layers GEGLU + LayerNorm
-    with it on). Returns (model, stats)."""
+    """Phases 8, 24 and 30: the b=8 full-width train step, timed, with its
+    launch counts: 2 x num_layers row-1 forward launches per forward (the
+    generator's and the critic's; a third, the no-grad self-conditioning
+    pre-forward, with `self_cond` at self_cond_prob 1), 3 row-8 launches for
+    each of the two forwards' attentions, and the glue kernels' (0 with the
+    switch off, 3 x num_layers residual + LayerNorm and num_layers GEGLU +
+    LayerNorm per forward with it on). Returns (model, stats)."""
     import torch
     from bevgen_torch.models.init import init_weights
     from bevgen_torch.models.stage2.maskgit import MaskGit
@@ -716,6 +749,9 @@ def train_phase(cfg):
     from bevgen_torch.training import optim, trainer
     tf = cfg.transformer
     B = TRAIN_BATCH
+    if tf.self_cond and cfg.muse.self_cond_prob not in (0.0, 1.0):
+        raise SystemExit("the launch counts need self_cond_prob 0 or 1")
+    forwards = 2 + int(tf.self_cond and cfg.muse.self_cond_prob == 1.0)
     t0 = time.perf_counter()
     model = MaskGit(tf, cfg.muse, dtype=torch.bfloat16,
                     param_dtype=torch.float32)
@@ -758,7 +794,8 @@ def train_phase(cfg):
     tokens = B * tf.num_cams * tf.num_cam_tokens
     last = rows[-1]
     glue = bool(tf.use_fused_glue)
-    print(f"[train] argoverse_muse_7cam b={B} use_fused_glue={glue}: warm-up "
+    print(f"[train] argoverse_muse_7cam b={B} use_fused_glue={glue} "
+          f"{variant_name(cfg)}: warm-up "
           f"step {warm_s:.3f} s, "
           f"timed {', '.join(f'{t:.4f}' for t in times)} s, median "
           f"{med:.4f} s = {tokens / med:.1f} image tokens/s; peak memory "
@@ -769,12 +806,12 @@ def train_phase(cfg):
           f"{fwd}, backward {n_bwd} {bwd}; residual + LayerNorm {n_res}, "
           f"GEGLU + LayerNorm {n_geglu}", flush=True)
     layers = tf.num_layers
-    if n_fwd != 4 * layers or n_bwd != 3 * 4 * layers:
-        raise SystemExit(f"expected {4 * layers} forward and {12 * layers} "
+    want_fwd, want_bwd = 2 * layers * forwards, 3 * 4 * layers
+    if n_fwd != want_fwd or n_bwd != want_bwd:
+        raise SystemExit(f"expected {want_fwd} forward and {want_bwd} "
                          f"backward kernel launches per step, got {n_fwd} "
                          f"and {n_bwd}")
-    # two forwards per step (generator and critic)
-    want_glue = (2 * 3 * layers, 2 * layers) if glue else (0, 0)
+    want_glue = (forwards * 3 * layers, forwards * layers) if glue else (0, 0)
     if (n_res, n_geglu) != want_glue:
         raise SystemExit(f"expected {want_glue} glue kernel launches per "
                          f"step, got {(n_res, n_geglu)}")
@@ -824,6 +861,8 @@ def grad_group(name: str) -> str:
         return parts[1]
     if parts[1] in ("final_norm", "to_logits"):
         return "head"
+    if parts[1] == "self_cond_to_init_embed":
+        return parts[1]
     if parts[1] == "camera_bias_emb":
         return "camera_bias"
     return "embeddings"
@@ -2319,6 +2358,10 @@ def muse_ref_key(path):
     head = path[0]
     if head in ("token_emb", "cond_token_emb", "pos_emb", "cond_pos_emb"):
         return f"{head}.weight", _same
+    if head == "self_cond_to_init_embed":
+        idx = {"norm_in": 0, "proj_in": 1, "norm_mid": 3, "proj_out": 4}[path[1]]
+        return ((f"{head}.{idx}.gamma", _same) if path[1].startswith("norm")
+                else (f"{head}.{idx}.weight", _linear_to_torch))
     if head == "to_logits":
         return "to_logits.weight", _linear_to_torch
     if head in ("img_embed", "cam_embed"):
@@ -2383,8 +2426,9 @@ def reference_state_dict(tree):
     array in torch's layout) of a serving pipeline's flax-layout tree
     (`core/convert.py:export_jax_params`): the MUSE Net2NetTransformer,
     whose SelfCritic holds `token_critic.net.*` aliases of the transformer
-    (the same arrays) and a `to_pred` head, or the AR one, whose sparse GPT
-    sits at top-level `transformer.*`. The inverse of the port's converters;
+    (the same arrays) and a `to_pred` head, or a separate TokenCritic
+    transformer at `token_critic.*`; or the AR one, whose sparse GPT sits at
+    top-level `transformer.*`. The inverse of the port's converters;
     `tests/test_torch_checkpoint.py` holds it to the JAX package's test
     oracle."""
     out = {}
@@ -2402,12 +2446,18 @@ def reference_state_dict(tree):
         mg = tree["maskgit"]["params"]
         for path, arr in _flat_tree(mg["transformer"]):
             key, fn = muse_ref_key(path)
-            out["maskgit.token_critic.net." + key] = put(
-                "maskgit.transformer." + key, arr, fn)
-        head = mg["critic"]["to_pred"]
-        put("maskgit.token_critic.to_pred.weight", head["kernel"],
-            _linear_to_torch)
-        put("maskgit.token_critic.to_pred.bias", head["bias"], _same)
+            gen = put("maskgit.transformer." + key, arr, fn)
+            if "critic" in mg:
+                out["maskgit.token_critic.net." + key] = gen
+        if "critic" in mg:
+            head = mg["critic"]["to_pred"]
+            put("maskgit.token_critic.to_pred.weight", head["kernel"],
+                _linear_to_torch)
+            put("maskgit.token_critic.to_pred.bias", head["bias"], _same)
+        else:
+            for path, arr in _flat_tree(mg["token_critic"]):
+                key, fn = muse_ref_key(path)
+                put("maskgit.token_critic." + key, arr, fn)
     else:
         for path, arr in _flat_tree(tree["gpt"]["params"]):
             key, fn = gpt_ref_key(path)
@@ -2503,6 +2553,47 @@ def checkpoint_phase(cfg, ar_cfg):
                              "the checkpoint's weights")
         res["muse_launches"] = launches
 
+        # the same with a TokenCritic and self-conditioning: the file holds
+        # a second transformer and the self_cond_to_init_embed weights
+        vcfg = variant_config(cfg, token_critic=True, self_cond=True)
+        path = os.path.join(tmp, "muse_variant.ckpt")
+        pipe_a = BEVGenPipeline.create(vcfg, device="cuda").init_params(seed=A)
+        t0 = time.perf_counter()
+        size = write_reference_ckpt(pipe_a, path)
+        write_s = time.perf_counter() - t0
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        pipe_b, outs = cli.run([
+            "preset=argoverse_muse_7cam", f"batch_size={AR_BATCH}", "fake=1",
+            f"seed={B}", "device=cuda", f"ckpt_path={path}",
+            f"out={os.path.join(tmp, 'out_variant')}", *VARIANT_OVERRIDES])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = ca.cosine_attention_cuda.launches
+        same, n_diff, n_par = params_equal(pipe_a, pipe_b)
+        del pipe_b
+        _, want = pipe_a.generate_fn(
+            batch["segmentation"], batch["intrinsics_inv"],
+            batch["extrinsics_inv"],
+            torch.Generator(device="cuda").manual_seed(B))
+        got = np.load(outs[0])["ids"]
+        agree = float((got == want.cpu().numpy()).mean())
+        print(f"[ckpt] MUSE {variant_name(vcfg)}: reference .ckpt "
+              f"{size / 1e6:.1f} MB written in {write_s:.1f} s; the generate "
+              f"CLI (seed {B}, ckpt_path, {' '.join(VARIANT_OVERRIDES)}) in "
+              f"{cli_s:.1f} s: parameters equal to seed {A}'s bit for bit "
+              f"{same} ({n_diff} of {n_par} differ); {launches} attention "
+              f"launches (expected {expect}); ids identical to the seed-{A} "
+              f"pipeline's generate_fn {agree == 1.0} (agreement "
+              f"{agree:.6f})", flush=True)
+        os.remove(path)
+        del pipe_a
+        torch.cuda.empty_cache()
+        if not same or launches != expect or agree != 1.0:
+            raise SystemExit("the checkpoint-fed TokenCritic + self_cond "
+                             "generate does not serve the checkpoint's weights")
+        res["variant_launches"] = launches
+
         # AR: load_weights at nuscenes_ar, a b=1 full forward
         path = os.path.join(tmp, "ar.ckpt")
         ar_a = ARPipeline.create(ar_cfg, device="cuda").init_params(seed=A)
@@ -2542,6 +2633,259 @@ def checkpoint_phase(cfg, ar_cfg):
     print(f"[ckpt] phase 26 in {time.perf_counter() - t_phase:.1f} s; "
           f"temporary files deleted", flush=True)
     return res
+
+
+# Phases 27-30: the MUSE model variants at `argoverse_muse_7cam` full width,
+# seeded weights (seed 0, as phase 4), b=2 serving and b=8 training. The
+# variants' overrides, as a user passes them to the CLIs:
+VARIANT_OVERRIDES = ["muse.token_critic=true", "muse.self_token_critic=false",
+                     "transformer.self_cond=true"]
+# each variant's generates: one warm-up, then this many timed
+VARIANT_TIMED = 5
+
+
+def variant_config(cfg, real_cfg=False, token_critic=False, self_cond=False,
+                   **muse_kw):
+    """`cfg` with real classifier-free guidance, the TokenCritic in place
+    of the SelfCritic, and/or self-conditioning."""
+    muse = dataclasses.replace(cfg.muse, real_cfg=real_cfg, **muse_kw)
+    if token_critic:
+        muse = dataclasses.replace(muse, token_critic=True,
+                                   self_token_critic=False)
+    return dataclasses.replace(cfg, muse=muse, transformer=(
+        cfg.transformer.replace(self_cond=True) if self_cond
+        else cfg.transformer))
+
+
+def variant_name(cfg):
+    m, tf = cfg.muse, cfg.transformer
+    parts = [name for name, on in (("real_cfg", m.real_cfg),
+                                   ("token_critic", m.token_critic),
+                                   ("self_cond", tf.self_cond)) if on]
+    return "+".join(parts) or "default"
+
+
+def variant_generates(pipe, inputs, expect_by_batch, **kw):
+    """Phases 27-29: one warm-up generate and VARIANT_TIMED timed ones
+    (host clock around a synchronised `generate_fn`, b=2); the row-1
+    launches of the first timed one, by batch, must be `expect_by_batch`
+    ({batch: launches}). Returns the stats."""
+    import torch
+    from bevgen_torch.ops import cosine_attention as ca
+    cfg, tf = pipe.config, pipe.config.transformer
+    B = inputs[0].shape[0]
+
+    def generate(seed):
+        return pipe.generate_fn(*inputs, torch.Generator(
+            device="cuda").manual_seed(seed), **kw)
+
+    t0 = time.perf_counter()
+    generate(0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    times = []
+    for i in range(VARIANT_TIMED):
+        if i == 0:
+            ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = generate(i + 1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            images, ids = out[:2]
+            calls = dict(ca.cosine_attention_cuda.launches_by_batch_shape)
+    by_batch = {}
+    for (b, _, _), n in calls.items():
+        by_batch[b] = by_batch.get(b, 0) + n
+    med = sorted(times)[len(times) // 2]
+    n_img = B * tf.num_cams
+    flags = "".join(f" {k}={v}" for k, v in kw.items())
+    print(f"[variant] {variant_name(cfg)}{flags} generate_fn b={B}: warm-up "
+          f"{warm_s:.3f} s, timed {', '.join(f'{t:.4f}' for t in times)} s, "
+          f"median {med:.4f} s = {n_img / med:.3f} images/s; row-1 launches "
+          f"in the first timed run by batch {by_batch} (expected "
+          f"{expect_by_batch}), by (batch, N, M) {calls}", flush=True)
+    if by_batch != expect_by_batch:
+        raise SystemExit(f"{variant_name(cfg)}: expected row-1 launches by "
+                         f"batch {expect_by_batch}, got {by_batch}")
+    if not torch.isfinite(images).all():
+        raise SystemExit(f"{variant_name(cfg)}: non-finite images")
+    if ids.min() < 0 or ids.max() >= tf.vocab_size:
+        raise SystemExit(f"{variant_name(cfg)}: ids out of range")
+    return {"images_per_s": n_img / med, "median_s": med, "calls": calls,
+            "launches": sum(by_batch.values())}
+
+
+def variant_inputs(cfg, B=2):
+    from bevgen_torch.data.fake import fake_batch
+    batch = fake_batch(cfg, batch_size=B, seed=0)
+    return (batch["segmentation"], batch["intrinsics_inv"],
+            batch["extrinsics_inv"])
+
+
+def swap_core(pipe, core):
+    from bevgen_torch.models.stage2.transformer import CosineAttention
+    for m in pipe.modules():
+        if isinstance(m, CosineAttention):
+            m.core = core
+
+
+def real_cfg_phase(cfg):
+    """Phase 27: real classifier-free guidance. Row 1 against its plain
+    twin at the guided b=4 shapes (self without keep, as the path runs it,
+    and with keep [1, 1, 0, 0]; cross with keep [1, 1, 0, 0]); one decode
+    step's mixed logits through the kernel and through the plain version;
+    a full generate: 18 guided forwards at b=4 and 17 SelfCritic forwards
+    at b=2, so 504 + 476 = 980 row-1 launches; images/s."""
+    import torch
+    from bevgen_torch.models.stage2 import maskgit as mg
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.pipelines.generate import BEVGenPipeline
+    tf = cfg.transformer
+    H, D, N, NC = tf.num_heads, tf.dim_head, tf.num_img_tokens, tf.num_cond_tokens
+    keep = [1, 1, 0, 0]
+    stats = {
+        "self": check_kernel("cfg self b4", 4, H, N, N, D, True, None, 40),
+        "cross": check_kernel("cfg cross b4 keep", 4, H, N, NC, D, True, keep,
+                              41),
+    }
+    check_kernel("cfg self b4 keep", 4, H, N, N, D, True, keep, 42)
+    vcfg = variant_config(cfg, real_cfg=True)
+    pipe = BEVGenPipeline.create(vcfg, device="cuda").init_params(seed=0)
+    inputs = variant_inputs(vcfg)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ids = torch.randint(0, tf.vocab_size + 1, (2, tf.num_cams,
+                                               tf.num_cam_tokens),
+                        generator=g, device="cuda")
+    with torch.inference_mode():
+        seg, ii, ei = (torch.as_tensor(a, device="cuda") for a in inputs)
+        cond_ids = pipe.encode_bev(seg)
+        gen_cache, _ = mg.decode_caches(pipe.maskgit, cond_ids, ii, ei)
+        ca.reset_launch_counts()
+        lk, _ = mg.cfg_logits(pipe.maskgit, ids, cond_ids, ii, ei,
+                              vcfg.muse.cond_scale, real_cfg=True,
+                              cache=gen_cache)
+        step_calls = dict(ca.cosine_attention_cuda.launches_by_batch_shape)
+        swap_core(pipe, ca.cosine_attention_reference)
+        try:
+            lp, _ = mg.cfg_logits(pipe.maskgit, ids, cond_ids, ii, ei,
+                                  vcfg.muse.cond_scale, real_cfg=True,
+                                  cache=gen_cache)
+        finally:
+            swap_core(pipe, ca.cosine_attention)
+    cos, top1 = logit_agreement(lk, lp)
+    print(f"[variant] real_cfg: one decode step's mixed logits (b=2 as one "
+          f"b=4 forward, launches {step_calls}), kernel vs plain attention: "
+          f"cosine {cos:.6f} (min {LOGIT_COS_MIN}), top-1 agreement "
+          f"{top1:.4f} (min {TOP1_AGREE_MIN}), max abs diff "
+          f"{(lk - lp).abs().max().item():.4f}", flush=True)
+    if not (cos >= LOGIT_COS_MIN and top1 >= TOP1_AGREE_MIN):
+        raise SystemExit("real_cfg logits disagree between the kernel and "
+                         "the plain version")
+    del gen_cache, lk, lp
+    steps, layers = vcfg.muse.sample_iterations, tf.num_layers
+    e2e = variant_generates(pipe, inputs, {4: steps * 2 * layers,
+                                           2: (steps - 1) * 2 * layers})
+    del pipe
+    return {"kernels": stats, "e2e": e2e}
+
+
+def token_critic_phase(cfg):
+    """Phase 28: the TokenCritic. A generate makes 18 generator and 17
+    TokenCritic forwards at b=2 (980 row-1 launches); with real_cfg all 35
+    run guided at b=4 (980); `force_not_use_token_critic` drops the critic
+    forwards (18 x 28 = 504). Images/s of each."""
+    from bevgen_torch.pipelines.generate import BEVGenPipeline
+    tf = cfg.transformer
+    steps, layers = cfg.muse.sample_iterations, tf.num_layers
+    total = (2 * steps - 1) * 2 * layers
+    vcfg = variant_config(cfg, token_critic=True)
+    pipe = BEVGenPipeline.create(vcfg, device="cuda").init_params(seed=0)
+    n_params = sum(p.numel() for p in pipe.maskgit.token_critic.parameters())
+    print(f"[variant] token_critic: a second transformer of "
+          f"{n_params / 1e6:.1f} M params with a 1-wide head", flush=True)
+    inputs = variant_inputs(vcfg)
+    res = {"token_critic": variant_generates(pipe, inputs, {2: total}),
+           "forced": variant_generates(pipe, inputs, {2: steps * 2 * layers},
+                                       force_not_use_token_critic=True)}
+    gcfg = variant_config(cfg, real_cfg=True, token_critic=True)
+    guided = BEVGenPipeline.create(gcfg, device="cuda")
+    guided.load_state_dict(pipe.state_dict())
+    del pipe
+    res["token_critic+real_cfg"] = variant_generates(guided, inputs,
+                                                     {4: total})
+    return res
+
+
+def self_cond_phase(cfg):
+    """Phase 29: self-conditioning and the trajectory. A generate makes 980
+    row-1 launches; `return_trajectory` gives (18, 2, 7, 256) ids whose last
+    entry equals the returned ids; one forward with a nonzero
+    self_cond_embed differs from one on zeros. Images/s."""
+    import torch
+    from bevgen_torch.models.stage2 import maskgit as mg
+    from bevgen_torch.pipelines.generate import BEVGenPipeline
+    tf = cfg.transformer
+    steps, layers = cfg.muse.sample_iterations, tf.num_layers
+    vcfg = variant_config(cfg, self_cond=True)
+    pipe = BEVGenPipeline.create(vcfg, device="cuda").init_params(seed=0)
+    inputs = variant_inputs(vcfg)
+    res = variant_generates(pipe, inputs, {2: (2 * steps - 1) * 2 * layers})
+    images, ids, traj = pipe.generate_fn(
+        *inputs, torch.Generator(device="cuda").manual_seed(1),
+        return_trajectory=True)
+    want = (steps, 2, tf.num_cams, tf.num_cam_tokens)
+    last_ok = torch.equal(traj[-1], ids.reshape(traj.shape[1:]))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    fids = torch.randint(0, tf.vocab_size + 1, want[1:], generator=g,
+                         device="cuda")
+    sc = torch.randn(2, tf.num_img_tokens, tf.num_embed, generator=g,
+                     device="cuda")
+    with torch.inference_mode():
+        seg, ii, ei = (torch.as_tensor(a, device="cuda") for a in inputs)
+        cond_ids = pipe.encode_bev(seg)
+        cache, _ = mg.decode_caches(pipe.maskgit, cond_ids, ii, ei)
+        l0, _ = mg.cfg_logits(pipe.maskgit, fids, cond_ids, ii, ei,
+                              vcfg.muse.cond_scale,
+                              self_cond_embed=torch.zeros_like(sc),
+                              cache=cache)
+        l1, _ = mg.cfg_logits(pipe.maskgit, fids, cond_ids, ii, ei,
+                              vcfg.muse.cond_scale, self_cond_embed=sc,
+                              cache=cache)
+    moved = (l1 - l0).abs().max().item()
+    print(f"[variant] self_cond: trajectory {tuple(traj.shape)} (expected "
+          f"{want}), last entry equal to the returned ids {last_ok}; one "
+          f"step's logits with a unit-normal self_cond_embed against zeros: "
+          f"max abs diff {moved:.4f}", flush=True)
+    if tuple(traj.shape) != want or not last_ok:
+        raise SystemExit("return_trajectory gave a wrong trajectory")
+    if not moved > 1e-3:
+        raise SystemExit("self-conditioning does not change the logits")
+    del pipe
+    return res
+
+
+def variant_train_phase(cfg):
+    """Phase 30: the b=8 train step with the TokenCritic and
+    self-conditioning at self_cond_prob 1 (the pre-forward always runs):
+    84 row-1 forward launches (28 pre-forward, 28 generator, 28 critic) and
+    168 row-8 launches per step, step s and peak GB (under the card's
+    memory); the b=1 gradient of each parameter group (`token_critic` and
+    `self_cond_to_init_embed` their own), kernels vs plain; the CE falls on
+    a repeated batch."""
+    import torch
+    vcfg = variant_config(cfg, token_critic=True, self_cond=True,
+                          self_cond_prob=1.0)
+    model, stats = train_phase(vcfg)
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print(f"[variant] train step peak {stats['peak_gb']:.2f} GB of the card's "
+          f"{card_gb:.2f} GB", flush=True)
+    if not stats["peak_gb"] < card_gb:
+        raise SystemExit("the variant train step does not fit the card")
+    model_grads_phase(model, vcfg)
+    ce_falls_phase(model, vcfg)
+    del model
+    return stats
 
 
 def main() -> int:
@@ -2820,6 +3164,14 @@ def main() -> int:
     # model fed from reference-format files
     timed_phase(26, checkpoint_phase, cfg, ar_cfg)
 
+    # 27-30. the MUSE model variants: real classifier-free guidance, the
+    # TokenCritic, self-conditioning and the trajectory, the variant train
+    # step
+    cfg_res = timed_phase(27, real_cfg_phase, cfg)
+    timed_phase(28, token_critic_phase, cfg)
+    timed_phase(29, self_cond_phase, cfg)
+    variant_train = timed_phase(30, variant_train_phase, cfg)
+
     kernels = []
     for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
         kernels.append({
@@ -2836,6 +3188,30 @@ def main() -> int:
             "name": f"attention_bwd[train {shape} b{TB} {n}x{m}, 3 kernels]",
             "route": "cuda", "source": ab.SOURCE, "replaces": ab.REPLACES,
             "launches": train["bwd"].get((n, m), 0), **bwd_stats[shape]})
+    # the variants' paths at the shapes above: the guided b=4 serving
+    # forwards (phase 27's own checks), and the TokenCritic + self_cond b=8
+    # train step (phase 6's checks at the same shapes)
+    for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
+        kernels.append({
+            "name": f"cosine_attention_fwd[real_cfg serve {shape} b4 {n}x{m}"
+                    f"{' keep 1100' if shape == 'cross' else ''}]",
+            "route": "cuda", "source": ca.SOURCE, "replaces": ca.REPLACES,
+            "launches": cfg_res["e2e"]["calls"].get((4, n, m), 0),
+            **cfg_res["kernels"][shape]})
+    for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
+        kernels.append({
+            "name": f"cosine_attention_fwd[token_critic+self_cond train "
+                    f"{shape} b{TB} {n}x{m}]",
+            "route": "cuda", "source": ca.SOURCE, "replaces": ca.REPLACES,
+            "launches": variant_train["fwd"].get((n, m), 0),
+            **train_fwd_stats[shape]})
+    for shape, (n, m) in (("self", (N, N + 1)), ("cross", (N, NC + 1))):
+        kernels.append({
+            "name": f"attention_bwd[token_critic+self_cond train {shape} "
+                    f"b{TB} {n}x{m}, 3 kernels]",
+            "route": "cuda", "source": ab.SOURCE, "replaces": ab.REPLACES,
+            "launches": variant_train["bwd"].get((n, m), 0),
+            **bwd_stats[shape]})
     kernels.append({
         "name": f"bias_attention_fwd[op entry, self b{TB} {N}x{N + 1}]",
         "route": "cuda", "source": ba.SOURCE, "replaces": ba.REPLACES,

@@ -30,7 +30,8 @@ from bevgen_torch.data.fake import fake_batch
 from bevgen_torch.training import checkpoints as ttc
 from test_checkpoint import _muse_torch_key, _stage1_torch_key
 from torch_parity import (GREEDY, JaxPipeline, TorchPipeline, _jax_ar_pipeline,
-                          ar_tiny_configs, ar_tiny_tree, tiny_configs, tiny_tree)
+                          ar_tiny_configs, ar_tiny_tree, tiny_configs, tiny_tree,
+                          variant_configs, variant_tree)
 
 SEED_A, SEED_B = 3, 4
 IMG_TOL = 1e-4   # fp32 convolutions summed in another order
@@ -81,6 +82,21 @@ def _gpt_torch_key(path):
     return f"blocks.{i}.{owner}.bias", ident
 
 
+_SELF_COND_IDX = {"norm_in": "0", "proj_in": "1", "norm_mid": "3",
+                  "proj_out": "4"}
+
+
+def _muse_key(path):
+    """`_muse_torch_key`, and the `self_cond_to_init_embed` GEGLU's keys
+    (muse_maskgit_pytorch.py:241), which that oracle does not map."""
+    if path[0] != "self_cond_to_init_embed":
+        return _muse_torch_key(path)
+    key = f"self_cond_to_init_embed.{_SELF_COND_IDX[path[1]]}"
+    if path[-1] == "scale":
+        return f"{key}.gamma", lambda a: a
+    return f"{key}.weight", lambda a: a.T
+
+
 def _torch_state(tree, keymap, prefix=""):
     out = {}
     for path, val in _flat(tree):
@@ -92,14 +108,15 @@ def _torch_state(tree, keymap, prefix=""):
 def muse_state(tree, critic="self"):
     """A reference MUSE Net2NetTransformer state dict of a pipeline tree:
     the SelfCritic's `net.*` aliases and `to_pred` head (critic="self"), or
-    a separate TokenCritic transformer (critic="token")."""
+    a separate TokenCritic transformer (critic="token": the tree's
+    `token_critic`, or a copy of the generator's when it has none)."""
     mg = tree["maskgit"]["params"]
     state = {}
     state.update(_torch_state(tree["first_stage"]["params"], _stage1_torch_key,
                               "first_stage_model."))
     state.update(_torch_state(tree["cond_stage"]["params"], _stage1_torch_key,
                               "cond_stage_model."))
-    tf = _torch_state(mg["transformer"], _muse_torch_key)
+    tf = _torch_state(mg["transformer"], _muse_key)
     state.update({f"maskgit.transformer.{k}": v for k, v in tf.items()})
     if critic == "self":
         state.update({f"maskgit.token_critic.net.{k}": v for k, v in tf.items()})
@@ -107,7 +124,9 @@ def muse_state(tree, critic="self"):
         state["maskgit.token_critic.to_pred.weight"] = np.asarray(head["kernel"]).T
         state["maskgit.token_critic.to_pred.bias"] = np.asarray(head["bias"])
     else:
-        state.update({f"maskgit.token_critic.{k}": v for k, v in tf.items()})
+        crit = (_torch_state(mg["token_critic"], _muse_key)
+                if "token_critic" in mg else tf)
+        state.update({f"maskgit.token_critic.{k}": v for k, v in crit.items()})
     return state
 
 
@@ -397,8 +416,8 @@ def test_unknown_family_raises(tmp_path):
 
 
 def test_token_critic_checkpoint_raises_naming_it(tmp_path):
-    """A separate TokenCritic (queue item: not in the port yet) is not
-    dropped: the load names its leaves."""
+    """A separate TokenCritic is not dropped by a pipeline built without one
+    (the SelfCritic's): the load names its leaves."""
     path = save_lightning(tmp_path / "tc.ckpt",
                           muse_state(tiny_tree(SEED_A), critic="token"))
     with pytest.raises(KeyError, match="token_critic"):
@@ -408,7 +427,7 @@ def test_token_critic_checkpoint_raises_naming_it(tmp_path):
 def test_self_cond_leaves_raise_naming_them(tmp_path):
     """The `self_cond_to_init_embed.*` keys of a reference checkpoint are
     converted only for a pipeline that holds the module, as in the
-    reference: the port's pipeline does not (self_cond is not ported), so
+    reference: a pipeline built without `self_cond` does not, so
     load_weights leaves them out; converted, they raise, named."""
     tree = tiny_tree(SEED_A)
     state = muse_state(tree)
@@ -420,6 +439,38 @@ def test_self_cond_leaves_raise_naming_them(tmp_path):
         load_jax_params(tp, tckpt.convert_net2net(state, self_cond=True))
     path = save_lightning(tmp_path / "sc.ckpt", state)
     assert ttc.load_weights(path, tp) == "muse"
+
+
+@pytest.mark.parametrize("variant", ["token_critic", "self_cond",
+                                     "self_cond+token_critic"])
+def test_variant_checkpoint_generates_as_jax(variant, tmp_path):
+    """A reference checkpoint with a separate TokenCritic, or with the
+    `self_cond_to_init_embed` weights, loads into a pipeline built with that
+    module and gives the JAX pipeline's greedy ids from the same file."""
+    tree = variant_tree(variant, SEED_A)
+    critic = "token" if "token_critic" in tree["maskgit"]["params"] else "self"
+    path = save_lightning(tmp_path / "v.ckpt", muse_state(tree, critic),
+                          "_forward_module.")
+    jc, tc = variant_configs(variant, greedy=True)
+    jp = JaxPipeline.create(jc, dtype=jnp.float32)
+    jtree = jtc.load_weights(path, jax.eval_shape(jp.init_params,
+                                                  jax.random.PRNGKey(0)))
+    tp = TorchPipeline.create(tc, device="cpu",
+                              dtype=torch.float32).init_params(SEED_B)
+    before = _snapshot(tp)
+    assert ttc.load_weights(path, tp) == "muse"
+    _assert_loaded(tp, before, jtree)
+    batch = fake_batch(tp.config, 2, seed=0)
+    seg, ii, ei = (batch[k] for k in ("segmentation", "intrinsics_inv",
+                                      "extrinsics_inv"))
+    want_img, want_ids = jax.jit(jp.generate_fn)(
+        jax.tree_util.tree_map(jnp.asarray, jtree), jnp.asarray(seg),
+        jnp.asarray(ii), jnp.asarray(ei), jax.random.PRNGKey(0))
+    got_img, got_ids = tp.generate_fn(seg, ii, ei,
+                                      torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
+    np.testing.assert_allclose(got_img.numpy(), np.asarray(want_img),
+                               atol=IMG_TOL, rtol=0)
 
 
 def test_muse_checkpoint_into_ar_pipeline_raises(muse_ckpt):
@@ -542,11 +593,16 @@ def test_cli_ar_and_ema(tmp_path, capsys):
 
 # ---- chip_smoke.py's inverse against the oracle ------------------------------
 
-@pytest.mark.parametrize("family", ["muse", "ar"])
+@pytest.mark.parametrize("family", ["muse", "ar", "token_critic",
+                                    "self_cond+token_critic"])
 def test_chip_smoke_reference_state_dict_matches_oracle(family):
+    """The writer against the oracle: the MUSE and AR pipelines, and the
+    MUSE variants phase 26 writes (a TokenCritic, self-conditioning)."""
     import chip_smoke
-    tree = tiny_tree(SEED_A) if family == "muse" else ar_tiny_tree(SEED_A)
-    want = muse_state(tree) if family == "muse" else ar_state(tree)
+    tree = {"muse": tiny_tree, "ar": ar_tiny_tree}.get(
+        family, lambda seed: variant_tree(family, seed))(SEED_A)
+    critic = "token" if family.endswith("token_critic") else "self"
+    want = ar_state(tree) if family == "ar" else muse_state(tree, critic)
     got = chip_smoke.reference_state_dict(tree)
     assert got.keys() == want.keys(), sorted(set(got) ^ set(want))[:8]
     for k in want:
@@ -554,3 +610,6 @@ def test_chip_smoke_reference_state_dict_matches_oracle(family):
     if family == "muse":   # the SelfCritic aliases are the same arrays
         k = next(k for k in got if k.startswith("maskgit.transformer."))
         assert got[k] is got[k.replace("transformer.", "token_critic.net.", 1)]
+    if family == "self_cond+token_critic":
+        assert any(k.startswith("maskgit.token_critic.self_cond_to_init_embed.")
+                   for k in got)

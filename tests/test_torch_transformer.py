@@ -54,7 +54,8 @@ def test_decode_cache_matches_jax():
                             jnp.asarray(ii), jnp.asarray(ei),
                             method=JaxMaskGit.build_cache)["gen"]
     with torch.no_grad():
-        got = tp.maskgit.build_cache(*[torch.from_numpy(a) for a in (cond, ii, ei)])
+        got = tp.maskgit.build_cache(
+            *[torch.from_numpy(a) for a in (cond, ii, ei)])["gen"]
     for key in ("ray", "context", "self_bias", "cross_bias"):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    atol=1e-5, rtol=0, err_msg=key)

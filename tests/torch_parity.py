@@ -94,6 +94,50 @@ def tiny_pipelines(greedy: bool = False, seed: int = 0, glue: bool = False):
     return jp, params, tp
 
 
+# ---- the MUSE model variants -------------------------------------------------
+
+# (muse fields, transformer fields) of each variant beside the default
+# (the SelfCritic, cond-only serving, no self-conditioning)
+VARIANTS = {
+    "real_cfg": ({"real_cfg": True}, {}),
+    "token_critic": ({"self_token_critic": False, "token_critic": True}, {}),
+    "token_critic+real_cfg": ({"self_token_critic": False,
+                               "token_critic": True, "real_cfg": True}, {}),
+    "self_cond": ({}, {"self_cond": True}),
+    "self_cond+token_critic": ({"self_token_critic": False,
+                                "token_critic": True}, {"self_cond": True}),
+}
+
+
+def variant_configs(variant: str, greedy: bool = False):
+    """(JAX, port) tiny_test configs of one of `VARIANTS`."""
+    muse_kw, tf_kw = VARIANTS[variant]
+    return tuple(dataclasses.replace(
+        c, muse=dataclasses.replace(c.muse, **muse_kw),
+        transformer=c.transformer.replace(**tf_kw))
+        for c in tiny_configs(greedy))
+
+
+@functools.lru_cache(maxsize=8)
+def variant_tree(variant: str, seed: int = 0):
+    """A numpy weight tree in the layout of the variant's JAX pipeline."""
+    jp = JaxPipeline.create(variant_configs(variant)[0], dtype=jnp.float32)
+    return random_tree(jax.eval_shape(jp.init_params, jax.random.PRNGKey(0)),
+                       seed)
+
+
+@functools.lru_cache(maxsize=8)
+def variant_pipelines(variant: str, greedy: bool = False, seed: int = 0):
+    """(jax_pipe, jax_params, torch_pipe) of one of `VARIANTS` at tiny_test,
+    fp32, CPU, with the same weights."""
+    jc, tc = variant_configs(variant, greedy)
+    tree = variant_tree(variant, seed)
+    tp = load_jax_params(TorchPipeline.create(tc, device="cpu",
+                                              dtype=torch.float32), tree)
+    return (JaxPipeline.create(jc, dtype=jnp.float32),
+            jax.tree_util.tree_map(jnp.asarray, tree), tp)
+
+
 # ---- comparing parameter trees ----------------------------------------------
 
 def assert_trees_close(got, want, rtol, atol_min=1e-6, what=""):
