@@ -64,8 +64,8 @@ class Stage1Config:
     embed_dim: int = 256
     beta: float = 0.25
     legacy_beta: bool = True
-    # geometric embedding on the encoder features (off in shipped configs;
-    # not ported yet — VQModel raises when it is set)
+    # camera-ray geometric embedding added to the encoder features (off in
+    # the shipped configs); cam_emd_dim must equal z_channels when it is on
     geometric_embedding: bool = False
     cam_emd_dim: int = 256
     cam_res: Tuple[int, int] = (256, 256)
@@ -247,6 +247,20 @@ def argoverse_muse_config() -> PipelineConfig:
     )
 
 
+def argoverse_rect_config() -> PipelineConfig:
+    """Rectangular-crop Argoverse variant: 256x336 images -> 16x21
+    latents, 3 front cameras."""
+    cfg = argoverse_muse_config()
+    return dataclasses.replace(
+        cfg,
+        transformer=cfg.transformer.replace(
+            cam_res=(256, 336), cam_latent_res=(16, 21)),
+        first_stage=dataclasses.replace(
+            cfg.first_stage, cam_res=(256, 336), cam_latent_res=(16, 21),
+            geometric_embedding=False),
+    )
+
+
 def argoverse_muse_7cam_config() -> PipelineConfig:
     """argoverse_muse scaled to the full 7-camera AV2 ring."""
     cfg = argoverse_muse_config()
@@ -313,6 +327,7 @@ def nuscenes_ar_tpu_config() -> PipelineConfig:
 
 PRESETS = {
     "argoverse_muse": argoverse_muse_config,
+    "argoverse_muse_rect": argoverse_rect_config,
     "argoverse_muse_7cam": argoverse_muse_7cam_config,
     "nuscenes_ar": nuscenes_ar_config,
     "nuscenes_ar_tpu": nuscenes_ar_tpu_config,

@@ -1,6 +1,8 @@
-"""Pre-tokenised stage-2 training data: the port's own copy of
-`bevgen_tpu/data/tokens.py:TokenDataset` (numpy only), and a torch loader
-around it.
+"""Pre-tokenised stage-2 training data: tokenize a dataset once with the
+stage-1 encoders (`tokenize_dataset`), then train stage 2 from the shards.
+The port's own copy of `bevgen_tpu/data/tokens.py` (the same shards for the
+same batches and weights, read by the same `TokenDataset`), and a torch
+loader around the reader.
 
 Shard layout (one npz per shard, `shard_*.npz`):
   tokens         (n, cam, hw)   int16   stage-1 codebook indices
@@ -12,10 +14,56 @@ Shard layout (one npz per shard, `shard_*.npz`):
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Iterator
+from typing import Dict, Iterable, Iterator, List
 
 import numpy as np
 import torch
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def tokenize_dataset(pipe, loader: Iterable[Dict], out_dir: str,
+                     shard_size: int = 1024) -> int:
+    """Run the stage-1 encoders of `pipe` (a serving pipeline) over the
+    batches of `loader` (numpy, or tensors from `datamodule.device_prefetch`)
+    and write `shard_XXXXX.npz` files of about `shard_size` samples into
+    `out_dir`. Returns the number of samples."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    buf: List[Dict[str, np.ndarray]] = []
+    shard_idx = 0
+
+    def flush():
+        nonlocal buf, shard_idx
+        if not buf:
+            return
+        merged = {k: np.concatenate([b[k] for b in buf]) for k in buf[0]
+                  if k != "sample_token"}
+        tokens_list = sum((list(b["sample_token"]) for b in buf), [])
+        np.savez_compressed(out / f"shard_{shard_idx:05d}.npz",
+                            sample_token=np.asarray(tokens_list), **merged)
+        shard_idx += 1
+        buf = []
+
+    n = 0
+    for batch in loader:
+        toks = pipe.encode_images(batch["image"])
+        (seg,) = pipe.as_inputs(batch["segmentation"])
+        cond = pipe.encode_bev(seg)
+        buf.append({
+            "tokens": _host(toks).astype(np.int16),
+            "cond_ids": _host(cond).astype(np.int16),
+            "intrinsics_inv": _host(batch["intrinsics_inv"]),
+            "extrinsics_inv": _host(batch["extrinsics_inv"]),
+            "sample_token": batch["sample_token"],
+        })
+        n += len(batch["sample_token"])
+        if sum(len(b["sample_token"]) for b in buf) >= shard_size:
+            flush()
+    flush()
+    return n
 
 
 class TokenDataset:

@@ -41,8 +41,8 @@ def conv3x3(cin: int, cout: int, dtype, stride: int = 1,
     return nn.Conv2d(cin, cout, 3, stride=stride, padding=padding, dtype=dtype)
 
 
-def conv1x1(cin: int, cout: int, dtype) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 1, dtype=dtype)
+def conv1x1(cin: int, cout: int, dtype, bias: bool = True) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 1, bias=bias, dtype=dtype)
 
 
 class ResnetBlock(nn.Module):

@@ -68,6 +68,18 @@ class Stage1Pipeline(nn.Module):
         return enc.indices.reshape(segmentation.shape[0], -1)
 
     @torch.inference_mode()
+    def encode_images(self, images) -> torch.Tensor:
+        """(b, cam, H, W, 3) camera images (numpy or tensor) -> (b, cam, hw)
+        int64 tokens. Like the reference, it passes no camera matrices, so a
+        first stage with the geometric embedding raises here: call
+        `first_stage.encode(x, intrinsics_inv, extrinsics_inv)` instead."""
+        (images,) = self.as_inputs(images)
+        b, cam = images.shape[:2]
+        enc = self.first_stage.encode(images.reshape(b * cam,
+                                                     *images.shape[2:]))
+        return enc.indices.reshape(b, cam, -1)
+
+    @torch.inference_mode()
     def decode_tokens(self, ids: torch.Tensor) -> torch.Tensor:
         """(b, cam, h, w) -> (b, cam, H, W, 3) images."""
         b, cam, h, w = ids.shape

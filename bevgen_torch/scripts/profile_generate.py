@@ -16,6 +16,9 @@ intervals) and idle share, the device time by category (the attention
 kernels, the glue kernels, matrix products, convolutions, the rest) and
 the top kernels;
 writes the same as JSON to `out`. Needs a CUDA device.
+`config=`/`preset=`, `modes=` and dotted overrides (`batch_size=`,
+`seed=`, `transformer.num_layers=2`) build the config (`scripts/cli.py`);
+any other argument exits.
 """
 from __future__ import annotations
 
@@ -105,19 +108,21 @@ def print_summary(result: dict, label: str) -> None:
 def main(argv: Optional[List[str]] = None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from bevgen_torch.core.config import PRESETS, apply_overrides
     from bevgen_torch.data.fake import fake_batch
     from bevgen_torch.pipelines.ar_generate import ARPipeline
     from bevgen_torch.pipelines.generate import BEVGenPipeline
-    from bevgen_torch.scripts.generate import parse_argv, pop_pipeline
+    from bevgen_torch.scripts import cli
 
-    args = parse_argv(sys.argv[1:] if argv is None else argv)
-    ar, preset = pop_pipeline(args)
-    batch_size = int(args.pop("batch_size", 2))
-    seed = int(args.pop("seed", 0))
+    args = cli.parse_argv(sys.argv[1:] if argv is None else argv)
+    ar = cli.pop_pipeline_kind(args)
+    preset = args.get("config") or args.get("preset", cli.default_preset(ar))
+    cfg, args = cli.build_config(args, cli.default_preset(ar))
+    batch_size = cfg.batch_size or 2
+    seed = cfg.seed
     out = args.pop("out", "profile_generate.json")
     top = int(args.pop("top", 20))
-    cfg = apply_overrides(PRESETS[preset](), args)
+    if args:
+        raise SystemExit(f"unknown argument(s): {sorted(args)}")
 
     pipe = (ARPipeline if ar else BEVGenPipeline).create(
         cfg, device="cuda").init_params(seed)

@@ -18,6 +18,9 @@ share, the device time by category (`profile_generate.category`: the
 attention forward and backward kernels, the block-sparse ones apart, the
 glue kernels, matrix products, optimizer, the rest), the top kernels and the peak device memory of the traced step;
 writes the same as JSON to `out`. Needs a CUDA device.
+`config=`/`preset=`, `modes=` and dotted overrides (`batch_size=`,
+`seed=`, `transformer.num_layers=2`) build the config (`scripts/cli.py`);
+any other argument exits.
 """
 from __future__ import annotations
 
@@ -31,24 +34,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from bevgen_torch.core.config import PRESETS, apply_overrides
     from bevgen_torch.core.device import resolve_device, resolve_dtype
     from bevgen_torch.models.init import init_weights
     from bevgen_torch.models.stage2.gpt import SparseGPT
     from bevgen_torch.models.stage2.maskgit import MaskGit
-    from bevgen_torch.scripts.generate import parse_argv, pop_pipeline
+    from bevgen_torch.scripts import cli
     from bevgen_torch.scripts.profile_generate import (device_summary,
                                                        print_summary)
     from bevgen_torch.scripts.train_stage2 import fake_batches
     from bevgen_torch.training import optim, trainer
 
-    args = parse_argv(sys.argv[1:] if argv is None else argv)
-    ar, preset = pop_pipeline(args)
-    batch_size = int(args.pop("batch_size", 4 if ar else 8))
-    seed = int(args.pop("seed", 0))
+    args = cli.parse_argv(sys.argv[1:] if argv is None else argv)
+    ar = cli.pop_pipeline_kind(args)
+    preset = args.get("config") or args.get("preset", cli.default_preset(ar))
+    cfg, args = cli.build_config(args, cli.default_preset(ar))
+    batch_size = cfg.batch_size or (4 if ar else 8)
+    seed = cfg.seed
     out = args.pop("out", "profile_train.json")
     top = int(args.pop("top", 20))
-    cfg = apply_overrides(PRESETS[preset](), args)
+    if args:
+        raise SystemExit(f"unknown argument(s): {sorted(args)}")
     tf = cfg.transformer
     dev = resolve_device("cuda")
     dtype = resolve_dtype(cfg.dtype)

@@ -30,10 +30,6 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 
-def _flag(args: Dict[str, str], key: str, default: str) -> bool:
-    return args.pop(key, default).lower() in ("1", "true", "yes")
-
-
 def fake_batches(tf, batch_size: int, seed: int) -> Iterator[Dict[str, np.ndarray]]:
     """Random tokens and BEV ids on the canonical camera rig, from `seed`."""
     from bevgen_torch.models import geometry
@@ -77,7 +73,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from bevgen_torch.data import tokens as token_data
     from bevgen_torch.models.init import init_weights
     from bevgen_torch.models.stage2.maskgit import MaskGit, maskgit_loss
-    from bevgen_torch.scripts.generate import parse_argv
+    from bevgen_torch.scripts.cli import parse_argv, pop_flag
     from bevgen_torch.training import optim, trainer
     from bevgen_torch.training.checkpoints import CheckpointManager
     from bevgen_torch.training.preemption import PreemptionGuard
@@ -94,18 +90,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     steps = int(args.pop("steps", 1000))
     batch_size = int(args.pop("batch_size", 8))
     tokens_dir = args.pop("tokens_dir", None)
-    fake = _flag(args, "fake", "false" if tokens_dir else "true")
+    fake = pop_flag(args, "fake", "false" if tokens_dir else "true")
     val_tokens_dir = args.pop("val_tokens_dir", None)
     eval_every = int(args.pop("eval_every", 0))
-    eval_ema = _flag(args, "eval_ema", "true")
+    eval_ema = pop_flag(args, "eval_ema", "true")
     base_lr = float(args.pop("base_lr", 1e-4))
     accumulate = int(args.pop("accumulate", 1))
-    if _flag(args, "scale_lr", "false"):
+    if pop_flag(args, "scale_lr", "false"):
         base_lr = optim.scaled_lr(base_lr, batch_size,
                                   accumulate_steps=accumulate)
         print(f"scaled base_lr -> {base_lr:.3g}")
     warmup = int(args.pop("warmup_steps", 500))
-    ema_warmup = _flag(args, "ema_warmup", "false")
+    ema_warmup = pop_flag(args, "ema_warmup", "false")
     ckpt_dir = args.pop("ckpt_dir", None)
     ckpt_minutes = float(args.pop("ckpt_minutes", 30))
     log_every = int(args.pop("log_every", 50))

@@ -159,7 +159,29 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      critic) and 168 backward per step, step s, peak GB under the card's
      memory; the b=1 gradients kernels vs plain per parameter group (the
      TokenCritic and the self-conditioning feed-forward as groups of their
-     own); the CE falls on a repeated batch.
+     own); the CE falls on a repeated batch;
+ 31. image encode: `encode_images` at `argoverse_muse_7cam` on 8 x 7
+     cameras of 256 x 256 (bf16), images/s as the median of five after one
+     warm-up; the card's fp32 encode of 2 images (TF32 off) against the
+     CPU's on the same seeded weights, index agreement at least 0.99,
+     without and with the stage-1 geometric embedding (`VQModel.encode(x,
+     ii, ei)`), and the share of indices the embedding changes;
+ 32. the partial decode through the generate CLI at full width (`fake=1
+     batch_size=2 keep_cameras=ring_front_left,ring_front_center,
+     ring_side_left save_rec=true`): exactly 980 row-1 launches, the kept
+     cameras' ids equal to their encoded ground-truth tokens, no mask id
+     left, `rec` finite with the shape of `image`, images/s;
+ 33. `argoverse_muse_rect` at full width: row 1 against its plain version
+     at self 1008 x 1008 and cross 1008 x 256 (+ the null column), b=2, to
+     phase 3's bounds, with times, SDPA's and the bound; a b=2 generate with
+     exactly 980 launches and finite (2, 3, 256, 336, 3) images, images/s;
+ 34. `tokenize_dataset` over 16 fake batches of 8 at `argoverse_muse_7cam`
+     through the port's DataLoader and `device_prefetch` (images/s; the
+     first and last batches' shard matrices equal the host's, their tokens
+     agree with a direct encode), then
+     `scripts/train_stage2.py tokens_dir=<shards> steps=3 batch_size=8` at
+     full width: exactly 56 row-1 forward and 168 row-8 backward launches
+     per step, finite losses.
 
 Prints the kernels' JSON line, then the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`. Without a CUDA device,
@@ -2666,7 +2688,7 @@ def variant_name(cfg):
 
 
 def variant_generates(pipe, inputs, expect_by_batch, **kw):
-    """Phases 27-29: one warm-up generate and VARIANT_TIMED timed ones
+    """Phases 27-29 and 33: one warm-up generate and VARIANT_TIMED timed ones
     (host clock around a synchronised `generate_fn`, b=2); the row-1
     launches of the first timed one, by batch, must be `expect_by_batch`
     ({batch: launches}). Returns the stats."""
@@ -2713,7 +2735,7 @@ def variant_generates(pipe, inputs, expect_by_batch, **kw):
     if ids.min() < 0 or ids.max() >= tf.vocab_size:
         raise SystemExit(f"{variant_name(cfg)}: ids out of range")
     return {"images_per_s": n_img / med, "median_s": med, "calls": calls,
-            "launches": sum(by_batch.values())}
+            "launches": sum(by_batch.values()), "shape": tuple(images.shape)}
 
 
 def variant_inputs(cfg, B=2):
@@ -2886,6 +2908,287 @@ def variant_train_phase(cfg):
     ce_falls_phase(model, vcfg)
     del model
     return stats
+
+
+# ---- phases 31-34: image encode, partial decode, the rect preset, tokenized
+# training ---------------------------------------------------------------------
+
+# phase 31: encode of b x 7 cameras, one warm-up, this many timed; the
+# fp32 card-vs-CPU index agreement over this many images
+ENCODE_BATCH = 8
+ENCODE_TIMED = 5
+ENCODE_CHECK_IMAGES = 2
+# fp32 on both sides (TF32 off), convolutions summed in another order: an
+# index flips only where two codes are within rounding of each other
+ENCODE_AGREE_MIN = 0.99
+# phase 32: the cameras kept from the ground truth (of the 7-camera ring)
+KEEP_CAMERAS = ("ring_front_left", "ring_front_center", "ring_side_left")
+# phase 34: fake batches tokenized, train steps from the shards
+TOKENIZE_BATCHES = 16
+TOKENIZED_TRAIN_STEPS = 3
+
+
+def seeded_vq(s1cfg, seed, device):
+    """A fp32 `VQModel` with seeded random weights on `device`."""
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.stage1.vq import VQModel
+    return init_weights(VQModel(s1cfg), seed).to(device).eval()
+
+
+def encode_phase(cfg):
+    """Phase 31: `encode_images` at full width on b x 7 cameras of 256 x 256
+    (bf16, as served): images/s, median of five after one warm-up. Then the
+    card's fp32 encode of two images against the CPU's on the same seeded
+    weights (index agreement), without and with the stage-1 geometric
+    embedding (through `VQModel.encode(x, ii, ei)`), and the share of
+    indices that the embedding changes."""
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.pipelines.generate import BEVGenPipeline
+    tf = cfg.transformer
+    pipe = BEVGenPipeline.create(cfg, device="cuda").init_params(seed=0)
+    batch = fake_batch(cfg, ENCODE_BATCH, seed=31)
+    images = torch.as_tensor(batch["image"], device="cuda")
+    pipe.encode_images(images)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(ENCODE_TIMED):
+        t0 = time.perf_counter()
+        toks = pipe.encode_images(images)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = sorted(times)[len(times) // 2]
+    n_img = ENCODE_BATCH * tf.num_cams
+    print(f"[encode] encode_images {tuple(images.shape)} bf16 -> "
+          f"{tuple(toks.shape)}: timed {', '.join(f'{t:.4f}' for t in times)} "
+          f"s, median {med:.4f} s = {n_img / med:.1f} images/s "
+          f"({n_img / med * tf.num_cam_tokens:.0f} tokens/s)", flush=True)
+    if toks.shape != (ENCODE_BATCH, tf.num_cams, tf.num_cam_tokens) or \
+            toks.min() < 0 or toks.max() >= cfg.first_stage.n_embed:
+        raise SystemExit(f"bad tokens {tuple(toks.shape)}")
+    del pipe, images, toks
+    torch.cuda.empty_cache()
+
+    n = ENCODE_CHECK_IMAGES
+    x = torch.as_tensor(batch["image"][0, :n])
+    ii = torch.as_tensor(batch["intrinsics_inv"][0, :n])
+    ei = torch.as_tensor(batch["extrinsics_inv"][0, :n])
+    res = {"images_per_s": n_img / med, "median_s": med}
+    geo_cfg = dataclasses.replace(cfg.first_stage, geometric_embedding=True,
+                                  cam_emd_dim=cfg.first_stage.z_channels)
+    plain_idx = None
+    for name, s1 in (("plain", cfg.first_stage), ("geometric", geo_cfg)):
+        mats = () if name == "plain" else (ii, ei)
+        with torch.inference_mode():
+            cpu = seeded_vq(s1, 31, "cpu").encode(x, *mats).indices
+            dev = seeded_vq(s1, 31, "cuda").encode(
+                x.cuda(), *(m.cuda() for m in mats)).indices.cpu()
+        agree = float((cpu == dev).float().mean())
+        extra = ""
+        if plain_idx is None:
+            plain_idx = cpu
+        else:
+            changed = float((cpu != plain_idx).float().mean())
+            res["embedding_changes"] = changed
+            extra = (f"; the embedding changes {changed:.4f} of the indices "
+                     f"(same weights without it)")
+        print(f"[encode] {name} first stage, {n} images fp32 (TF32 off): card "
+              f"vs CPU index agreement {agree:.6f} (min {ENCODE_AGREE_MIN})"
+              f"{extra}", flush=True)
+        if agree < ENCODE_AGREE_MIN:
+            raise SystemExit(f"{name} encode disagrees between the card and "
+                             f"the CPU")
+        res[f"agree_{name}"] = agree
+    return res
+
+
+def run_cli(main, argv):
+    """Run a CLI entry point, echo its standard output, return its lines."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv)
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    return result, out.strip().splitlines()
+
+
+def partial_decode_phase(cfg):
+    """Phase 32: the generate CLI at full width with `keep_cameras` (three
+    of the seven cameras) and `save_rec`, b=2, one fake batch: exactly 980
+    row-1 launches; the kept cameras' ids equal their encoded ground-truth
+    tokens; no mask id left; `rec` finite with the shape of `image`;
+    images/s from the CLI's last line."""
+    import os
+    import tempfile
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.scripts import generate as cli
+    tf = cfg.transformer
+    with tempfile.TemporaryDirectory() as tmp:
+        ca.reset_launch_counts()
+        (pipe, paths), lines = run_cli(cli.run, [
+            "preset=argoverse_muse_7cam", "fake=1", "batch_size=2",
+            f"keep_cameras={','.join(KEEP_CAMERAS)}", "save_rec=true",
+            f"out={os.path.join(tmp, 'out')}"])
+        torch.cuda.synchronize()
+        launches = ca.cosine_attention_cuda.launches
+        by_shape = dict(ca.cosine_attention_cuda.launches_by_shape)
+        out = dict(np.load(paths[0]))
+    summary = json.loads(lines[-1])
+    batch = fake_batch(cfg, 2, seed=0)
+    gt = pipe.encode_images(batch["image"]).cpu().numpy()
+    kept = [c for c, name in enumerate(tf.camera_names) if name in KEEP_CAMERAS]
+    ids = out["ids"].reshape(2, tf.num_cams, -1)
+    kept_equal = bool((ids[:, kept] == gt[:, kept]).all())
+    no_mask = bool((out["ids"] != tf.mask_token_id).all())
+    rec_ok = (out["rec"].shape == batch["image"].shape
+              and bool(np.isfinite(out["rec"]).all()))
+    steps = cfg.muse.sample_iterations
+    expect = (steps + steps - 1) * tf.num_layers * 2
+    print(f"[partial] keep_cameras={','.join(KEEP_CAMERAS)} (cameras {kept} "
+          f"of {tf.num_cams}) save_rec=true b=2: {launches} row-1 launches "
+          f"{by_shape} (expected {expect}); kept cameras equal their encoded "
+          f"tokens {kept_equal}; no mask id left {no_mask}; rec "
+          f"{out['rec'].shape} finite {rec_ok}; "
+          f"{summary['images_per_sec']} images/s ({summary['images']} images "
+          f"in {summary['seconds']} s, encode + generate + reconstruction)",
+          flush=True)
+    del pipe
+    if launches != expect or not (kept_equal and no_mask and rec_ok):
+        raise SystemExit("the partial decode failed its checks")
+    return {"launches": launches, "by_shape": by_shape,
+            "images_per_s": summary["images_per_sec"]}
+
+
+def rect_phase():
+    """Phase 33: `argoverse_muse_rect` at full width: row 1 against its plain
+    version at the preset's shapes (self 1008 x 1008, cross 1008 x 256 +
+    the null column, b=2), then a b=2 generate: exactly 980 launches, finite
+    (2, 3, 256, 336, 3) images, images/s (median of five after a
+    warm-up)."""
+    from bevgen_torch.core.config import argoverse_rect_config
+    from bevgen_torch.pipelines.generate import BEVGenPipeline
+    cfg = argoverse_rect_config()
+    tf = cfg.transformer
+    H, D, N, NC = tf.num_heads, tf.dim_head, tf.num_img_tokens, tf.num_cond_tokens
+    stats = {
+        "self": check_kernel("rect self", 2, H, N, N, D, True, None, 50),
+        "cross": check_kernel("rect cross", 2, H, N, NC, D, True, None, 51),
+    }
+    pipe = BEVGenPipeline.create(cfg, device="cuda").init_params(seed=0)
+    steps, layers = cfg.muse.sample_iterations, tf.num_layers
+    e2e = variant_generates(pipe, variant_inputs(cfg),
+                            {2: (2 * steps - 1) * 2 * layers})
+    del pipe
+    print(f"[rect] argoverse_muse_rect images {e2e['shape']} (finite, ids in "
+          f"range)", flush=True)
+    if e2e["shape"] != (2, tf.num_cams) + tuple(tf.cam_res) + (3,):
+        raise SystemExit(f"rect images of shape {e2e['shape']}")
+    return {"kernels": stats, "e2e": e2e, "N": N, "NC": NC}
+
+
+class FakeSamples:
+    """`n` single samples of the fake-batch fixture (sample i from seed i),
+    for the loader."""
+
+    def __init__(self, cfg, n):
+        self.cfg, self.n = cfg, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        from bevgen_torch.data.fake import fake_batch
+        b = fake_batch(self.cfg, 1, seed=i)
+        return {k: (v[0] if isinstance(v, np.ndarray) else
+                    v[0] if k == "sample_token" else v)
+                for k, v in b.items()}
+
+
+def tokenize_train_phase(cfg):
+    """Phase 34: `tokenize_dataset` over TOKENIZE_BATCHES fake batches of 8
+    at `argoverse_muse_7cam` through the port's DataLoader and
+    `device_prefetch` (images/s; the first and last batches' matrices in
+    the shards equal the host's bit for bit, their tokens agree with a
+    direct encode at >= 0.99), then `scripts/train_stage2.py
+    tokens_dir=<shards>` at full width, b=8: exactly 56 row-1 forward and
+    168 row-8 backward launches per step, finite losses."""
+    import tempfile
+    import torch
+    from bevgen_torch.data import datamodule as dm
+    from bevgen_torch.data.tokens import TokenDataset, tokenize_dataset
+    from bevgen_torch.ops import attention_bwd as ab
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.pipelines.generate import BEVGenPipeline
+    from bevgen_torch.scripts import train_stage2
+    tf, B = cfg.transformer, TRAIN_BATCH
+    pipe = BEVGenPipeline.create(cfg, device="cuda").init_params(seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        loader = dm.DataLoader(FakeSamples(cfg, TOKENIZE_BATCHES * B), B,
+                               shuffle=False, num_workers=4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = tokenize_dataset(pipe, dm.device_prefetch(iter(loader), "cuda"),
+                             tmp, shard_size=4 * B)
+        torch.cuda.synchronize()
+        tok_s = time.perf_counter() - t0
+        ds = TokenDataset(tmp)
+        n_img = n * tf.num_cams
+        print(f"[tokenize] {n} samples ({n_img} images) -> {len(ds)} in "
+              f"shards in {tok_s:.3f} s = {n_img / tok_s:.1f} images/s "
+              f"(fake samples made on the host by 4 loader "
+              f"threads)", flush=True)
+        if n != TOKENIZE_BATCHES * B or len(ds) != n:
+            raise SystemExit("tokenize_dataset lost samples")
+        # the prefetched copies (a side stream) against the host batches:
+        # matrices bit for bit, tokens against a direct encode
+        for first in (0, n - B):
+            batch = dm.collate([FakeSamples(cfg, n)[i]
+                                for i in range(first, first + B)])
+            direct = pipe.encode_images(batch["image"]).cpu().numpy()
+            agree = float((ds.tokens[first:first + B] == direct).mean())
+            same = all(np.array_equal(getattr(ds, k)[first:first + B],
+                                      batch[k])
+                       for k in ("intrinsics_inv", "extrinsics_inv"))
+            print(f"[tokenize] samples {first}-{first + B - 1}: shard "
+                  f"tokens agree with a direct encode at {agree:.6f}, "
+                  f"matrices equal: {same}", flush=True)
+            if agree < 0.99 or not same:
+                raise SystemExit("the shards differ from the host batches")
+        del pipe
+        torch.cuda.empty_cache()
+        ca.reset_launch_counts()
+        ab.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, lines = run_cli(train_stage2.main, [
+            "preset=argoverse_muse_7cam", f"tokens_dir={tmp}",
+            f"steps={TOKENIZED_TRAIN_STEPS}", f"batch_size={B}",
+            "log_every=1", "warmup_steps=1"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    n_fwd = ca.cosine_attention_cuda.launches
+    n_bwd = ab.attention_bwd_cuda.launches
+    fwd = dict(ca.cosine_attention_cuda.launches_by_shape)
+    bwd = dict(ab.attention_bwd_cuda.launches_by_shape)
+    steps = [json.loads(l) for l in lines if l.startswith("{")]
+    losses = [s["loss"] for s in steps]
+    S = TOKENIZED_TRAIN_STEPS
+    want_fwd, want_bwd = 2 * 2 * tf.num_layers, 3 * 4 * tf.num_layers
+    print(f"[tokenize] train_stage2 tokens_dir b={B}, {S} steps in "
+          f"{train_s:.1f} s (model build included): losses {losses}; "
+          f"launches {n_fwd} forward {fwd}, {n_bwd} backward {bwd}: per step "
+          f"{n_fwd / S:g} and {n_bwd / S:g} (expected {want_fwd} and "
+          f"{want_bwd})", flush=True)
+    if (n_fwd, n_bwd) != (S * want_fwd, S * want_bwd):
+        raise SystemExit("unexpected launch counts in the tokenized training")
+    if len(losses) != S or not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"train_stage2 on the shards: losses {losses}")
+    return {"fwd": {k: v // S for k, v in fwd.items()},
+            "bwd": {k: v // S for k, v in bwd.items()},
+            "images_per_s": n_img / tok_s}
 
 
 def main() -> int:
@@ -3172,6 +3475,13 @@ def main() -> int:
     timed_phase(29, self_cond_phase, cfg)
     variant_train = timed_phase(30, variant_train_phase, cfg)
 
+    # 31-34. image encode, the partial decode through the CLI, the rect
+    # preset, tokenize then train from the shards
+    timed_phase(31, encode_phase, cfg)
+    partial = timed_phase(32, partial_decode_phase, cfg)
+    rect = timed_phase(33, rect_phase)
+    tok_train = timed_phase(34, tokenize_train_phase, cfg)
+
     kernels = []
     for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
         kernels.append({
@@ -3212,6 +3522,35 @@ def main() -> int:
             "route": "cuda", "source": ab.SOURCE, "replaces": ab.REPLACES,
             "launches": variant_train["bwd"].get((n, m), 0),
             **bwd_stats[shape]})
+    # the partial decode (phase 32) runs row 1 at phase 3's shapes; the
+    # rect preset (phase 33) at its own; the tokenized-shard train step
+    # (phase 34) at phase 6's
+    for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
+        kernels.append({
+            "name": f"cosine_attention_fwd[partial decode serve {shape} b2 "
+                    f"{n}x{m}]",
+            "route": "cuda", "source": ca.SOURCE, "replaces": ca.REPLACES,
+            "launches": partial["by_shape"].get((n, m), 0), **stats[shape]})
+    for shape, (n, m) in (("self", (rect["N"], rect["N"])),
+                          ("cross", (rect["N"], rect["NC"]))):
+        kernels.append({
+            "name": f"cosine_attention_fwd[rect serve {shape} b2 {n}x{m}]",
+            "route": "cuda", "source": ca.SOURCE, "replaces": ca.REPLACES,
+            "launches": rect["e2e"]["calls"].get((2, n, m), 0),
+            **rect["kernels"][shape]})
+    for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
+        kernels.append({
+            "name": f"cosine_attention_fwd[tokenized-shard train {shape} "
+                    f"b{TB} {n}x{m}]",
+            "route": "cuda", "source": ca.SOURCE, "replaces": ca.REPLACES,
+            "launches": tok_train["fwd"].get((n, m), 0),
+            **train_fwd_stats[shape]})
+    for shape, (n, m) in (("self", (N, N + 1)), ("cross", (N, NC + 1))):
+        kernels.append({
+            "name": f"attention_bwd[tokenized-shard train {shape} b{TB} "
+                    f"{n}x{m}, 3 kernels]",
+            "route": "cuda", "source": ab.SOURCE, "replaces": ab.REPLACES,
+            "launches": tok_train["bwd"].get((n, m), 0), **bwd_stats[shape]})
     kernels.append({
         "name": f"bias_attention_fwd[op entry, self b{TB} {N}x{N + 1}]",
         "route": "cuda", "source": ba.SOURCE, "replaces": ba.REPLACES,

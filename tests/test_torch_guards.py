@@ -54,7 +54,12 @@ def test_port_imports_no_jax_or_reference_package():
                    "ops/block_sparse.py", "ops/decode_attention.py",
                    "models/stage2/gpt.py", "models/stage2/ar.py",
                    "models/stage2/ar_cached.py", "pipelines/ar_generate.py",
-                   "ops/fused_glue.py", "ops/layernorm.py"):
+                   "ops/fused_glue.py", "ops/layernorm.py",
+                   "data/argoverse.py", "data/camera_geometry.py",
+                   "data/datamodule.py", "data/rasterize.py", "data/sync.py",
+                   "utils/image.py", "utils/viz.py",
+                   "utils/outputs.py", "scripts/cli.py",
+                   "scripts/tokenize_data.py"):
         assert f"bevgen_torch/{module}" in checked, module
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p)) & FORBIDDEN)
            for p in files}
@@ -143,6 +148,61 @@ def test_ar_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         cli.main(["pipeline=ar", "transformer.num_layers=1", f"out={tmp_path}"])
     assert not any(tmp_path.iterdir())
     assert ARPipeline.create(cfg, device="cpu").device.type == "cpu"
+
+
+def test_data_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
+                                                               tmp_path):
+    """The data-fed generate and the tokenizer, on real data and on fake
+    batches, raise without a card before they read or write anything."""
+    from bevgen_torch.scripts import generate as cli
+    from bevgen_torch.scripts import tokenize_data
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("ARGOVERSE_DATA_DIR", str(tmp_path / "tree"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["preset=tiny_test", "datamodule.split=val",
+                  f"out={tmp_path / 'o'}", f"eval_generate={tmp_path / 'e'}"])
+    for extra in ([], ["fake=1"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tokenize_data.main(["preset=tiny_test", f"out_dir={tmp_path / 't'}",
+                                *extra])
+    assert not any(tmp_path.iterdir())
+
+
+HOST_DATA_PACKAGES = ("cv2", "pandas", "pyarrow", "PIL", "yaml", "rich")
+
+
+def test_fake_data_paths_import_no_host_data_packages(tmp_path):
+    """In a fresh interpreter: every port module that chip_smoke.py imports,
+    the generate CLI on fake batches (partial decode, reconstruction) and the
+    tokenizer on fake batches pull in none of cv2, pandas, pyarrow, PIL, yaml
+    or rich, which the card's machine is not known to have."""
+    import json
+    import subprocess
+    import sys
+    mods = sorted({n.module for n in ast.walk(ast.parse(
+        (ROOT / "chip_smoke.py").read_text()))
+        if isinstance(n, ast.ImportFrom) and n.module
+        and n.module.startswith("bevgen_torch")})
+    assert "bevgen_torch.pipelines.generate" in mods
+    code = f"""
+import importlib, json, sys
+sys.path.insert(0, {str(ROOT)!r})
+import chip_smoke
+for m in {mods!r}:
+    importlib.import_module(m)
+from bevgen_torch.scripts import generate, tokenize_data
+generate.run(["preset=tiny_test", "device=cpu", "fake=1", "batch_size=2",
+              "muse.sample_iterations=2", "keep_cameras=ring_front_left",
+              "save_rec=true", "out={tmp_path / 'g'}"])
+tokenize_data.main(["preset=tiny_test", "device=cpu", "fake=1",
+                    "batch_size=2", "out_dir={tmp_path / 't'}"])
+print(json.dumps(sorted(m for m in {HOST_DATA_PACKAGES!r} if m in sys.modules)))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    assert (tmp_path / "t" / "shard_00000.npz").exists()
 
 
 def test_profile_train_ar_needs_cuda_and_rejects_unknown_pipelines(monkeypatch):

@@ -175,6 +175,23 @@ def test_generate_greedy_matches_jax(variant):
     np.testing.assert_array_equal(again.numpy(), got.numpy())
 
 
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_generate_greedy_with_fused_glue_matches_jax(variant):
+    """Each variant with `transformer.use_fused_glue=True` on both sides
+    (on the CPU the port's glue runs its plain twins): identical greedy
+    ids and trajectories."""
+    jp, params, tp = variant_pipelines(variant, greedy=True, glue=True)
+    assert tp.config.transformer.use_fused_glue
+    _, _, cond, ii, ei = _inputs(tp.config.transformer, seed=7)
+    want, want_traj = _jax_generate(jp, params, cond, ii, ei,
+                                    return_trajectory=True)
+    got, got_traj = tmg.generate(tp.maskgit, _t(cond), _t(ii), _t(ei),
+                                 torch.Generator().manual_seed(0),
+                                 return_trajectory=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got_traj.numpy(), np.asarray(want_traj))
+
+
 def test_token_critic_generate_without_the_critic_matches_jax():
     jp, params, tp = variant_pipelines("token_critic", greedy=True)
     _, _, cond, ii, ei = _inputs(tp.config.transformer, seed=6)

@@ -109,33 +109,65 @@ VARIANTS = {
 }
 
 
-def variant_configs(variant: str, greedy: bool = False):
-    """(JAX, port) tiny_test configs of one of `VARIANTS`."""
+def variant_configs(variant: str, greedy: bool = False, glue: bool = False):
+    """(JAX, port) tiny_test configs of one of `VARIANTS` (with
+    use_fused_glue on both sides under `glue`)."""
     muse_kw, tf_kw = VARIANTS[variant]
     return tuple(dataclasses.replace(
         c, muse=dataclasses.replace(c.muse, **muse_kw),
         transformer=c.transformer.replace(**tf_kw))
-        for c in tiny_configs(greedy))
+        for c in tiny_configs(greedy, glue))
 
 
 @functools.lru_cache(maxsize=8)
-def variant_tree(variant: str, seed: int = 0):
+def variant_tree(variant: str, seed: int = 0, glue: bool = False):
     """A numpy weight tree in the layout of the variant's JAX pipeline."""
-    jp = JaxPipeline.create(variant_configs(variant)[0], dtype=jnp.float32)
+    jp = JaxPipeline.create(variant_configs(variant, glue=glue)[0],
+                            dtype=jnp.float32)
     return random_tree(jax.eval_shape(jp.init_params, jax.random.PRNGKey(0)),
                        seed)
 
 
 @functools.lru_cache(maxsize=8)
-def variant_pipelines(variant: str, greedy: bool = False, seed: int = 0):
+def variant_pipelines(variant: str, greedy: bool = False, seed: int = 0,
+                      glue: bool = False):
     """(jax_pipe, jax_params, torch_pipe) of one of `VARIANTS` at tiny_test,
-    fp32, CPU, with the same weights."""
-    jc, tc = variant_configs(variant, greedy)
-    tree = variant_tree(variant, seed)
+    fp32, CPU, with the same weights (and the fused glue on both sides
+    under `glue`)."""
+    jc, tc = variant_configs(variant, greedy, glue)
+    tree = variant_tree(variant, seed, glue)
     tp = load_jax_params(TorchPipeline.create(tc, device="cpu",
                                               dtype=torch.float32), tree)
     return (JaxPipeline.create(jc, dtype=jnp.float32),
             jax.tree_util.tree_map(jnp.asarray, tree), tp)
+
+
+# ---- the rectangular MUSE configuration ------------------------------------
+
+def rect_configs(greedy: bool = False):
+    """(JAX, port) tiny_test configs with rectangular 32x48 images and 4x6
+    latents, as argoverse_muse_rect is to argoverse_muse."""
+    out = []
+    for c in tiny_configs(greedy):
+        out.append(dataclasses.replace(
+            c, transformer=c.transformer.replace(cam_res=(32, 48),
+                                                 cam_latent_res=(4, 6)),
+            first_stage=dataclasses.replace(c.first_stage, cam_res=(32, 48),
+                                            cam_latent_res=(4, 6))))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=2)
+def rect_pipelines(greedy: bool = False, seed: int = 0):
+    """(jax_pipe, jax_params, torch_pipe) at `rect_configs`, fp32, CPU, with
+    the same weights."""
+    jc, tc = rect_configs(greedy)
+    jp = JaxPipeline.create(jc, dtype=jnp.float32)
+    tree = random_tree(jax.eval_shape(jp.init_params, jax.random.PRNGKey(0)),
+                       seed)
+    tp = load_jax_params(TorchPipeline.create(tc, device="cpu",
+                                              dtype=torch.float32), tree)
+    return jp, jax.tree_util.tree_map(jnp.asarray, tree), tp
 
 
 # ---- comparing parameter trees ----------------------------------------------
