@@ -6,8 +6,9 @@ autoregressive sparse-GPT serving path (`nuscenes_ar`, `nuscenes_ar_tpu`).
 Hashable configs key the lru_caches of the geometry and mask artifacts
 (`models/geometry.py`, `models/masks.py`). Field names and presets match
 the reference, so a preset built here and one built there describe the
-same model. The reference's TPU-only knobs `use_fused_attention`, `remat`
-and `quant` are not part of the port yet.
+same model. `quant` selects int8 serving (`ops/quant.py`); the reference's
+TPU-only knobs `use_fused_attention` and `remat` are not part of the port
+yet.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
+
+QUANT_MODES = ("none", "int8")
 
 CAMERA_SETS: Dict[str, Tuple[str, ...]] = {
     "NUSCENES_FRONT": ("CAM_FRONT",),
@@ -133,8 +136,15 @@ class MultiViewConfig:
     # (ops/fused_glue.py) with the delta-chaining transformer blocks.
     # None = off, as in the reference; parameters are the same either way.
     use_fused_glue: Optional[bool] = None
+    # serving-path quantization: "none" | "int8" (the MUSE transformer's hot
+    # products W8A8, the AR GPT's dense layers int8 weights; ops/quant.py).
+    # Inference only.
+    quant: str = "none"
 
     def __post_init__(self):
+        if self.quant not in QUANT_MODES:
+            raise ValueError(f"unknown quant {self.quant!r} (one of "
+                             f"{QUANT_MODES})")
         if self.dataset not in DATASETS:
             raise ValueError(f"unknown dataset {self.dataset!r}")
         if self.cam_names not in CAMERA_SETS:

@@ -15,7 +15,15 @@ conversions:
   * LayerNorm/GroupNorm `scale`   -> `weight`;  Embed `embedding` -> `weight`
   * `bias`, `codebook`, `null_kv`, `q_scale`, `k_scale`,
     `camera_bias_emb`, `bev_cam_pos_emb`, `x_pos_emb`, `cond_pos_emb` as
-    they are.
+    they are;
+  * the int8 trees (`ops/quant.py`): `kernel_q` (in, out) int8 ->
+    `kernel_q` (out, in); `scale` (out,) and `in_scale` (in,) as they are.
+
+A leaf is named by the port module it lands in: `scale` is a norm's
+`weight` under a LayerNorm or GroupNorm and the int8 scale under a
+`QuantDense` or `Int8WeightDense`. A quantized leaf (`kernel_q`, `in_scale`,
+or `scale` outside a norm) aimed at a module that is not quantized raises,
+and so does a float `kernel` aimed at a quantized one.
 
 Raises on a leaf the port has no parameter for, on a port parameter left
 unset, and on a shape mismatch.
@@ -33,7 +41,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from bevgen_torch.ops.quant import QUANT_MODULES
+
 _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+_NORMS = (nn.LayerNorm, nn.GroupNorm)
 
 
 def pipeline_parts(module: nn.Module) -> Tuple[str, ...]:
@@ -55,8 +66,35 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
             yield prefix + (str(key),), np.asarray(val)
 
 
+def _port_leaf(owner: Optional[nn.Module], where: str, leaf: str) -> str:
+    """The port's parameter name for the flax leaf `leaf` of the port module
+    `owner` (None where the port has no such module: the leaf is then
+    reported as unknown). Raises on a quantized leaf aimed at a module
+    that is not quantized, and the other way round."""
+    if isinstance(owner, QUANT_MODULES):
+        if leaf not in ("kernel_q", "scale", "in_scale", "bias"):
+            raise ValueError(f"{where}: leaf {leaf!r} for the int8 module "
+                             f"{type(owner).__name__} (kernel_q, scale, "
+                             f"in_scale, bias)")
+        return leaf
+    quantized = leaf in ("kernel_q", "in_scale") or (
+        leaf == "scale" and owner is not None and not isinstance(owner, _NORMS))
+    if quantized:
+        raise ValueError(f"{where}: quantized leaf {leaf!r} for "
+                         f"{type(owner).__name__}, which is not an int8 "
+                         f"module (quantize the pipeline first)")
+    return _RENAME.get(leaf, leaf)
+
+
+def _owner(module: nn.Module, path: Tuple[str, ...]) -> Optional[nn.Module]:
+    try:
+        return module.get_submodule(".".join(path))
+    except AttributeError:
+        return None
+
+
 def _convert(leaf: str, arr: np.ndarray) -> np.ndarray:
-    if leaf == "kernel" and arr.ndim == 2:
+    if leaf in ("kernel", "kernel_q") and arr.ndim == 2:
         return arr.T
     if leaf == "kernel" and arr.ndim == 4:
         return arr.transpose(3, 2, 0, 1)
@@ -88,7 +126,9 @@ def load_jax_params(pipeline: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     for prefix, sub in subtrees:
         for path, arr in _leaves(sub):
             leaf = path[-1]
-            name = ".".join(prefix + path[:-1] + (_RENAME.get(leaf, leaf),))
+            owner = _owner(pipeline, prefix + path[:-1])
+            port_leaf = _port_leaf(owner, "/".join(prefix + path), leaf)
+            name = ".".join(prefix + path[:-1] + (port_leaf,))
             if name not in params:
                 unknown.append("/".join(prefix + path))
                 continue
@@ -111,6 +151,8 @@ def load_jax_params(pipeline: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
 def _jax_leaf(owner: nn.Module, leaf: str, val: np.ndarray
               ) -> Tuple[str, np.ndarray]:
     """(flax leaf name, value in the flax layout) of one port parameter."""
+    if isinstance(owner, QUANT_MODULES):
+        return leaf, (val.T if leaf == "kernel_q" else val)
     if leaf == "weight":
         if isinstance(owner, nn.Linear):
             return "kernel", val.T
@@ -137,8 +179,10 @@ def export_jax_params(module: nn.Module,
     parts = pipeline_parts(module)
     for name, p in module.named_parameters():
         owner_name, _, leaf = name.rpartition(".")
-        val = p if tensors is None else tensors[name]
-        arr = np.asarray(val.detach().float().cpu().numpy())
+        val = (p if tensors is None else tensors[name]).detach()
+        # int8 kernels stay int8; every float leaf comes out as fp32
+        arr = np.asarray((val.float() if val.is_floating_point()
+                          else val).cpu().numpy())
         key, arr = _jax_leaf(module.get_submodule(owner_name), leaf, arr)
         path = owner_name.split(".") if owner_name else []
         if path and path[0] in parts:

@@ -1,0 +1,477 @@
+// The int8 serving path's kernels for Hopper (sm_90a). The port-only part
+// of int8 serving: on the TPU, XLA fuses each of these into the int8 dot
+// (bevgen_tpu/ops/quant.py, no Pallas kernel); eager PyTorch cannot, and
+// without them an int8 product would cost 4-8 launches where bf16 costs one.
+//
+//   quantize_static   q = int8(clip(round(x * (1 / in_scale[k])), +-127))
+//                     (bevgen_tpu/ops/quant.py:66): x (rows, K) bf16,
+//                     q (rows, Kp) with zeros in the columns K..Kp-1 (Kp a
+//                     multiple of 8, as torch._int_mm takes it).
+//   quantize_dynamic  per row scale = max(amax, 1e-8) * fp32(1/127) (the
+//                     reference's `/ 127.0` as XLA compiles it) and
+//                     q = int8(clip(round(x / scale), +-127)) (quant.py:57),
+//                     the same padding; one warp per row.
+//   int8_epilogue     out = T(f32(acc) * w_scale[col] (* x_scale[row]))
+//                     (quant.py:100-110): acc (rows, Np) int32 from
+//                     torch._int_mm, out (rows, N) in bf16 (the path's) or
+//                     fp32, without the N padding.
+//   w8_linear         out = bf16(bf16(bf16(x @ Wq^T) * bf16(scale)) + bias),
+//                     the AR tree's weight-only int8 product
+//                     (bevgen_tpu/models/stage2/ar_cached.py:41-49):
+//                     x (M, K) bf16, Wq (N, K) int8, fp32 accumulation.
+//
+// Bit-exactness with the reference: the static path multiplies by the fp32
+// reciprocal (1 / in_scale, correctly rounded, nvcc's default -prec-div),
+// the dynamic path multiplies amax by the fp32 constant 1/127 and divides
+// x by the scale (__fdiv_rn), both round half to even (rintf),
+// the products are single __fmul_rn: on the same fp32 inputs the int8
+// values, row scales and the epilogue's fp32 values equal the plain
+// PyTorch versions' and the JAX package's.
+//
+// What bounds them on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): bytes, for
+// all four at the serving shapes. quantize_* read 2 bytes and write 1 per
+// element (3584 x 1024 bf16 at MUSE b=2: 11.0 MB, 3.3 us); the epilogue
+// reads 4 and writes 2 per output element (3584 x 5460: 117 MB, 35 us). At
+// the AR decode's M = 2, w8_linear reads its int8 weights once (1 byte per
+// weight, half of bf16's 2): qkv 3 MB, 0.94 us.
+//
+// Design, a first version. The quantizers and the epilogue are one pass each,
+// 8 (quantize) or 4 (epilogue) consecutive elements a thread, with 16-byte
+// loads where the row length and the address allow, scalar accesses
+// otherwise. w8_linear has two forms: for M <= 8 rows (the AR decode steps
+// and its head) one warp per output column, each lane reading 16 int8
+// weights at a time and the M rows of x from L1, a shuffle reduction at the
+// end; for more rows (the prefill, M = b * 256) 64 x 64 output tiles, the
+// int8 tile converted to bf16 in shared memory and multiplied with mma.sync
+// m16n8k16 (fp32 accumulation), one K step of 32 at a time, loads not
+// overlapped (rows whose K or alignment the tiles do not take go to the
+// per-column form in groups of 8 rows). Only bf16 activations: the port's
+// attention kernels take nothing else, so no other dtype reaches these on
+// the card. Left for later: an s8 wgmma product fed by the quantizer (the
+// whole W8A8 chain in one kernel), overlapped loads.
+//
+// C interface: each function returns cudaGetLastError() after the launch;
+// the Python wrapper (bevgen_torch/ops/quant.py) raises if it is not 0.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_common.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+using bf16 = __nv_bfloat16;
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// round half to even, then clip to +-127 (jnp.round / torch.round, clip)
+__device__ __forceinline__ int q8(float v) {
+  return static_cast<int>(fminf(fmaxf(rintf(v), -127.f), 127.f));
+}
+
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return (static_cast<uint32_t>(a) & 0xffu) |
+         ((static_cast<uint32_t>(b) & 0xffu) << 8) |
+         ((static_cast<uint32_t>(c) & 0xffu) << 16) |
+         ((static_cast<uint32_t>(d) & 0xffu) << 24);
+}
+
+// 8 consecutive bf16 of a row as fp32: one 16-byte load where VEC, else 8
+// scalar loads of the columns < K (zeros past it)
+template <bool VEC>
+__device__ __forceinline__ void load8(const bf16* row, int c, int K, float v[8]) {
+  if constexpr (VEC) {
+    const uint4 u = *reinterpret_cast<const uint4*>(row + c);
+    const bf16* h = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(h[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = c + j < K ? __bfloat162float(row[c + j]) : 0.f;
+  }
+}
+
+// columns c..c+7 of a row: the vector load where all 8 lie below K
+template <bool VEC>
+__device__ __forceinline__ void load_cols(const bf16* row, int c, int K, float v[8]) {
+  if (c + 8 <= K) {
+    load8<VEC>(row, c, K, v);
+  } else {
+    load8<false>(row, c, K, v);
+  }
+}
+
+// the 8 int8 values of columns c..c+7 (0 past K) as one 8-byte store
+__device__ __forceinline__ void store8(int8_t* q, const int v[8]) {
+  *reinterpret_cast<uint2*>(q) =
+      make_uint2(pack4(v[0], v[1], v[2], v[3]), pack4(v[4], v[5], v[6], v[7]));
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+quantize_static_kernel(const bf16* __restrict__ x, const float* __restrict__ in_scale,
+                       int8_t* __restrict__ q, long long rows, int K, int Kp) {
+  const int groups = Kp / 8;
+  const long long total = rows * groups;
+  for (long long i = blockIdx.x * static_cast<long long>(THREADS) + threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * THREADS) {
+    const long long r = i / groups;
+    const int c = static_cast<int>(i - r * groups) * 8;
+    float v[8];
+    int o[8];
+    load_cols<VEC>(x + r * K, c, K, v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // the reference's order: the fp32 reciprocal first, then one multiply
+      o[j] = c + j < K ? q8(__fmul_rn(v[j], __fdiv_rn(1.0f, in_scale[c + j])))
+                       : 0;
+    }
+    store8(q + r * Kp + c, o);
+  }
+}
+
+// one warp per row: the row's amax (first pass), then the int8 row (second
+// pass; the row is read again, from L1)
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+quantize_dynamic_kernel(const bf16* __restrict__ x, int8_t* __restrict__ q,
+                        float* __restrict__ scale, long long rows, int K,
+                        int Kp) {
+  const int lane = threadIdx.x & 31;
+  const long long r = blockIdx.x * static_cast<long long>(THREADS / 32) +
+                      (threadIdx.x >> 5);
+  if (r >= rows) return;
+  const bf16* xr = x + r * K;
+  float amax = 0.f;
+  for (int c = lane * 8; c < Kp; c += 32 * 8) {
+    float v[8];
+    load_cols<VEC>(xr, c, K, v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float s = __fmul_rn(fmaxf(amax, 1e-8f), 1.0f / 127.0f);
+  if (lane == 0) scale[r] = s;
+  for (int c = lane * 8; c < Kp; c += 32 * 8) {
+    float v[8];
+    int o[8];
+    load_cols<VEC>(xr, c, K, v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = c + j < K ? q8(__fdiv_rn(v[j], s)) : 0;
+    store8(q + r * Kp + c, o);
+  }
+}
+
+// 4 consecutive output columns a thread where VEC (N % 4 == 0: 16-byte acc
+// loads), one otherwise
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+int8_epilogue_kernel(const int32_t* __restrict__ acc,
+                     const float* __restrict__ w_scale,
+                     const float* __restrict__ x_scale, T* __restrict__ out,
+                     long long rows, int N, int Np) {
+  constexpr int E = VEC ? 4 : 1;
+  const int groups = (N + E - 1) / E;
+  const long long total = rows * groups;
+  for (long long i = blockIdx.x * static_cast<long long>(THREADS) + threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * THREADS) {
+    const long long r = i / groups;
+    const int c = static_cast<int>(i - r * groups) * E;
+    const float xs = x_scale != nullptr ? x_scale[r] : 1.f;
+    int a[E];
+    if constexpr (VEC) {
+      const int4 u = *reinterpret_cast<const int4*>(acc + r * Np + c);
+      a[0] = u.x; a[1] = u.y; a[2] = u.z; a[3] = u.w;
+    } else {
+      a[0] = acc[r * Np + c];
+    }
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      float f = __fmul_rn(__int2float_rn(a[j]), w_scale[c + j]);
+      if (x_scale != nullptr) f = __fmul_rn(f, xs);
+      out[r * N + c + j] = from_f32<T>(f);
+    }
+  }
+}
+
+// the AR product's tail on fp32 accumulator `a` of column n: bf16(a), times
+// bf16(scale), plus the bias, each step rounded to bf16
+__device__ __forceinline__ bf16 w8_finish(float a, const float* scale,
+                                          const bf16* bias, int n) {
+  using mma_common::round_bf16;
+  float o = round_bf16(__fmul_rn(round_bf16(a), round_bf16(scale[n])));
+  if (bias != nullptr) o = __fadd_rn(o, __bfloat162float(bias[n]));
+  return __float2bfloat16_rn(o);
+}
+
+// w8_linear for up to MR rows of x: one warp per output column n, lanes
+// striding over K in 16-weight chunks (VEC: K % 16 == 0 and 16-byte aligned
+// rows of x and Wq), the MR dot products reduced across the warp
+template <int MR, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+w8_gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+               const float* __restrict__ scale, const bf16* __restrict__ bias,
+               bf16* __restrict__ out, int M, int N, int K) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+  const int m0 = blockIdx.y * MR;
+  if (n >= N) return;
+  const int8_t* wr = w + static_cast<size_t>(n) * K;
+  float acc[MR];
+#pragma unroll
+  for (int m = 0; m < MR; ++m) acc[m] = 0.f;
+  if constexpr (VEC) {
+#pragma unroll 2
+    for (int k = lane * 16; k < K; k += 32 * 16) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(wr + k));
+      const int8_t* wb = reinterpret_cast<const int8_t*>(&u);
+      float wf[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) wf[j] = static_cast<float>(wb[j]);
+#pragma unroll
+      for (int m = 0; m < MR; ++m) {
+        if (m0 + m < M) {
+          float xv[16];
+          const bf16* xr = x + static_cast<size_t>(m0 + m) * K + k;
+          load8<true>(xr, 0, 8, xv);
+          load8<true>(xr, 8, 16, xv + 8);
+#pragma unroll
+          for (int j = 0; j < 16; ++j) acc[m] = fmaf(xv[j], wf[j], acc[m]);
+        }
+      }
+    }
+  } else {
+    for (int k = lane; k < K; k += 32) {
+      const float wf = static_cast<float>(wr[k]);
+#pragma unroll
+      for (int m = 0; m < MR; ++m)
+        if (m0 + m < M)
+          acc[m] = fmaf(__bfloat162float(x[static_cast<size_t>(m0 + m) * K + k]),
+                        wf, acc[m]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], off);
+  }
+  if (lane < MR && m0 + lane < M) {
+    float a = acc[0];
+#pragma unroll
+    for (int m = 1; m < MR; ++m)
+      if (lane == m) a = acc[m];
+    out[static_cast<size_t>(m0 + lane) * N + n] = w8_finish(a, scale, bias, n);
+  }
+}
+
+// w8_linear with many rows: a 64 x 64 output tile per block of 4 warps (16
+// rows each), K in steps of 32; x's tile and the int8 tile, converted to
+// bf16, in shared memory with a row stride of 40 (conflict-free fragment
+// loads); mma.sync m16n8k16 with fp32 accumulation. K % 8 == 0 and 16-byte
+// aligned x and Wq rows (the dispatch checks).
+constexpr int GT = 64;       // tile rows and columns
+constexpr int GK = 32;       // K step
+constexpr int GLD = GK + 8;  // shared row stride (bf16)
+
+__global__ void __launch_bounds__(128)
+w8_gemm_bf16_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
+                    const float* __restrict__ scale,
+                    const bf16* __restrict__ bias, bf16* __restrict__ out,
+                    int M, int N, int K) {
+  __shared__ __align__(16) bf16 xs[GT * GLD];
+  __shared__ __align__(16) bf16 ws[GT * GLD];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * GT, n0 = blockIdx.x * GT;
+  float c[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += GK) {
+    // x tile: 64 rows x 32 columns = 256 vectors of 8 bf16, 2 a thread;
+    // int8 tile: 64 rows of Wq x 32 = 256 vectors of 8, 2 a thread
+    uint4 xv[2];
+    uint2 wv[2];
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int i = tid + it * 128;
+      const int r = i >> 2, cc = (i & 3) * 8;
+      xv[it] = make_uint4(0u, 0u, 0u, 0u);
+      wv[it] = make_uint2(0u, 0u);
+      if (m0 + r < M && k0 + cc < K)
+        xv[it] = *reinterpret_cast<const uint4*>(
+            x + static_cast<size_t>(m0 + r) * K + k0 + cc);
+      if (n0 + r < N && k0 + cc < K)
+        wv[it] = *reinterpret_cast<const uint2*>(
+            w + static_cast<size_t>(n0 + r) * K + k0 + cc);
+    }
+    __syncthreads();  // the previous step's fragments are read
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int i = tid + it * 128;
+      const int r = i >> 2, cc = (i & 3) * 8;
+      *reinterpret_cast<uint4*>(xs + r * GLD + cc) = xv[it];
+      const int8_t* b = reinterpret_cast<const int8_t*>(&wv[it]);
+      uint4 h;
+      h.x = mma_common::pack_bf16(b[0], b[1]);
+      h.y = mma_common::pack_bf16(b[2], b[3]);
+      h.z = mma_common::pack_bf16(b[4], b[5]);
+      h.w = mma_common::pack_bf16(b[6], b[7]);
+      *reinterpret_cast<uint4*>(ws + r * GLD + cc) = h;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < GK; kk += 16) {
+      const bf16* xa = xs + (warp * 16 + g) * GLD + kk + 2 * t;
+      uint32_t a[4];
+      a[0] = mma_common::lds32(xa);
+      a[1] = mma_common::lds32(xa + 8 * GLD);
+      a[2] = mma_common::lds32(xa + 8);
+      a[3] = mma_common::lds32(xa + 8 * GLD + 8);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bf16* wb = ws + (j * 8 + g) * GLD + kk + 2 * t;
+        mma_common::mma_16816(c[j], a, mma_common::lds32(wb),
+                              mma_common::lds32(wb + 8));
+      }
+    }
+  }
+  // c[j]: (row g, cols 8j + 2t, +1) and (row g + 8, the same cols)
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = m0 + warp * 16 + g + (e >> 1) * 8;
+      const int n = n0 + j * 8 + 2 * t + (e & 1);
+      if (m < M && n < N)
+        out[static_cast<size_t>(m) * N + n] = w8_finish(c[j][e], scale, bias, n);
+    }
+  }
+}
+
+unsigned grid_for(long long total) {
+  long long blocks = (total + THREADS - 1) / THREADS;
+  const long long cap = 132LL * 64;  // grid-stride beyond 64 blocks per SM
+  return static_cast<unsigned>(blocks < 1 ? 1 : (blocks > cap ? cap : blocks));
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T>
+int epilogue_t(const void* acc, const void* w_scale, const void* x_scale,
+               void* out, long long rows, int N, int Np, cudaStream_t s) {
+  const bool vec = N % 4 == 0 && aligned16(acc);
+  const unsigned grid = grid_for(rows * (vec ? N / 4 : N));
+  auto args = [&](auto kernel) {
+    kernel<<<grid, THREADS, 0, s>>>(static_cast<const int32_t*>(acc),
+                                    static_cast<const float*>(w_scale),
+                                    static_cast<const float*>(x_scale),
+                                    static_cast<T*>(out), rows, N, Np);
+  };
+  vec ? args(int8_epilogue_kernel<T, true>) : args(int8_epilogue_kernel<T, false>);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MR>
+void gemv_launch(const bf16* x, const int8_t* w, const float* scale,
+                 const bf16* bias, bf16* out, int M, int N, int K, bool vec,
+                 cudaStream_t s) {
+  const dim3 grid((N + THREADS / 32 - 1) / (THREADS / 32), (M + MR - 1) / MR);
+  auto args = [&](auto kernel) {
+    kernel<<<grid, THREADS, 0, s>>>(x, w, scale, bias, out, M, N, K);
+  };
+  vec ? args(w8_gemv_kernel<MR, true>) : args(w8_gemv_kernel<MR, false>);
+}
+
+}  // namespace
+
+// x (rows, K) contiguous bf16; in_scale (K,) fp32; q (>= rows, Kp) int8, Kp
+// a multiple of 8 >= K.
+extern "C" int quantize_static(const void* x, const void* in_scale, void* q,
+                               long long rows, int K, int Kp, void* stream) {
+  const bool vec = K % 8 == 0 && aligned16(x);
+  const unsigned grid = grid_for(rows * (Kp / 8));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto args = [&](auto kernel) {
+    kernel<<<grid, THREADS, 0, s>>>(static_cast<const bf16*>(x),
+                                    static_cast<const float*>(in_scale),
+                                    static_cast<int8_t*>(q), rows, K, Kp);
+  };
+  vec ? args(quantize_static_kernel<true>) : args(quantize_static_kernel<false>);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (rows, K) contiguous bf16; q (>= rows, Kp) int8; scale (rows,) fp32.
+extern "C" int quantize_dynamic(const void* x, void* q, void* scale,
+                                long long rows, int K, int Kp, void* stream) {
+  const bool vec = K % 8 == 0 && aligned16(x);
+  const unsigned grid =
+      static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto args = [&](auto kernel) {
+    kernel<<<grid, THREADS, 0, s>>>(static_cast<const bf16*>(x),
+                                    static_cast<int8_t*>(q),
+                                    static_cast<float*>(scale), rows, K, Kp);
+  };
+  vec ? args(quantize_dynamic_kernel<true>) : args(quantize_dynamic_kernel<false>);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// acc (>= rows, Np) int32; w_scale (N,) fp32; x_scale (rows,) fp32 or NULL;
+// out (rows, N), bf16 (out_fp32 0) or fp32 (1).
+extern "C" int int8_epilogue(const void* acc, const void* w_scale,
+                             const void* x_scale, void* out, long long rows,
+                             int N, int Np, int out_fp32, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return out_fp32 ? epilogue_t<float>(acc, w_scale, x_scale, out, rows, N, Np, s)
+                  : epilogue_t<bf16>(acc, w_scale, x_scale, out, rows, N, Np, s);
+}
+
+// x (M, K) contiguous bf16; w (N, K) int8; scale (N,) fp32; bias (N,) bf16
+// or NULL; out (M, N) bf16.
+extern "C" int w8_linear(const void* x, const void* w, const void* scale,
+                         const void* bias, void* out, long long M, int N, int K,
+                         void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m = static_cast<int>(M);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const int8_t* wq = static_cast<const int8_t*>(w);
+  const float* sc = static_cast<const float*>(scale);
+  const bf16* bb = static_cast<const bf16*>(bias);
+  bf16* o = static_cast<bf16*>(out);
+  const bool aligned = aligned16(x) && aligned16(w);
+  if (m > 8 && K % 8 == 0 && aligned) {
+    const dim3 grid((N + GT - 1) / GT, (m + GT - 1) / GT);
+    w8_gemm_bf16_kernel<<<grid, 128, 0, s>>>(xb, wq, sc, bb, o, m, N, K);
+  } else {
+    const bool vec = K % 16 == 0 && aligned;
+    if (m <= 1) {
+      gemv_launch<1>(xb, wq, sc, bb, o, m, N, K, vec, s);
+    } else if (m <= 2) {
+      gemv_launch<2>(xb, wq, sc, bb, o, m, N, K, vec, s);
+    } else if (m <= 4) {
+      gemv_launch<4>(xb, wq, sc, bb, o, m, N, K, vec, s);
+    } else {
+      gemv_launch<8>(xb, wq, sc, bb, o, m, N, K, vec, s);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}

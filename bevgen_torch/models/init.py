@@ -7,6 +7,8 @@ import math
 import torch
 from torch import nn
 
+from bevgen_torch.ops.quant import QUANT_MODULES, init_quant_param
+
 
 @torch.no_grad()
 def init_weights(module: nn.Module, seed: int = 0) -> nn.Module:
@@ -15,7 +17,9 @@ def init_weights(module: nn.Module, seed: int = 0) -> nn.Module:
     normals for linear and conv weights, 1/sqrt(dim)-scaled normals for
     embeddings, the reference's constants for the rest (unit norm scales
     and q/k scales, zero biases and camera-bias table, unit-normal null_kv,
-    uniform +-1/n_embed codebooks). Returns `module`."""
+    uniform +-1/n_embed codebooks; the int8 modules' kernels, scales and
+    in_scales as `ops.quant.init_quant_param` draws them). Returns
+    `module`."""
     gen = torch.Generator().manual_seed(seed)
 
     def normal(shape, std):
@@ -26,7 +30,9 @@ def init_weights(module: nn.Module, seed: int = 0) -> nn.Module:
     for name, p in module.named_parameters():
         owner_name, _, leaf = name.rpartition(".")
         owner = module.get_submodule(owner_name)
-        if isinstance(owner, (nn.Linear, nn.Conv2d)) and leaf == "weight":
+        if isinstance(owner, QUANT_MODULES):
+            val = init_quant_param(owner, leaf, p.shape, gen)
+        elif isinstance(owner, (nn.Linear, nn.Conv2d)) and leaf == "weight":
             val = normal(p.shape, 1.0 / math.sqrt(p[0].numel()))
         elif isinstance(owner, nn.Embedding):
             val = torch.randn(p.shape, generator=gen) / math.sqrt(p.shape[1])

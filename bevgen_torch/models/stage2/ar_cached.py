@@ -18,15 +18,21 @@ chunked by `bucket_ranges` so a step reads only a prefix of the cache
 The caches are per-layer (b, H, L, dh) tensors in the compute dtype; the
 step writes position s into them IN PLACE (where the reference's
 functional update makes a new array). The query/key/value weights are
-fused into one Linear per layer once per generate (`fuse_qkv`).
+fused into one product per layer once per generate (`fuse_qkv`).
+
+The int8 tree (`cfg.quant == "int8"`, `ops.quant.quantize_gpt_tree`) runs
+every product, the prefill's, the decode steps' and the head's, through the
+weight-only int8 product (`ops.quant.w8_linear`: the `w8_linear` kernel on
+the card); `fuse_qkv` concatenates kernel_q, scale and bias along the output
+axis, as the reference's `_fuse_qkv_per_layer` does.
 
 Not ported: the `stacked` decode variant (one scan over stacked weights,
-env `BEVGEN_AR_DECODE`) and the int8 weight tree (`kernel_q`).
+env `BEVGEN_AR_DECODE`).
 """
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +40,7 @@ import torch.nn.functional as F
 from bevgen_torch.models.stage2.ar import decode_positions, sample_logits
 from bevgen_torch.models.stage2.gpt import SparseGPT
 from bevgen_torch.ops.decode_attention import NEG_INF, decode_attention
+from bevgen_torch.ops.quant import Int8WeightDense
 
 PREFIX_BUCKET = 512
 
@@ -47,10 +54,9 @@ class ARStatic(NamedTuple):
 
 
 class FusedBlock(NamedTuple):
-    """One layer's weights in the compute dtype, q/k/v fused."""
+    """One layer with its q/k/v products fused into one."""
     block: torch.nn.Module            # the SparseGPTBlock (norms, MLP)
-    qkv_w: torch.Tensor               # (3 * hidden, d)
-    qkv_b: torch.Tensor               # (3 * hidden,)
+    qkv: Callable                     # (..., d) -> (..., 3 * hidden)
 
 
 def precompute_static(model: SparseGPT, bev_indices, intrinsics_inv,
@@ -69,14 +75,25 @@ def precompute_static(model: SparseGPT, bev_indices, intrinsics_inv,
 
 
 def fuse_qkv(model: SparseGPT) -> List[FusedBlock]:
-    """Per-layer q/k/v weights concatenated into one Linear (independent
-    output columns, so the same results), cast to the compute dtype."""
+    """Per-layer q/k/v weights concatenated into one product (independent
+    output columns, so the same results): a Linear in the compute dtype, or
+    for the int8 tree kernel_q, scale and bias concatenated along the output
+    axis and run by `w8_linear` (the same route as the layers')."""
     dt = model.dtype
     out = []
     for blk in model.blocks():
-        w = torch.cat([blk.query.weight, blk.key.weight, blk.value.weight]).to(dt)
-        bias = torch.cat([blk.query.bias, blk.key.bias, blk.value.bias]).to(dt)
-        out.append(FusedBlock(blk, w, bias))
+        projs = (blk.query, blk.key, blk.value)
+        bias = torch.cat([p.bias for p in projs]).to(dt)
+        if isinstance(blk.query, Int8WeightDense):
+            w_q = torch.cat([p.kernel_q for p in projs])
+            scale = torch.cat([p.scale for p in projs])
+            route = blk.query.route
+            qkv = (lambda x, w_q=w_q, scale=scale, bias=bias, route=route:
+                   route(x, w_q, scale, bias))
+        else:
+            w = torch.cat([p.weight for p in projs]).to(dt)
+            qkv = (lambda x, w=w, bias=bias: F.linear(x, w, bias))
+        out.append(FusedBlock(blk, qkv))
     return out
 
 
@@ -157,7 +174,7 @@ def decode_step_unrolled(model: SparseGPT, static: ARStatic,
     for fb, kc, vc in zip(blocks, k_cache, v_cache):
         blk = fb.block
         xn = blk.ln1(x, dt)
-        qkv = F.linear(xn[:, 0], fb.qkv_w, fb.qkv_b)            # (b, 3*hidden)
+        qkv = fb.qkv(xn[:, 0])                                  # (b, 3*hidden)
         q, k, v = qkv.reshape(b, 3, H, dh).unbind(1)
         kc[:, :, s] = k
         vc[:, :, s] = v

@@ -30,6 +30,13 @@ CUDA kernel for CUDA tensors, the dense masked version for CPU tensors.
 Submodule names mirror the reference's parameter tree (`block_{i}`,
 `ln1/norm`, `query`, `x_tok_emb`, ...), so `core/convert.py` maps one onto
 the other.
+
+`cfg.quant == "int8"` builds the serving tree of
+`ops.quant.quantize_gpt_tree`: the six dense layers (`query`, `key`,
+`value`, `mlp_fc`, `mlp_proj`, `head`) become `ops.quant.Int8WeightDense`
+(int8 weights, the product in the compute dtype). Only the KV-cached
+decoder (`ar_cached.py`) serves that tree; the full forward raises, as the
+reference's module cannot run it either.
 """
 from __future__ import annotations
 
@@ -44,6 +51,16 @@ from bevgen_torch.core.config import MultiViewConfig
 from bevgen_torch.models import geometry, masks
 from bevgen_torch.models.stage2.transformer import Dense, Embed
 from bevgen_torch.ops.block_sparse import SparseAttention
+from bevgen_torch.ops.quant import Int8WeightDense
+
+
+def gpt_dense(cfg: MultiViewConfig, in_f: int, out_f: int, bias: bool, dtype,
+              param_dtype=None) -> nn.Module:
+    """One of the six dense layers: `Dense`, or under int8 the
+    int8-weight `Int8WeightDense`."""
+    if cfg.quant == "int8":
+        return Int8WeightDense(in_f, out_f, bias, dtype, param_dtype)
+    return Dense(in_f, out_f, bias, dtype, param_dtype)
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -75,12 +92,12 @@ class SparseGPTBlock(nn.Module):
         d, hid = cfg.num_embed, cfg.hidden_size
         self.cfg, self.dtype = cfg, dtype
         self.ln1 = TorchLayerNorm(d)
-        self.query = Dense(d, hid, True, dtype, param_dtype)
-        self.key = Dense(d, hid, True, dtype, param_dtype)
-        self.value = Dense(d, hid, True, dtype, param_dtype)
+        self.query = gpt_dense(cfg, d, hid, True, dtype, param_dtype)
+        self.key = gpt_dense(cfg, d, hid, True, dtype, param_dtype)
+        self.value = gpt_dense(cfg, d, hid, True, dtype, param_dtype)
         self.ln2 = TorchLayerNorm(d)
-        self.mlp_fc = Dense(d, 4 * d, True, dtype, param_dtype)
-        self.mlp_proj = Dense(4 * d, d, True, dtype, param_dtype)
+        self.mlp_fc = gpt_dense(cfg, d, 4 * d, True, dtype, param_dtype)
+        self.mlp_proj = gpt_dense(cfg, 4 * d, d, True, dtype, param_dtype)
 
     def mlp(self, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(self.mlp_fc(self.ln2(x, self.dtype)), approximate="none")
@@ -144,7 +161,7 @@ class SparseGPT(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"block_{i}", SparseGPTBlock(cfg, dtype, pdt))
         self.ln_f = TorchLayerNorm(d)
-        self.head = Dense(d, cfg.vocab_size, False, dtype, pdt)
+        self.head = gpt_dense(cfg, d, cfg.vocab_size, False, dtype, pdt)
 
         fwd, bwd = geometry.decode_order(cfg)
         self.register_buffer("fwd_order", torch.from_numpy(fwd), persistent=False)
@@ -200,6 +217,11 @@ class SparseGPT(nn.Module):
         `resid_pdrop` to every MLP output, with masks drawn from
         `generator` (which it then needs, where a rate is above 0)."""
         cfg, dt = self.cfg, self.dtype
+        if cfg.quant != "none":
+            raise NotImplementedError(
+                f"the {cfg.quant} GPT serves through the KV-cached decoder "
+                f"(ar_cached.ar_sample_cached) only; its full forward takes "
+                f"the unquantized tree")
         embd_drop = resid_drop = None
         if not deterministic and max(cfg.embd_pdrop, cfg.resid_pdrop) > 0:
             if generator is None:

@@ -34,6 +34,15 @@ folds into the next norm (`ops/fused_glue.py`'s residual + LayerNorm pass)
 and the GEGLU's gate*gelu and middle norm are one pass; the parameters are
 the same on both forms.
 
+`cfg.quant == "int8"` (serving only) swaps the hot products for the W8A8
+`ops.quant.QuantDense` (`make_dense`): `to_q`, the self-attention `to_kv`,
+`proj_in`, `proj_out` and `to_logits` with static activation scales, `to_out`
+and the cross-attention `to_kv` (so the decode cache's `precompute_kv`) with
+dynamic ones, as `ops.quant.quantize_dense_tree` builds the tree; each
+`CosineAttention` knows whether it is a cross attention. The GEGLU's glue
+pass turns off under int8 (the residual + LayerNorm glue does not), and
+`self_cond_to_init_embed` stays in the compute dtype.
+
 Submodule names mirror the reference's parameter tree (`layers_{i}_attn`,
 `norm.norm`, `to_kv`, ...), so `core/convert.py` maps one onto the other.
 The attention core is `ops.cosine_attention.cosine_attention`: the CUDA
@@ -52,6 +61,7 @@ from bevgen_torch.models import geometry, masks
 from bevgen_torch.ops.cosine_attention import cosine_attention
 from bevgen_torch.ops.fused_glue import geglu_layernorm, residual_layernorm
 from bevgen_torch.ops.layernorm import layernorm
+from bevgen_torch.ops.quant import QuantDense
 
 
 class Dense(nn.Linear):
@@ -68,6 +78,19 @@ class Dense(nn.Linear):
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+def make_dense(quant: str):
+    """Factory of the hot products' layers, called as
+    `dense(in, out, dtype, param_dtype, static)`: a bias-free `Dense`, or
+    under int8 a `QuantDense` whose activation scales are static (`static`:
+    the input is a scale-only LayerNorm output) or per row. The choices
+    must agree with `ops.quant.quantize_dense_tree`'s."""
+    if quant == "int8":
+        return lambda i, o, dtype, param_dtype=None, static=False: QuantDense(
+            i, o, dtype, static_input=static)
+    return lambda i, o, dtype, param_dtype=None, static=False: Dense(
+        i, o, False, dtype, param_dtype)
 
 
 class Embed(nn.Embedding):
@@ -119,17 +142,22 @@ def l2norm(t: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 class CosineAttention(nn.Module):
     """Cosine-sim attention with a learned null K/V column and an optional
     additive bias. `core` is the attention function
-    (`ops.cosine_attention.cosine_attention` by default)."""
+    (`ops.cosine_attention.cosine_attention` by default). `cross`: a cross
+    attention, whose K/V come from the context (`precompute_kv`); under
+    int8 its `to_kv` takes per-row activation scales, the self-attention's
+    static ones."""
 
     def __init__(self, dim: int, dim_head: int, heads: int, dtype,
-                 scale: float = 8.0, param_dtype=None):
+                 scale: float = 8.0, param_dtype=None, quant: str = "none",
+                 cross: bool = False):
         super().__init__()
         self.heads, self.dim_head, self.scale, self.dtype = heads, dim_head, scale, dtype
         inner = heads * dim_head
+        dense = make_dense(quant)
         self.norm = LayerNormG(dim)
-        self.to_q = Dense(dim, inner, False, dtype, param_dtype)
-        self.to_kv = Dense(dim, inner * 2, False, dtype, param_dtype)
-        self.to_out = Dense(inner, dim, False, dtype, param_dtype)
+        self.to_q = dense(dim, inner, dtype, param_dtype, static=True)
+        self.to_kv = dense(dim, inner * 2, dtype, param_dtype, static=not cross)
+        self.to_out = dense(inner, dim, dtype, param_dtype)
         self.null_kv = nn.Parameter(torch.empty(2, heads, 1, dim_head))
         self.q_scale = nn.Parameter(torch.ones(dim_head))
         self.k_scale = nn.Parameter(torch.ones(dim_head))
@@ -188,17 +216,20 @@ class GEGLUFeedForward(nn.Module):
 
     `use_glue`: gate*gelu and norm_mid in one pass (`ops/fused_glue.py`)
     between the unpadded projections. `residual_delta` / `return_residual`:
-    the fused-glue convention of `CosineAttention.forward`."""
+    the fused-glue convention of `CosineAttention.forward`. Under int8 both
+    projections are `QuantDense`s with static scales and the GEGLU pass
+    stays unfused, as in the reference."""
 
     def __init__(self, dim: int, mult: int, dtype, param_dtype=None,
-                 use_glue: bool = False):
+                 use_glue: bool = False, quant: str = "none"):
         super().__init__()
         inner = int(dim * mult * 2 / 3)
-        self.dtype, self.use_glue = dtype, use_glue
+        self.dtype, self.use_glue = dtype, use_glue and quant == "none"
+        dense = make_dense(quant)
         self.norm_in = LayerNormG(dim)
-        self.proj_in = Dense(dim, inner * 2, False, dtype, param_dtype)
+        self.proj_in = dense(dim, inner * 2, dtype, param_dtype, static=True)
         self.norm_mid = LayerNormG(inner)
-        self.proj_out = Dense(inner, dim, False, dtype, param_dtype)
+        self.proj_out = dense(inner, dim, dtype, param_dtype, static=True)
 
     def forward(self, x: torch.Tensor,
                 residual_delta: Optional[torch.Tensor] = None,
@@ -267,16 +298,20 @@ class MultiViewTransformer(nn.Module):
         if cfg.self_cond:
             # the reference builds it with mult 4 and without the glue
             self.self_cond_to_init_embed = GEGLUFeedForward(dim, 4, dtype, pdt)
+        q = cfg.quant
         for i in range(cfg.num_layers):
             self.add_module(f"layers_{i}_attn", CosineAttention(
-                dim, cfg.dim_head, cfg.num_heads, dtype, param_dtype=pdt))
+                dim, cfg.dim_head, cfg.num_heads, dtype, param_dtype=pdt,
+                quant=q))
             self.add_module(f"layers_{i}_cross_attn", CosineAttention(
-                dim, cfg.dim_head, cfg.num_heads, dtype, param_dtype=pdt))
+                dim, cfg.dim_head, cfg.num_heads, dtype, param_dtype=pdt,
+                quant=q, cross=True))
             self.add_module(f"layers_{i}_ff", GEGLUFeedForward(
-                dim, cfg.ff_mult, dtype, pdt, use_glue=self.use_glue))
+                dim, cfg.ff_mult, dtype, pdt, use_glue=self.use_glue, quant=q))
         self.final_norm = LayerNormG(dim)
-        self.to_logits = Dense(dim, cfg.vocab_size if dim_out is None
-                               else dim_out, False, dtype, pdt)
+        self.to_logits = make_dense(q)(
+            dim, cfg.vocab_size if dim_out is None else dim_out, dtype, pdt,
+            static=True)
 
     def layer(self, i: int):
         return (getattr(self, f"layers_{i}_attn"),

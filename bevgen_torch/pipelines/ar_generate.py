@@ -9,8 +9,10 @@ the `init_ids` cameras.
 
 On the card the cached decode runs every layer's attention through the
 decode-attention kernel (`ops/decode_attention.py`) and the full-forward
-sampler through the block-sparse kernel (`ops/block_sparse.py`). The int8
-serving tree (`quantized`) is not ported yet.
+sampler through the block-sparse kernel (`ops/block_sparse.py`).
+`quantized()` gives the int8-weight serving pipeline
+(`ops.quant.quantize_gpt_tree`, its products through the `w8_linear`
+kernel), which serves KV-cached only.
 """
 from __future__ import annotations
 
@@ -19,8 +21,10 @@ from typing import Optional, Tuple
 import torch
 
 from bevgen_torch.core.config import PipelineConfig
+from bevgen_torch.core.convert import export_jax_params, load_jax_params
 from bevgen_torch.models.stage2 import ar, ar_cached
 from bevgen_torch.models.stage2.gpt import SparseGPT
+from bevgen_torch.ops.quant import quantize_gpt_tree
 from bevgen_torch.pipelines.generate import Stage1Pipeline
 
 
@@ -31,8 +35,18 @@ class ARPipeline(Stage1Pipeline):
         super().__init__(config, dtype)
         self.gpt = SparseGPT(config.transformer, dtype)
 
-    def quantized(self, *args, **kwargs):
-        raise NotImplementedError("the int8 AR serving tree is not ported yet")
+    def quantized(self, batch_hint: Optional[int] = None) -> "ARPipeline":
+        """The int8-weight serving pipeline: a new pipeline on this device
+        whose GPT holds `ops.quant.quantize_gpt_tree` of this one's weights
+        (the six dense layers as int8 weights, biases kept; the compute
+        stays in the compute dtype) and shares the stage-1 models.
+        `batch_hint` is taken for symmetry with `BEVGenPipeline.quantized`
+        and not read: no crossover was measured on this path, so it always
+        quantizes, as the reference's does."""
+        del batch_hint
+        pipe = self.with_transformer("int8")
+        load_jax_params(pipe.gpt, quantize_gpt_tree(export_jax_params(self.gpt)))
+        return pipe
 
     @torch.inference_mode()
     def generate_fn(self, segmentation, intrinsics_inv, extrinsics_inv,
@@ -44,7 +58,11 @@ class ARPipeline(Stage1Pipeline):
         (b, cam, h, w)). Inputs may be numpy arrays or tensors; they are
         moved to the pipeline's device. `generator` (on that device) drives
         the token draws. cached=False runs the reference-parity sampler, one
-        full forward per token."""
+        full forward per token (not for the int8 tree: it raises)."""
+        if not cached and self.config.transformer.quant != "none":
+            raise ValueError("the int8 AR pipeline serves KV-cached only "
+                             "(cached=True): the full forward takes the "
+                             "unquantized tree")
         seg, ii, ei = self.as_inputs(segmentation, intrinsics_inv,
                                      extrinsics_inv)
         cond_ids = self.encode_bev(seg)

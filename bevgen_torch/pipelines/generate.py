@@ -9,19 +9,43 @@ it and `init_params` fills it with seeded random weights.
 The pipeline runs on the card unless the caller asks for the CPU
 (`device="cpu"`); on the card every attention core of the transformer
 goes through the hand-written CUDA kernel (`ops/cosine_attention.py`).
+
+`quantized(batch_hint=)` gives the int8 W8A8 serving pipeline
+(`ops/quant.py`), or keeps this one where the crossover table measured on
+the card (`configs/int8_crossover.json`, written by
+`scripts/crossover_sweep.py`) says bf16 serves the batch faster.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+from pathlib import Path
 from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from bevgen_torch.core.config import PipelineConfig
+from bevgen_torch.core.convert import export_jax_params, load_jax_params
 from bevgen_torch.core.device import resolve_device, resolve_dtype
 from bevgen_torch.models.init import init_weights
 from bevgen_torch.models.stage1.vq import VQModel, VQSegmentationModel
 from bevgen_torch.models.stage2.maskgit import MaskGit, generate as maskgit_generate
+from bevgen_torch.ops.quant import quantize_dense_tree
+
+# measured batch -> images/s of the argoverse_muse_7cam generate in bf16 and
+# int8 on the card (scripts/crossover_sweep.py writes it)
+CROSSOVER_TABLE = Path(__file__).resolve().parent.parent / "configs" / \
+    "int8_crossover.json"
+
+
+def crossover_table() -> dict:
+    """The measured crossover table (`CROSSOVER_TABLE`): {"comment", "chip",
+    "source", "measurements": {batch: {"bf16": images/s, "int8":
+    images/s}}}. Raises OSError or ValueError where it is missing or not
+    JSON."""
+    with open(CROSSOVER_TABLE) as f:
+        return json.load(f)
 
 
 class Stage1Pipeline(nn.Module):
@@ -49,6 +73,16 @@ class Stage1Pipeline(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.first_stage.codebook.device
+
+    def with_transformer(self, quant: str):
+        """A new pipeline of this class on this device and dtype, its config's
+        transformer set to `quant`, sharing this one's stage-1 models; its
+        stage-2 weights are unset."""
+        cfg = dataclasses.replace(self.config, transformer=self.config.
+                                  transformer.replace(quant=quant))
+        pipe = type(self)(cfg, self.dtype)
+        pipe.first_stage, pipe.cond_stage = self.first_stage, self.cond_stage
+        return pipe.to(self.device).eval()
 
     def init_params(self, seed: int = 0):
         """Seeded random weights (`models.init.init_weights`)."""
@@ -118,3 +152,48 @@ class BEVGenPipeline(Stage1Pipeline):
         ids, traj = res if return_trajectory else (res, None)
         images = self.decode_tokens(ids)
         return (images, ids, traj) if return_trajectory else (images, ids)
+
+    # ---- int8 serving ------------------------------------------------------
+
+    # the crossover where the table is missing or unusable: int8 below this
+    # batch, bf16 at or above it. From the card's table (CROSSOVER_TABLE,
+    # NVIDIA H100 80GB HBM3 at 700 W): the smallest measured batch at which
+    # bf16 served faster, which is the first, 1 (bf16 won at 1-16).
+    INT8_CROSSOVER_BATCH = 1
+
+    @staticmethod
+    def int8_beats_bf16(batch_hint: int) -> Optional[bool]:
+        """From the measured table (`crossover_table`): whether int8 served
+        the nearest measured batch that has both modes faster (ties to the
+        smaller batch); None when the table is missing or unusable."""
+        try:
+            meas = crossover_table()["measurements"]
+            both = {int(b): v for b, v in meas.items()
+                    if "bf16" in v and "int8" in v}
+            if not both:
+                return None
+            nearest = min(both, key=lambda b: (abs(b - batch_hint), b))
+            return both[nearest]["int8"] > both[nearest]["bf16"]
+        except (OSError, ValueError, KeyError, TypeError, AttributeError):
+            return None
+
+    def quantized(self, batch_hint: Optional[int] = None) -> "BEVGenPipeline":
+        """The int8 W8A8 serving pipeline: a new pipeline on this device
+        whose MaskGit holds `ops.quant.quantize_dense_tree` of this one's
+        weights (the JAX package's int8 tree, bit for bit) and shares the
+        stage-1 models. Where the table says bf16 serves `batch_hint` faster
+        it prints why and returns this pipeline itself; batch_hint=None
+        quantizes whatever the batch."""
+        if batch_hint is not None:
+            wins = self.int8_beats_bf16(batch_hint)
+            if wins is None:  # no table: the fallback threshold
+                wins = batch_hint < self.INT8_CROSSOVER_BATCH
+            if not wins:
+                print(f"[quantized] bf16 measured faster than int8 at batch "
+                      f"{batch_hint} (configs/int8_crossover.json) -- keeping "
+                      f"bf16")
+                return self
+        pipe = self.with_transformer("int8")
+        load_jax_params(pipe.maskgit,
+                        quantize_dense_tree(export_jax_params(self.maskgit)))
+        return pipe

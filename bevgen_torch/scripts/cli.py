@@ -39,6 +39,26 @@ def pop_pipeline_kind(args: Dict[str, str]) -> bool:
     return pipeline == "ar"
 
 
+def pop_quant(args: Dict[str, str]) -> str:
+    """Pop `quant` (none|int8|auto). Exits on an unknown value with the
+    reference's message."""
+    quant = args.pop("quant", "none")
+    if quant not in ("none", "int8", "auto"):
+        raise SystemExit(f"unknown quant={quant!r} (none|int8|auto)")
+    return quant
+
+
+def apply_quant(pipe, quant: str, batch_size: int):
+    """The pipeline that serves under `quant`: `pipe` itself for none; its
+    `quantized()` form for int8 (whatever the batch: the user may want the
+    halved weight memory), and for auto with `batch_size` as the hint (the
+    MUSE pipeline then keeps bf16 where the card's crossover table says bf16
+    serves that batch faster). Applied after any checkpoint is loaded."""
+    if quant == "none":
+        return pipe
+    return pipe.quantized(batch_hint=batch_size if quant == "auto" else None)
+
+
 def default_preset(ar: bool) -> str:
     return "nuscenes_ar" if ar else "argoverse_muse_7cam"
 

@@ -9,6 +9,8 @@
         transformer.num_layers=2 device=cpu fake=1
     python -m bevgen_torch.scripts.generate fake=1 batch_size=2 \\
         keep_cameras=ring_front_left,ring_front_center save_rec=true
+    python -m bevgen_torch.scripts.generate preset=argoverse_muse_7cam \\
+        batch_size=2 fake=2 quant=auto
     python -m bevgen_torch.scripts.generate config=bevgen_torch/configs/\\
 argoverse_muse.yaml modes=[argoverse,generate] eval_generate=/data/out
 
@@ -25,7 +27,12 @@ temperature 1), KV-cached unless `cached=false`. The weights are seeded
 random (`seed`) unless `ckpt_path` names a checkpoint
 (`training/checkpoints.py:load_weights`: one of the reference's torch
 checkpoints or one of the port's own tags; `ema=true` loads the tag's `-EMA`
-sibling and needs `ckpt_path`).
+sibling and needs `ckpt_path`). `quant=int8` serves the int8 pipeline
+(`quantized()`: W8A8 for MUSE, int8 weights for AR, made from the loaded
+weights); `quant=auto` passes `batch_size` as the hint, so MUSE keeps bf16
+where the card's crossover table (`bevgen_torch/configs/
+int8_crossover.json`) measured bf16 faster at that batch; `quant=none`
+(default) serves as loaded.
 
 `keep_cameras=<names>` (from the config's camera names) encodes the batch's
 `image` and keeps those cameras' tokens fixed: every other camera starts at
@@ -120,6 +127,7 @@ def run(argv: List[str]):
     tf = cfg.transformer
     kept = _kept_cameras(args.pop("keep_cameras", ""), tf.camera_names)
     sample_kw = {"cached": cli.pop_flag(args, "cached", "true")} if ar else {}
+    quant = cli.pop_quant(args)
     if args:
         raise SystemExit(f"unknown argument(s): {sorted(args)}")
     if use_ema and not ckpt_path:
@@ -149,6 +157,10 @@ def run(argv: List[str]):
         family = load_weights(ckpt_path, pipe)
         print(f"[generate] loaded {family} weights from {ckpt_path}",
               flush=True)
+    pipe = cli.apply_quant(pipe, quant, batch_size)
+    if quant != "none":
+        print(f"[generate] quant={quant}: serving "
+              f"{pipe.config.transformer.quant}", flush=True)
     writer = None
     if save_dir:
         from bevgen_torch.utils.outputs import GenerationWriter

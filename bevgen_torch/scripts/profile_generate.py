@@ -5,10 +5,13 @@
     python -m bevgen_torch.scripts.profile_generate pipeline=ar \\
         batch_size=2 out=profile_generate_ar.json
     python -m bevgen_torch.scripts.profile_generate transformer.use_fused_glue=true
+    python -m bevgen_torch.scripts.profile_generate quant=int8
 
 Builds the pipeline (`pipeline=muse`, default, or `pipeline=ar`, whose
 default preset is nuscenes_ar and which decodes KV-cached with top_k=100)
-with seeded random weights, runs one warm-up generate, then traces one more
+with seeded random weights (`quant=int8`: then its `quantized()` int8 form,
+whose int8 kernels are a category of their own), runs one warm-up generate,
+then traces one more
 with `torch.profiler` (CPU and CUDA activities for MUSE; CUDA alone for AR,
 whose generate launches some 800,000 kernels).
 Prints the wall time, the device's busy time (union of its kernel and copy
@@ -43,7 +46,13 @@ def category(name: str) -> str:
         return "attention backward kernels"
     if "glue_" in n:
         return "glue kernels (residual/GEGLU + LayerNorm)"
+    if any(t in n for t in ("quantize_static_kernel", "quantize_dynamic_kernel",
+                            "int8_epilogue_kernel", "w8_gemv_kernel",
+                            "w8_gemm_bf16_kernel")):
+        return "int8 kernels (quantize, epilogue, w8_linear)"
     if any(t in n for t in ("gemm", "cutlass", "xmma", "cublas", "gemv", "nvjet")):
+        if any(t in n for t in ("s8", "i8", "imma", "int8")):
+            return "matmul int8 (torch._int_mm)"
         return "matmul"
     if any(t in n for t in ("conv", "cudnn", "implicit_convolve", "winograd")):
         return "conv"
@@ -121,11 +130,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     seed = cfg.seed
     out = args.pop("out", "profile_generate.json")
     top = int(args.pop("top", 20))
+    quant = cli.pop_quant(args)
     if args:
         raise SystemExit(f"unknown argument(s): {sorted(args)}")
 
     pipe = (ARPipeline if ar else BEVGenPipeline).create(
         cfg, device="cuda").init_params(seed)
+    pipe = cli.apply_quant(pipe, quant, batch_size)
     batch = fake_batch(cfg, batch_size, seed=seed)
     inputs = (batch["segmentation"], batch["intrinsics_inv"],
               batch["extrinsics_inv"])
@@ -144,9 +155,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(f"[profile] trace summarised in {time.perf_counter() - t0:.1f} s")
 
     result = {"device": torch.cuda.get_device_name(0), "preset": preset,
-              "pipeline": "ar" if ar else "muse",
+              "pipeline": "ar" if ar else "muse", "quant": quant,
               "batch_size": batch_size, **summary}
-    print_summary(result, f"{preset} b={batch_size}")
+    print_summary(result, f"{preset} b={batch_size} quant={quant}")
     with open(out, "w") as f:
         json.dump(result, f, indent=1)
     return 0

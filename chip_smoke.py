@@ -181,7 +181,38 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      agree with a direct encode), then
      `scripts/train_stage2.py tokens_dir=<shards> steps=3 batch_size=8` at
      full width: exactly 56 row-1 forward and 168 row-8 backward launches
-     per step, finite losses.
+     per step, finite losses;
+ 35. the int8 serving kernels (`csrc/int8.cu`) against their plain versions
+     at the int8 paths' full-width shapes: quantize_static (3584 x 1024 and
+     x 2730) and quantize_dynamic (3584 x 1024, 512 x 1024) bit for bit,
+     padding and row scales included; int8_epilogue bit for bit in fp32 and
+     bf16 (3584 x 1024, 2048, 5460 static; 3584 x 1024 and 512 x 2048
+     dynamic); w8_linear within 2^-6 of max |out| (the AR decode's M = 2 and
+     prefill's M = 512 shapes); times over inputs beyond the L2, the plain
+     versions' (the eager chains), F.linear with bf16 weights for w8_linear,
+     the bytes bound; torch._int_mm on the padded operands exact;
+ 36. `BEVGenPipeline.quantized()` of the seed-0 `argoverse_muse_7cam`
+     pipeline at b=2: one forward through the int8 kernels against the
+     plain int8 route (the same cache), int8 against bf16 logits (cosine,
+     top-1 where the bf16 top-2 gap exceeds the int8 error); generates in
+     turns with bf16 (one warm-up, five timed each): images/s, MaskGit
+     weight MB, peak above the resident set, exactly 2485 quantize_static,
+     994 quantize_dynamic, 3479 int8_epilogue and 980 row-1 launches per
+     int8 generate; the same with `use_fused_glue=true` (1470 residual +
+     LayerNorm, 0 GEGLU + LayerNorm launches: the GEGLU glue is off under
+     int8);
+ 37. `ARPipeline.quantized()` of the seed-0 `nuscenes_ar` pipeline, b=2,
+     KV-cached, top_k=100, full width and depth: two timed generates
+     (images/s, peak above the resident set, against phase 14's bf16),
+     GPT weight MB int8 against bf16, exactly 50,400 row-11 and 153,421
+     w8_linear launches and no block-sparse or W8A8 launch per generate;
+     then greedy decoding cut to 8 layers: the plain int8 route's choice
+     at every step of the kernels' trajectory (ties counted, >= 0.97);
+ 38. the generate CLI with `quant=int8` and `quant=auto` for MUSE (full
+     width, b=2; `auto` with fake=2) and AR (full width cut to 2 layers,
+     b=1): the mode served (`auto` follows the crossover table,
+     `bevgen_torch/configs/int8_crossover.json`, whose card is printed
+     beside this one), the int8 kernels launched, finite images.
 
 Prints the kernels' JSON line, then the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`. Without a CUDA device,
@@ -1405,16 +1436,19 @@ def ar_generate_phase(cfg):
     generate(0)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    times = []
+    times, peak = [], 0
     for i in range(AR_TIMED):
         torch.cuda.synchronize()
         if i == 0:
             da.reset_launch_counts()
             bs.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         images, ids = generate(1 + i)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated() - before)
         if i == 0:
             n_dec = da.decode_attention_cuda.launches
             by_pl = dict(da.decode_attention_cuda.launches_by_shape)
@@ -1423,7 +1457,8 @@ def ar_generate_phase(cfg):
     n_img = B * tf.num_cams
     print(f"[ar-e2e] generate_fn b={B} cached top_k=100: warm-up {warm_s:.3f} s, "
           f"timed {', '.join(f'{t:.4f}' for t in times)} s, median {med:.4f} s "
-          f"= {n_img / med:.4f} images/s; launches in the first timed run: "
+          f"= {n_img / med:.4f} images/s, peak above the resident set "
+          f"{peak / 1e6:.1f} MB; launches in the first timed run: "
           f"decode {n_dec} {by_pl}, block-sparse {n_bs}", flush=True)
     if n_dec != tf.num_layers * tf.num_img_tokens or n_bs != 0:
         raise SystemExit(f"expected {tf.num_layers * tf.num_img_tokens} decode "
@@ -1450,7 +1485,8 @@ def ar_generate_phase(cfg):
           f"[{ids.min().item()}, {ids.max().item()}]; stages: encode_bev "
           f"{t[1] - t[0]:.4f} s, ar decode {t[2] - t[1]:.4f} s, "
           f"decode_tokens {t[3] - t[2]:.4f} s", flush=True)
-    return {"s": med, "images_per_s": n_img / med, "by_pl": by_pl}
+    return {"s": med, "images_per_s": n_img / med, "by_pl": by_pl,
+            "peak_mb": peak / 1e6}
 
 
 def ar_greedy_phase(cfg):
@@ -3191,6 +3227,650 @@ def tokenize_train_phase(cfg):
             "images_per_s": n_img / tok_s}
 
 
+# ---- int8 serving (phases 35-38) --------------------------------------------
+
+# The int8 kernels against their plain versions (csrc/int8.cu): the
+# quantizers and the epilogue repeat the plain versions' fp32 arithmetic
+# operation for operation, so they are held to equality (int8 values, zero
+# padding, row scales; the epilogue's fp32 output). w8_linear rounds three
+# times to bf16 (the sum, the product with the scale, the sum with the
+# bias), each within 2^-8 of the value's size, and sums in another order:
+# its max error against the fp32 plain version is held to 2^-6 of max |out|.
+W8_TOL = 2.0 ** -6
+# int8 against bf16 logits: the JAX package's cosine bound for int8 against
+# the compute dtype (tests/test_quant.py:84-107, at tiny_test). Its top-1
+# bound (0.9) does not carry to full width with random weights, whose 1024
+# logits a position are nearly flat: there a top-1 flips wherever the bf16
+# top-2 gap is below the int8 error. So the top-1 agreement is held to
+# INT8_DECIDED_TOP1_MIN on the positions whose bf16 top-2 gap exceeds
+# INT8_GAP_RMS times the RMS int8-vs-bf16 logit difference (a flip there
+# needs a 2.8-sigma error in the difference of two logits), and the raw
+# agreement is printed beside it.
+INT8_COS_MIN = 0.995
+INT8_GAP_RMS = 4.0
+INT8_DECIDED_TOP1_MIN = 0.99
+INT8_TIMED = 5          # MUSE generates per mode, in turns, after a warm-up
+AR_INT8_TIMED = 2       # AR int8 generates (the first counts the launches)
+AR_INT8_GREEDY_LAYERS = 8
+# inputs cycled through while a kernel is timed, so that they exceed the
+# 50 MB L2 (the serving path finds each layer's weights and activations cold)
+INT8_COLD_BYTES = 150e6
+
+
+def _cold_sets(one_bytes, make):
+    return [make(i) for i in range(max(1, math.ceil(INT8_COLD_BYTES / one_bytes)))]
+
+
+def check_quantize(name, rows, K, static, seed):
+    """quantize_static / quantize_dynamic against their plain versions (the
+    eager quantizer, then zero padding to a multiple of 8): bit for bit."""
+    import itertools
+    import torch
+    import torch.nn.functional as F
+    from bevgen_torch.ops import quant as tq
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Kp = tq.padded(K)
+    gamma = 1.0 + 0.1 * torch.randn(K, generator=g, device="cuda")
+    in_scale = (gamma.abs() * (tq.CLIP_SIGMA / 127.0)).contiguous()
+    inv = 1.0 / in_scale
+    sets = _cold_sets(rows * K * 2, lambda i: (torch.randn(
+        rows, K, generator=g, device="cuda") * gamma).bfloat16())
+    x = sets[0]
+    if static:
+        kernel = lambda x: tq.quantize_static_cuda(x, in_scale, Kp)
+        plain = lambda x: F.pad(tq.quantize_activations_static(x, inv),
+                                (0, Kp - K))
+        q = kernel(x)[:rows]
+        exact = torch.equal(q, plain(x))
+    else:
+        kernel = lambda x: tq.quantize_dynamic_cuda(x, Kp)
+        plain = lambda x: tuple((F.pad(a, (0, Kp - K)), s[:, 0]) for a, s in
+                                (tq.quantize_activations(x),))[0]
+        q, s = kernel(x)
+        wq, ws = plain(x)
+        exact = torch.equal(q[:rows], wq) and torch.equal(s, ws)
+    torch.cuda.synchronize()
+    cycle = itertools.cycle(sets)
+    ms = time_ms(lambda: kernel(next(cycle)), iters=50)
+    plain_ms = time_ms(lambda: plain(next(cycle)), iters=20)
+    nbytes = rows * K * 2 + rows * Kp + (K * 4 if static else rows * 4)
+    bms, bound_by = bound(4.0 * rows * K, nbytes)
+    kind = "quantize_static" if static else "quantize_dynamic"
+    print(f"[int8] {kind} {name}: rows={rows} K={K} (padded {Kp}) bit-exact="
+          f"{exact} ms={ms:.5f} plain_ms={plain_ms:.5f} (eager chain: "
+          f"quantize + pad) library_ms=None (no one call) bound_ms={bms:.5f} "
+          f"({bound_by}: {nbytes / 1e6:.2f} MB) timed over {len(sets)} input "
+          f"set(s) -> {'ok' if exact else 'FAIL'}", flush=True)
+    if not exact:
+        raise SystemExit(f"{kind} {name} disagrees with its plain version")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": bound_by, "library_ms": None}
+
+
+def check_epilogue(name, rows, N, dynamic, seed):
+    """int8_epilogue against its plain version: fp32 output bit for bit,
+    bf16 output (the path's) bit for bit."""
+    import itertools
+    import torch
+    from bevgen_torch.ops import quant as tq
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Np = tq.padded(N)
+    w_scale = torch.rand(N, generator=g, device="cuda") * 1e-4 + 1e-5
+    xs = (torch.rand(rows, generator=g, device="cuda") * 0.05 + 0.01
+          if dynamic else None)
+    sets = _cold_sets(rows * Np * 4, lambda i: torch.randint(
+        -2 ** 20, 2 ** 20, (rows, Np), generator=g, device="cuda",
+        dtype=torch.int32))
+    acc = sets[0]
+    col = None if xs is None else xs[:, None]
+    exact = all(torch.equal(
+        tq.int8_epilogue_cuda(acc, w_scale, xs, rows, dt),
+        tq.int8_epilogue_reference(acc[:, :N], w_scale, col, dt))
+        for dt in (torch.float32, torch.bfloat16))
+    cycle = itertools.cycle(sets)
+    ms = time_ms(lambda: tq.int8_epilogue_cuda(next(cycle), w_scale, xs, rows,
+                                               torch.bfloat16), iters=50)
+    plain_ms = time_ms(lambda: tq.int8_epilogue_reference(
+        next(cycle)[:, :N], w_scale, col, torch.bfloat16), iters=20)
+    nbytes = rows * Np * 4 + N * 4 + (rows * 4 if dynamic else 0) + rows * N * 2
+    bms, bound_by = bound((3.0 if dynamic else 2.0) * rows * N, nbytes)
+    print(f"[int8] int8_epilogue {name}: rows={rows} N={N} (acc {Np} wide) "
+          f"{'dynamic' if dynamic else 'static'} fp32 and bf16 bit-exact="
+          f"{exact} ms={ms:.5f} plain_ms={plain_ms:.5f} (eager chain) "
+          f"library_ms=None (no one call) bound_ms={bms:.5f} ({bound_by}: "
+          f"{nbytes / 1e6:.2f} MB) timed over {len(sets)} input set(s) -> "
+          f"{'ok' if exact else 'FAIL'}", flush=True)
+    if not exact:
+        raise SystemExit(f"int8_epilogue {name} disagrees with its plain version")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": bound_by, "library_ms": None}
+
+
+def check_w8(name, M, N, K, seed):
+    """w8_linear against its plain version in fp32 (W8_TOL), timed over
+    weight sets beyond the L2; library_ms: F.linear with the bf16 weights
+    cast once."""
+    import itertools
+    import torch
+    import torch.nn.functional as F
+    from bevgen_torch.ops import quant as tq
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device="cuda").bfloat16()
+    sets = _cold_sets(N * K, lambda i: (
+        torch.randint(-127, 128, (N, K), generator=g, device="cuda",
+                      dtype=torch.int8),
+        torch.rand(N, generator=g, device="cuda") * 0.03 / math.sqrt(K),
+        (0.02 * torch.randn(N, generator=g, device="cuda")).bfloat16()))
+    w, scale, bias = sets[0]
+    got = tq.w8_linear_cuda(x, w, scale, bias)
+    want = tq.w8_linear_reference(x.float(), w, scale, bias.float())
+    err = (got.float() - want).abs()
+    max_err, max_ref = err.max().item(), want.abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and max_err <= W8_TOL * max_ref
+    del err, want
+    bf16_sets = [(wq.bfloat16(), s.bfloat16(), b) for wq, s, b in sets]
+    cycle, bcycle = itertools.cycle(sets), itertools.cycle(bf16_sets)
+    ms = time_ms(lambda: tq.w8_linear_cuda(x, *next(cycle)), iters=50)
+    plain_ms = time_ms(lambda: tq.w8_linear_reference(x, *next(cycle)), iters=20)
+
+    def library():
+        wb, _, b = next(bcycle)
+        return F.linear(x, wb, b)
+    lib_ms = time_ms(library, iters=50)
+    nbytes = M * K * 2 + N * K + N * 4 + N * 2 + M * N * 2
+    bms, bound_by = bound(2.0 * M * N * K, nbytes)
+    print(f"[int8] w8_linear {name}: M={M} N={N} K={K} max_abs_err="
+          f"{max_err:.3e} (max |out| {max_ref:.3f}, bound {W8_TOL:.4f} of it) "
+          f"ms={ms:.5f} plain_ms={plain_ms:.5f} (eager: cast, matmul, scale, "
+          f"bias) library_ms={lib_ms:.5f} (F.linear, bf16 weights) bound_ms="
+          f"{bms:.5f} ({bound_by}: {nbytes / 1e6:.2f} MB, "
+          f"{2.0 * M * N * K / 1e9:.3f} GFLOP) timed over {len(sets)} weight "
+          f"set(s) -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"w8_linear {name} disagrees with its plain version")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def int8_shapes(cfg, ar_cfg):
+    """The int8 kernels' shapes on the int8 paths: the MUSE b=2 generate's
+    (rows = 2 x cameras x 256 image tokens, 2 x 256 BEV tokens for the
+    cross-attention K/V) and the AR b=2 generate's (decode M = 2, prefill M
+    = 2 x 256)."""
+    tf, at = cfg.transformer, ar_cfg.transformer
+    rows, ctx = 2 * tf.num_img_tokens, 2 * tf.num_cond_tokens
+    d, inner = tf.num_embed, int(tf.num_embed * tf.ff_mult * 2 / 3)
+    h = tf.num_heads * tf.dim_head
+    ad, ahid, pre = at.num_embed, at.hidden_size, 2 * at.num_cond_tokens
+    return {
+        "static": [(rows, d), (rows, inner)],
+        "dynamic": [(rows, h), (ctx, d)],
+        "epilogue": [(rows, d, False), (rows, 2 * h, False),
+                     (rows, 2 * inner, False), (rows, d, True),
+                     (ctx, 2 * h, True)],
+        "w8": [(2, 3 * ahid, ad), (2, 4 * ad, ad), (2, ad, 4 * ad),
+               (2, at.vocab_size, ad), (pre, ahid, ad), (pre, 4 * ad, ad),
+               (pre, ad, 4 * ad)],
+    }
+
+
+def int8_kernels_phase(cfg, ar_cfg):
+    """Phase 35: the four int8 kernels against their plain versions at the
+    int8 paths' full-width shapes, and torch._int_mm on the padded operands
+    against the exact int32 product."""
+    import torch
+    from bevgen_torch.ops import quant as tq
+    shapes = int8_shapes(cfg, ar_cfg)
+    stats = {}
+    for i, (rows, K) in enumerate(shapes["static"]):
+        stats[("static", rows, K)] = check_quantize(f"{rows}x{K}", rows, K,
+                                                    True, 40 + i)
+    for i, (rows, K) in enumerate(shapes["dynamic"]):
+        stats[("dynamic", rows, K)] = check_quantize(f"{rows}x{K}", rows, K,
+                                                     False, 42 + i)
+    for i, (rows, N, dyn) in enumerate(shapes["epilogue"]):
+        stats[("epilogue", rows, N, dyn)] = check_epilogue(
+            f"{rows}x{N}", rows, N, dyn, 44 + i)
+    for i, (M, N, K) in enumerate(shapes["w8"]):
+        stats[("w8", M, N, K)] = check_w8(f"{M}x{N}x{K}", M, N, K, 50 + i)
+    # the library int8 product on the padded operands: exact
+    g = torch.Generator(device="cuda").manual_seed(60)
+    for rows, K, N in ((shapes["static"][0][0], 1024, 1024),
+                       (shapes["static"][1][0], shapes["static"][1][1], 1024),
+                       (shapes["static"][0][0], 1024,
+                        shapes["epilogue"][2][1])):
+        Kp, Np = tq.padded(K), tq.padded(N)
+        xq = torch.zeros(rows, Kp, dtype=torch.int8, device="cuda")
+        xq[:, :K] = torch.randint(-127, 128, (rows, K), generator=g,
+                                  device="cuda", dtype=torch.int8)
+        wp = torch.zeros(Np, Kp, dtype=torch.int8, device="cuda")
+        wp[:N, :K] = torch.randint(-127, 128, (N, K), generator=g,
+                                   device="cuda", dtype=torch.int8)
+        acc = torch._int_mm(xq, wp.t())
+        exact = torch.equal(acc, tq.int8_product(xq, wp))
+        ms = time_ms(lambda: torch._int_mm(xq, wp.t()), iters=50)
+        wb, xb = wp.bfloat16(), xq.bfloat16()
+        bf_ms = time_ms(lambda: xb @ wb.t(), iters=50)
+        print(f"[int8] torch._int_mm {rows}x{Kp} @ ({Np}x{Kp})^T (padded from "
+              f"K={K}, N={N}): exact int32 {exact}; {ms:.5f} ms, the bf16 "
+              f"product of the same operands {bf_ms:.5f} ms", flush=True)
+        if not exact:
+            raise SystemExit("torch._int_mm on the padded operands is not exact")
+    return stats
+
+
+def muse_int8_launches(cfg):
+    """The int8 kernels' launches per b=2 generate: (quantize_static by (rows,
+    K), quantize_dynamic by (rows, K), int8_epilogue by (rows, N, dynamic))."""
+    tf = cfg.transformer
+    L, f = tf.num_layers, 2 * cfg.muse.sample_iterations - 1
+    shp = int8_shapes(cfg, cfg)
+    (rs, d), (_, inner) = shp["static"]
+    _, (ctx, _) = shp["dynamic"]
+    e = shp["epilogue"]
+    static = {(rs, d): f * (4 * L + 1), (rs, inner): f * L}
+    dynamic = {(rs, d): f * 2 * L, (ctx, d): L}
+    epi = {e[0]: f * (3 * L + 1), e[1]: f * L, e[2]: f * L, e[3]: f * 2 * L,
+           e[4]: L}
+    return static, dynamic, epi
+
+
+def _generate_timed(pipe, inputs, seed):
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = pipe.generate_fn(*inputs, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - before
+
+
+def _int8_counts():
+    from bevgen_torch.ops import quant as tq
+    return ({k: v for k, v in tq.quantize_static_cuda.launches_by_shape.items()},
+            {k: v for k, v in tq.quantize_dynamic_cuda.launches_by_shape.items()},
+            {k: v for k, v in tq.int8_epilogue_cuda.launches_by_shape.items()},
+            tq.w8_linear_cuda.launches)
+
+
+def muse_int8_modes(cfg, bf16, int8, label, inputs, want_counts, glue=False):
+    """Generates of the bf16 and the int8 pipeline in turns (one warm-up
+    each, INT8_TIMED timed): images/s, peak memory over the resident set,
+    the first timed int8 run's launch counts checked against `want_counts`
+    (and the glue kernels' with `glue`)."""
+    import torch
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops import fused_glue as fg
+    from bevgen_torch.ops import quant as tq
+    tf = cfg.transformer
+    pipes = {"bf16": bf16, "int8": int8}
+    for mode, p in pipes.items():
+        _generate_timed(p, inputs, 0)
+    times, peak = {m: [] for m in pipes}, {}
+    for i in range(INT8_TIMED):
+        order = ("int8", "bf16") if i % 2 == 0 else ("bf16", "int8")
+        for mode in order:
+            if i == 0 and mode == "int8":
+                tq.reset_launch_counts()
+                ca.reset_launch_counts()
+                fg.reset_launch_counts()
+            (images, ids), s, pk = _generate_timed(pipes[mode], inputs, 1 + i)
+            times[mode].append(s)
+            peak[mode] = max(peak.get(mode, 0), pk)
+            if i == 0 and mode == "int8":
+                counts = _int8_counts()
+                row1 = ca.cosine_attention_cuda.launches
+                row1_shapes = dict(ca.cosine_attention_cuda.launches_by_shape)
+                glue_n = (fg.residual_layernorm_cuda.launches,
+                          fg.geglu_layernorm_cuda.launches)
+                q_images, q_ids = images, ids
+    n_img = 2 * tf.num_cams
+    med = {m: sorted(v)[len(v) // 2] for m, v in times.items()}
+    wbytes = {m: tq.weight_bytes(p.maskgit) for m, p in pipes.items()}
+    for mode in pipes:
+        print(f"[int8-muse] {label} {mode} generate_fn b=2: timed "
+              f"{', '.join(f'{t:.4f}' for t in times[mode])} s, median "
+              f"{med[mode]:.4f} s = {n_img / med[mode]:.3f} images/s; MaskGit "
+              f"weights {wbytes[mode] / 1e6:.1f} MB, peak above the resident "
+              f"set {peak[mode] / 1e6:.1f} MB", flush=True)
+    steps = cfg.muse.sample_iterations
+    want_row1 = (2 * steps - 1) * tf.num_layers * 2
+    want_glue = ((2 * steps - 1) * 3 * tf.num_layers, 0) if glue else (0, 0)
+    static, dynamic, epi, w8 = counts
+    print(f"[int8-muse] {label} launches in the first timed int8 generate: "
+          f"quantize_static {static}, quantize_dynamic {dynamic}, "
+          f"int8_epilogue {epi}, w8_linear {w8}, row 1 {row1} (expected "
+          f"{want_row1}), residual + LayerNorm and GEGLU + LayerNorm {glue_n} "
+          f"(expected {want_glue})", flush=True)
+    if (static, dynamic, epi, w8) != (*want_counts, 0) or row1 != want_row1 \
+            or glue_n != want_glue:
+        raise SystemExit(f"int8 generate ({label}) launch counts differ from "
+                         f"{want_counts} / {want_row1} / {want_glue}")
+    if not torch.isfinite(q_images).all() or q_ids.min() < 0 or \
+            q_ids.max() >= tf.vocab_size:
+        raise SystemExit(f"int8 generate ({label}): non-finite images or ids "
+                         f"out of range")
+    return {"images_per_s": {m: n_img / v for m, v in med.items()},
+            "peak_mb": {m: v / 1e6 for m, v in peak.items()},
+            "weights_mb": {m: v / 1e6 for m, v in wbytes.items()},
+            "counts": counts, "row1_shapes": row1_shapes, "glue": glue_n}
+
+
+def int8_muse_phase(cfg):
+    """Phase 36: `quantized()` of the seed-0 `argoverse_muse_7cam` pipeline
+    at b=2: one forward through the int8 kernels against the plain int8
+    route, int8 against bf16 logits, then generates in turns (bf16, int8)
+    with images/s, peak memory and launch counts; the same with
+    use_fused_glue=true."""
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.ops import quant as tq
+    from bevgen_torch.pipelines.generate import BEVGenPipeline
+    tf = cfg.transformer
+    bf16 = BEVGenPipeline.create(cfg, device="cuda").init_params(seed=0)
+    t0 = time.perf_counter()
+    int8 = bf16.quantized()
+    torch.cuda.synchronize()
+    print(f"[int8-muse] quantized() in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    batch = fake_batch(cfg, batch_size=2, seed=0)
+    inputs = (batch["segmentation"], batch["intrinsics_inv"],
+              batch["extrinsics_inv"])
+    g = torch.Generator(device="cuda").manual_seed(3)
+    fids = torch.randint(0, tf.vocab_size + 1, (2, tf.num_cams,
+                                                tf.num_cam_tokens),
+                         generator=g, device="cuda")
+    mods = [m for m in int8.modules() if isinstance(m, tq.QuantDense)]
+    with torch.inference_mode():
+        seg, ii, ei = int8.as_inputs(*inputs)
+        cond = int8.encode_bev(seg)
+        cache = int8.maskgit.build_cache(cond, ii, ei)
+        lk = int8.maskgit(fids, cond, ii, ei, cache=cache).logits.float()
+        for m in mods:
+            m.route = tq.int8_dense_reference
+        plain_cache = int8.maskgit.build_cache(cond, ii, ei)
+        lp = int8.maskgit(fids, cond, ii, ei, cache=plain_cache).logits.float()
+        for m in mods:
+            m.route = tq.int8_dense
+        lb = bf16.maskgit(fids, cond, ii, ei).logits.float()
+    cos_kp, top_kp = logit_agreement(lk, lp)
+    cos_qb, top_qb = logit_agreement(lk, lb)
+    same = torch.equal(lk, lp)
+    rms = (lk - lb).pow(2).mean().sqrt()
+    top2 = lb.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > INT8_GAP_RMS * rms
+    top_dec = (lk.argmax(-1) == lb.argmax(-1))[decided].float().mean().item()
+    share = decided.float().mean().item()
+    print(f"[int8-muse] one full-width forward, int8 kernels vs the plain "
+          f"int8 route: identical {same}, cosine {cos_kp:.6f}, top-1 "
+          f"{top_kp:.4f}, max abs diff {(lk - lp).abs().max().item():.4f}; "
+          f"int8 vs bf16: cosine {cos_qb:.6f} (min {INT8_COS_MIN}), top-1 "
+          f"{top_qb:.4f} raw, {top_dec:.4f} (min {INT8_DECIDED_TOP1_MIN}) on "
+          f"the {share:.4f} of positions whose bf16 top-2 gap exceeds "
+          f"{INT8_GAP_RMS} x the RMS logit difference {rms.item():.4f}",
+          flush=True)
+    del lk, lp, lb, cache, plain_cache
+    if not (cos_kp >= LOGIT_COS_MIN and top_kp >= TOP1_AGREE_MIN):
+        raise SystemExit("the int8 kernels disagree with the plain int8 route")
+    if not (cos_qb >= INT8_COS_MIN and top_dec >= INT8_DECIDED_TOP1_MIN):
+        raise SystemExit("int8 logits do not track bf16")
+    want = muse_int8_launches(cfg)
+    res = {"plain": muse_int8_modes(cfg, bf16, int8, "glue off", inputs, want)}
+    glue_cfg = dataclasses.replace(cfg, transformer=tf.replace(
+        use_fused_glue=True))
+    gb = BEVGenPipeline.create(glue_cfg, device="cuda")
+    gb.load_state_dict(bf16.state_dict())
+    del bf16, int8
+    torch.cuda.empty_cache()
+    res["glue"] = muse_int8_modes(glue_cfg, gb, gb.quantized(), "glue on",
+                                  inputs, want, glue=True)
+    return res
+
+
+def ar_int8_launches(cfg):
+    """w8_linear launches per KV-cached AR generate: the prefill's 5
+    products a layer and its head, then 3 (fused q/k/v, MLP in and out) a
+    layer and the head per decode step."""
+    tf = cfg.transformer
+    return (5 * tf.num_layers + 1) + tf.num_img_tokens * (3 * tf.num_layers + 1)
+
+
+def int8_ar_phase(cfg, bf16_e2e):
+    """Phase 37: `quantized()` of the seed-0 `nuscenes_ar` pipeline, b=2,
+    KV-cached, top_k=100: AR_INT8_TIMED generates (images/s, peak memory,
+    launches of row 11, w8_linear and row 9), weight bytes against bf16;
+    then greedy int8 decoding through the kernels against the plain int8
+    route, cut to AR_INT8_GREEDY_LAYERS layers."""
+    import torch
+    from bevgen_torch.models.stage2 import ar_cached
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.ops import decode_attention as da
+    from bevgen_torch.ops import quant as tq
+    from bevgen_torch.pipelines.ar_generate import ARPipeline
+    tf = cfg.transformer
+    B = AR_BATCH
+    bf16 = ARPipeline.create(cfg, device="cuda").init_params(seed=0)
+    t0 = time.perf_counter()
+    int8 = bf16.quantized()
+    q_s = time.perf_counter() - t0
+    wb = {"bf16": tq.weight_bytes(bf16.gpt), "int8": tq.weight_bytes(int8.gpt)}
+    del bf16
+    torch.cuda.empty_cache()
+    _, _, _, _, batch = ar_inputs(cfg, B, seed=0)
+    inputs = (batch["segmentation"], batch["intrinsics_inv"],
+              batch["extrinsics_inv"])
+    times, peak = [], 0
+    for i in range(AR_INT8_TIMED):
+        if i == 0:
+            tq.reset_launch_counts()
+            da.reset_launch_counts()
+            bs.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        images, ids = int8.generate_fn(*inputs, torch.Generator(
+            device="cuda").manual_seed(1 + i), top_k=100)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated() - before)
+        if i == 0:
+            n_dec = da.decode_attention_cuda.launches
+            by_pl = dict(da.decode_attention_cuda.launches_by_shape)
+            n_bs = bs.block_sparse_attention_cuda.launches
+            n_w8 = tq.w8_linear_cuda.launches
+            w8_shapes = dict(tq.w8_linear_cuda.launches_by_shape)
+            other = (tq.quantize_static_cuda.launches,
+                     tq.quantize_dynamic_cuda.launches,
+                     tq.int8_epilogue_cuda.launches)
+    med = sorted(times)[len(times) // 2]
+    n_img = B * tf.num_cams
+    want_w8 = ar_int8_launches(cfg)
+    print(f"[int8-ar] quantized() in {q_s:.2f} s; GPT weights bf16 "
+          f"{wb['bf16'] / 1e6:.1f} MB, int8 {wb['int8'] / 1e6:.1f} MB; "
+          f"generate_fn b={B} cached top_k=100, {AR_INT8_TIMED} timed (no "
+          f"warm-up: phase 14 warmed the path) "
+          f"{', '.join(f'{t:.4f}' for t in times)} s, median {med:.4f} s = "
+          f"{n_img / med:.4f} images/s (bf16, phase 14: "
+          f"{bf16_e2e.get('images_per_s', float('nan')):.4f}); peak above the "
+          f"resident set {peak / 1e6:.1f} MB (bf16, phase 14: "
+          f"{bf16_e2e.get('peak_mb', float('nan')):.1f} MB); launches in the "
+          f"first: decode "
+          f"{n_dec} (expected {tf.num_layers * tf.num_img_tokens}), w8_linear "
+          f"{n_w8} (expected {want_w8}) {w8_shapes}, block-sparse {n_bs}, "
+          f"W8A8 kernels {other}", flush=True)
+    if (n_dec, n_w8, n_bs, other) != (tf.num_layers * tf.num_img_tokens,
+                                      want_w8, 0, (0, 0, 0)):
+        raise SystemExit("AR int8 generate launch counts differ")
+    if not torch.isfinite(images).all() or ids.min() < 0 or \
+            ids.max() >= tf.vocab_size:
+        raise SystemExit("AR int8 generate: non-finite images or ids out of "
+                         "range")
+    del int8
+    torch.cuda.empty_cache()
+
+    # greedy, kernels vs the plain int8 route, at a cut depth
+    gcfg = dataclasses.replace(cfg, transformer=tf.replace(
+        num_layers=AR_INT8_GREEDY_LAYERS))
+    gp = ARPipeline.create(gcfg, device="cuda").init_params(seed=1).quantized()
+    _, _, _, _, gbatch = ar_inputs(gcfg, 1, seed=1)
+    ginputs = (gbatch["segmentation"], gbatch["intrinsics_inv"],
+               gbatch["extrinsics_inv"])
+    mods = [m for m in gp.modules() if isinstance(m, tq.Int8WeightDense)]
+    gen = torch.Generator(device="cuda")
+    t0 = time.perf_counter()
+    _, ids_k = gp.generate_fn(*ginputs, gen.manual_seed(0), top_k=1)
+    torch.cuda.synchronize()
+    k_s = time.perf_counter() - t0
+    for m in mods:
+        m.route = tq.w8_linear_reference
+    _, ids_p = gp.generate_fn(*ginputs, gen.manual_seed(0), top_k=1)
+    traj = ids_k.reshape(1, gcfg.transformer.num_cams, -1)
+    tok = traj.reshape(1, -1)
+    with torch.inference_mode():
+        seg, ii, ei = gp.as_inputs(*ginputs)
+        cond_ids = gp.encode_bev(seg)
+        lp = ar_cached.teacher_forced_logits(gp.gpt, traj, cond_ids, ii, ei)
+    for m in mods:
+        m.route = tq.w8_linear
+
+    def best(logits):
+        return logits.gather(-1, tok[..., None])[..., 0] >= logits.amax(-1)
+    step_agree = best(lp).float().mean().item()
+    free = (ids_k == ids_p).float().mean().item()
+    print(f"[int8-ar] greedy top_k=1 b=1, full width cut to "
+          f"{AR_INT8_GREEDY_LAYERS} of {tf.num_layers} layers (time): kernels "
+          f"{k_s:.2f} s; the plain int8 route's choice at every step of the "
+          f"kernels' trajectory agrees at {step_agree:.4f} (min "
+          f"{GREEDY_AGREE_MIN}, ties counted); free-running token agreement "
+          f"{free:.4f}", flush=True)
+    if not step_agree >= GREEDY_AGREE_MIN:
+        raise SystemExit("AR int8 greedy decoding disagrees between the "
+                         "kernels and the plain int8 route")
+    return {"images_per_s": n_img / med, "s": med, "peak_mb": peak / 1e6,
+            "weights_mb": {k: v / 1e6 for k, v in wb.items()},
+            "w8_shapes": w8_shapes, "by_pl": by_pl}
+
+
+def int8_cli_phase(cfg, ar_cfg):
+    """Phase 38: the generate CLI with quant=int8 and quant=auto for both
+    pipelines (MUSE at full width, b=2; AR at full width cut to 2 layers,
+    b=1): the mode served, the int8 kernels launched, the crossover table's
+    card beside this card."""
+    import os
+    import tempfile
+    import torch
+    from bevgen_torch.ops import quant as tq
+    from bevgen_torch.pipelines.generate import BEVGenPipeline, crossover_table
+    from bevgen_torch.scripts import generate as cli
+    card = gpu_name_and_power()
+    table = crossover_table()
+    print(f"[int8-cli] crossover table (bevgen_torch/configs/"
+          f"int8_crossover.json) measured on {table['chip']!r}; this card "
+          f"{card!r}", flush=True)
+    runs = [("muse", "int8", ["fake=1", "batch_size=2"]),
+            ("muse", "auto", ["fake=2", "batch_size=2"]),
+            ("ar", "int8", ["pipeline=ar", "transformer.num_layers=2",
+                            "fake=1", "batch_size=1"]),
+            ("ar", "auto", ["pipeline=ar", "transformer.num_layers=2",
+                            "fake=1", "batch_size=1"])]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, quant, args in runs:
+            tq.reset_launch_counts()
+            (pipe, paths), lines = run_cli(cli.run, args + [
+                f"quant={quant}", f"out={os.path.join(tmp, kind + quant)}"])
+            torch.cuda.synchronize()
+            counts = tq.launch_counts()
+            served = pipe.config.transformer.quant
+            if kind == "muse":
+                want = "int8" if (quant == "int8" or BEVGenPipeline.
+                                  int8_beats_bf16(2) is not False) else "none"
+            else:
+                want = "int8"
+            arrays = [dict(np.load(p)) for p in paths]
+            finite = all(np.isfinite(a["images"]).all() for a in arrays)
+            launched = (counts["w8_linear"] > 0 if kind == "ar"
+                        else counts["int8_epilogue"] > 0)
+            ok = served == want and finite and launched == (want == "int8")
+            print(f"[int8-cli] {kind} quant={quant}: served {served} "
+                  f"(expected {want}), {len(paths)} batch(es), images finite "
+                  f"{finite}, int8 launches {counts}; "
+                  f"{json.loads(lines[-1])['images_per_sec']} images/s -> "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise SystemExit(f"generate quant={quant} ({kind}) failed")
+            out[(kind, quant)] = served
+            del pipe
+            torch.cuda.empty_cache()
+    return out
+
+
+
+def int8_kernel_entries(cfg, ar_cfg, stats, muse, ar, row1_stats, dec_stats,
+                        glue_stats):
+    """The kernels line's entries of the int8 paths: the four int8 kernels at
+    their shapes (phase 35's numbers, the launches of phase 36's first timed
+    int8 generate and phase 37's), and rows 1, 11 and 12 with the int8 paths'
+    launches (their numbers from phases 3, 12 and 21)."""
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops import decode_attention as da
+    from bevgen_torch.ops import fused_glue as fg
+    from bevgen_torch.ops import quant as tq
+    tf, at = cfg.transformer, ar_cfg.transformer
+    shp = int8_shapes(cfg, ar_cfg)
+    static_n, dynamic_n, epi_n, _ = muse["plain"]["counts"]
+    out = []
+    for rows, K in shp["static"]:
+        out.append({"name": f"quantize_static[muse int8 b2 {rows}x{K}]",
+                    "route": "cuda", "source": tq.SOURCE,
+                    "replaces": tq.QUANTIZE_STATIC_REPLACES,
+                    "launches": static_n.get((rows, K), 0),
+                    **stats[("static", rows, K)]})
+    for rows, K in shp["dynamic"]:
+        out.append({"name": f"quantize_dynamic[muse int8 b2 {rows}x{K}]",
+                    "route": "cuda", "source": tq.SOURCE,
+                    "replaces": tq.QUANTIZE_DYNAMIC_REPLACES,
+                    "launches": dynamic_n.get((rows, K), 0),
+                    **stats[("dynamic", rows, K)]})
+    for rows, N, dyn in shp["epilogue"]:
+        out.append({"name": f"int8_epilogue[muse int8 b2 {rows}x{N} "
+                            f"{'dynamic' if dyn else 'static'}]",
+                    "route": "cuda", "source": tq.SOURCE,
+                    "replaces": tq.EPILOGUE_REPLACES,
+                    "launches": epi_n.get((rows, N, dyn), 0),
+                    **stats[("epilogue", rows, N, dyn)]})
+    for M, N, K in shp["w8"]:
+        out.append({"name": f"w8_linear[ar int8 b2 {M}x{N}x{K}]",
+                    "route": "cuda", "source": tq.SOURCE,
+                    "replaces": tq.W8_LINEAR_REPLACES,
+                    "launches": ar["w8_shapes"].get((M, N, K), 0),
+                    **stats[("w8", M, N, K)]})
+    N, NC = tf.num_img_tokens, tf.num_cond_tokens
+    for label, run in (("int8", muse["plain"]), ("int8 glue", muse["glue"])):
+        for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
+            out.append({"name": f"cosine_attention_fwd[{label} serve {shape} "
+                                f"b2 {n}x{m}]",
+                        "route": "cuda", "source": ca.SOURCE,
+                        "replaces": ca.REPLACES,
+                        "launches": run["row1_shapes"].get((n, m), 0),
+                        **row1_stats[shape]})
+    out.append({"name": f"residual_layernorm[int8 glue serve b2 "
+                        f"{2 * N}x{tf.num_embed}]",
+                "route": "cuda", "source": fg.SOURCE,
+                "replaces": fg.RES_LN_REPLACES,
+                "launches": muse["glue"]["glue"][0],
+                **glue_stats[("residual", 2)]})
+    for pl, st in dec_stats.items():
+        out.append({"name": f"decode_attention[ar int8 b{AR_BATCH} "
+                            f"H{at.num_heads} pl{pl}]",
+                    "route": "cuda", "source": da.SOURCE,
+                    "replaces": da.REPLACES,
+                    "launches": ar["by_pl"].get(pl, 0), **st})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3482,6 +4162,13 @@ def main() -> int:
     rect = timed_phase(33, rect_phase)
     tok_train = timed_phase(34, tokenize_train_phase, cfg)
 
+    # 35-38. int8 serving: the int8 kernels against their plain versions,
+    # the MUSE and the AR int8 generates, the generate CLI's quant=
+    int8_stats = timed_phase(35, int8_kernels_phase, cfg, ar_cfg)
+    int8_muse = timed_phase(36, int8_muse_phase, cfg)
+    int8_ar = timed_phase(37, int8_ar_phase, ar_cfg, ar_e2e)
+    timed_phase(38, int8_cli_phase, cfg, ar_cfg)
+
     kernels = []
     for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
         kernels.append({
@@ -3599,6 +4286,8 @@ def main() -> int:
                 f"{row14.pop('variant')} form]",
         "route": "cuda", "source": ln.SOURCE, "replaces": ln.REPLACES,
         "launches": row14_launches, **row14})
+    kernels.extend(int8_kernel_entries(cfg, ar_cfg, int8_stats, int8_muse,
+                                       int8_ar, stats, dec_stats, glue_stats))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -134,8 +134,8 @@ def test_ar_pipeline_generate_matches_jax():
     np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
     np.testing.assert_allclose(got_img.numpy(), np.asarray(want_img),
                                atol=IMG_TOL, rtol=0)
-    with pytest.raises(NotImplementedError):
-        tp.quantized()
+    qp = tp.quantized()
+    assert qp.config.transformer.quant == "int8" and qp.device == tp.device
 
 
 def test_ar_pipeline_stage1_rectangular_matches_jax():

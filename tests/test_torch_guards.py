@@ -4,7 +4,8 @@ AR pipelines), entry points (serving, AR serving and training) run on CUDA
 unless asked for the CPU, the attention's and the glue's autograd Functions
 run their plain twins on the CPU, and (on a machine with a card) the CUDA
 kernels agree with their plain versions and CUDA attention and glue outputs
-carry gradients, the block-sparse backward included.
+carry gradients, the block-sparse backward included, and the int8 serving
+kernels agree with their plain versions.
 
 The module imports JAX only inside the tests that compare with it, so the
 `cuda` test also runs where JAX is missing; there, skip the conftest
@@ -59,7 +60,8 @@ def test_port_imports_no_jax_or_reference_package():
                    "data/datamodule.py", "data/rasterize.py", "data/sync.py",
                    "utils/image.py", "utils/viz.py",
                    "utils/outputs.py", "scripts/cli.py",
-                   "scripts/tokenize_data.py"):
+                   "scripts/tokenize_data.py", "ops/quant.py",
+                   "scripts/crossover_sweep.py"):
         assert f"bevgen_torch/{module}" in checked, module
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p)) & FORBIDDEN)
            for p in files}
@@ -727,3 +729,65 @@ def test_cuda_layernorm_variants_match_plain_version():
         ref = ln.layernorm_reference(x.float(), scale)
         err = (got.float() - ref).abs()
         assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
+
+
+def _int8_cuda_case(rows, K, N, static, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(rows, K, generator=g, device="cuda") * 2).bfloat16()
+    w = torch.randint(-127, 128, (N, K), generator=g, device="cuda",
+                      dtype=torch.int8)
+    scale = torch.rand(N, generator=g, device="cuda") * 0.01 + 1e-3
+    in_scale = (torch.rand(K, generator=g, device="cuda") * 0.05 + 0.01
+                if static else None)
+    return x, w, scale, in_scale
+
+
+@pytest.mark.cuda
+def test_cuda_int8_kernels_match_plain_versions():
+    """The int8 serving kernels (`csrc/int8.cu`) on the card against their
+    plain versions on bf16 activations: the quantizers bit for bit (int8
+    values, zero padding, row scales), `torch._int_mm` on the padded
+    operands equal to the exact int32 product, the epilogue bit for bit in
+    fp32 and bf16, and `w8_linear` (the per-column and the mma.sync form)
+    within its rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from bevgen_torch.ops import quant as tq
+    for rows, K, N in ((3584, 1024, 1024), (40, 2730, 1024), (5, 24, 20)):
+        for static in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):   # the epilogue's
+                x, w, scale, in_scale = _int8_cuda_case(rows, K, N, static,
+                                                        rows + K)
+                Kp, Np = tq.padded(K), tq.padded(N)
+                if static:
+                    got = tq.quantize_static_cuda(x, in_scale, Kp)[:rows]
+                    want = tq.quantize_activations_static(x, 1.0 / in_scale)
+                    xs = None
+                else:
+                    got, xs = tq.quantize_dynamic_cuda(x, Kp)
+                    got = got[:rows]
+                    want, want_s = tq.quantize_activations(x)
+                    assert torch.equal(xs, want_s[:, 0])
+                assert torch.equal(got[:, :K], want)
+                assert not got[:, K:].any()
+                wp = torch.zeros(Np, Kp, dtype=torch.int8, device="cuda")
+                wp[:N, :K] = w
+                xq = torch.zeros(max(rows, 17), Kp, dtype=torch.int8,
+                                 device="cuda")
+                xq[:rows] = got
+                acc = torch._int_mm(xq, wp.t())
+                assert torch.equal(acc[:rows, :N], tq.int8_product(want, w))
+                out = tq.int8_epilogue_cuda(acc, scale, xs, rows, dtype)
+                ref = tq.int8_epilogue_reference(acc[:rows, :N], scale,
+                                                 None if xs is None else xs[:, None],
+                                                 dtype)
+                assert torch.equal(out, ref)
+    for M, K, N in ((2, 1024, 3072), (512, 1024, 4096), (2, 4096, 1024),
+                    (3, 24, 20), (40, 24, 20)):
+        x, w, scale, _ = _int8_cuda_case(M, K, N, False, M + N)
+        bias = (torch.randn(N, device="cuda") * 0.1).bfloat16()
+        got = tq.w8_linear_cuda(x, w, scale, bias)
+        want = tq.w8_linear_reference(x.float(), w, scale, bias.float())
+        # three bf16 roundings, each within 2^-8 of the value's size
+        assert (got.float() - want).abs().max().item() <= \
+            2.0 ** -6 * max(1.0, want.abs().max().item())

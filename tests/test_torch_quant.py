@@ -1,0 +1,623 @@
+"""int8 serving of the PyTorch port (`bevgen_torch/ops/quant.py`) against the
+JAX package's (`bevgen_tpu/ops/quant.py`) at tiny sizes, fp32 on the CPU.
+
+Held to the JAX package: the int8 trees (`quantize_dense_tree`,
+`quantize_gpt_tree`, `dequantize_dense_tree`) leaf for leaf and bit for bit
+on the MaskGit tree, every `torch_parity.VARIANTS` tree and the GPT trees;
+the quantizers and `int8_matmul` bit for bit (exact .5 ties and values past
+the clip among the inputs); `QuantDense` and the AR tree's weight-only
+product; the int8 MaskGit's logits and greedy ids (the default model and
+every variant, with the fused glue off and on); the AR cached sampler's
+greedy ids and the AR pipeline's images. Port-side: the converter round
+trip and its refusals, int8 tracking the compute dtype, the crossover
+table's rule (`quantized(batch_hint=)`), the generate CLI's `quant=`, and
+`cached=False` refusing the int8 AR tree. The kernels' own check needs the
+card: `tests/test_torch_guards.py:test_cuda_int8_kernels_match_plain_versions`
+(`cuda` marker, skipped here).
+"""
+import copy
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bevgen_tpu.models.stage2 import ar_cached as jax_cached
+from bevgen_tpu.models.stage2 import maskgit as jmg
+from bevgen_tpu.ops import quant as jq
+from bevgen_torch.core.convert import export_jax_params, load_jax_params
+from bevgen_torch.data.fake import fake_batch
+from bevgen_torch.models.stage2 import ar_cached
+from bevgen_torch.models.stage2 import maskgit as tmg
+from bevgen_torch.models.stage2.gpt import SparseGPT
+from bevgen_torch.ops import quant as tq
+from bevgen_torch.pipelines import generate as tgen
+from torch_parity import (NUSCENES_GPT, VARIANTS, JaxPipeline, TorchPipeline,
+                          ar_tiny_pipelines, ar_tiny_tree, gpt_inputs,
+                          gpt_pair, tiny_configs, tiny_pipelines, tiny_tree,
+                          variant_configs, variant_pipelines, variant_tree)
+
+B = 2
+# QuantDense / Int8WeightDense against the JAX modules: the int8 parts are
+# exact, so only a reordered fp32 product (the weight-only form) is left
+DENSE_RTOL = 1e-6
+# Whole int8 models, fp32: the LayerNorm outputs of the two packages differ
+# by ~1e-7, which now and then moves a static-path activation across a
+# rounding boundary of the int8 grid (one step, a_k of the input's scale).
+# One flipped step in one position changes that row's logits by about
+# a_k * |W'|, under 1e-2 at tiny_test's scales; every other logit stays
+# within the fp32 bound of the unquantized transformer tests.
+INT8_LOGIT_MAX = 2e-2
+INT8_LOGIT_TOL = 1e-4
+INT8_LOGIT_FRAC = 0.995
+# int8 against the compute dtype on the port alone, the JAX package's own
+# bounds (tests/test_quant.py:84-107)
+TRACK_COS_MIN = 0.995
+TRACK_TOP1_MIN = 0.9
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def assert_trees_identical(got, want):
+    g, w = dict(_leaves(got)), dict(_leaves(want))
+    assert g.keys() == w.keys(), sorted(set(g) ^ set(w))[:10]
+    for path, wv in w.items():
+        assert g[path].dtype == wv.dtype, (path, g[path].dtype, wv.dtype)
+        np.testing.assert_array_equal(g[path], wv, err_msg="/".join(path))
+
+
+def _numpy_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+# ---- host-side trees ---------------------------------------------------------
+
+TREES = ["default"] + list(VARIANTS)
+
+
+def _maskgit_tree(name):
+    tree = tiny_tree() if name == "default" else variant_tree(name)
+    return tree["maskgit"]["params"]
+
+
+@pytest.mark.parametrize("name", TREES)
+def test_quantize_dense_tree_matches_jax(name):
+    tree = _maskgit_tree(name)
+    got = tq.quantize_dense_tree(tree)
+    want = _numpy_tree(jq.quantize_dense_tree(tree))
+    assert_trees_identical(got, want)
+    assert_trees_identical(tq.dequantize_dense_tree(got),
+                           _numpy_tree(jq.dequantize_dense_tree(want)))
+    # the static/dynamic split: cross to_kv and to_out without in_scale
+    t = got["transformer"]
+    assert "in_scale" in t["layers_0_attn"]["to_kv"]
+    assert "in_scale" not in t["layers_0_cross_attn"]["to_kv"]
+    assert "in_scale" not in t["layers_0_attn"]["to_out"]
+    assert "in_scale" in t["to_logits"]
+    if "self_cond_to_init_embed" in t:
+        assert "kernel" in t["self_cond_to_init_embed"]["proj_in"]
+
+
+@pytest.mark.parametrize("which", ["ar_pipeline", "plain", "nuscenes"])
+def test_quantize_gpt_tree_matches_jax(which):
+    if which == "ar_pipeline":
+        tree = ar_tiny_tree()["gpt"]["params"]
+    else:
+        _, jp, _, _ = gpt_pair(**({} if which == "plain" else NUSCENES_GPT))
+        tree = _numpy_tree(jp)["params"]
+    got = tq.quantize_gpt_tree(tree)
+    want = _numpy_tree(jq.quantize_gpt_tree(tree))
+    assert_trees_identical(got, want)
+    assert set(got["block_0"]["query"]) == {"kernel_q", "scale", "bias"}
+    assert set(got["head"]) == {"kernel_q", "scale"}
+    assert_trees_identical(
+        tq.dequantize_dense_tree(got, tq.GPT_QUANT_LAYER_NAMES),
+        _numpy_tree(jq.dequantize_dense_tree(want, jq.GPT_QUANT_LAYER_NAMES)))
+
+
+def test_layer_names_and_clip_match_jax():
+    assert tq.QUANT_LAYER_NAMES == jq.QUANT_LAYER_NAMES
+    assert tq.GPT_QUANT_LAYER_NAMES == jq.GPT_QUANT_LAYER_NAMES
+    assert tq.CLIP_SIGMA == jq.CLIP_SIGMA
+
+
+# ---- quantizers and the product ---------------------------------------------
+
+def _activation_cases():
+    """fp32 (rows, K) inputs: random rows, a row whose amax is 127 (so its
+    dynamic scale is exactly 1 and x.5 entries are exact ties), a row of
+    zeros, and a row of halves at a power-of-two scale."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((7, 48)).astype(np.float32) * 3.0
+    x[1] = np.arange(48, dtype=np.float32) - 23.5      # ties at scale 1 ...
+    x[1, 0] = 127.0                                    # ... amax 127
+    x[2] = 0.0
+    x[3] = (np.arange(48, dtype=np.float32) - 24) * 0.5
+    return x
+
+
+def _static_cases():
+    """(x, in_scale): in_scale powers of two so x * (1 / in_scale) hits exact
+    .5 ties, and entries far past the +-127 clip."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((6, 40)).astype(np.float32)
+    in_scale = np.full(40, 2.0 ** -4, np.float32)
+    in_scale[::3] = 2.0 ** -2
+    in_scale[1::5] = (rng.random(8) * 0.1 + 0.01).astype(np.float32)
+    x[0] = (np.arange(40, dtype=np.float32) + 0.5) * in_scale   # ties
+    x[1] = 50.0 * np.sign(rng.standard_normal(40)).astype(np.float32)
+    return x, in_scale
+
+
+def test_quantize_activations_matches_jax():
+    """Against the function as the reference's models run it, jitted: XLA
+    computes the row scale max(amax, 1e-8) / 127 as a product with the fp32
+    constant 1/127, which differs from the division in the last bit for
+    some rows (and then moves some int8 values across a .5 tie)."""
+    x = _activation_cases()
+    got_q, got_s = tq.quantize_activations(_t(x))
+    want_q, want_s = jax.jit(jq.quantize_activations)(jnp.asarray(x))
+    assert got_q.dtype == torch.int8 and got_s.shape == (7, 1)
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    # the ties round to even
+    assert got_q[1, 1].item() == -22 and got_q[1, 2].item() == -22
+
+
+def test_quantize_activations_static_matches_jax():
+    x, in_scale = _static_cases()
+    got = tq.quantize_activations_static(_t(x), 1.0 / _t(in_scale))
+    want = jax.jit(lambda a, s: jq.quantize_activations_static(a, 1.0 / s))(
+        jnp.asarray(x), jnp.asarray(in_scale))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.abs().max().item() == 127
+    assert (got[1].abs() == 127).all()
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_matmul_matches_jax(static, out_dtype):
+    rng = np.random.default_rng(2)
+    w = rng.standard_normal((48, 24)).astype(np.float32) / 7.0
+    w_q, w_s = jq.quantize_weight(w)
+    x_q, x_s = jax.jit(jq.quantize_activations)(
+        jnp.asarray(_activation_cases()))
+    if static:
+        x_s = None
+    want = jq.int8_matmul(x_q, x_s, jnp.asarray(w_q), jnp.asarray(w_s),
+                          getattr(jnp, out_dtype))
+    got = tq.int8_matmul(_t(np.asarray(x_q)),
+                         None if x_s is None else _t(np.asarray(x_s)),
+                         _t(w_q.T), _t(w_s), getattr(torch, out_dtype))
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+
+
+def test_quantize_weight_matches_jax():
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((32, 20)).astype(np.float32)
+    for a, b in zip(tq.quantize_weight(w), jq.quantize_weight(w)):
+        np.testing.assert_array_equal(a, b)
+    g = 1.0 + 0.1 * rng.standard_normal(32).astype(np.float32)
+    for a, b in zip(tq.quantize_weight_static(w, g),
+                    jq.quantize_weight_static(w, g)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("static", [False, True])
+def test_quant_dense_matches_jax(static):
+    rng = np.random.default_rng(4)
+    K, N = 40, 36
+    w = rng.standard_normal((K, N)).astype(np.float32) / np.sqrt(K)
+    gamma = 1.0 + 0.2 * rng.standard_normal(K).astype(np.float32)
+    node = jq._quant_node({"kernel": w}, gamma if static else None)
+    x = rng.standard_normal((3, 5, K)).astype(np.float32) * gamma
+    want = jq.QuantDense(N, dtype=jnp.float32, static_input=static).apply(
+        {"params": jax.tree_util.tree_map(jnp.asarray, node)}, jnp.asarray(x))
+    m = tq.QuantDense(K, N, torch.float32, static_input=static)
+    load_jax_params(m, node)
+    with torch.no_grad():
+        got = m(_t(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=DENSE_RTOL * np.abs(want).max())
+    # the plain version on the padded operand gives the same values
+    pad = torch.zeros(tq.padded(N), tq.padded(K), dtype=torch.int8)
+    pad[:N, :K] = m.kernel_q
+    with torch.no_grad():
+        again = tq.int8_dense_reference(_t(x), pad, m.scale, m.in_scale)
+    np.testing.assert_array_equal(again.numpy(), got.numpy())
+
+
+def test_int8_weight_dense_matches_jax():
+    rng = np.random.default_rng(5)
+    K, N = 64, 48
+    w = rng.standard_normal((K, N)).astype(np.float32) / 8.0
+    node = jq._quant_node({"kernel": w, "bias": 0.1 * rng.standard_normal(N)
+                           .astype(np.float32)})
+    x = rng.standard_normal((2, 3, K)).astype(np.float32)
+    want = jax_cached._dense(jax.tree_util.tree_map(jnp.asarray, node),
+                             jnp.asarray(x))
+    m = tq.Int8WeightDense(K, N, True, torch.float32)
+    load_jax_params(m, node)
+    with torch.no_grad():
+        got = m(_t(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=DENSE_RTOL * np.abs(want).max())
+
+
+def test_quantized_modules_take_no_gradient_and_raise_off_cpu_cuda():
+    m = tq.QuantDense(16, 8, torch.float32)
+    assert not any(p.requires_grad for p in m.parameters())
+    x = torch.zeros(4, 16, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        tq.int8_dense(x, m.kernel_q.to("meta"), m.scale.to("meta"), None)
+    with pytest.raises(ValueError, match="device"):
+        tq.w8_linear(x, m.kernel_q.to("meta"), m.scale.to("meta"), None)
+
+
+# ---- the converter -----------------------------------------------------------
+
+def _int8_pipe(tc):
+    return TorchPipeline.create(dataclasses.replace(
+        tc, transformer=tc.transformer.replace(quant="int8")), device="cpu",
+        dtype=torch.float32)
+
+
+def test_load_then_export_gives_the_int8_tree_back():
+    tree = tiny_tree()
+    qtree = tq.quantize_dense_tree(tree["maskgit"]["params"])
+    pipe = _int8_pipe(tiny_configs()[1])
+    full = dict(tree, maskgit={"params": qtree})
+    load_jax_params(pipe, full)
+    out = export_jax_params(pipe)
+    assert_trees_identical(out["maskgit"]["params"], qtree)
+    assert out["maskgit"]["params"]["transformer"]["to_logits"][
+        "kernel_q"].dtype == np.int8
+    # the AR tree too
+    gtree = tq.quantize_gpt_tree(ar_tiny_tree()["gpt"]["params"])
+    _, _, tp = ar_tiny_pipelines()
+    gpt = SparseGPT(tp.config.transformer.replace(quant="int8"),
+                    dtype=torch.float32)
+    assert_trees_identical(export_jax_params(load_jax_params(gpt, gtree)),
+                           gtree)
+
+
+def test_quantized_leaves_aimed_at_the_wrong_module_raise():
+    tree = tiny_tree()
+    qtree = tq.quantize_dense_tree(tree["maskgit"]["params"])
+    # an int8 tree into the unquantized pipeline
+    plain = TorchPipeline.create(tiny_configs()[1], device="cpu",
+                                 dtype=torch.float32)
+    with pytest.raises(ValueError, match="quantized leaf"):
+        load_jax_params(plain.maskgit, qtree)
+    # an int8 scale aimed at a LayerNorm module raises, not loads
+    bad = copy.deepcopy(qtree)
+    attn = bad["transformer"]["layers_0_attn"]
+    attn["norm"]["norm"]["kernel_q"] = attn["to_q"]["kernel_q"]
+    int8 = _int8_pipe(tiny_configs()[1])
+    with pytest.raises(ValueError, match="kernel_q"):
+        load_jax_params(int8.maskgit, bad)
+    # a `scale` under a module that is neither a norm nor int8
+    bad = copy.deepcopy(tree["maskgit"]["params"])
+    bad["critic"]["to_pred"]["scale"] = np.ones(1, np.float32)
+    with pytest.raises(ValueError, match="quantized leaf 'scale'"):
+        load_jax_params(plain.maskgit, bad)
+    # a float kernel aimed at an int8 module
+    with pytest.raises(ValueError, match="int8 module"):
+        load_jax_params(int8.maskgit, tree["maskgit"]["params"])
+
+
+# ---- whole models ------------------------------------------------------------
+
+def _jax_int8(jc, tree):
+    jcq = dataclasses.replace(jc, transformer=jc.transformer.replace(
+        quant="int8"))
+    params = {"params": jax.tree_util.tree_map(
+        jnp.asarray, jq.quantize_dense_tree(tree["maskgit"]["params"]))}
+    return JaxPipeline.create(jcq, dtype=jnp.float32), params
+
+
+def _inputs(tf, seed):
+    from bevgen_tpu.models.geometry import canonical_rig_inverses
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, tf.vocab_size + 1, (B, tf.num_cams, tf.num_cam_tokens))
+    cond = rng.integers(0, tf.cond_vocab_size, (B, tf.num_cond_tokens))
+    ii, ei = canonical_rig_inverses(tf, B)
+    return ids, cond, np.asarray(ii), np.asarray(ei)
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_int8_maskgit_logits_match_jax(cached):
+    jc, _ = tiny_configs()
+    jp, params = _jax_int8(jc, tiny_tree())
+    tp = tiny_pipelines()[2].quantized()
+    ids, cond, ii, ei = _inputs(tp.config.transformer, seed=1)
+    want = np.asarray(jp.maskgit.apply(
+        params, jnp.asarray(ids, jnp.int32), jnp.asarray(cond, jnp.int32),
+        jnp.asarray(ii), jnp.asarray(ei)).logits)
+    t = [_t(a) for a in (ids, cond, ii, ei)]
+    with torch.no_grad():
+        cache = tp.maskgit.build_cache(*t[1:]) if cached else None
+        got = tp.maskgit(*t, cache=cache).logits.numpy()
+    diff = np.abs(got - want)
+    assert diff.max() <= INT8_LOGIT_MAX, diff.max()
+    assert (diff <= INT8_LOGIT_TOL).mean() >= INT8_LOGIT_FRAC, \
+        (diff <= INT8_LOGIT_TOL).mean()
+
+
+def _jax_generate(jp, params, cond, ii, ei, **kw):
+    return jax.jit(lambda p, c, i, e: jmg.generate(
+        jp.maskgit, p, c, i, e, jax.random.PRNGKey(0), **kw))(
+        params, jnp.asarray(cond, jnp.int32), jnp.asarray(ii),
+        jnp.asarray(ei))
+
+
+# The int8 greedy decodes that part from the JAX package's, by (variant,
+# glue): (the first step whose ids differ, ids that differ after the last
+# step, of 2 x 3 x 16). Each starts with one int8 activation that rounds the
+# other way: the fp32 attention outputs (or, under self_cond, the fed-back
+# embeddings) of the two packages differ by ~2e-7 relative, and with this
+# tree's large attention outputs (row amax ~65, dynamic scale ~0.51) one
+# flipped step of layer 0's cross-attention `to_out` input moves that row's
+# output by ~0.16. Recorded in CHANGES.md; every other case is identical.
+INT8_GREEDY_MISMATCH = {("real_cfg", False): (0, 2),
+                        ("self_cond", False): (1, 6)}
+
+
+@pytest.mark.parametrize("glue", [False, True])
+@pytest.mark.parametrize("variant", TREES)
+def test_int8_generate_greedy_matches_jax(variant, glue):
+    """Greedy ids and trajectories, the seeds of test_torch_maskgit_variants
+    (5 with the glue off, 7 on): identical, except the recorded
+    `INT8_GREEDY_MISMATCH`es, which must stay exactly as recorded."""
+    if variant == "default":
+        jc, _ = tiny_configs(greedy=True, glue=glue)
+        tree = tiny_tree(glue=glue)
+        tp = tiny_pipelines(greedy=True, glue=glue)[2]
+    else:
+        jc, _ = variant_configs(variant, greedy=True, glue=glue)
+        tree = variant_tree(variant, glue=glue)
+        tp = variant_pipelines(variant, greedy=True, glue=glue)[2]
+    jp, params = _jax_int8(jc, tree)
+    tq_pipe = tp.quantized()
+    assert tq_pipe.config.transformer.quant == "int8"
+    _, cond, ii, ei = _inputs(tp.config.transformer, seed=7 if glue else 5)
+    want, want_traj = _jax_generate(jp, params, cond, ii, ei,
+                                    return_trajectory=True)
+    got, got_traj = tmg.generate(tq_pipe.maskgit, _t(cond), _t(ii), _t(ei),
+                                 torch.Generator().manual_seed(0),
+                                 return_trajectory=True)
+    got_traj, want_traj = got_traj.numpy(), np.asarray(want_traj)
+    differ = [s for s in range(len(want_traj))
+              if (got_traj[s] != want_traj[s]).any()]
+    first = differ[0] if differ else None
+    n_final = int((got.numpy() != np.asarray(want)).sum())
+    assert (first, n_final) == INT8_GREEDY_MISMATCH.get((variant, glue),
+                                                        (None, 0))
+
+
+def test_int8_glue_keeps_the_residual_glue_and_drops_the_geglu_glue():
+    tp = tiny_pipelines(greedy=True, glue=True)[2].quantized()
+    tr = tp.maskgit.transformer
+    assert tr.use_glue and not tr.layers_0_ff.use_glue
+
+
+@pytest.mark.parametrize("case", ["plain", "nuscenes"])
+def test_int8_ar_greedy_sampling_matches_jax(case):
+    jm, jp, tm, tc = gpt_pair(**({} if case == "plain" else NUSCENES_GPT))
+    qtree = jq.quantize_gpt_tree(_numpy_tree(jp)["params"])
+    _, cond, ii, ei = gpt_inputs(tc, seed=4)
+    want = np.asarray(jax_cached.ar_sample_cached(
+        jm, {"params": jax.tree_util.tree_map(jnp.asarray, qtree)},
+        *(jnp.asarray(a) for a in (cond, ii, ei)), jax.random.PRNGKey(5),
+        top_k=1))
+    qm = load_jax_params(SparseGPT(tc.replace(quant="int8"),
+                                   dtype=torch.float32), qtree).eval()
+    got = ar_cached.ar_sample_cached(qm, _t(cond), _t(ii), _t(ei),
+                                     torch.Generator().manual_seed(5), top_k=1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # teacher-forced logits through the fused int8 q/k/v: the same decoder
+    ids = _t(gpt_inputs(tc, seed=4)[0])
+    want_l = jax_cached.teacher_forced_logits(
+        jm, {"params": jax.tree_util.tree_map(jnp.asarray, qtree)},
+        *(jnp.asarray(a) for a in (ids.numpy(), cond, ii, ei)))
+    got_l = ar_cached.teacher_forced_logits(qm, ids, _t(cond), _t(ii), _t(ei))
+    np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), atol=2e-4,
+                               rtol=0)
+
+
+def test_int8_ar_pipeline_matches_jax():
+    jp, params, tp = ar_tiny_pipelines()
+    jq_pipe, jq_params = jp.quantized(params)
+    qp = tp.quantized(batch_hint=3)
+    assert qp.config.transformer.quant == "int8"
+    assert qp.first_stage is tp.first_stage
+    batch = fake_batch(tp.config, 1, seed=2)
+    seg, ii, ei = (batch[k] for k in ("segmentation", "intrinsics_inv",
+                                      "extrinsics_inv"))
+    want_img, want_ids = jax.jit(lambda p, s, i, e: jq_pipe.generate_fn(
+        p, s, i, e, jax.random.PRNGKey(0), top_k=1))(
+        jq_params, *(jnp.asarray(a) for a in (seg, ii, ei)))
+    img, ids = qp.generate_fn(seg, ii, ei, torch.Generator().manual_seed(0),
+                              top_k=1)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(want_ids))
+    np.testing.assert_allclose(img.numpy(), np.asarray(want_img), atol=1e-4,
+                               rtol=0)
+    with pytest.raises(ValueError, match="KV-cached"):
+        qp.generate_fn(seg, ii, ei, torch.Generator().manual_seed(0),
+                       top_k=1, cached=False)
+    with pytest.raises(NotImplementedError, match="KV-cached"):
+        qp.gpt(_t(np.zeros((1, 3, 24), np.int64)),
+               _t(np.zeros((1, 16), np.int64)), _t(ii), _t(ei))
+
+
+def test_int8_tracks_the_compute_dtype():
+    """On the port alone, as tests/test_quant.py asks of the JAX package:
+    the int8 MaskGit's logits against the fp32 one's."""
+    tp = tiny_pipelines()[2]
+    qp = tp.quantized()
+    ids, cond, ii, ei = _inputs(tp.config.transformer, seed=3)
+    t = [_t(a) for a in (ids, cond, ii, ei)]
+    with torch.no_grad():
+        a = tp.maskgit(*t).logits.double()
+        b = qp.maskgit(*t).logits.double()
+    cos = torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(),
+                                                dim=0).item()
+    top1 = (a.argmax(-1) == b.argmax(-1)).double().mean().item()
+    assert cos > TRACK_COS_MIN, cos
+    assert top1 > TRACK_TOP1_MIN, top1
+
+
+def test_int8_model_holds_every_hot_product_as_int8():
+    """8 W8A8 products a layer (to_q, to_kv, to_out twice, proj_in,
+    proj_out) and to_logits, each a quarter of its fp32 kernel's bytes."""
+    tp = tiny_pipelines()[2]
+    qp = tp.quantized()
+    q_layers = [m for m in qp.maskgit.modules() if isinstance(m, tq.QuantDense)]
+    assert len(q_layers) == 8 * tp.config.transformer.num_layers + 1
+    for m in q_layers:
+        assert m.kernel_q.dtype == torch.int8
+        assert m.kernel_q.element_size() * 4 == torch.finfo(
+            torch.float32).bits // 8
+    assert tq.weight_bytes(qp.maskgit) < tq.weight_bytes(tp.maskgit)
+
+
+# ---- the crossover table and the CLI ----------------------------------------
+
+TABLE = {"comment": "test table", "chip": "test card, 1 W", "source": "test",
+         "measurements": {"1": {"bf16": 10.0},
+                          "2": {"bf16": 10.0, "int8": 12.0},
+                          "3": {"bf16": 10.5, "int8": 11.0},
+                          "8": {"bf16": 12.0, "int8": 11.0},
+                          "16": {"bf16": 13.0, "int8": 12.5}}}
+
+
+def test_quantized_batch_hint_follows_the_table(monkeypatch, tmp_path, capsys):
+    path = tmp_path / "int8_crossover.json"
+    path.write_text(json.dumps(TABLE))
+    monkeypatch.setattr(tgen, "CROSSOVER_TABLE", path)
+    P = tgen.BEVGenPipeline
+    assert P.int8_beats_bf16(2) is True
+    assert P.int8_beats_bf16(3) is True
+    assert P.int8_beats_bf16(8) is False
+    assert P.int8_beats_bf16(16) is False
+    assert P.int8_beats_bf16(100) is False   # nearest: 16
+    assert P.int8_beats_bf16(1) is True      # nearest with both modes: 2
+    tp = tiny_pipelines()[2]
+    assert tp.quantized(batch_hint=2).config.transformer.quant == "int8"
+    assert tp.quantized(batch_hint=8) is tp
+    assert "keeping bf16" in capsys.readouterr().out
+    assert tp.quantized(batch_hint=None).config.transformer.quant == "int8"
+    # no table: the fallback batch decides
+    monkeypatch.setattr(tgen, "CROSSOVER_TABLE", tmp_path / "missing.json")
+    assert P.int8_beats_bf16(2) is None
+    below = P.INT8_CROSSOVER_BATCH - 1
+    assert tp.quantized(batch_hint=below).config.transformer.quant == "int8"
+    assert tp.quantized(batch_hint=P.INT8_CROSSOVER_BATCH) is tp
+
+
+def test_shipped_table_is_the_cards():
+    """The table the port ships holds both modes at batches 1-16, measured
+    on an NVIDIA card (its name and power limit), and the fallback batch
+    is the smallest measured batch where bf16 won (or past the largest)."""
+    table = tgen.crossover_table()
+    assert set(table) == {"comment", "chip", "source", "measurements"}
+    assert "NVIDIA" in table["chip"] and " W" in table["chip"]
+    meas = table["measurements"]
+    assert sorted(int(b) for b in meas) == [1, 2, 3, 4, 8, 16]
+    assert all(set(v) == {"bf16", "int8"} for v in meas.values())
+    losing = [int(b) for b, v in meas.items() if v["bf16"] >= v["int8"]]
+    want = min(losing) if losing else 2 * max(int(b) for b in meas)
+    assert tgen.BEVGenPipeline.INT8_CROSSOVER_BATCH == want
+
+
+@pytest.mark.parametrize("quant", ["int8", "auto"])
+def test_cli_serves_int8_after_a_checkpoint(quant, tmp_path, capsys):
+    """The generate CLI at tiny_test on the CPU: `ckpt_path=` loads a
+    reference checkpoint of one seed, `quant=` quantizes it, and the ids
+    are those of that pipeline's own `quantized()` form."""
+    import chip_smoke
+    from bevgen_torch.scripts import generate as cli
+    base = ["preset=tiny_test", "batch_size=2", "fake=1", "device=cpu",
+            "dtype=float32"]
+    src, _ = cli.run(base + ["seed=1", f"out={tmp_path / 'a'}"])
+    ckpt = tmp_path / "muse.ckpt"
+    chip_smoke.write_reference_ckpt(src, str(ckpt))
+    pipe, outs = cli.run(base + ["seed=2", f"ckpt_path={ckpt}",
+                                 f"quant={quant}", f"out={tmp_path / 'b'}"])
+    out = capsys.readouterr().out
+    assert "loaded muse weights" in out
+    int8 = quant == "int8" or tgen.BEVGenPipeline.int8_beats_bf16(2) is not False
+    assert pipe.config.transformer.quant == ("int8" if int8 else "none")
+    want_pipe = src.quantized() if int8 else src
+    batch = fake_batch(src.config, 2, seed=2)
+    _, want = want_pipe.generate_fn(batch["segmentation"],
+                                    batch["intrinsics_inv"],
+                                    batch["extrinsics_inv"],
+                                    torch.Generator().manual_seed(2))
+    np.testing.assert_array_equal(np.load(outs[0])["ids"], want.numpy())
+
+
+@pytest.mark.parametrize("quant", ["int8", "auto"])
+def test_cli_ar_serves_int8_after_a_checkpoint(quant, tmp_path, capsys):
+    import chip_smoke
+    from bevgen_torch.scripts import generate as cli
+    from test_torch_ar import TINY_AR_CLI
+    base = TINY_AR_CLI + ["batch_size=1", "fake=1", "device=cpu"]
+    src, _ = cli.run(base + ["seed=1", f"out={tmp_path / 'a'}"])
+    ckpt = tmp_path / "ar.ckpt"
+    chip_smoke.write_reference_ckpt(src, str(ckpt))
+    pipe, outs = cli.run(base + ["seed=2", f"ckpt_path={ckpt}",
+                                 f"quant={quant}", f"out={tmp_path / 'b'}"])
+    assert "loaded ar weights" in capsys.readouterr().out
+    assert pipe.config.transformer.quant == "int8"
+    batch = fake_batch(src.config, 1, seed=2)
+    _, want = src.quantized().generate_fn(
+        batch["segmentation"], batch["intrinsics_inv"],
+        batch["extrinsics_inv"], torch.Generator().manual_seed(2))
+    np.testing.assert_array_equal(np.load(outs[0])["ids"], want.numpy())
+
+
+def test_cli_rejects_an_unknown_quant(tmp_path):
+    from bevgen_torch.scripts import generate as cli
+    with pytest.raises(SystemExit, match="unknown quant='bogus'"):
+        cli.main(["preset=tiny_test", "fake=1", "device=cpu", "quant=bogus",
+                  f"out={tmp_path}"])
+    assert not any(tmp_path.iterdir())
+
+
+# ---- guards ------------------------------------------------------------------
+
+def test_int8_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from bevgen_torch.pipelines.ar_generate import ARPipeline
+    from bevgen_torch.scripts import crossover_sweep
+    from torch_parity import ar_tiny_configs
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tc = tiny_configs()[1]
+    q = dataclasses.replace(tc, transformer=tc.transformer.replace(
+        quant="int8"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchPipeline.create(q)
+    aq = ar_tiny_configs()[1]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ARPipeline.create(dataclasses.replace(
+            aq, transformer=aq.transformer.replace(quant="int8")))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        crossover_sweep.main([])
+    with pytest.raises(SystemExit, match="device=cuda"):
+        crossover_sweep.main(["device=cpu"])
+    # a quantized pipeline stays on its pipeline's device
+    assert tiny_pipelines()[2].quantized().device.type == "cpu"
