@@ -26,8 +26,10 @@ and the `self_cond_to_init_embed.*` keys every reference checkpoint holds
 when the model runs without `self_cond`.
 
 `load_torch_checkpoint` reads a Lightning `.ckpt`/`.pt` file or a
-DeepSpeed ZeRO directory. The reference's orbax IO (:497-551) and its
-discriminator converter (:356, stage-1 training) are not here.
+DeepSpeed ZeRO directory. `convert_discriminator` maps the reference's
+PatchGAN state dict (:356) and `load_npz_tree` reads the converted backbone
+npz files (:533, the LPIPS VGG). The reference's orbax IO (:497-551) is not
+here.
 """
 from __future__ import annotations
 
@@ -375,6 +377,45 @@ def convert_net2net(state: Dict[str, np.ndarray],
     }
 
 
+def convert_discriminator(state: Dict[str, np.ndarray],
+                          n_layers: int = 3) -> Dict[str, Any]:
+    """The reference's NLayerDiscriminator state dict (a flat nn.Sequential
+    at `main.`) -> the flax tree of `models/discriminator.py`. Sequential
+    indices: conv_0 at 0, then for each layer n >= 1 the conv at 3n - 1 and
+    the norm at 3n, the output conv at 3 (n_layers + 1) - 1. BatchNorm
+    running statistics and ActNorm's `initialized` flag are skipped (the
+    port's BatchNorm uses batch statistics, as the reference's GAN loss
+    does). Unknown keys are printed and skipped, as the reference does."""
+    out: Dict[str, Any] = {}
+    idx_to_name = {0: "conv_0"}
+    for n in range(1, n_layers + 2):
+        idx_to_name[3 * n - 1] = f"conv_{n}" if n <= n_layers else "conv_out"
+        if n <= n_layers:
+            idx_to_name[3 * n] = f"norm_{n}"
+    unexpected = []
+    for key, val in state.items():
+        val = np.asarray(val, dtype=np.float32)
+        parts = key.split(".")
+        if parts[0] != "main" or int(parts[1]) not in idx_to_name:
+            unexpected.append(key)
+            continue
+        name, pname = idx_to_name[int(parts[1])], parts[-1]
+        if name.startswith("conv"):
+            _set(out, [name, "kernel" if pname == "weight" else "bias"],
+                 t_conv(val) if pname == "weight" else val)
+        elif pname in ("weight", "scale"):      # BatchNorm weight, ActNorm scale
+            _set(out, [name, "scale"], val.reshape(-1))
+        elif pname in ("bias", "loc"):          # BatchNorm bias, ActNorm loc
+            _set(out, [name, pname], val.reshape(-1))
+        elif pname not in ("running_mean", "running_var",
+                           "num_batches_tracked", "initialized"):
+            unexpected.append(key)
+    if unexpected:
+        print(f"[convert_discriminator] skipped {len(unexpected)} "
+              f"unexpected keys: {unexpected[:8]}")
+    return out
+
+
 def convert_ar_net2net(state: Dict[str, np.ndarray]) -> Dict[str, Any]:
     """Reference AR Net2NetTransformer checkpoint
     (cond_transformer_multi_view.py:30 — the sparse GPT lives at
@@ -443,6 +484,21 @@ def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 # tree utilities
 # ---------------------------------------------------------------------------
+
+
+def load_npz_tree(npz_path: str, missing_ok: bool = False
+                  ) -> Optional[Dict[str, Any]]:
+    """A flat `a/b/c -> array` npz as a nested numpy tree, {"params": ...}
+    (converted backbone weights such as the LPIPS VGG); None for a missing
+    file with missing_ok."""
+    if missing_ok and not Path(npz_path).exists():
+        return None
+    tree: Dict[str, Any] = {}
+    with np.load(npz_path) as flat:
+        for k in flat.files:
+            parts = k.split("/")
+            _set(tree, parts, flat[k])
+    return {"params": tree}
 
 
 def tree_shapes(tree, prefix=""):

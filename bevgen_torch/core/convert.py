@@ -12,7 +12,9 @@ conversions:
 
   * Dense kernel (in, out)        -> Linear weight (out, in)
   * Conv kernel HWIO              -> Conv2d weight OIHW
-  * LayerNorm/GroupNorm `scale`   -> `weight`;  Embed `embedding` -> `weight`
+  * LayerNorm/GroupNorm/BatchNorm `scale` -> `weight`;
+    Embed `embedding` -> `weight`
+  * ActNorm `loc` and `scale` (the discriminator's) as they are;
   * `bias`, `codebook`, `null_kv`, `q_scale`, `k_scale`,
     `camera_bias_emb`, `bev_cam_pos_emb`, `x_pos_emb`, `cond_pos_emb` as
     they are;
@@ -20,8 +22,9 @@ conversions:
     `kernel_q` (out, in); `scale` (out,) and `in_scale` (in,) as they are.
 
 A leaf is named by the port module it lands in: `scale` is a norm's
-`weight` under a LayerNorm or GroupNorm and the int8 scale under a
-`QuantDense` or `Int8WeightDense`. A quantized leaf (`kernel_q`, `in_scale`,
+`weight` under a LayerNorm, GroupNorm or the discriminator's BatchNorm,
+stays `scale` under an ActNorm, and is the int8 scale under a `QuantDense`
+or `Int8WeightDense`. A quantized leaf (`kernel_q`, `in_scale`,
 or `scale` outside a norm) aimed at a module that is not quantized raises,
 and so does a float `kernel` aimed at a quantized one.
 
@@ -41,10 +44,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from bevgen_torch.models.discriminator import ActNorm, BatchNorm
 from bevgen_torch.ops.quant import QUANT_MODULES
 
 _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
-_NORMS = (nn.LayerNorm, nn.GroupNorm)
+_NORMS = (nn.LayerNorm, nn.GroupNorm, BatchNorm)
 
 
 def pipeline_parts(module: nn.Module) -> Tuple[str, ...]:
@@ -76,6 +80,8 @@ def _port_leaf(owner: Optional[nn.Module], where: str, leaf: str) -> str:
             raise ValueError(f"{where}: leaf {leaf!r} for the int8 module "
                              f"{type(owner).__name__} (kernel_q, scale, "
                              f"in_scale, bias)")
+        return leaf
+    if isinstance(owner, ActNorm):
         return leaf
     quantized = leaf in ("kernel_q", "in_scale") or (
         leaf == "scale" and owner is not None and not isinstance(owner, _NORMS))
@@ -160,7 +166,7 @@ def _jax_leaf(owner: nn.Module, leaf: str, val: np.ndarray
             return "kernel", val.transpose(2, 3, 1, 0)
         if isinstance(owner, nn.Embedding):
             return "embedding", val
-        if isinstance(owner, (nn.LayerNorm, nn.GroupNorm)):
+        if isinstance(owner, _NORMS):
             return "scale", val
     return leaf, val
 

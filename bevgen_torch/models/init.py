@@ -1,5 +1,5 @@
-"""Seeded random weights for any module of the port (the pipeline, or a
-MaskGit alone for training)."""
+"""Seeded random weights for any module of the port (the pipeline, a
+MaskGit alone for training, the stage-1 models, the discriminator, LPIPS)."""
 from __future__ import annotations
 
 import math
@@ -7,7 +7,10 @@ import math
 import torch
 from torch import nn
 
+from bevgen_torch.models.discriminator import BatchNorm
 from bevgen_torch.ops.quant import QUANT_MODULES, init_quant_param
+
+_NORMS = (nn.LayerNorm, nn.GroupNorm, BatchNorm)
 
 
 @torch.no_grad()
@@ -16,8 +19,8 @@ def init_weights(module: nn.Module, seed: int = 0) -> nn.Module:
     the CPU so they do not depend on the device: fan-in-scaled truncated
     normals for linear and conv weights, 1/sqrt(dim)-scaled normals for
     embeddings, the reference's constants for the rest (unit norm scales
-    and q/k scales, zero biases and camera-bias table, unit-normal null_kv,
-    uniform +-1/n_embed codebooks; the int8 modules' kernels, scales and
+    and q/k scales, zero biases, ActNorm locs and camera-bias table,
+    unit-normal null_kv, uniform +-1/n_embed codebooks; the int8 modules' kernels, scales and
     in_scales as `ops.quant.init_quant_param` draws them). Returns
     `module`."""
     gen = torch.Generator().manual_seed(seed)
@@ -36,16 +39,16 @@ def init_weights(module: nn.Module, seed: int = 0) -> nn.Module:
             val = normal(p.shape, 1.0 / math.sqrt(p[0].numel()))
         elif isinstance(owner, nn.Embedding):
             val = torch.randn(p.shape, generator=gen) / math.sqrt(p.shape[1])
-        elif isinstance(owner, (nn.LayerNorm, nn.GroupNorm)) and leaf == "weight":
+        elif isinstance(owner, _NORMS) and leaf == "weight":
             val = torch.ones(p.shape)
         elif leaf == "null_kv":
             val = torch.randn(p.shape, generator=gen)
-        elif leaf in ("q_scale", "k_scale"):
+        elif leaf in ("q_scale", "k_scale", "scale"):  # scale: ActNorm's
             val = torch.ones(p.shape)
         elif leaf == "codebook":
             n = p.shape[0]
             val = (torch.rand(p.shape, generator=gen) * 2 - 1) / n
-        else:  # biases, camera_bias_emb, bev_cam_pos_emb
+        else:  # biases, ActNorm loc, camera_bias_emb, bev_cam_pos_emb
             val = torch.zeros(p.shape)
         p.copy_(val)
     return module

@@ -1,9 +1,12 @@
-"""Stage-1 VQ models: RGB VQ-GAN and BEV VQ-VAE (inference).
+"""Stage-1 VQ models: RGB VQ-GAN and BEV VQ-VAE.
 
-Port of `bevgen_tpu/models/stage1/vq.py`: `encode` (indices and quantized
-latents, with the optional camera-ray geometric embedding added to the
-encoder features) and `decode_code`. Public tensors keep the reference's
-NHWC layout; the backbone runs NCHW inside.
+Port of `bevgen_tpu/models/stage1/vq.py`: `encode` (quantized latents with
+the straight-through estimator, the codebook loss and the indices, with the
+optional camera-ray geometric embedding added to the encoder features),
+`decode`, `decode_code`, and `forward` -> (reconstruction, codebook loss,
+indices) for training. Public tensors keep the reference's NHWC layout; the
+backbone runs NCHW inside. The reference's dropout is not ported: its
+stage-1 training runs the model deterministic.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from bevgen_torch.models.stage1.backbone import Decoder, Encoder, conv1x1
 
 class EncodeResult(NamedTuple):
     z_q: torch.Tensor       # (b, h, w, embed_dim)
+    loss: torch.Tensor      # codebook + commitment loss (0-d, fp32)
     indices: torch.Tensor   # (b, h, w) int64
 
 
@@ -64,7 +68,8 @@ class VQModel(nn.Module):
     def encode(self, x: torch.Tensor,
                intrinsics_inv: Optional[torch.Tensor] = None,
                extrinsics_inv: Optional[torch.Tensor] = None) -> EncodeResult:
-        """x (b, H, W, C) -> EncodeResult with (b, h, w) indices. With the
+        """x (b, H, W, C) -> EncodeResult with (b, h, w) indices and the
+        codebook loss (the config's beta placement). With the
         geometric embedding on, the camera matrices of each image are
         required."""
         h = self.encoder(x.to(self.dtype).permute(0, 3, 1, 2))
@@ -76,8 +81,9 @@ class VQModel(nn.Module):
             h = h + self.geometric_features(
                 intrinsics_inv, extrinsics_inv).permute(0, 3, 1, 2)
         h = self.quant_conv(h).permute(0, 2, 3, 1)
-        z_q, idx = vq.quantize(h, self.codebook)
-        return EncodeResult(z_q=z_q, indices=idx)
+        z_q, loss, idx = vq.quantize(h, self.codebook, self.cfg.beta,
+                                     self.cfg.legacy_beta)
+        return EncodeResult(z_q=z_q, loss=loss, indices=idx)
 
     def decode(self, z_q: torch.Tensor) -> torch.Tensor:
         """z_q (b, h, w, embed_dim) -> image (b, H, W, out_ch)."""
@@ -88,10 +94,22 @@ class VQModel(nn.Module):
         """Codebook indices (b, h, w) -> image (b, H, W, out_ch)."""
         return self.decode(vq.codebook_lookup(indices, self.codebook))
 
+    def forward(self, x: torch.Tensor,
+                intrinsics_inv: Optional[torch.Tensor] = None,
+                extrinsics_inv: Optional[torch.Tensor] = None):
+        """x (b, H, W, C) -> (reconstruction (b, H, W, out_ch), codebook
+        loss, indices (b, h, w))."""
+        enc = self.encode(x, intrinsics_inv, extrinsics_inv)
+        return self.decode(enc.z_q), enc.loss, enc.indices
+
 
 class VQSegmentationModel(VQModel):
     """BEV VQ-VAE over n_labels-channel semantic rasters: the same
-    autoencoder."""
+    autoencoder; its reconstruction is read out as sigmoid-rounded labels."""
+
+    @staticmethod
+    def reconstruct_labels(logits: torch.Tensor) -> torch.Tensor:
+        return torch.round(torch.sigmoid(logits))
 
 
 def generate_plane(cfg: Stage1Config) -> np.ndarray:

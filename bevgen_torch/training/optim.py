@@ -1,7 +1,8 @@
-"""Optimisation for stage-2 training: AdamW with the minGPT decay
-partition, warm-up + cosine learning rate, gradient accumulation, EMA.
+"""Optimisation for training: for stage 2, AdamW with the minGPT decay
+partition, warm-up + cosine learning rate, gradient accumulation, EMA; for
+stage 1, Adam(0.5, 0.9) (`vqgan_optimizer`).
 
-Port of `bevgen_tpu/training/optim.py`, whose optax chain is
+Port of `bevgen_tpu/training/optim.py`, whose stage-2 optax chain is
 
     clip_by_global_norm(1.0) -> scale_by_adam(0.9, 0.95, eps 1e-8)
     -> add_decayed_weights(0.01, mask) -> scale_by_schedule(-lr(count))
@@ -11,8 +12,7 @@ and the accumulation are written out and the rest is `torch.optim.AdamW`
 with two parameter groups (decay 0.01 / 0), whose decoupled decay
 p <- p - lr wd p is the same update as optax's lr * (adam + wd p). The
 schedule counts applied updates from 0, as optax's does, so the first
-update has lr 0 (during warm-up). `vqgan_optimizer` comes with stage-1
-training.
+update has lr 0 (during warm-up).
 """
 from __future__ import annotations
 
@@ -152,6 +152,14 @@ def maskgit_optimizer(model: nn.Module, base_lr: float,
                             grad_clip=grad_clip,
                             accumulate_steps=accumulate_steps,
                             decay=decay_mask(model))
+
+
+def vqgan_optimizer(params: Iterable[nn.Parameter],
+                    lr: float) -> torch.optim.Adam:
+    """The stage-1 optimizer, one for the autoencoder and one for the
+    discriminator: Adam with betas (0.5, 0.9) and eps 1e-8, the update of
+    `optax.adam` (eps added to the bias-corrected root), constant lr."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.5, 0.9), eps=1e-8)
 
 
 def scaled_lr(base_lr: float, batch_size: int, num_devices: int = 1,

@@ -214,6 +214,23 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      `bevgen_torch/configs/int8_crossover.json`, whose card is printed
      beside this one), the int8 kernels launched, finite images.
 
+Phases 39-42 run stage-1 training, which has no kernel of its own (its
+convolutions are cuDNN's, its attention a plain matrix product):
+ 39. the RGB VQ-GAN step at full width (`argoverse_muse`'s first_stage,
+     256 x 256, ch 128) at b=8 with `NLayerDiscriminator()` and LPIPS on
+     seeded full-width VGG16 weights (an npz in TMPDIR read through
+     `LPIPSMetric`), under PyTorch's default TF32 flags: one warm-up step,
+     five timed; seconds a step, images/s, peak memory, the step's FLOPs
+     (torch's FlopCounterMode) and their share of the dense TF32 peak;
+     metrics finite, d_weight >= 0, both networks' parameters changed;
+ 40. the BEV VQ-VAE step at full width (7 channels at 256 x 256, b=8, BCE),
+     the same numbers; the loss falls over 25 steps on one repeated batch;
+ 41. a reduced-width VQ-GAN with LPIPS, two steps on the card with TF32 off
+     against two on the CPU from one seeded init: loss terms, d_weight and
+     the updated parameters agree;
+ 42. `scripts/train_stage1.py` model=cam (with LPIPS) and model=bev, three
+     steps each at full width: the saved tags load back bit for bit.
+
 Prints the kernels' JSON line, then the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`. Without a CUDA device,
 or outside a checkout of the repository, it exits with an error and
@@ -221,6 +238,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -3871,6 +3889,320 @@ def int8_kernel_entries(cfg, ar_cfg, stats, muse, ar, row1_stats, dec_stats,
     return out
 
 
+# ---- stage-1 training (phases 39-42) ----------------------------------------
+
+STAGE1_BATCH = 8
+STAGE1_TIMED = 5
+SEG_FALL_STEPS = 25
+SEG_FALL_LR = 1e-3      # the JAX package's own check (tests/test_training.py)
+PEAK_TF32_FLOPS = 495e12    # H100 SXM dense TF32 tensor-core rate
+# Phase 41, the card (TF32 off) against the CPU, fp32 on both: the loss
+# terms and d_weight (a ratio of two gradient norms) within rtol 1e-3 at each
+# of two steps. Parameters after two Adam steps: Adam divides each gradient
+# by its own running size, so an entry whose gradient is zero in exact
+# arithmetic (the attention k biases, biases that feed a GroupNorm of one
+# channel a group) takes a step of up to ~1.04 lr either way from rounding
+# noise alone; every entry is held to two such steps on each side (4.2 lr),
+# and all but STAGE1_PARAM_OUTLIERS of all entries to 5e-3 lr.
+STAGE1_METRIC_RTOL = 1e-3
+STAGE1_PARAM_OUTLIERS = 5e-3
+STAGE1_CHECK_LR = 1e-4
+STAGE1_CLI_STEPS = 3
+
+
+@contextlib.contextmanager
+def tf32_flags(cudnn, matmul):
+    """Set cudnn's and the matmuls' TF32 flags inside the block, then put
+    the previous ones back."""
+    import torch
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+
+
+def write_lpips_npz(path, seed=39):
+    """Seeded full-width VGG16 + LPIPS heads in the npz layout that
+    `models/lpips.py:load_lpips_params` reads (the converted weights'
+    `vgg/conv_{stage}_{c}/...` and `lin_{i}/kernel`)."""
+    from bevgen_torch.core.convert import export_jax_params
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.lpips import LPIPS
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                flat["/".join(prefix + (k,))] = v
+    walk(export_jax_params(init_weights(LPIPS(), seed)), ())
+    np.savez(path, **flat)
+    return path
+
+
+def timed_steps(step, state, batches):
+    """Host seconds of each step (synchronised) and the metrics of each."""
+    import torch
+    times, metrics = [], []
+    for x in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return times, metrics
+
+
+def stage1_step_report(name, step, state, make_batch, card, tf32):
+    """One warm-up step under torch's FlopCounterMode (the operators' FLOPs
+    from their shapes: convolutions and matrix products, forward and
+    backward), then STAGE1_TIMED timed steps with the peak memory. Returns
+    the numbers and the timed steps' metrics."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        step(state, make_batch(0))
+    torch.cuda.synchronize()
+    flops = counter.get_total_flops()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = timed_steps(step, state, [make_batch(i + 1)
+                                               for i in range(STAGE1_TIMED)])
+    med = sorted(times)[len(times) // 2]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    share = flops / med / PEAK_TF32_FLOPS
+    print(f"[stage1] {name} b={STAGE1_BATCH}: steps "
+          f"{', '.join(f'{t:.4f}' for t in times)} s, median {med:.4f} s = "
+          f"{STAGE1_BATCH / med:.2f} images/s; peak {peak:.2f} GB; "
+          f"{flops / 1e12:.3f} TFLOP a step (FlopCounterMode) = "
+          f"{flops / med / 1e12:.1f} TFLOP/s, {share:.4f} of the dense TF32 "
+          f"peak ({PEAK_TF32_FLOPS / 1e12:g} TFLOP/s); cudnn.allow_tf32="
+          f"{tf32[0]} cuda.matmul.allow_tf32={tf32[1]}; {card}", flush=True)
+    return {"step_s": med, "steps_s": times, "images_per_s": STAGE1_BATCH / med,
+            "peak_gb": peak, "tflop": flops / 1e12,
+            "tf32_share": share}, metrics
+
+
+def changed_share(before, module):
+    """The share of `module`'s parameter tensors that differ from `before`."""
+    import torch
+    now = [p.detach() for p in module.parameters()]
+    return sum(not torch.equal(a, b) for a, b in zip(before, now)) / len(now)
+
+
+def vqgan_phase(s1cfg, base_lr, lpips_npz, tf32):
+    """Phase 39: the RGB VQ-GAN step at full width (`argoverse_muse`'s
+    first_stage: 256 x 256, ch 128, ch_mult (1,1,2,2,4), 2 res blocks,
+    attention at 16, z 256, codebook 1024 x 256), b=8, fp32, with
+    `NLayerDiscriminator()` and LPIPS on seeded full-width VGG16 weights read
+    through `LPIPSMetric`, at the CLI's lr, under PyTorch's default TF32
+    flags: one warm-up step (its FLOPs counted), five timed; every metric
+    finite, d_weight >= 0, the autoencoder's and the discriminator's
+    parameters changed. Also the forward's FLOPs per image."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from bevgen_torch.metrics.quality import LPIPSMetric
+    from bevgen_torch.models.discriminator import NLayerDiscriminator
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.stage1.vq import VQModel
+    from bevgen_torch.scripts.train_stage1 import perceptual_term
+    from bevgen_torch.training import stage1_trainer
+    from bevgen_torch.training.optim import scaled_lr
+    card = gpu_name_and_power()
+    B = STAGE1_BATCH
+    with tf32_flags(*tf32):
+        model = init_weights(VQModel(s1cfg), 39).cuda()
+        disc = init_weights(NLayerDiscriminator(), 40).cuda()
+        metric = LPIPSMetric(str(lpips_npz), device="cuda")
+        if not metric.available:
+            raise SystemExit(f"LPIPSMetric found no weights at {lpips_npz}")
+        n_ae = sum(p.numel() for p in model.parameters())
+        n_d = sum(p.numel() for p in disc.parameters())
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            model(torch.zeros((1, s1cfg.resolution, s1cfg.resolution,
+                               s1cfg.in_channels), device="cuda"))
+        fwd = counter.get_total_flops()
+        state = stage1_trainer.create_stage1_state(
+            model, disc, scaled_lr(base_lr, B))
+        step = stage1_trainer.make_vqgan_train_step(
+            perceptual_term(metric), perceptual_weight=1.0)
+        before_ae = [p.detach().clone() for p in model.parameters()]
+        before_d = [p.detach().clone() for p in disc.parameters()]
+        gen = torch.Generator(device="cuda").manual_seed(39)
+
+        def batch(i):
+            return torch.randn((B, s1cfg.resolution, s1cfg.resolution,
+                                s1cfg.in_channels), generator=gen,
+                               device="cuda")
+        res, metrics = stage1_step_report("VQ-GAN step (PatchGAN + LPIPS)",
+                                          step, state, batch, card, tf32)
+        ae_share = changed_share(before_ae, model)
+        d_share = changed_share(before_d, disc)
+    finite = all(math.isfinite(v) for m in metrics for v in m.values())
+    d_weights = [m["train/d_weight"] for m in metrics]
+    print(f"[stage1] VQ-GAN: {n_ae / 1e6:.1f} M autoencoder and "
+          f"{n_d / 1e6:.2f} M discriminator parameters; forward "
+          f"{fwd / 1e12:.4f} TFLOP an image; last step "
+          f"{json.dumps({k: round(v, 5) for k, v in metrics[-1].items()})}; "
+          f"d_weight {d_weights}; parameter tensors changed: autoencoder "
+          f"{ae_share:.3f}, discriminator {d_share:.3f}", flush=True)
+    if not finite or min(d_weights) < 0:
+        raise SystemExit("the VQ-GAN step gave a non-finite metric or a "
+                         "negative d_weight")
+    if ae_share < 0.5 or d_share < 0.5:
+        raise SystemExit("the VQ-GAN step left the parameters unchanged")
+    del state, model, disc, metric, before_ae, before_d
+    return {**res, "fwd_tflop_per_image": fwd / 1e12}
+
+
+def vqvae_phase(s1cfg, base_lr, tf32):
+    """Phase 40: the BEV VQ-VAE step at full width (`cond_stage`: 7 channels
+    at 256 x 256), b=8, BCE, at the CLI's lr under PyTorch's default TF32
+    flags: one warm-up step (its FLOPs counted), five timed, finite; then
+    from the seeded init at the JAX package's check lr, the loss falls over
+    SEG_FALL_STEPS steps on one repeated batch (the least of steps 11-25
+    below the first)."""
+    import torch
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.stage1.vq import VQSegmentationModel
+    from bevgen_torch.training import stage1_trainer
+    from bevgen_torch.training.optim import scaled_lr
+    card = gpu_name_and_power()
+    B, R = STAGE1_BATCH, s1cfg.resolution
+    gen = torch.Generator(device="cuda").manual_seed(40)
+
+    def batch(i):
+        return (torch.rand((B, R, R, s1cfg.in_channels), generator=gen,
+                           device="cuda") < 0.2).float()
+    with tf32_flags(*tf32):
+        step = stage1_trainer.make_seg_train_step()
+        model = init_weights(VQSegmentationModel(s1cfg), 41).cuda()
+        state = stage1_trainer.create_stage1_state(model, None,
+                                                   scaled_lr(base_lr, B))
+        res, metrics = stage1_step_report("BEV VQ-VAE step (BCE)", step,
+                                          state, batch, card, tf32)
+        model = init_weights(VQSegmentationModel(s1cfg), 41).cuda()
+        state = stage1_trainer.create_stage1_state(model, None, SEG_FALL_LR)
+        x = batch(0)
+        _, fall = timed_steps(step, state, [x] * SEG_FALL_STEPS)
+    losses = [m["loss"] for m in fall]
+    print(f"[stage1] BEV VQ-VAE on one repeated batch, lr {SEG_FALL_LR}: "
+          f"loss {', '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    if not all(math.isfinite(v) for m in metrics + fall for v in m.values()):
+        raise SystemExit("the BEV VQ-VAE step gave a non-finite metric")
+    if not min(losses[10:]) < losses[0]:
+        raise SystemExit("the BEV VQ-VAE loss did not fall on a repeated batch")
+    return res
+
+
+def card_cpu_phase(lpips_npz):
+    """Phase 41: one reduced-width VQ-GAN (ch 32, 64 x 64, the full
+    structure, codebook 256 x 64 drawn N(0, 1) so that no two codes are near
+    a tie, ndf 16) with LPIPS, from one seeded init, two steps on the card
+    with both TF32 flags off and two on the CPU on the same batches: the
+    loss terms and d_weight within STAGE1_METRIC_RTOL at each step, the
+    updated parameters as the constants above say."""
+    import torch
+    from bevgen_torch.core.config import Stage1Config
+    from bevgen_torch.metrics.quality import LPIPSMetric
+    from bevgen_torch.models.discriminator import NLayerDiscriminator
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.stage1.vq import VQModel
+    from bevgen_torch.scripts.train_stage1 import perceptual_term
+    from bevgen_torch.training import stage1_trainer
+    s1 = Stage1Config(ch=32, resolution=64, z_channels=64, embed_dim=64,
+                      n_embed=256, cam_res=(64, 64), cam_latent_res=(4, 4))
+    lr = STAGE1_CHECK_LR
+    rng = np.random.default_rng(41)
+    xs = [torch.from_numpy(rng.standard_normal((2, 64, 64, 3)).astype(
+        np.float32)) for _ in range(2)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = init_weights(VQModel(s1), 41)
+        with torch.no_grad():
+            model.codebook.copy_(torch.randn(
+                model.codebook.shape, generator=torch.Generator().manual_seed(41)))
+        disc = init_weights(NLayerDiscriminator(ndf=16), 42)
+        model, disc = model.to(dev), disc.to(dev)
+        step = stage1_trainer.make_vqgan_train_step(
+            perceptual_term(LPIPSMetric(str(lpips_npz), device=dev)))
+        state = stage1_trainer.create_stage1_state(model, disc, lr)
+        with tf32_flags(False, False):
+            metrics = [{k: float(v) for k, v in step(state, x.to(dev)).items()}
+                       for x in xs]
+        runs[dev] = (metrics, [p.detach().cpu() for p in model.parameters()]
+                     + [p.detach().cpu() for p in disc.parameters()])
+    (m_card, p_card), (m_cpu, p_cpu) = runs["cuda"], runs["cpu"]
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                for a, b in zip(m_card, m_cpu) for k in b)
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(p_card, p_cpu)])
+    outliers = float((diffs > 5e-3 * lr).float().mean())
+    print(f"[stage1] card (TF32 off) vs CPU, reduced VQ-GAN b=2 64x64, two "
+          f"steps: worst metric relative difference {worst:.2e} (max "
+          f"{STAGE1_METRIC_RTOL}); d_weight card "
+          f"{[m['train/d_weight'] for m in m_card]} CPU "
+          f"{[m['train/d_weight'] for m in m_cpu]}; parameters: max |diff| "
+          f"{float(diffs.max()) / lr:.3f} lr (max 4.2), share beyond 5e-3 lr "
+          f"{outliers:.2e} of {diffs.numel()} (max {STAGE1_PARAM_OUTLIERS})",
+          flush=True)
+    if (worst > STAGE1_METRIC_RTOL or float(diffs.max()) > 4.2 * lr
+            or outliers > STAGE1_PARAM_OUTLIERS):
+        raise SystemExit("the card and the CPU disagree on the stage-1 steps")
+    return {"worst_metric_rel": worst, "param_outliers": outliers}
+
+
+def stage1_cli_phase(lpips_npz, tmp):
+    """Phase 42: `scripts/train_stage1.py` on the card at `argoverse_muse`,
+    model=cam (PatchGAN + LPIPS from the npz) and model=bev, three steps
+    each with a checkpoint directory: finite JSON lines, `done`, and the
+    saved tag loads back into a fresh VQModel / VQSegmentationModel bit for
+    bit."""
+    import os
+    import torch
+    from bevgen_torch.core.config import argoverse_muse_config
+    from bevgen_torch.models.stage1.vq import VQModel, VQSegmentationModel
+    from bevgen_torch.scripts import train_stage1
+    cfg = argoverse_muse_config()
+    out = {}
+    for which, extra in (("cam", [f"perceptual_weights={lpips_npz}"]),
+                         ("bev", [])):
+        ckpt = os.path.join(tmp, f"ckpt_{which}")
+        t0 = time.perf_counter()
+        state, lines = run_cli(train_stage1.run, [
+            f"model={which}", f"steps={STAGE1_CLI_STEPS}", "log_every=1",
+            f"ckpt_dir={ckpt}", *extra])
+        secs = time.perf_counter() - t0
+        logs = [json.loads(l) for l in lines if l.startswith("{")]
+        finite = all(math.isfinite(v) for m in logs for v in m.values())
+        tag = os.path.join(ckpt, open(os.path.join(ckpt, "LATEST")).read().strip())
+        saved = torch.load(os.path.join(tag, "state.pt"), map_location="cpu",
+                           weights_only=False)
+        fresh = (VQModel(cfg.first_stage) if which == "cam"
+                 else VQSegmentationModel(cfg.cond_stage))
+        fresh.load_state_dict(saved["params"])
+        trained = dict(state.model.named_parameters())
+        same = all(torch.equal(p, trained[n].detach().cpu())
+                   for n, p in fresh.named_parameters())
+        ok = (lines[-1] == "done" and len(logs) == STAGE1_CLI_STEPS and finite
+              and saved["step"] == STAGE1_CLI_STEPS and same)
+        print(f"[stage1-cli] train_stage1 model={which}: {len(logs)} logged "
+              f"steps in {secs:.1f} s (build, data and save included), "
+              f"finite {finite}, {os.path.basename(tag)} reloads bit for bit "
+              f"{same} -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"train_stage1 model={which} failed")
+        out[which] = logs[-1]["steps_per_sec"]
+        del state, fresh, saved
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3885,6 +4217,10 @@ def main() -> int:
     from bevgen_torch.ops import layernorm as ln
     from bevgen_torch.pipelines.generate import BEVGenPipeline
 
+    # PyTorch's TF32 defaults, under which the stage-1 trainer runs (it
+    # leaves the flags as it finds them): phases 39-40 time it so
+    tf32_defaults = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
     # fp32 references stay fp32 (no TF32 in matmuls or convolutions)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4168,6 +4504,21 @@ def main() -> int:
     int8_muse = timed_phase(36, int8_muse_phase, cfg)
     int8_ar = timed_phase(37, int8_ar_phase, ar_cfg, ar_e2e)
     timed_phase(38, int8_cli_phase, cfg, ar_cfg)
+
+    # 39-42. stage-1 training: the VQ-GAN and VQ-VAE steps at full width,
+    # the card against the CPU, the CLI; the LPIPS weights as an npz in
+    # TMPDIR
+    import os
+    import tempfile
+    from bevgen_torch.core.config import argoverse_muse_config
+    s1 = argoverse_muse_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = write_lpips_npz(os.path.join(tmp, "lpips.npz"))
+        timed_phase(39, vqgan_phase, s1.first_stage, s1.base_lr, npz,
+                    tf32_defaults)
+        timed_phase(40, vqvae_phase, s1.cond_stage, s1.base_lr, tf32_defaults)
+        timed_phase(41, card_cpu_phase, npz)
+        timed_phase(42, stage1_cli_phase, npz, tmp)
 
     kernels = []
     for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
