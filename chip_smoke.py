@@ -226,10 +226,35 @@ convolutions are cuDNN's, its attention a plain matrix product):
  40. the BEV VQ-VAE step at full width (7 channels at 256 x 256, b=8, BCE),
      the same numbers; the loss falls over 25 steps on one repeated batch;
  41. a reduced-width VQ-GAN with LPIPS, two steps on the card with TF32 off
-     against two on the CPU from one seeded init: loss terms, d_weight and
-     the updated parameters agree;
+     and cuDNN's deterministic algorithms against two on the CPU from one
+     seeded init: loss terms, d_weight and the updated parameters agree;
  42. `scripts/train_stage1.py` model=cam (with LPIPS) and model=bev, three
      steps each at full width: the saved tags load back bit for bit.
+
+Phases 43-45 run the evaluation path (`scripts/metrics_eval.py`), which
+has no kernel of its own (cuDNN convolutions, torch matrix products), on
+seeded weights (no checkpoint ships with the repository) and with no cv2:
+ 43. InceptionV3 (FID pool3) at full width: a seeded pytorch-fid `.pth`
+     through `convert_inception_weights`, the model from the npz and from
+     the `.pth` bit for bit; card (TF32 off) against CPU features of 8
+     images at 256x256 and at 224x400 (max |diff| <= 1e-3 max |f|) and the
+     FID of two sets of 64 (relative difference <= 1e-3); then
+     `make_inception_features` over 512 images at batch 32 under PyTorch's
+     default TF32 flags: images/s (median of five after a warm-up), peak
+     memory, FLOPs per image (FlopCounterMode), their share of the dense
+     TF32 peak, and the model's device time on a batch;
+ 44. LoFTR at the outdoor widths (`init_random_params`) on the reference's
+     50-px strip (256x50, padded to 56) and a 256x256 pair: card (TF32 off)
+     against CPU, the confidence matrix within 1e-4, the matches identical
+     but at near-tie cells (counted; at most 1% of the matches), the fine
+     keypoints within 1e-3 px; ms per matcher call (median of 20) and 4
+     calls per scene;
+ 45. the evaluation end to end: the seed-0 `argoverse_muse_7cam` pipeline
+     generates b=2 (exactly 980 row-1 launches) and again with seed 1 as the
+     ground truth; `metrics_eval.evaluate` on the card with LPIPS (phase
+     39's npz), FID on phase 43's weights and per_camera: the CLI's keys,
+     every value finite; the LoFTR confidence sum over the Argoverse pairs
+     of both sets (BT.601 gray on both sides); seconds per image.
 
 Prints the kernels' JSON line, then the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`. Without a CUDA device,
@@ -3926,6 +3951,23 @@ def tf32_flags(cudnn, matmul):
          torch.backends.cuda.matmul.allow_tf32) = old
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block, then the previous
+    choice. The default choice may sum a weight gradient with atomics, whose
+    order varies from run to run: two phase-41 card runs in one process then
+    differed in 2% of the parameter entries (those whose gradient is at
+    rounding-noise level, which Adam turns into steps of ~lr) in some calls,
+    and were identical with this flag (NVIDIA H100 80GB HBM3)."""
+    import torch
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
 def write_lpips_npz(path, seed=39):
     """Seeded full-width VGG16 + LPIPS heads in the npz layout that
     `models/lpips.py:load_lpips_params` reads (the converted weights'
@@ -4105,7 +4147,8 @@ def card_cpu_phase(lpips_npz):
     """Phase 41: one reduced-width VQ-GAN (ch 32, 64 x 64, the full
     structure, codebook 256 x 64 drawn N(0, 1) so that no two codes are near
     a tie, ndf 16) with LPIPS, from one seeded init, two steps on the card
-    with both TF32 flags off and two on the CPU on the same batches: the
+    with both TF32 flags off and cuDNN's deterministic algorithms, and two on
+    the CPU on the same batches: the
     loss terms and d_weight within STAGE1_METRIC_RTOL at each step, the
     updated parameters as the constants above say."""
     import torch
@@ -4133,7 +4176,7 @@ def card_cpu_phase(lpips_npz):
         step = stage1_trainer.make_vqgan_train_step(
             perceptual_term(LPIPSMetric(str(lpips_npz), device=dev)))
         state = stage1_trainer.create_stage1_state(model, disc, lr)
-        with tf32_flags(False, False):
+        with tf32_flags(False, False), cudnn_deterministic():
             metrics = [{k: float(v) for k, v in step(state, x.to(dev)).items()}
                        for x in xs]
         runs[dev] = (metrics, [p.detach().cpu() for p in model.parameters()]
@@ -4143,7 +4186,8 @@ def card_cpu_phase(lpips_npz):
                 for a, b in zip(m_card, m_cpu) for k in b)
     diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(p_card, p_cpu)])
     outliers = float((diffs > 5e-3 * lr).float().mean())
-    print(f"[stage1] card (TF32 off) vs CPU, reduced VQ-GAN b=2 64x64, two "
+    print(f"[stage1] card (TF32 off, cuDNN deterministic) vs CPU, reduced "
+          f"VQ-GAN b=2 64x64, two "
           f"steps: worst metric relative difference {worst:.2e} (max "
           f"{STAGE1_METRIC_RTOL}); d_weight card "
           f"{[m['train/d_weight'] for m in m_card]} CPU "
@@ -4201,6 +4245,337 @@ def stage1_cli_phase(lpips_npz, tmp):
         del state, fresh, saved
         torch.cuda.empty_cache()
     return out
+
+
+# ---- the evaluation path (phases 43-45) -------------------------------------
+
+INCEPTION_CHECK_IMAGES = 8
+INCEPTION_CHECK_SHAPES = ((256, 256), (224, 400))   # MUSE images, the AR rig's
+INCEPTION_FID_IMAGES = 64
+INCEPTION_TIMED_IMAGES = 512
+INCEPTION_BATCH = 32
+INCEPTION_TIMED = 5
+# Card (TF32 off) against the CPU, fp32 on both: the features within 1e-3 of
+# their largest (cuDNN and the CPU sum the 94 convolutions in other orders;
+# the CPU tests hold the port to the JAX package at 1e-4); FID within 1e-3
+# relative (float64 statistics of those features).
+INCEPTION_FEAT_TOL = 1e-3
+INCEPTION_FID_RTOL = 1e-3
+# LoFTR card (TF32 off) against the CPU: the confidence matrix within 1e-4;
+# the matches identical but at near-tie cells (the CPU confidence within
+# 1e-4 of MATCH_THR or of its row's or column's closest rival), which may be
+# at most 1% of the matches; the fine keypoints within 1e-3 px.
+LOFTR_CONF_TOL = 1e-4
+LOFTR_TIE_TOL = 1e-4
+LOFTR_TIE_SHARE = 0.01
+LOFTR_DELTA_TOL = 1e-3
+LOFTR_SEED = 0          # seeded weights that match noisy copies (the tests')
+LOFTR_SHAPES = ((256, 50), (256, 256))  # the reference's strip; a full image
+LOFTR_TIMED = 20
+LOFTR_CALLS_PER_SCENE = 4   # 2 camera pairs x (generated, ground truth)
+# Phase 45's grayscale, the same on both sides and with no cv2: ITU-R BT.601
+# luma (the weights of cv2's RGB2GRAY) of the [0, 1] floats.
+GRAY_WEIGHTS = np.array([0.299, 0.587, 0.114], np.float32)
+
+
+def noisy_pair(shape, seed, noise=0.05):
+    """A random gray image and a noisy copy: the seeded LoFTR weights match
+    such pairs."""
+    rng = np.random.default_rng(seed)
+    a = rng.random(shape, dtype=np.float32)
+    return a, np.clip(a + noise * rng.standard_normal(shape), 0, 1).astype(
+        np.float32)
+
+
+def inception_phase(tmp, tf32):
+    """Phase 43: InceptionV3 at full width on seeded weights written as a
+    pytorch-fid `.pth` and converted by `convert_inception_weights`; the
+    model from the npz and from the `.pth` directly, bit for bit; card (TF32
+    off) against CPU features of 8 images at 256x256 and at 224x400, and
+    FID of two sets of 64; then `make_inception_features` over 512 images
+    at batch 32 under PyTorch's default TF32 flags: images/s (median of
+    five after a warm-up), peak memory, FLOPs per image (FlopCounterMode)
+    and their share of the dense TF32 peak. Returns the npz path."""
+    import os
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from bevgen_torch.metrics.fid import (fid_from_features,
+                                          make_inception_features)
+    from bevgen_torch.metrics.inception import (
+        InceptionV3, convert_inception_weights, load_inception,
+        random_fid_state_dict)
+    card = gpu_name_and_power()
+    pth = os.path.join(tmp, "pt_inception.pth")
+    npz = os.path.join(tmp, "inception.npz")
+    torch.save(random_fid_state_dict(43), pth)
+    t0 = time.perf_counter()
+    n_arrays = convert_inception_weights(pth, npz)
+    conv_s = time.perf_counter() - t0
+    from_npz = load_inception(npz)
+    direct = InceptionV3().load_pytorch_fid(torch.load(pth))
+    same = all(torch.equal(p, q) for p, q in zip(from_npz.parameters(),
+                                                 direct.parameters()))
+    n_params = sum(p.numel() for p in from_npz.parameters())
+    print(f"[inception] seeded pytorch-fid state dict -> "
+          f"convert_inception_weights: {n_arrays} arrays in {conv_s:.1f} s; "
+          f"{n_params / 1e6:.2f} M parameters from the npz and from the .pth "
+          f"directly equal bit for bit {same}", flush=True)
+    if not same:
+        raise SystemExit("the npz and the pytorch-fid state dict give "
+                         "different parameters")
+    del from_npz, direct
+    rng = np.random.default_rng(43)
+    with tf32_flags(False, False):
+        on_card = make_inception_features(npz, device="cuda")
+        on_cpu = make_inception_features(npz, device="cpu")
+        errs = {}
+        for hw in INCEPTION_CHECK_SHAPES:
+            x = rng.uniform(0, 1, (INCEPTION_CHECK_IMAGES, *hw, 3)).astype(
+                np.float32)
+            fc, fh = on_card(x), on_cpu(x)
+            errs[hw] = float(np.abs(fc - fh).max() / np.abs(fh).max())
+            print(f"[inception] card (TF32 off) vs CPU, "
+                  f"{INCEPTION_CHECK_IMAGES} images {hw[0]}x{hw[1]} -> "
+                  f"(n, 2048): max |diff| {errs[hw]:.2e} of max |f| "
+                  f"{np.abs(fh).max():.3f} (max {INCEPTION_FEAT_TOL}); "
+                  f"{card}", flush=True)
+        sets = [rng.uniform(0, 1, (INCEPTION_FID_IMAGES, 256, 256, 3)).astype(
+            np.float32) ** p for p in (1.0, 1.5)]
+        fid_card = fid_from_features(*(on_card(s) for s in sets))
+        fid_cpu = fid_from_features(*(on_cpu(s) for s in sets))
+    fid_rel = abs(fid_card - fid_cpu) / abs(fid_cpu)
+    print(f"[inception] FID of two sets of {INCEPTION_FID_IMAGES} at 256x256: "
+          f"card {fid_card:.6f}, CPU {fid_cpu:.6f}, relative difference "
+          f"{fid_rel:.2e} (max {INCEPTION_FID_RTOL}); {card}", flush=True)
+    if max(errs.values()) > INCEPTION_FEAT_TOL or fid_rel > INCEPTION_FID_RTOL:
+        raise SystemExit("Inception features or FID disagree between the "
+                         "card and the CPU")
+    del on_cpu
+    with tf32_flags(*tf32):
+        extract = make_inception_features(npz, batch_size=INCEPTION_BATCH,
+                                          device="cuda")
+        model = load_inception(npz).cuda()
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            model(torch.zeros((1, 256, 256, 3), device="cuda"))
+        flops = counter.get_total_flops()
+        xb = torch.rand((INCEPTION_BATCH, 256, 256, 3), device="cuda")
+        with torch.inference_mode():
+            model_ms = time_ms(lambda: model(xb), iters=10)
+        x = rng.uniform(0, 1, (INCEPTION_TIMED_IMAGES, 256, 256, 3)).astype(
+            np.float32)
+        extract(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(INCEPTION_TIMED):
+            t0 = time.perf_counter()
+            feats = extract(x)
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    med = sorted(times)[len(times) // 2]
+    ips = INCEPTION_TIMED_IMAGES / med
+    share = flops * ips / PEAK_TF32_FLOPS
+    model_share = flops * INCEPTION_BATCH / (model_ms / 1e3) / PEAK_TF32_FLOPS
+    print(f"[inception] make_inception_features over "
+          f"{INCEPTION_TIMED_IMAGES} images of 256x256 at batch "
+          f"{INCEPTION_BATCH} (host arrays in, features out): "
+          f"{', '.join(f'{t:.4f}' for t in times)} s, median {med:.4f} s = "
+          f"{ips:.1f} images/s; peak {peak:.2f} GB; {flops / 1e9:.3f} GFLOP "
+          f"({flops / 2e9:.3f} G multiply-adds) an image at 256x256 "
+          f"(FlopCounterMode) = {flops * ips / 1e12:.1f} TFLOP/s, "
+          f"{share:.4f} of the dense TF32 peak; the model alone on a b="
+          f"{INCEPTION_BATCH} batch on the card {model_ms:.3f} ms (bound "
+          f"{flops * INCEPTION_BATCH / PEAK_TF32_FLOPS * 1e3:.3f} ms: its "
+          f"operations at the TF32 peak) = "
+          f"{INCEPTION_BATCH / model_ms * 1e3:.1f} images/s, "
+          f"{model_share:.4f} of the peak; cudnn.allow_tf32={tf32[0]} "
+          f"cuda.matmul.allow_tf32={tf32[1]}; {card}", flush=True)
+    if feats.shape != (INCEPTION_TIMED_IMAGES, 2048) or not np.isfinite(
+            feats).all():
+        raise SystemExit("bad Inception features")
+    return npz
+
+
+def loftr_phase(tf32):
+    """Phase 44: LoFTR at the outdoor widths on seeded `init_random_params`
+    weights, on the reference's 50-px strip (256x50, padded to 56) and a
+    full 256x256 pair (a random image and a noisy copy): the card (TF32 off)
+    against the CPU, the confidence matrix, the matches (near ties counted)
+    and the fine keypoints; then ms per matcher call under PyTorch's default
+    TF32 flags (host clock around the synchronous call, median of
+    LOFTR_TIMED after a warm-up) and the model's device ms (CUDA events).
+    Returns the weights."""
+    import torch
+    from bevgen_torch.metrics import loftr
+    card = gpu_name_and_power()
+    params = loftr.init_random_params(np.random.default_rng(LOFTR_SEED))
+    for i, shape in enumerate(LOFTR_SHAPES):
+        a, b = noisy_pair(shape, 44 + i)
+        with tf32_flags(False, False):
+            outs = {dev: loftr.LoFTRMatcher(params, device=dev).raw(a, b)[0]
+                    for dev in ("cuda", "cpu")}
+        oc = {k: v.cpu().numpy() for k, v in outs["cuda"].items()}
+        oh = {k: v.numpy() for k, v in outs["cpu"].items()}
+        conf_err = float(np.abs(oc["conf"] - oh["conf"]).max())
+
+        def matches(o):
+            return {(int(i0), int(i1)) for i0, i1, v in
+                    zip(o["idx0"], o["idx1"], o["valid"]) if v}
+        mc, mh = matches(oc), matches(oh)
+        near = loftr.near_tie_cells(oh["conf"], LOFTR_TIE_TOL)
+        n_near = int(near.sum())
+        unexplained = [m for m in mc ^ mh if not near[m]]
+        common = sorted(i0 for i0, _ in mc & mh)
+        delta = float(max((max(abs(oc["dy"][r] - oh["dy"][r]),
+                               abs(oc["dx"][r] - oh["dx"][r])) * 2
+                           for r in common), default=0.0))
+        with tf32_flags(*tf32):
+            matcher = loftr.LoFTRMatcher(params, device="cuda")
+            matcher(a, b)
+            times = []
+            for _ in range(LOFTR_TIMED):
+                t0 = time.perf_counter()
+                matcher(a, b)
+                times.append(time.perf_counter() - t0)
+            p0, hw0 = loftr._pad_to_mult8(a)
+            p1, hw1 = loftr._pad_to_mult8(b)
+            t0_, t1_ = (torch.as_tensor(p, device="cuda") for p in (p0, p1))
+            with torch.inference_mode():
+                dev_ms = time_ms(lambda: matcher.model(t0_, t1_, hw0, hw1),
+                                 iters=LOFTR_TIMED)
+        call_ms = sorted(times)[len(times) // 2] * 1e3
+        ok = (conf_err <= LOFTR_CONF_TOL and not unexplained
+              and n_near <= LOFTR_TIE_SHARE * max(len(mh), 1)
+              and delta <= LOFTR_DELTA_TOL and len(mh) > 0)
+        print(f"[loftr] {shape[0]}x{shape[1]} (padded {p0.shape[0]}x"
+              f"{p0.shape[1]}), card (TF32 off) vs CPU: confidence matrix "
+              f"{oh['conf'].shape} max |diff| {conf_err:.2e} (max "
+              f"{LOFTR_CONF_TOL}); matches card {len(mc)} CPU {len(mh)}, "
+              f"common {len(mc & mh)}, differing outside near ties "
+              f"{len(unexplained)}; near-tie cells {n_near} (max "
+              f"{LOFTR_TIE_SHARE:.0%} of the matches); fine keypoints max "
+              f"|diff| {delta:.2e} px (max {LOFTR_DELTA_TOL}); ms per matcher "
+              f"call {call_ms:.3f} (median of {LOFTR_TIMED}: host pad, copies "
+              f"and numpy out included), model on the card {dev_ms:.3f} ms; "
+              f"{LOFTR_CALLS_PER_SCENE} calls per scene = "
+              f"{LOFTR_CALLS_PER_SCENE * call_ms:.1f} ms; "
+              f"{'ok' if ok else 'FAIL'}; {card}", flush=True)
+        if not ok:
+            raise SystemExit(f"LoFTR disagrees between the card and the CPU "
+                             f"at {shape}")
+    return params
+
+
+def metrics_e2e_phase(cfg, lpips_npz, inception_npz, loftr_params, tf32):
+    """Phase 45: the evaluation end to end. The seed-0 `argoverse_muse_7cam`
+    pipeline generates b=2 (generator seed 0: exactly 980 row-1 launches)
+    and once more with seed 1 as the ground truth; `metrics_eval.evaluate`
+    on the card under PyTorch's default TF32 flags with LPIPS (phase 39's
+    npz), FID on phase 43's weights and per_camera: the CLI's keys, every
+    value finite; the LoFTR confidence sum over ARGOVERSE_PAIRS of both
+    sets (the strips through `edge_windows`, gray by GRAY_WEIGHTS on both
+    sides); seconds of evaluation per generated image. Returns the generate's
+    row-1 launches by shape."""
+    import torch
+    from bevgen_torch.data.camera_geometry import denormalize_image
+    from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.metrics.consistency import ARGOVERSE_PAIRS, edge_windows
+    from bevgen_torch.metrics.fid import (fid_from_features,
+                                          make_inception_features)
+    from bevgen_torch.metrics.loftr import MATCH_THR, LoFTRMatcher
+    from bevgen_torch.metrics.quality import LPIPSMetric, ssim
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.pipelines.generate import BEVGenPipeline
+    from bevgen_torch.scripts.metrics_eval import evaluate
+    card = gpu_name_and_power()
+    tf = cfg.transformer
+    B = 2
+    pipe = BEVGenPipeline.create(cfg, device="cuda").init_params(seed=0)
+    batch = fake_batch(cfg, batch_size=B, seed=0)
+    inputs = (batch["segmentation"], batch["intrinsics_inv"],
+              batch["extrinsics_inv"])
+    sets = []
+    for seed in (0, 1):
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        images, _ = pipe.generate_fn(*inputs, torch.Generator(
+            device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        if seed == 0:
+            launches = ca.cosine_attention_cuda.launches
+            by_shape = dict(ca.cosine_attention_cuda.launches_by_shape)
+        sets.append(denormalize_image(images.float().cpu().numpy()))
+    del pipe
+    torch.cuda.empty_cache()
+    steps = cfg.muse.sample_iterations
+    expect = (steps + steps - 1) * tf.num_layers * 2
+    names = tf.camera_names
+    gen, gt = (s.reshape(-1, *s.shape[2:]) for s in sets)
+    n_img = gen.shape[0]
+    scenes = [(dict(zip(names, sets[0][b])), dict(zip(names, sets[1][b])))
+              for b in range(B)]
+    with tf32_flags(*tf32):
+        t0 = time.perf_counter()
+        results = evaluate(
+            gen, gt, scenes, lpips=LPIPSMetric(lpips_npz, device="cuda"),
+            feature_fn=make_inception_features(inception_npz, device="cuda"),
+            per_camera=True)
+        eval_s = time.perf_counter() - t0
+        # the host's share: SSIM over the pairs, one FID's float64 statistics
+        t0 = time.perf_counter()
+        [ssim(a, b) for a, b in zip(gt, gen)]
+        ssim_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fid_from_features(*np.random.default_rng(45).standard_normal(
+            (2, n_img, 2048)))
+        fid_s = time.perf_counter() - t0
+        matcher = LoFTRMatcher(loftr_params, device="cuda")
+        t0 = time.perf_counter()
+        cons = {}
+        for label, imgs in (("gen", sets[0]), ("gt", sets[1])):
+            total, n_match, top = 0.0, 0, 0.0
+            for b in range(B):
+                cams = dict(zip(names, imgs[b]))
+                for left, right in ARGOVERSE_PAIRS:
+                    sa, sb = edge_windows(cams[left], cams[right])
+                    out, _, _ = matcher.raw(sa @ GRAY_WEIGHTS,
+                                            sb @ GRAY_WEIGHTS)
+                    total += float(out["mconf"][out["valid"]].sum())
+                    n_match += int(out["valid"].sum())
+                    top = max(top, float(out["conf"].max()))
+            cons[label] = (total, n_match, top)
+        loftr_s = time.perf_counter() - t0
+    want_keys = ["psnr", "ssim", "lpips", "fid_inception",
+                 *(f"fid/{c}" for c in sorted(names))]
+    finite = all(v is not None and math.isfinite(v) for v in results.values())
+    cons_finite = all(math.isfinite(x) for v in cons.values() for x in v)
+    n_fid = sum(k.startswith("fid") for k in results)
+    print(f"[metrics] argoverse_muse_7cam b={B} generate (seed 0): {launches} "
+          f"row-1 launches {by_shape} (expected {expect}); ground truth: the "
+          f"seed-1 generate ({gen_s:.3f} s); {n_img} image pairs "
+          f"{gen.shape[1:]}", flush=True)
+    shown = {k: v if v is None else round(v, 6) for k, v in results.items()}
+    print(f"[metrics] evaluate (psnr, ssim, LPIPS, Inception FID, "
+          f"per_camera) on the card: {json.dumps(shown)}; keys "
+          f"the CLI's {list(results) == want_keys}, finite {finite}; "
+          f"{eval_s:.2f} s = {eval_s / n_img:.4f} s per image (weights "
+          f"loaded in the call); of it on the host: SSIM of the {n_img} pairs "
+          f"{ssim_s:.2f} s, one FID's statistics (2048-d, float64) "
+          f"{fid_s:.2f} s x {n_fid} FIDs", flush=True)
+    print(f"[metrics] LoFTR over {ARGOVERSE_PAIRS} x {B} scenes, gray "
+          f"0.299 R + 0.587 G + 0.114 B: confidence sum (matches; largest "
+          f"dual-softmax entry, matches need > {MATCH_THR}) generated "
+          f"{cons['gen'][0]:.6f} ({cons['gen'][1]}; {cons['gen'][2]:.4f}), "
+          f"ground truth {cons['gt'][0]:.6f} ({cons['gt'][1]}; "
+          f"{cons['gt'][2]:.4f}); {loftr_s:.2f} s; evaluation "
+          f"in all {(eval_s + loftr_s) / n_img:.4f} s per image; cudnn."
+          f"allow_tf32={tf32[0]} cuda.matmul.allow_tf32={tf32[1]}; {card}",
+          flush=True)
+    if launches != expect or list(results) != want_keys or not (
+            finite and cons_finite):
+        raise SystemExit("the evaluation end to end failed its checks")
+    return by_shape
 
 
 def main() -> int:
@@ -4519,6 +4894,13 @@ def main() -> int:
         timed_phase(40, vqvae_phase, s1.cond_stage, s1.base_lr, tf32_defaults)
         timed_phase(41, card_cpu_phase, npz)
         timed_phase(42, stage1_cli_phase, npz, tmp)
+        # 43-45. the evaluation path: InceptionV3 and LoFTR at full width,
+        # then metrics_eval's evaluate on two generates
+        inception_npz = timed_phase(43, inception_phase, tmp, tf32_defaults)
+        loftr_params = timed_phase(44, loftr_phase, tf32_defaults)
+        metrics_launches = timed_phase(45, metrics_e2e_phase, cfg, npz,
+                                       inception_npz, loftr_params,
+                                       tf32_defaults)
 
     kernels = []
     for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
@@ -4569,6 +4951,12 @@ def main() -> int:
                     f"{n}x{m}]",
             "route": "cuda", "source": ca.SOURCE, "replaces": ca.REPLACES,
             "launches": partial["by_shape"].get((n, m), 0), **stats[shape]})
+    for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
+        kernels.append({
+            "name": f"cosine_attention_fwd[metrics generate serve {shape} b2 "
+                    f"{n}x{m}]",
+            "route": "cuda", "source": ca.SOURCE, "replaces": ca.REPLACES,
+            "launches": metrics_launches.get((n, m), 0), **stats[shape]})
     for shape, (n, m) in (("self", (rect["N"], rect["N"])),
                           ("cross", (rect["N"], rect["NC"]))):
         kernels.append({

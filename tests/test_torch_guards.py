@@ -1,11 +1,11 @@
 """Guards of the PyTorch port: it imports nothing of JAX or of the JAX
 package, `load_jax_params` accepts exactly the reference's tree (MUSE and
-AR pipelines), entry points (serving, AR serving and training) run on CUDA
-unless asked for the CPU, the attention's and the glue's autograd Functions
-run their plain twins on the CPU, and (on a machine with a card) the CUDA
-kernels agree with their plain versions and CUDA attention and glue outputs
-carry gradients, the block-sparse backward included, and the int8 serving
-kernels agree with their plain versions.
+AR pipelines), entry points (serving, AR serving, training and evaluation)
+run on CUDA unless asked for the CPU, the attention's and the glue's
+autograd Functions run their plain twins on the CPU, and (on a machine with
+a card) the CUDA kernels agree with their plain versions and CUDA attention
+and glue outputs carry gradients, the block-sparse backward included, and
+the int8 serving kernels agree with their plain versions.
 
 The module imports JAX only inside the tests that compare with it, so the
 `cuda` test also runs where JAX is missing; there, skip the conftest
@@ -61,7 +61,9 @@ def test_port_imports_no_jax_or_reference_package():
                    "utils/image.py", "utils/viz.py",
                    "utils/outputs.py", "scripts/cli.py",
                    "scripts/tokenize_data.py", "ops/quant.py",
-                   "scripts/crossover_sweep.py"):
+                   "scripts/crossover_sweep.py", "metrics/fid.py",
+                   "metrics/inception.py", "metrics/loftr.py",
+                   "metrics/consistency.py", "scripts/metrics_eval.py"):
         assert f"bevgen_torch/{module}" in checked, module
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p)) & FORBIDDEN)
            for p in files}
@@ -168,6 +170,27 @@ def test_data_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
             tokenize_data.main(["preset=tiny_test", f"out_dir={tmp_path / 't'}",
                                 *extra])
     assert not any(tmp_path.iterdir())
+
+
+def test_metrics_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    """The evaluation path's entry points raise without a card before they
+    read anything: the Inception extractor, the LoFTR matcher (directly and
+    through `get_matcher` with weights set) and the metrics_eval CLI."""
+    from bevgen_torch.metrics import consistency, fid, loftr
+    from bevgen_torch.scripts import metrics_eval
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = loftr.init_random_params(np.random.default_rng(0), fine=False)
+    np.savez(tmp_path / "loftr.npz", **params)
+    monkeypatch.setenv("BEVGEN_LOFTR_WEIGHTS", str(tmp_path / "loftr.npz"))
+    for call in (lambda: fid.make_inception_features(str(tmp_path / "i.npz")),
+                 lambda: loftr.LoFTRMatcher(params),
+                 consistency.get_matcher,
+                 lambda: metrics_eval.main([f"dir={tmp_path / 'missing'}"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert loftr.LoFTRMatcher(params, device="cpu").device.type == "cpu"
+    assert consistency.get_matcher("cpu") is not None
 
 
 HOST_DATA_PACKAGES = ("cv2", "pandas", "pyarrow", "PIL", "yaml", "rich")
