@@ -5,7 +5,8 @@ Pure numpy, cached on the (hashable) MultiViewConfig. A copy of the parts
 of the reference module (`bevgen_tpu/models/geometry.py`) that the port's
 MUSE and AR sparse-GPT paths read (grids, the decode order with the
 nuScenes outward interleave, `col_angles` for the legacy layout prior,
-the canonical rig), including its deliberate quirks (the h/w swap of
+the canonical rig and its batched inverses, the BEV view homography of the
+nuScenes rasters), including its deliberate quirks (the h/w swap of
 `image_plane`, the swapped image size in `col_angles`).
 """
 from __future__ import annotations
@@ -37,6 +38,19 @@ def image_plane(cfg: MultiViewConfig) -> np.ndarray:
     g[0] *= cfg.cam_res[0]
     g[1] *= cfg.cam_res[1]
     return g
+
+
+def get_view_matrix(h: int = 256, w: int = 256, h_meters: float = 80.0,
+                    w_meters: float = 80.0, offset: float = 0.0) -> np.ndarray:
+    """The 3x3 float32 homography from the ego frame's (x, y, 1) to BEV
+    raster pixels: h x w pixels over h_meters x w_meters, the ego at the
+    centre (shifted down by `offset` rows), facing up."""
+    sh = h / h_meters
+    sw = w / w_meters
+    return np.array(
+        [[0.0, -sw, w / 2.0],
+         [-sh, 0.0, h * offset + h / 2.0],
+         [0.0, 0.0, 1.0]], dtype=np.float32)
 
 
 def get_bev_grid(cfg: MultiViewConfig, offset: int = 0) -> np.ndarray:
@@ -208,6 +222,18 @@ def canonical_camera_rig(cfg: MultiViewConfig) -> Tuple[np.ndarray, np.ndarray]:
     if cfg.dataset == "nuscenes":
         extr = np.linalg.inv(extr)
     return intr, extr
+
+
+def canonical_rig_inverses(cfg: MultiViewConfig, batch: int
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """The canonical rig's inverses broadcast over a batch, as the model
+    takes them: (intrinsics_inv (b, cam, 3, 3), extrinsics_inv (b, cam, 4,
+    4)) float32, inverted in float64."""
+    intr, extr = canonical_camera_rig(cfg)
+    n = cfg.num_cams
+    ii = np.broadcast_to(np.linalg.inv(intr)[None], (batch, n, 3, 3))
+    ei = np.broadcast_to(np.linalg.inv(extr)[None], (batch, n, 4, 4))
+    return ii.astype(np.float32), ei.astype(np.float32)
 
 
 def _read_rig_file(path: str):

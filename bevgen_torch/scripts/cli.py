@@ -6,7 +6,8 @@ The counterpart of `bevgen_tpu/scripts/cli.py:28-140`: positional
 `preset` base plus nested field overrides); `modes=[a,b]` layers the
 reference's mode mixins in order; dotted keys override any field
 (`transformer.num_layers=2`). yaml is imported only when `config=` is
-given.
+given. `pop_device` takes the reference's `platform=`/`devices=` flags
+beside the port's `device=`.
 """
 from __future__ import annotations
 
@@ -29,6 +30,66 @@ def parse_argv(argv: List[str]) -> Dict[str, str]:
 def pop_flag(args: Dict[str, str], key: str, default: str = "false") -> bool:
     """Pop a true/false argument."""
     return args.pop(key, default).lower() in ("1", "true", "yes")
+
+
+PLATFORM_DEVICES = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
+
+def pop_device(args: Dict[str, str], default: str = "cuda") -> str:
+    """Pop `device` and the reference's platform flags (`cli.setup_platform`
+    there): `platform=cpu` means device=cpu, `platform=gpu` (or cuda)
+    device=cuda; `devices=1` is accepted. Exits on another platform, on a
+    platform and a device that disagree, and on `devices` above 1 (the port
+    runs on one device). Returns the device string."""
+    platform = args.pop("platform", None)
+    device = args.pop("device", None)
+    devices = args.pop("devices", "1")
+    if not devices.isdigit() or int(devices) < 1:
+        raise SystemExit(f"devices={devices!r}: pass a device count")
+    if int(devices) > 1:
+        raise SystemExit(f"devices={devices}: the port runs on one device; "
+                         "sharding waits for torch.distributed")
+    if platform is None:
+        return device or default
+    if platform not in PLATFORM_DEVICES:
+        raise SystemExit(f"platform={platform!r}: the port runs on cpu or "
+                         "gpu (cuda); pick its device with device=cpu|cuda")
+    if device is not None and device.split(":")[0] != PLATFORM_DEVICES[platform]:
+        raise SystemExit(f"platform={platform} and device={device} disagree; "
+                         "pass one of them")
+    return device or PLATFORM_DEVICES[platform]
+
+
+def refuse_sharding(args: Dict[str, str]) -> None:
+    """Pop the mesh axes `dp`, `tp` and `dcn`; exit on any above 1 or
+    `auto`: the port runs on one device."""
+    for axis in ("dp", "tp", "dcn"):
+        val = args.pop(axis, "1")
+        if val == "auto" or not val.isdigit() or int(val) > 1:
+            raise SystemExit(f"{axis}={val}: the port runs on one device; "
+                             "sharding waits for torch.distributed")
+
+
+def config_text(cfg, extra: Dict[str, object] = None) -> str:
+    """The composed config as indented plain text, one authored field a line
+    (derived properties omitted), then the `extra` keys: what the
+    reference's `cli.print_config_tree` renders with rich."""
+    lines = ["config"]
+
+    def add(name, value, depth):
+        pad = "  " * depth
+        if dataclasses.is_dataclass(value):
+            lines.append(f"{pad}{name}")
+            for f in dataclasses.fields(value):
+                add(f.name, getattr(value, f.name), depth + 1)
+        else:
+            lines.append(f"{pad}{name}: {value!r}")
+
+    for f in dataclasses.fields(cfg):
+        add(f.name, getattr(cfg, f.name), 1)
+    for k, v in (extra or {}).items():
+        lines.append(f"  {k}: {v!r}")
+    return "\n".join(lines)
 
 
 def pop_pipeline_kind(args: Dict[str, str]) -> bool:

@@ -47,9 +47,13 @@ output/torch_generate when `eval_generate` is not given) gets one
 `batch_XXXX.npz` per batch with the decode `ids` (b, cam, h, w), the
 `images` (b, cam, H, W, 3) and, under `save_rec`, `rec`. The last line is one
 JSON object {"images", "seconds", "images_per_sec"}. The pipeline runs on
-the card (`device`, default cuda; it raises without one). `config=`,
-`preset=`, `modes=` and dotted overrides (`transformer.num_layers=2`) build
-the config (`scripts/cli.py`); any other argument exits.
+the card (`device`, default cuda; it raises without one; `platform=cpu|gpu`
+and `devices=1` as the reference takes them, `scripts/cli.py:pop_device`).
+The composed config is printed first as plain text unless
+`print_config=false`; `dp`, `tp` and `dcn` above 1 exit (one device).
+`config=`, `preset=`, `modes=` and dotted overrides
+(`transformer.num_layers=2`) build the config (`scripts/cli.py`); any other
+argument exits.
 """
 from __future__ import annotations
 
@@ -111,7 +115,7 @@ def run(argv: List[str]):
     batch_size = cfg.batch_size or 1
     seed = cfg.seed
     fake = int(args.pop("fake", 0))
-    device = args.pop("device", "cuda")
+    device = cli.pop_device(args)
     save_dir = args.pop("eval_generate", None)
     out_dir = args.pop("out", None if save_dir else
                        os.path.join("output", "torch_generate"))
@@ -128,8 +132,15 @@ def run(argv: List[str]):
     kept = _kept_cameras(args.pop("keep_cameras", ""), tf.camera_names)
     sample_kw = {"cached": cli.pop_flag(args, "cached", "true")} if ar else {}
     quant = cli.pop_quant(args)
+    cli.refuse_sharding(args)
+    show_config = cli.pop_flag(args, "print_config", "true")
     if args:
         raise SystemExit(f"unknown argument(s): {sorted(args)}")
+    if show_config:
+        print(cli.config_text(cfg, extra={
+            "eval_generate": save_dir, "ckpt_path": ckpt_path,
+            "pipeline": "ar" if ar else "muse", "quant": quant,
+            "split": split, "fake": fake}), flush=True)
     if use_ema and not ckpt_path:
         raise SystemExit("ema=true requires ckpt_path=")
     if fake < 0:

@@ -63,6 +63,19 @@ def category(name: str) -> str:
     return "other (elementwise, norms, reductions, sort)"
 
 
+def busy_us(spans) -> float:
+    """The length of the union of (start, end) intervals."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(spans):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy if cur_e is None else busy + cur_e - cur_s
+
+
 def device_summary(prof, wall_s: float, top: int = 20) -> dict:
     """From a torch.profiler trace of a window that ends in a synchronise:
     the device's busy time (union of its kernel and copy intervals), its
@@ -73,17 +86,7 @@ def device_summary(prof, wall_s: float, top: int = 20) -> dict:
     # `Optimizer.step#AdamW.step`), which span kernels counted on their own
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy_us += cur_e - cur_s
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
     by_cat = defaultdict(float)
     by_name = defaultdict(lambda: [0, 0.0])
     for e in kernels:
@@ -92,8 +95,8 @@ def device_summary(prof, wall_s: float, top: int = 20) -> dict:
         by_name[e.name][1] += e.device_time_total
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     return {
-        "wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": 1.0 - busy_us / 1e3 / (wall_s * 1e3),
+        "wall_ms": wall_s * 1e3, "device_busy_ms": busy / 1e3,
+        "device_idle_share": 1.0 - busy / 1e3 / (wall_s * 1e3),
         "kernel_launches": len(kernels),
         "by_category_ms": {k: v / 1e3 for k, v in
                            sorted(by_cat.items(), key=lambda kv: -kv[1])},

@@ -15,7 +15,8 @@ exits naming both counts) through the port's loader. Batches reach the
 pipeline's device through `datamodule.device_prefetch`. Options: `out_dir` (required), `ckpt_path`
 (weights loaded over the seeded init by `load_weights`), `shard_size`
 (samples per shard, default 1024), `batch_size` (default 8), `seed`,
-`device` (default cuda; raises without one), `config=`/`preset=` and
+`device` (default cuda; raises without one; or `platform=cpu|gpu`,
+`devices=1`, `scripts/cli.py:pop_device`), `config=`/`preset=` and
 dotted overrides (`scripts/cli.py`); any other argument exits.
 """
 from __future__ import annotations
@@ -43,7 +44,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     split = args.pop("datamodule.split", "train")
     shard_size = int(args.pop("shard_size", 1024))
     fake = int(args.pop("fake", 0))
-    device = args.pop("device", "cuda")
+    device = cli.pop_device(args)
     if args:
         raise SystemExit(f"unknown argument(s): {sorted(args)}")
     batch_size = cfg.batch_size or 8

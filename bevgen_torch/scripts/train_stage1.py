@@ -20,7 +20,8 @@ Options: `model`, `steps`, `batch_size`, `base_lr`, `disc`,
 `perceptual_weights`, `ckpt_dir` (tags of the autoencoder's parameters and
 optimizer state, on `CheckpointManager`'s interval and once at the end),
 `log_every`, `image_every` (a reconstruction PNG under `run_dir`), `run_dir`,
-`seed`, `augment`, `device` (default cuda; raises without one) and dotted
+`seed`, `augment`, `device` (default cuda; raises without one; or
+`platform=cpu|gpu`, `devices=1`, `scripts/cli.py:pop_device`) and dotted
 preset overrides. Prints one JSON line per logged step, with
 `steps_per_sec`, then `done`. Two departures from the JAX CLI: an unknown
 argument exits (it prints and ignores one), and a set ARGOVERSE_DATA_DIR
@@ -87,7 +88,8 @@ def run(argv: List[str]):
     from bevgen_torch.models.discriminator import NLayerDiscriminator
     from bevgen_torch.models.init import init_weights
     from bevgen_torch.models.stage1.vq import VQModel, VQSegmentationModel
-    from bevgen_torch.scripts.cli import build_config, parse_argv, pop_flag
+    from bevgen_torch.scripts.cli import (build_config, parse_argv,
+                                          pop_device, pop_flag)
     from bevgen_torch.training import stage1_trainer
     from bevgen_torch.training.checkpoints import CheckpointManager
     from bevgen_torch.training.optim import scaled_lr
@@ -106,7 +108,7 @@ def run(argv: List[str]):
     image_every = int(args.pop("image_every", 0))
     run_dir = args.pop("run_dir", "output/stage1")
     augment = pop_flag(args, "augment", "true")
-    device = args.pop("device", "cuda")
+    device = pop_device(args)
     if args:
         raise SystemExit(f"unknown argument(s): {sorted(args)}")
     dev = resolve_device(device)

@@ -14,10 +14,11 @@ resumed run continues to it), `batch_size`, `base_lr`, `scale_lr`
 (accumulate x batch x base_lr), `accumulate`, `warmup_steps`, `ema_warmup`,
 `ckpt_dir`, `ckpt_minutes`, `val_tokens_dir` with `eval_every` (and
 `eval_ema`, default true: validate with the EMA weights), `log_every`,
-`seed`, `device` (default cuda; raises without one) and dotted preset
-overrides (`transformer.num_layers=2`). Prints one JSON line per logged
-step, {"step", "loss", "ce_loss", "critic_loss", "grad_norm",
-"update_applied", "steps_per_sec"}, and `done`.
+`seed`, `device` (default cuda; raises without one; or `platform=cpu|gpu`,
+`devices=1`, `scripts/cli.py:pop_device`) and dotted preset overrides
+(`transformer.num_layers=2`). Prints one JSON line per logged step,
+{"step", "loss", "ce_loss", "critic_loss", "grad_norm", "update_applied",
+"steps_per_sec"}, and `done`.
 """
 from __future__ import annotations
 
@@ -73,7 +74,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     from bevgen_torch.data import tokens as token_data
     from bevgen_torch.models.init import init_weights
     from bevgen_torch.models.stage2.maskgit import MaskGit, maskgit_loss
-    from bevgen_torch.scripts.cli import parse_argv, pop_flag
+    from bevgen_torch.scripts.cli import (parse_argv, pop_device, pop_flag,
+                                          refuse_sharding)
     from bevgen_torch.training import optim, trainer
     from bevgen_torch.training.checkpoints import CheckpointManager
     from bevgen_torch.training.preemption import PreemptionGuard
@@ -82,11 +84,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     preset = args.pop("preset", "argoverse_muse")
     if preset not in PRESETS:
         raise SystemExit(f"unknown preset {preset!r}; one of {sorted(PRESETS)}")
-    for axis in ("dp", "tp", "dcn"):
-        val = args.pop(axis, "1")
-        if val == "auto" or int(val) > 1:
-            raise SystemExit(f"{axis}={val}: the port trains on one device; "
-                             "sharded training waits for torch.distributed")
+    refuse_sharding(args)
     steps = int(args.pop("steps", 1000))
     batch_size = int(args.pop("batch_size", 8))
     tokens_dir = args.pop("tokens_dir", None)
@@ -105,7 +103,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     ckpt_dir = args.pop("ckpt_dir", None)
     ckpt_minutes = float(args.pop("ckpt_minutes", 30))
     log_every = int(args.pop("log_every", 50))
-    device = args.pop("device", "cuda")
+    device = pop_device(args)
     seed = int(args.pop("seed", 0))
     if not fake and not tokens_dir:
         raise SystemExit("fake=false needs tokens_dir=<shard directory>")

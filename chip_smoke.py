@@ -74,7 +74,7 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      the plain version, then `teacher_forced_logits` through the decode
      kernel (exactly 24 x 2100 = 50,400 launches) against the full forward;
  14. `ARPipeline.generate_fn` end to end at `nuscenes_ar`, b=2, KV-cached,
-     top_k=100: one warm-up, three timed; exactly 50,400 decode and 0
+     top_k=100: one warm-up, one timed; exactly 50,400 decode and 0
      block-sparse launches per generate, ids in range, images finite;
  15. greedy decoding on the card at nuScenes widths with 2 layers, b=1: the
      reference-parity sampler (`cached=False`, 2100 full forwards through
@@ -202,7 +202,7 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      LayerNorm, 0 GEGLU + LayerNorm launches: the GEGLU glue is off under
      int8);
  37. `ARPipeline.quantized()` of the seed-0 `nuscenes_ar` pipeline, b=2,
-     KV-cached, top_k=100, full width and depth: two timed generates
+     KV-cached, top_k=100, full width and depth: one timed generate
      (images/s, peak above the resident set, against phase 14's bf16),
      GPT weight MB int8 against bf16, exactly 50,400 row-11 and 153,421
      w8_linear launches and no block-sparse or W8A8 launch per generate;
@@ -256,7 +256,28 @@ seeded weights (no checkpoint ships with the repository) and with no cv2:
      every value finite; the LoFTR confidence sum over the Argoverse pairs
      of both sets (BT.601 gray on both sides); seconds per image.
 
-Prints the kernels' JSON line, then the card's name and power limit, and
+Phase 46 runs the reference's benchmark-and-trace CLI, which adds no kernel:
+ 46. rows 1 and 8 against their plain versions at `argoverse_muse` b=8 and
+     b=2 (3 cameras, 768 x 768 and 768 x 256), row 9 at `nuscenes_ar` b=1,
+     row 11 at b=1 over every prefix bucket and w8_linear at the b=1
+     decode and prefill shapes; then `scripts/inference.py` through its
+     `main`, as a user runs it, under PyTorch's default TF32 flags:
+     `forward` and `train` at b=8, `decode` at b=2, `stage1_recon` and
+     `stage1_train` at b=8 (`argoverse_muse`, 14 layers at width 1024),
+     `ar_train` at b=4 (`nuscenes_ar`, full depth), `ar_decode` and
+     `ar_decode_int8` at b=1 cut to 4 layers and `ar_decode_full` at b=1
+     cut to 2 layers (full width); reps 2 (1 for the AR decodes) after the
+     CLI's two warm-up calls. Each last line has the JAX script's keys,
+     positive times and a peak above 0 and below the card's memory; each
+     kernel is launched exactly its count per call times the calls;
+     `train`, `decode` and `stage1_train` run with `profile=true`: each
+     Chrome trace's device time by category, and the decode's holds
+     exactly one generate's row-1 launches, phase 45's count; each mode's
+     best_ms, mean_ms and peak MB are printed beside the card's name and
+     power limit.
+
+Prints each phase's seconds (`[time]` lines) and their sum, the kernels'
+JSON line, then the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`. Without a CUDA device,
 or outside a checkout of the repository, it exits with an error and
 prints no result.
@@ -1050,7 +1071,7 @@ GREEDY_AGREE_MIN = 0.97
 AR_BATCH = 2
 # 8 caches of b=2, H=16, 2368 x 64 bf16 K and V: 155 MB, three times the L2
 DECODE_CACHES = 8
-AR_TIMED = 3
+AR_TIMED = 1
 
 
 def row7_shapes(B, H, N, D):
@@ -1358,6 +1379,14 @@ def decode_phase(cfg):
              for i, pl in enumerate((512, 1024, 1536, 2048, L))}
     check_decode(1, 3, 70, 70, 33)
     return stats
+
+
+def phase_time(phase, t0):
+    """Print the seconds since `t0` as phase `phase`'s; return the time
+    now."""
+    now = time.perf_counter()
+    print(f"[time] phase {phase}: {now - t0:.1f} s", flush=True)
+    return now
 
 
 def timed_phase(phase, fn, *args):
@@ -3293,7 +3322,7 @@ INT8_COS_MIN = 0.995
 INT8_GAP_RMS = 4.0
 INT8_DECIDED_TOP1_MIN = 0.99
 INT8_TIMED = 5          # MUSE generates per mode, in turns, after a warm-up
-AR_INT8_TIMED = 2       # AR int8 generates (the first counts the launches)
+AR_INT8_TIMED = 1       # AR int8 generates (the first counts the launches)
 AR_INT8_GREEDY_LAYERS = 8
 # inputs cycled through while a kernel is timed, so that they exceed the
 # 50 MB L2 (the serving path finds each layer's weights and activations cold)
@@ -4578,6 +4607,316 @@ def metrics_e2e_phase(cfg, lpips_npz, inception_npz, loftr_params, tf32):
     return by_shape
 
 
+# ---- the benchmark-and-trace CLI (phase 46) --------------------------------
+
+# The JAX script's keys, in its order (`profile=true` adds "trace")
+INFERENCE_KEYS = ["mode", "batch_size", "best_ms", "mean_ms",
+                  "bytes_in_use_mb", "peak_bytes_in_use_mb", "bytes_limit_mb"]
+INFERENCE_WARMUP = 2    # profiling.benchmark's warm-up calls
+INFERENCE_DECODE_LAYERS = 4
+INFERENCE_FULL_DECODE_LAYERS = 2
+
+
+def inference_runs(tmp):
+    """Phase 46's nine runs of `scripts/inference.py`: (mode, argv, reps,
+    the preset's config). MUSE and stage-1 modes at `argoverse_muse` (its
+    default, 14 layers at width 1024, 3 cameras), the AR modes at
+    `nuscenes_ar`: ar_train at full depth; the cached decodes (bf16 and
+    int8) at full width cut to INFERENCE_DECODE_LAYERS layers (phases 14 and
+    37 time them at full depth); the uncached decode, which runs a full
+    forward for every token, at full width cut to
+    INFERENCE_FULL_DECODE_LAYERS layers, as phase 15 runs it. (`tiny_test`,
+    whose heads are 32 wide, cannot reach row 9: its kernel takes 64.)"""
+    import dataclasses
+    from bevgen_torch.core.config import argoverse_muse_config, nuscenes_ar_config
+    muse, ar = argoverse_muse_config(), nuscenes_ar_config()
+
+    def cut(cfg, layers):
+        return dataclasses.replace(cfg, transformer=cfg.transformer.replace(
+            num_layers=layers))
+    runs = []
+    for mode, b, reps, extra in (
+            ("forward", 8, 2, []),
+            ("train", 8, 2, ["profile=true", f"trace_dir={tmp}/train"]),
+            ("decode", 2, 2, ["profile=true", f"trace_dir={tmp}/decode"]),
+            ("stage1_recon", 8, 2, []),
+            ("stage1_train", 8, 2, ["profile=true",
+                                    f"trace_dir={tmp}/stage1_train"])):
+        runs.append((mode, ["preset=argoverse_muse", f"mode={mode}",
+                            f"batch_size={b}", f"reps={reps}", *extra],
+                     reps, muse))
+    runs.append(("ar_train", ["preset=nuscenes_ar", "mode=ar_train",
+                              "batch_size=4", "reps=2"], 2, ar))
+    for mode, layers in (("ar_decode", INFERENCE_DECODE_LAYERS),
+                         ("ar_decode_int8", INFERENCE_DECODE_LAYERS),
+                         ("ar_decode_full", INFERENCE_FULL_DECODE_LAYERS)):
+        runs.append((mode, ["preset=nuscenes_ar", f"mode={mode}",
+                            "batch_size=1", "reps=1",
+                            f"transformer.num_layers={layers}"], 1,
+                     cut(ar, layers)))
+    return runs
+
+
+def inference_launches_per_call(mode, cfg):
+    """The port's kernels' launches per call of each mode: {counter: n}."""
+    tf = cfg.transformer
+    L, T = tf.num_layers, cfg.muse.sample_iterations
+    N = tf.num_img_tokens
+    return {
+        "forward": {"row1": 2 * L},
+        "train": {"row1": 4 * L, "row8": 12 * L},
+        "decode": {"row1": (2 * T - 1) * 2 * L},
+        "stage1_recon": {}, "stage1_train": {},
+        "ar_train": {"row9": L, "row10": 2 * L},
+        "ar_decode": {"row11": L * N},
+        "ar_decode_int8": {"row11": L * N, "w8": ar_int8_launches(cfg)},
+        "ar_decode_full": {"row9": L * N},
+    }[mode]
+
+
+def inference_counts():
+    from bevgen_torch.ops import attention_bwd as ab
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops import decode_attention as da
+    from bevgen_torch.ops import fused_glue as fg
+    from bevgen_torch.ops import layernorm as ln
+    from bevgen_torch.ops import quant as tq
+    counters = {"row1": ca.cosine_attention_cuda,
+                "row8": ab.attention_bwd_cuda,
+                "row9": bs.block_sparse_attention_cuda,
+                "row10": bs.block_sparse_attention_bwd_cuda,
+                "row11": da.decode_attention_cuda,
+                "row12": fg.residual_layernorm_cuda,
+                "row13": fg.geglu_layernorm_cuda,
+                "row14": ln.layernorm_cuda,
+                "w8": tq.w8_linear_cuda,
+                "quantize_static": tq.quantize_static_cuda,
+                "quantize_dynamic": tq.quantize_dynamic_cuda,
+                "int8_epilogue": tq.int8_epilogue_cuda}
+    reset = (ca, ab, bs, da, fg, ln, tq)
+    return counters, reset
+
+
+def trace_summary(path, name):
+    """From a Chrome trace of `utils/profiling.trace`: the device events
+    (kernels, copies, sets), the device's busy ms (the union of their
+    intervals) within the span from the first's start to the last's end,
+    device ms by `profile_generate.category`, the count of kernels whose
+    name holds `name`, and the kernel launches on the host whose device
+    event the trace lacks."""
+    from collections import defaultdict
+    from bevgen_torch.scripts.profile_generate import busy_us, category
+    with open(path) as f:
+        trace = json.load(f)["traceEvents"]
+    events = [e for e in trace
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    seen = {e.get("args", {}).get("correlation") for e in events}
+    unmatched = sum(1 for e in trace if e.get("cat") == "cuda_runtime"
+                    and "LaunchKernel" in e.get("name", "")
+                    and e.get("args", {}).get("correlation") not in seen)
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events)
+    by_cat = defaultdict(float)
+    for e in events:
+        by_cat[category(e["name"])] += e.get("dur", 0) / 1e3
+    return {"events": len(events), "busy_ms": busy_us(spans) / 1e3,
+            "span_ms": (max(e for _, e in spans) - spans[0][0]) / 1e3
+            if spans else 0.0,
+            "by_category_ms": dict(sorted(by_cat.items(),
+                                          key=lambda kv: -kv[1])),
+            "named": sum(1 for e in events if e["cat"] == "kernel"
+                         and name in e["name"]),
+            "launches_without_kernel": unmatched}
+
+
+def inference_kernel_checks(muse_cfg, ar_cfg):
+    """Rows 1, 8, 9, 11 and w8_linear against their plain versions at the
+    shapes phase 46's modes give them that no earlier phase checked: row 1
+    at `argoverse_muse` b=8 (forward, train) and b=2 (decode), row 8 at b=8
+    (train), row 9 at `nuscenes_ar` b=1 (the uncached decode), row 11 at b=1
+    over every prefix bucket, w8_linear at the b=1 decode (M=1) and prefill
+    (M=256) shapes. Rows 9 and 10 at b=4 (ar_train) are phase 16's."""
+    tf, at = muse_cfg.transformer, ar_cfg.transformer
+    H, D, N, NC = tf.num_heads, tf.dim_head, tf.num_img_tokens, tf.num_cond_tokens
+    out = {"row1": {}, "row8": {}, "row11": {}, "w8": {}}
+    for b in (TRAIN_BATCH, 2):
+        for shape, m in (("self", N), ("cross", NC)):
+            out["row1"][(b, shape)] = check_kernel(
+                f"inference {shape} b{b}", b, H, N, m, D, True, None,
+                60 + b + (shape == "cross"))
+    for shape, m in (("self", N + 1), ("cross", NC + 1)):
+        out["row8"][shape] = check_bwd(f"inference train {shape}", TRAIN_BATCH,
+                                       H, N, m, D, True, None, 70)
+    out["row9"] = check_block_sparse("inference b1", "nuscenes_ar", 1, False, 71)
+    L = at.gpt_block_size
+    for i, pl in enumerate((512, 1024, 1536, 2048, L)):
+        out["row11"][pl] = check_decode(1, at.num_heads, pl, L, 72 + i)
+    ad, ahid, pre = at.num_embed, at.hidden_size, at.num_cond_tokens
+    for i, (M, n, k) in enumerate((
+            (1, 3 * ahid, ad), (1, 4 * ad, ad), (1, ad, 4 * ad),
+            (1, at.vocab_size, ad), (pre, ahid, ad), (pre, 4 * ad, ad),
+            (pre, ad, 4 * ad))):
+        out["w8"][(M, n, k)] = check_w8(f"inference b1 {M}x{n}x{k}", M, n, k,
+                                        80 + i)
+    return out
+
+
+def inference_phase(tf32, row1_per_generate):
+    """Phase 46: `scripts/inference.py` as a user runs it, through its
+    `main`, in each of its nine modes (`inference_runs`), under PyTorch's
+    default TF32 flags, after the kernel checks at its shapes
+    (`inference_kernel_checks`). Each mode's last line has the JAX script's
+    keys, positive times and a peak above 0 and below the card's memory;
+    each port kernel is launched exactly its per-call count
+    (`inference_launches_per_call`) times the calls (two warm-ups, the
+    timed reps, the traced call), and no other; the decode's trace holds
+    exactly one generate's row-1 launches, phase 45's count (the train and
+    stage1_train traces one call's). Each trace's device time is printed
+    by category. Returns the kernel checks and each mode's line and
+    launches by shape."""
+    import os
+    import tempfile
+    import torch
+    from bevgen_torch.core.config import argoverse_muse_config, nuscenes_ar_config
+    from bevgen_torch.scripts import inference
+    card = gpu_name_and_power()
+    checks = inference_kernel_checks(argoverse_muse_config(),
+                                     nuscenes_ar_config())
+    counters, reset = inference_counts()
+    res = {"checks": checks, "modes": {}}
+    with tempfile.TemporaryDirectory() as tmp, tf32_flags(*tf32):
+        for mode, argv, reps, cfg in inference_runs(tmp):
+            profiled = "profile=true" in argv
+            calls = INFERENCE_WARMUP + reps + profiled
+            for mod in reset:
+                mod.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, lines = run_cli(inference.main, argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: c.launches for k, c in counters.items() if c.launches}
+            shapes = {k: dict(getattr(c, "launches_by_shape", {}))
+                      for k, c in counters.items() if c.launches}
+            want = {k: n * calls for k, n in
+                    inference_launches_per_call(mode, cfg).items()}
+            line = json.loads(lines[-1])
+            keys = INFERENCE_KEYS + (["trace"] if profiled else [])
+            print(f"[inference] {mode} b={line['batch_size']} ({' '.join(argv)}): "
+                  f"best_ms {line['best_ms']} mean_ms {line['mean_ms']} peak "
+                  f"{line['peak_bytes_in_use_mb']} MB of "
+                  f"{line['bytes_limit_mb']} MB; {calls} calls in {wall:.1f} s; "
+                  f"launches {got} (expected {want}); {card}", flush=True)
+            if list(line) != keys or line["mode"] != mode:
+                raise SystemExit(f"inference {mode}: keys {list(line)}, "
+                                 f"expected {keys}")
+            if not (0 < line["best_ms"] <= line["mean_ms"]
+                    and 0 < line["peak_bytes_in_use_mb"]
+                    < line["bytes_limit_mb"]):
+                raise SystemExit(f"inference {mode}: times or peak out of "
+                                 f"range: {line}")
+            if got != want:
+                raise SystemExit(f"inference {mode}: launches {got}, "
+                                 f"expected {want}")
+            if profiled:
+                path = os.path.join(line["trace"], "trace.json")
+                summary = trace_summary(path, "attention_fwd_kernel")
+                print(f"[inference] {mode} trace of one call "
+                      f"({os.path.getsize(path) / 1e6:.1f} MB): "
+                      f"{summary['events']} device events, busy "
+                      f"{summary['busy_ms']:.2f} ms of a "
+                      f"{summary['span_ms']:.2f} ms span; by category "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in
+                                  summary["by_category_ms"].items())
+                      + f"; row-1 kernel events {summary['named']}; host "
+                      f"launches without a device event "
+                      f"{summary['launches_without_kernel']}", flush=True)
+                per_call = want.get("row1", 0) // calls
+                if summary["named"] != per_call:
+                    raise SystemExit(f"inference {mode}: the trace holds "
+                                     f"{summary['named']} row-1 launches, "
+                                     f"one call makes {per_call}")
+                if mode == "decode" and per_call != row1_per_generate:
+                    raise SystemExit(f"inference decode: {per_call} row-1 "
+                                     f"launches a generate, phase 45's "
+                                     f"generate {row1_per_generate}")
+            res["modes"][mode] = {"line": line, "shapes": shapes, "cfg": cfg,
+                                  "wall_s": wall}
+            torch.cuda.empty_cache()
+    return res
+
+
+def inference_kernel_entries(res, bsb_stats):
+    """The kernels line's `[inference <mode>]` entries: each kernel at each
+    shape phase 46 launched it, with that mode's launches and the kernel
+    check at that shape (phase 46's, or phase 16's for ar_train)."""
+    from bevgen_torch.ops import attention_bwd as ab
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops import decode_attention as da
+    from bevgen_torch.ops import quant as tq
+    checks, out = res["checks"], []
+    for mode, run in res["modes"].items():
+        first = len(out)
+        tf, shapes = run["cfg"].transformer, run["shapes"]
+        b = run["line"]["batch_size"]
+        N, NC = tf.num_img_tokens, tf.num_cond_tokens
+        if "row1" in shapes:
+            for shape, m in (("self", N), ("cross", NC)):
+                out.append({
+                    "name": f"cosine_attention_fwd[inference {mode} {shape} "
+                            f"b{b} {N}x{m}]",
+                    "route": "cuda", "source": ca.SOURCE,
+                    "replaces": ca.REPLACES,
+                    "launches": shapes["row1"].get((N, m), 0),
+                    **checks["row1"][(b, shape)]})
+        if "row8" in shapes:
+            for shape, m in (("self", N + 1), ("cross", NC + 1)):
+                out.append({
+                    "name": f"attention_bwd[inference {mode} {shape} b{b} "
+                            f"{N}x{m}, 3 kernels]",
+                    "route": "cuda", "source": ab.SOURCE,
+                    "replaces": ab.REPLACES,
+                    "launches": shapes["row8"].get((N, m), 0),
+                    **checks["row8"][shape]})
+        key = (tf.gpt_block_size, tf.sparse_block_size)
+        if "row9" in shapes:
+            out.append({
+                "name": f"block_sparse_fwd[inference {mode} b{b} L{key[0]} "
+                        f"block {key[1]}"
+                        f"{', with lse' if mode == 'ar_train' else ''}]",
+                "route": "cuda", "source": bs.SOURCE, "replaces": bs.REPLACES,
+                "launches": shapes["row9"].get(key, 0),
+                **(bsb_stats["fwd+lse"] if mode == "ar_train"
+                   else checks["row9"])})
+        if "row10" in shapes:
+            out.append({
+                "name": f"block_sparse_bwd[inference {mode} b{b} L{key[0]} "
+                        f"block {key[1]}, 2 kernels]",
+                "route": "cuda", "source": bs.BWD_SOURCE,
+                "replaces": bs.BWD_REPLACES,
+                "launches": sum(shapes["row10"].values()),
+                **bsb_stats["nuscenes_ar"]})
+        for pl, n in sorted(shapes.get("row11", {}).items()):
+            out.append({
+                "name": f"decode_attention[inference {mode} b{b} "
+                        f"H{tf.num_heads} pl{pl}]",
+                "route": "cuda", "source": da.SOURCE, "replaces": da.REPLACES,
+                "launches": n, **checks["row11"][pl]})
+        for (M, n, k), count in sorted(shapes.get("w8", {}).items()):
+            out.append({
+                "name": f"w8_linear[inference {mode} b{b} {M}x{n}x{k}]",
+                "route": "cuda", "source": tq.SOURCE,
+                "replaces": tq.W8_LINEAR_REPLACES, "launches": count,
+                **checks["w8"][(M, n, k)]})
+        listed = sum(e["launches"] for e in out[first:])
+        launched = sum(sum(v.values()) for v in shapes.values())
+        if listed != launched:
+            raise SystemExit(f"inference {mode}: {launched} launches, "
+                             f"{listed} of them at the listed shapes: "
+                             f"{shapes}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4601,6 +4940,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
+    t_start = t_phase = time.perf_counter()
     card = gpu_name_and_power()
     print(f"[device] {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
@@ -4615,6 +4955,7 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line or "arning" in line:
                 print(f"[build] {name}: {line.strip()}")
+    t_phase = phase_time("1-2", t_phase)
 
     # 3. kernel vs plain version at the serving path's shapes
     cfg = argoverse_muse_7cam_config()
@@ -4637,6 +4978,7 @@ def main() -> int:
     check_kernel("D=32 strided+keep", 2, 8, 300, 200, 32, True, [0, 1], 9,
                  strided=True)
     check_kernel("D=32 no-bias", 1, 3, 130, 64, 32, False, None, 13)
+    t_phase = phase_time(3, t_phase)
 
     # 4. end to end: argoverse_muse_7cam, full width, batch 2
     t0 = time.perf_counter()
@@ -4714,6 +5056,7 @@ def main() -> int:
     print(f"[e2e] stages: encode_bev {t[1] - t[0]:.4f} s, maskgit "
           f"{t[2] - t[1]:.4f} s, decode_tokens {t[3] - t[2]:.4f} s",
           flush=True)
+    t_phase = phase_time(4, t_phase)
 
     # 5. one full-width forward: kernel vs plain attention
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -4743,6 +5086,7 @@ def main() -> int:
 
     del pipe, images, ids, cache, lk, lp
     torch.cuda.empty_cache()
+    t_phase = phase_time(5, t_phase)
 
     # 6. the training kernels against their plain versions
     TB = TRAIN_BATCH
@@ -4796,14 +5140,16 @@ def main() -> int:
     if row7_launches != 1 or ab.attention_bwd_cuda.launches != 3:
         raise SystemExit("the bias_attention op did not run its kernels")
     del qf, kf, vc, biasp, do, leaves
+    t_phase = phase_time(6, t_phase)
 
     # 7. the cosine attention's autograd Function at full width
     check_function_grads(B, H, N, D)
+    phase_time(7, t_phase)
 
     # 8-10. training end to end
-    model, train = train_phase(cfg)
-    model_grads_phase(model, cfg)
-    ce_falls_phase(model, cfg)
+    model, train = timed_phase(8, train_phase, cfg)
+    timed_phase(9, model_grads_phase, model, cfg)
+    timed_phase(10, ce_falls_phase, model, cfg)
     del model
     torch.cuda.empty_cache()
 
@@ -4901,6 +5247,10 @@ def main() -> int:
         metrics_launches = timed_phase(45, metrics_e2e_phase, cfg, npz,
                                        inception_npz, loftr_params,
                                        tf32_defaults)
+
+    # 46. the benchmark-and-trace CLI, all nine modes
+    inference_res = timed_phase(46, inference_phase, tf32_defaults,
+                                sum(metrics_launches.values()))
 
     kernels = []
     for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
@@ -5027,6 +5377,9 @@ def main() -> int:
         "launches": row14_launches, **row14})
     kernels.extend(int8_kernel_entries(cfg, ar_cfg, int8_stats, int8_muse,
                                        int8_ar, stats, dec_stats, glue_stats))
+    kernels.extend(inference_kernel_entries(inference_res, bsb_stats))
+    print(f"[time] phases 1-46: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -63,7 +63,10 @@ def test_port_imports_no_jax_or_reference_package():
                    "scripts/tokenize_data.py", "ops/quant.py",
                    "scripts/crossover_sweep.py", "metrics/fid.py",
                    "metrics/inception.py", "metrics/loftr.py",
-                   "metrics/consistency.py", "scripts/metrics_eval.py"):
+                   "metrics/consistency.py", "scripts/metrics_eval.py",
+                   "scripts/inference.py", "utils/profiling.py",
+                   "data/nuscenes.py", "data/nuscenes_raster.py",
+                   "scripts/validate_data.py", "models/geometry.py"):
         assert f"bevgen_torch/{module}" in checked, module
     bad = {str(p.relative_to(ROOT)): sorted(set(_imported_roots(p)) & FORBIDDEN)
            for p in files}
@@ -193,12 +196,34 @@ def test_metrics_entry_points_default_to_cuda_and_raise_without_it(
     assert consistency.get_matcher("cpu") is not None
 
 
+def test_inference_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    """The benchmark CLI and the profiling functions that touch the device
+    raise without a card before they build or write anything."""
+    from bevgen_torch.scripts import inference
+    from bevgen_torch.utils import profiling
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+            lambda: inference.main(["preset=tiny_test", "reps=1",
+                                    f"trace_dir={tmp_path / 't'}",
+                                    "profile=true"]),
+            lambda: inference.main(["preset=tiny_test", "platform=gpu"]),
+            lambda: profiling.benchmark(lambda: 1),
+            profiling.device_memory_stats,
+            lambda: profiling.trace(str(tmp_path / "t")).__enter__()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not any(tmp_path.iterdir())
+    assert profiling.benchmark(lambda: 1, reps=1, device="cpu")["best_ms"] >= 0
+
+
 HOST_DATA_PACKAGES = ("cv2", "pandas", "pyarrow", "PIL", "yaml", "rich")
 
 
 def test_fake_data_paths_import_no_host_data_packages(tmp_path):
     """In a fresh interpreter: every port module that chip_smoke.py imports,
-    the generate CLI on fake batches (partial decode, reconstruction) and the
+    the nuScenes reader's and `validate_data`'s modules, the generate CLI on
+    fake batches (partial decode, reconstruction, the printed config) and the
     tokenizer on fake batches pull in none of cv2, pandas, pyarrow, PIL, yaml
     or rich, which the card's machine is not known to have."""
     import json
@@ -216,6 +241,8 @@ import chip_smoke
 for m in {mods!r}:
     importlib.import_module(m)
 from bevgen_torch.scripts import generate, tokenize_data
+import bevgen_torch.data.nuscenes, bevgen_torch.data.nuscenes_raster
+import bevgen_torch.scripts.validate_data
 generate.run(["preset=tiny_test", "device=cpu", "fake=1", "batch_size=2",
               "muse.sample_iterations=2", "keep_cameras=ring_front_left",
               "save_rec=true", "out={tmp_path / 'g'}"])
