@@ -6,9 +6,11 @@ autoregressive sparse-GPT serving path (`nuscenes_ar`, `nuscenes_ar_tpu`).
 Hashable configs key the lru_caches of the geometry and mask artifacts
 (`models/geometry.py`, `models/masks.py`). Field names and presets match
 the reference, so a preset built here and one built there describe the
-same model. `quant` selects int8 serving (`ops/quant.py`); the reference's
-TPU-only knobs `use_fused_attention` and `remat` are not part of the port
-yet.
+same model. `quant` selects int8 serving (`ops/quant.py`); `remat`
+checkpoints the stage-2 transformer's blocks in training
+(`models/stage2/transformer.py`, `torch.utils.checkpoint`). The reference's
+TPU-only knob `use_fused_attention` is not part of the port: every attention
+of the port runs its CUDA kernel on the card.
 """
 from __future__ import annotations
 
@@ -136,6 +138,10 @@ class MultiViewConfig:
     # (ops/fused_glue.py) with the delta-chaining transformer blocks.
     # None = off, as in the reference; parameters are the same either way.
     use_fused_glue: Optional[bool] = None
+    # recompute every CosineAttention and GEGLUFeedForward of the stage-2
+    # transformer in the backward (torch.utils.checkpoint) instead of
+    # holding its activations: training only, the numbers are unchanged
+    remat: bool = False
     # serving-path quantization: "none" | "int8" (the MUSE transformer's hot
     # products W8A8, the AR GPT's dense layers int8 weights; ops/quant.py).
     # Inference only.

@@ -34,6 +34,14 @@ folds into the next norm (`ops/fused_glue.py`'s residual + LayerNorm pass)
 and the GEGLU's gate*gelu and middle norm are one pass; the parameters are
 the same on both forms.
 
+`cfg.remat` (training only) runs each layer's `attn`, `cross` and `ff` as
+one `torch.utils.checkpoint` region (non-reentrant) while gradients are on:
+the backward recomputes the block's forward, kernels included, in place of
+holding its activations, as the reference's `nn.remat` does per
+`CosineAttention` and `GEGLUFeedForward`. Under `no_grad` (serving, the
+self-conditioning pre-forward) the blocks run as they are. No block draws a
+random number, so the recomputation repeats the forward exactly.
+
 `cfg.quant == "int8"` (serving only) swaps the hot products for the W8A8
 `ops.quant.QuantDense` (`make_dense`): `to_q`, the self-attention `to_kv`,
 `proj_in`, `proj_out` and `to_logits` with static activation scales, `to_out`
@@ -55,6 +63,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from bevgen_torch.core.config import MultiViewConfig
 from bevgen_torch.models import geometry, masks
@@ -318,6 +327,13 @@ class MultiViewTransformer(nn.Module):
                 getattr(self, f"layers_{i}_cross_attn"),
                 getattr(self, f"layers_{i}_ff"))
 
+    def block(self, module: nn.Module, *args, **kwargs):
+        """`module(*args, **kwargs)`; with `cfg.remat` and gradients on, as
+        a checkpointed region whose activations the backward recomputes."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False, **kwargs)
+        return module(*args, **kwargs)
+
     def build_cache(self, cond_ids: torch.Tensor, intrinsics_inv: torch.Tensor,
                     extrinsics_inv: torch.Tensor) -> dict:
         """The step-invariant part of a forward: ray embedding, BEV
@@ -386,21 +402,24 @@ class MultiViewTransformer(nn.Module):
             d = None
             for i in range(cfg.num_layers):
                 attn, cross, ff = self.layer(i)
-                x, d = attn(x, attn_bias=cache["self_bias"], residual_delta=d,
-                            return_residual=True)
-                x, d = cross(x, keep=cond_keep, attn_bias=cache["cross_bias"],
-                             cached_kv=cache["cross_kv"][i], residual_delta=d,
-                             return_residual=True)
-                x, d = ff(x, residual_delta=d, return_residual=True)
+                x, d = self.block(attn, x, attn_bias=cache["self_bias"],
+                                  residual_delta=d, return_residual=True)
+                x, d = self.block(cross, x, keep=cond_keep,
+                                  attn_bias=cache["cross_bias"],
+                                  cached_kv=cache["cross_kv"][i],
+                                  residual_delta=d, return_residual=True)
+                x, d = self.block(ff, x, residual_delta=d,
+                                  return_residual=True)
             embed = (self.final_norm(x, dt) if d is None
                      else self.final_norm(x, dt, residual=d)[1])
         else:
             for i in range(cfg.num_layers):
                 attn, cross, ff = self.layer(i)
-                x = x + attn(x, attn_bias=cache["self_bias"])
-                x = x + cross(x, keep=cond_keep, attn_bias=cache["cross_bias"],
-                              cached_kv=cache["cross_kv"][i])
-                x = x + ff(x)
+                x = x + self.block(attn, x, attn_bias=cache["self_bias"])
+                x = x + self.block(cross, x, keep=cond_keep,
+                                   attn_bias=cache["cross_bias"],
+                                   cached_kv=cache["cross_kv"][i])
+                x = x + self.block(ff, x)
             embed = self.final_norm(x, dt)
         logits = self.to_logits(embed)
         return TransformerOutput(logits=logits.reshape(b, cam, hw, -1),

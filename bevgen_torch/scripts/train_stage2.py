@@ -12,13 +12,17 @@ preset's dtype (bf16); on the card every attention runs through the CUDA
 kernels, forward and backward. Options: `steps` (micro-batches in all; a
 resumed run continues to it), `batch_size`, `base_lr`, `scale_lr`
 (accumulate x batch x base_lr), `accumulate`, `warmup_steps`, `ema_warmup`,
-`ckpt_dir`, `ckpt_minutes`, `val_tokens_dir` with `eval_every` (and
-`eval_ema`, default true: validate with the EMA weights), `log_every`,
-`seed`, `device` (default cuda; raises without one; or `platform=cpu|gpu`,
-`devices=1`, `scripts/cli.py:pop_device`) and dotted preset overrides
-(`transformer.num_layers=2`). Prints one JSON line per logged step,
-{"step", "loss", "ce_loss", "critic_loss", "grad_norm", "update_applied",
-"steps_per_sec"}, and `done`.
+`ckpt_dir`, `ckpt_minutes`, `ckpt_async` (default false: write the
+checkpoints from a background thread, so the loop pays only the host
+snapshots; the run joins the last write before `done`), `val_tokens_dir`
+with `eval_every` (and `eval_ema`, default true: validate with the EMA
+weights), `log_every`, `seed`, `device` (default cuda; raises without one;
+or `platform=cpu|gpu`, `devices=1`, `scripts/cli.py:pop_device`) and dotted
+preset overrides (`transformer.num_layers=2`; `transformer.remat=true`
+recomputes each block in the backward in place of holding its
+activations). Prints one JSON line per logged step, {"step", "loss",
+"ce_loss", "critic_loss", "grad_norm", "update_applied", "steps_per_sec"},
+and `done`.
 """
 from __future__ import annotations
 
@@ -102,6 +106,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     ema_warmup = pop_flag(args, "ema_warmup", "false")
     ckpt_dir = args.pop("ckpt_dir", None)
     ckpt_minutes = float(args.pop("ckpt_minutes", 30))
+    ckpt_async = pop_flag(args, "ckpt_async", "false")
     log_every = int(args.pop("log_every", 50))
     device = pop_device(args)
     seed = int(args.pop("seed", 0))
@@ -135,7 +140,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                                   total_steps=max(1, steps // accumulate),
                                   accumulate_steps=accumulate)
     state = trainer.create_train_state(model, opt)
-    mgr = CheckpointManager(ckpt_dir, ckpt_minutes) if ckpt_dir else None
+    mgr = (CheckpointManager(ckpt_dir, ckpt_minutes, async_save=ckpt_async)
+           if ckpt_dir else None)
     if mgr is not None:
         tag = mgr.restore_latest(state)
         if tag is not None:
@@ -179,8 +185,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 m["steps_per_sec"] = round(
                     (i + 1 - first) / (time.perf_counter() - t0), 3)
                 print(json.dumps({"step": i + 1, **m}), flush=True)
-            if mgr is not None and mgr.save_step(i + 1, state):
-                mgr.save_ema(i + 1, state.ema.params)
+            if mgr is not None:
+                mgr.save_step(i + 1, state, ema=state.ema.params)
             if run_validation is not None and (i + 1) % eval_every == 0:
                 print(json.dumps({"step": i + 1,
                                   "val_ce": round(run_validation(), 4),
@@ -191,8 +197,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if mgr is not None:
         # tag = completed steps: a stop before the first step must not label
         # the untrained state as trained
-        mgr.save_step(state.step, state, force=True)
-        mgr.save_ema(state.step, state.ema.params)
+        mgr.save_step(state.step, state, force=True, ema=state.ema.params)
+        mgr.wait()
     print("done")
     return 0
 

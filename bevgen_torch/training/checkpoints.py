@@ -10,6 +10,16 @@ the EMA parameters by name. `LATEST` names the tag to resume from; EMA
 siblings never own it. To hand port-trained weights to the reference,
 convert the parameters with `core/convert.py:export_jax_params`.
 
+`async_save=True` (the reference's `CheckpointManager(async_save=)`) moves
+`torch.save`, the rename into place, `LATEST` and the pruning to one
+background thread. The host snapshot stays synchronous: the next optimizer
+step updates parameters and moments in place. At most one write is in
+flight (a save joins the previous one first), a write's exception re-raises
+on the next join or on `wait()`, and `latest()`/`restore_latest()` join
+before they read. `save_step(..., ema=)` writes the tag's `-EMA` sibling in
+the same job, so an asynchronous loop pays the two snapshots and not the
+step's write.
+
 `load_weights` (counterpart of `bevgen_tpu/training/checkpoints.py:
 load_weights` :193) fills a serving pipeline from a checkpoint: the
 reference's torch checkpoints through `core/checkpoint.py`'s converters,
@@ -20,8 +30,9 @@ from __future__ import annotations
 
 import shutil
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -43,12 +54,16 @@ def _cpu(tree: Any) -> Any:
 
 class CheckpointManager:
     def __init__(self, directory: str, interval_minutes: float = 30.0,
-                 keep_last: int = 3):
+                 keep_last: int = 3, async_save: bool = False):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.interval_s = interval_minutes * 60.0
         self.keep_last = keep_last
         self._last_save = time.monotonic()
+        self._pool = (ThreadPoolExecutor(max_workers=1,
+                                         thread_name_prefix="ckpt-writer")
+                      if async_save else None)
+        self._pending: Optional[Future] = None
 
     def _write(self, tag: str, filename: str, payload: Any,
                update_latest: bool) -> None:
@@ -56,30 +71,58 @@ class CheckpointManager:
         tmp = self.dir / (tag + ".tmp")
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
-        torch.save(_cpu(payload), tmp / filename)
+        torch.save(payload, tmp / filename)
         shutil.rmtree(path, ignore_errors=True)
         tmp.rename(path)
         if update_latest:
             (self.dir / "LATEST").write_text(tag)
 
-    def save_step(self, step: int, state, force: bool = False) -> bool:
+    def _run(self, jobs: List[Tuple[str, str, Any, bool]], prune: bool) -> None:
+        for job in jobs:
+            self._write(*job)
+        if prune:
+            self._prune()
+
+    def _submit(self, jobs: List[Tuple[str, str, Any, bool]],
+                prune: bool) -> None:
+        """Write `jobs` ((tag, file, host snapshot, update LATEST), in
+        order), then prune: now, or on the writer thread once the previous
+        write has been joined."""
+        if self._pool is None:
+            self._run(jobs, prune)
+            return
+        self.wait()
+        self._pending = self._pool.submit(self._run, jobs, prune)
+
+    def wait(self) -> None:
+        """Join the write in flight, if any, and re-raise its exception."""
+        if self._pending is not None:
+            fut, self._pending = self._pending, None
+            fut.result()
+
+    def save_step(self, step: int, state, force: bool = False,
+                  ema: Optional[Dict[str, torch.Tensor]] = None) -> bool:
         """Save `state` (a trainer.TrainState) once the wall-clock interval
-        has passed since the last save, or now with force=True. Returns
+        has passed since the last save, or now with force=True; with `ema`
+        (parameters by name), its `-EMA` sibling in the same job. Returns
         whether it saved."""
         now = time.monotonic()
         if not force and now - self._last_save < self.interval_s:
             return False
-        self._write(f"step_{step:08d}", STATE_FILE,
-                    {"params": state.model.state_dict(),
-                     "optimizer": state.optimizer.state_dict(),
-                     "step": int(state.step)}, update_latest=True)
+        tag = f"step_{step:08d}"
+        jobs = [(tag, STATE_FILE, _cpu({
+            "params": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step)}), True)]
+        if ema is not None:
+            jobs.append((tag + "-EMA", EMA_FILE, _cpu(dict(ema)), False))
+        self._submit(jobs, prune=True)
         self._last_save = now
-        self._prune()
         return True
 
     def save_ema(self, step: int, ema_params: Dict[str, torch.Tensor]) -> None:
-        self._write(f"step_{step:08d}-EMA", EMA_FILE, dict(ema_params),
-                    update_latest=False)
+        self._submit([(f"step_{step:08d}-EMA", EMA_FILE,
+                       _cpu(dict(ema_params)), False)], prune=False)
 
     def _prune(self) -> None:
         tags = sorted(p.name for p in self.dir.iterdir()
@@ -96,6 +139,7 @@ class CheckpointManager:
             shutil.rmtree(self.dir / (t + "-EMA"), ignore_errors=True)
 
     def latest(self) -> Optional[Path]:
+        self.wait()
         marker = self.dir / "LATEST"
         if marker.exists():
             tag = self.dir / marker.read_text().strip()

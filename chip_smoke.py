@@ -74,7 +74,8 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      the plain version, then `teacher_forced_logits` through the decode
      kernel (exactly 24 x 2100 = 50,400 launches) against the full forward;
  14. `ARPipeline.generate_fn` end to end at `nuscenes_ar`, b=2, KV-cached,
-     top_k=100: one warm-up, one timed; exactly 50,400 decode and 0
+     top_k=100: one warm-up by stages (encode_bev, the AR decode,
+     decode_tokens, each timed), one timed; exactly 50,400 decode and 0
      block-sparse launches per generate, ids in range, images finite;
  15. greedy decoding on the card at nuScenes widths with 2 layers, b=1: the
      reference-parity sampler (`cached=False`, 2100 full forwards through
@@ -115,7 +116,7 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      registers, shared memory, spill bytes (none allowed) and blocks per SM,
      and the form each case took;
  22. `generate_fn` with `transformer.use_fused_glue=true` on phase 4's
-     weights and inputs, 10 pairs timed in turns with the switch off: exactly
+     weights and inputs, 6 pairs timed in turns with the switch off: exactly
      (18 + 17) x 42 = 1470 residual + LayerNorm, 35 x 14 = 490 GEGLU +
      LayerNorm and 980 attention launches per generate;
  23. one full-width forward, glue against no glue, on the same weights and
@@ -129,15 +130,16 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      autograd through it;
  26. the reference's torch checkpoints: a seeded `argoverse_muse_7cam`
      pipeline written as a reference Lightning `.ckpt` (the reference's key
-     names and layouts, `reference_state_dict`), served back by the generate
-     CLI (`scripts/generate.py`, `ckpt_path=`, another seed) at b=2: the
-     parameters equal bit for bit, exactly 980 attention launches, the ids
-     those of the seeded pipeline's `generate_fn` on the same batch and
-     generator; the same for a pipeline with the TokenCritic and
-     self-conditioning (the CLI given their overrides); then `nuscenes_ar`
-     the same way through `load_weights`: the parameters bit for bit and a
-     b=1 full forward (exactly 24 block-sparse launches) with the seeded
-     model's logits, bit for bit;
+     names and layouts, `scripts/weights_drill.py:reference_state_dict`),
+     served back by the generate CLI (`scripts/generate.py`, `ckpt_path=`,
+     another seed) at b=2: the parameters equal bit for bit, exactly 980
+     attention launches, the ids those of the seeded pipeline's
+     `generate_fn` on the same batch and generator; the same for a pipeline
+     with the TokenCritic and self-conditioning (the CLI given their
+     overrides), at full width cut to 4 layers (280 launches); then
+     `nuscenes_ar` cut to 4 layers the same way through `load_weights`: the
+     parameters bit for bit and a b=1 full forward (exactly 4 block-sparse
+     launches) with the seeded model's logits, bit for bit;
  27. real classifier-free guidance (`muse.real_cfg`) at
      `argoverse_muse_7cam`: the cosine-attention kernel against its plain
      version at the guided b=4 shapes (self; cross with keep [1, 1, 0, 0],
@@ -146,7 +148,7 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      bound and the L2 bytes; one decode step's mixed logits through the
      kernel and the plain version (cosine, top-1); a b=2 generate: exactly
      504 launches at batch 4 (18 guided forwards) and 476 at batch 2 (17
-     SelfCritic forwards); images/s, median of five after one warm-up;
+     SelfCritic forwards); images/s, median of three after one warm-up;
  28. the TokenCritic (`muse.token_critic`): exactly 980 launches per b=2
      generate, all at batch 2; with `force_not_use_token_critic` 18 x 28 =
      504; with real_cfg too, 980, all at batch 4; images/s of each;
@@ -195,7 +197,7 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      pipeline at b=2: one forward through the int8 kernels against the
      plain int8 route (the same cache), int8 against bf16 logits (cosine,
      top-1 where the bf16 top-2 gap exceeds the int8 error); generates in
-     turns with bf16 (one warm-up, five timed each): images/s, MaskGit
+     turns with bf16 (one warm-up, three timed each): images/s, MaskGit
      weight MB, peak above the resident set, exactly 2485 quantize_static,
      994 quantize_dynamic, 3479 int8_epilogue and 980 row-1 launches per
      int8 generate; the same with `use_fused_glue=true` (1470 residual +
@@ -206,10 +208,10 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      (images/s, peak above the resident set, against phase 14's bf16),
      GPT weight MB int8 against bf16, exactly 50,400 row-11 and 153,421
      w8_linear launches and no block-sparse or W8A8 launch per generate;
-     then greedy decoding cut to 8 layers: the plain int8 route's choice
+     then greedy decoding cut to 2 layers: the plain int8 route's choice
      at every step of the kernels' trajectory (ties counted, >= 0.97);
  38. the generate CLI with `quant=int8` and `quant=auto` for MUSE (full
-     width, b=2; `auto` with fake=2) and AR (full width cut to 2 layers,
+     width, b=2; `auto` with fake=2) and AR (full width cut to 1 layer,
      b=1): the mode served (`auto` follows the crossover table,
      `bevgen_torch/configs/int8_crossover.json`, whose card is printed
      beside this one), the int8 kernels launched, finite images.
@@ -265,8 +267,8 @@ Phase 46 runs the reference's benchmark-and-trace CLI, which adds no kernel:
      `forward` and `train` at b=8, `decode` at b=2, `stage1_recon` and
      `stage1_train` at b=8 (`argoverse_muse`, 14 layers at width 1024),
      `ar_train` at b=4 (`nuscenes_ar`, full depth), `ar_decode` and
-     `ar_decode_int8` at b=1 cut to 4 layers and `ar_decode_full` at b=1
-     cut to 2 layers (full width); reps 2 (1 for the AR decodes) after the
+     `ar_decode_int8` at b=1 cut to 1 layer and `ar_decode_full` at b=1
+     cut to 1 layer (full width); reps 2 (1 for the AR decodes) after the
      CLI's two warm-up calls. Each last line has the JAX script's keys,
      positive times and a peak above 0 and below the card's memory; each
      kernel is launched exactly its count per call times the calls;
@@ -275,6 +277,33 @@ Phase 46 runs the reference's benchmark-and-trace CLI, which adds no kernel:
      exactly one generate's row-1 launches, phase 45's count; each mode's
      best_ms, mean_ms and peak MB are printed beside the card's name and
      power limit.
+
+Phases 47-49 drive the training knobs and the weights drill, which add no
+kernel:
+ 47. `transformer.remat=true` on phase 8's b=8 step at
+     `argoverse_muse_7cam`, in the plain and the fused-glue form: the loss
+     and its gradients with remat off and on, on the same weights, batch
+     and generator, equal bit for bit (else each parameter group within
+     1e-6 of its largest gradient, the group named); the launches of each
+     exactly the rule of `remat_launch_rule` (each region reruns its
+     forward's row-1 and glue launches once in the backward, row 8 as
+     before: 112 row-1 and 168 row-8 with remat against 56 and 168; 166
+     and 56 glue launches against 84 and 28); each one's step time and
+     peak; then the plain form with remat at the largest power-of-two batch
+     up to 32 that fits (named), its step time, image tokens/s and peak,
+     and rows 1 and 8 at that batch's shapes against their plain versions;
+ 48. `scripts/train_stage2.py` at `argoverse_muse_7cam` b=8, 3 steps with
+     a save every step (`ckpt_minutes=0`), `ckpt_async=false` and `=true`
+     in two directories on one seed: the loop's seconds per step, each
+     save's wall time on the loop and the final join; the two final tags
+     (parameters, optimizer state, step, EMA) equal bit for bit; the
+     asynchronous run resumed to step 4; exactly phase 8's launches per
+     step;
+ 49. `scripts/weights_drill.py` with its forwards on the card: every chain
+     passes (LPIPS, Inception, LoFTR, the CLIP vocabulary, the published
+     checkpoints at `tiny_test`), the two `tiny_test` generates launch row 1
+     exactly 2 x (4 + 3) x 2 x 2 = 56 times, and row 1 at those shapes
+     against its plain version.
 
 Prints each phase's seconds (`[time]` lines) and their sum, the kernels'
 JSON line, then the card's name and power limit, and
@@ -1504,10 +1533,20 @@ def ar_generate_phase(cfg):
         return pipe.generate_fn(*inputs, torch.Generator(
             device="cuda").manual_seed(seed), top_k=100)
 
-    t0 = time.perf_counter()
-    generate(0)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
+    # the warm-up: one generate by stages (host clock around synchronised
+    # stages)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    with torch.inference_mode():
+        seg, ii, ei = pipe.as_inputs(*inputs)
+        t = [time.perf_counter()]
+        cond_ids = pipe.encode_bev(seg)
+        torch.cuda.synchronize(); t.append(time.perf_counter())
+        gids = ar_cached.ar_sample_cached(pipe.gpt, cond_ids, ii, ei, gen,
+                                          top_k=100)
+        torch.cuda.synchronize(); t.append(time.perf_counter())
+        pipe.decode_tokens(gids)
+        torch.cuda.synchronize(); t.append(time.perf_counter())
+    warm_s = t[3] - t[0]
     times, peak = [], 0
     for i in range(AR_TIMED):
         torch.cuda.synchronize()
@@ -1527,7 +1566,7 @@ def ar_generate_phase(cfg):
             n_bs = bs.block_sparse_attention_cuda.launches
     med = sorted(times)[len(times) // 2]
     n_img = B * tf.num_cams
-    print(f"[ar-e2e] generate_fn b={B} cached top_k=100: warm-up {warm_s:.3f} s, "
+    print(f"[ar-e2e] generate_fn b={B} cached top_k=100: warm-up (by stages) {warm_s:.3f} s, "
           f"timed {', '.join(f'{t:.4f}' for t in times)} s, median {med:.4f} s "
           f"= {n_img / med:.4f} images/s, peak above the resident set "
           f"{peak / 1e6:.1f} MB; launches in the first timed run: "
@@ -1542,20 +1581,9 @@ def ar_generate_phase(cfg):
         raise SystemExit("non-finite AR images")
     if ids.min() < 0 or ids.max() >= tf.vocab_size:
         raise SystemExit("AR ids out of range")
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    with torch.inference_mode():
-        seg, ii, ei = pipe.as_inputs(*inputs)
-        t = [time.perf_counter()]
-        cond_ids = pipe.encode_bev(seg)
-        torch.cuda.synchronize(); t.append(time.perf_counter())
-        gids = ar_cached.ar_sample_cached(pipe.gpt, cond_ids, ii, ei, gen,
-                                          top_k=100)
-        torch.cuda.synchronize(); t.append(time.perf_counter())
-        pipe.decode_tokens(gids)
-        torch.cuda.synchronize(); t.append(time.perf_counter())
     print(f"[ar-e2e] images {tuple(images.shape)} finite, ids in "
-          f"[{ids.min().item()}, {ids.max().item()}]; stages: encode_bev "
-          f"{t[1] - t[0]:.4f} s, ar decode {t[2] - t[1]:.4f} s, "
+          f"[{ids.min().item()}, {ids.max().item()}]; the warm-up's stages: "
+          f"encode_bev {t[1] - t[0]:.4f} s, ar decode {t[2] - t[1]:.4f} s, "
           f"decode_tokens {t[3] - t[2]:.4f} s", flush=True)
     return {"s": med, "images_per_s": n_img / med, "by_pl": by_pl,
             "peak_mb": peak / 1e6}
@@ -2199,7 +2227,7 @@ def glue_pipelines(cfg):
 
 # phase 22's A/B: pairs of generates, glue on and off, in turns (which
 # goes first alternates), after two warm-ups of each
-GLUE_AB_PAIRS = 10
+GLUE_AB_PAIRS = 6
 
 
 def glue_generate_phase(cfg, plain, glue, phase4_med):
@@ -2423,203 +2451,15 @@ def layernorm_g_phase(cfg):
 # and B give the writer and the reader different random weights, so a load
 # that did nothing fails.
 CKPT_SEED_A, CKPT_SEED_B = 0, 1
+# the TokenCritic + self_cond file and the AR file at full width, cut in
+# depth (the main MUSE file keeps its 14 layers)
+CKPT_CUT_LAYERS = 4
 
 
-def _flat_tree(tree, prefix=()):
-    for key, val in tree.items():
-        if isinstance(val, dict):
-            yield from _flat_tree(val, prefix + (key,))
-        else:
-            yield prefix + (key,), val
-
-
-def _conv_to_torch(a):
-    return a.transpose(3, 2, 0, 1)          # flax HWIO -> torch OIHW
-
-
-def _linear_to_torch(a):
-    return a.T
-
-
-def _conv1x1_to_torch(a):
-    return a.T[:, :, None, None]            # Dense (in, out) -> 1x1 conv
-
-
-def _tril_to_torch(a):
-    return a[np.tril_indices(a.shape[0])][None]   # (L, L) -> flat tril
-
-
-def _same(a):
-    return a
-
-
-def stage1_ref_key(path):
-    """(reference torch key, layout change) of a leaf of a stage-1 flax tree
-    (taming's VQModel names, modules/stage1/vqgan.py)."""
-    import re
-    if path == ("codebook",):
-        return "quantize.embedding.weight", _same
-    if path[0] in ("quant_conv", "post_quant_conv"):
-        return (f"{path[0]}.weight", _conv_to_torch) if path[1] == "kernel" \
-            else (f"{path[0]}.bias", _same)
-    mod, name, rest = path[0], path[1], path[2:]
-    m = re.fullmatch(r"(down|up)_(\d+)_(block|attn)_(\d+)", name)
-    m2 = re.fullmatch(r"(down|up)_(\d+)_(downsample|upsample)", name)
-    if m:
-        base = f"{mod}.{m[1]}.{m[2]}.{m[3]}.{m[4]}"
-    elif m2:
-        base = f"{mod}.{m2[1]}.{m2[2]}.{m2[3]}"
-    elif name.startswith("mid_"):
-        base = f"{mod}.mid.{name[4:]}"
-    else:
-        base = f"{mod}.{name}"
-    torch_name = {"scale": "weight", "bias": "bias", "kernel": "weight"}
-    if rest[-2:-1] == ("norm",):            # GroupNorm32: <norm>/norm/<leaf>
-        owner = rest[:-2]
-        return ".".join((base,) + owner + (torch_name[rest[-1]],)), _same
-    fn = _conv_to_torch if rest[-1] == "kernel" else _same
-    return ".".join((base,) + rest[:-1] + (torch_name[rest[-1]],)), fn
-
-
-def muse_ref_key(path):
-    """(reference torch key, layout change) of a leaf of the MUSE
-    transformer's flax tree (muse_maskgit_pytorch's TransformerMultiView)."""
-    import re
-    head = path[0]
-    if head in ("token_emb", "cond_token_emb", "pos_emb", "cond_pos_emb"):
-        return f"{head}.weight", _same
-    if head == "self_cond_to_init_embed":
-        idx = {"norm_in": 0, "proj_in": 1, "norm_mid": 3, "proj_out": 4}[path[1]]
-        return ((f"{head}.{idx}.gamma", _same) if path[1].startswith("norm")
-                else (f"{head}.{idx}.weight", _linear_to_torch))
-    if head == "to_logits":
-        return "to_logits.weight", _linear_to_torch
-    if head in ("img_embed", "cam_embed"):
-        return f"{head}.weight", _conv1x1_to_torch
-    if head == "bev_embed":
-        return (("bev_embed.weight", _conv1x1_to_torch) if path[1] == "kernel"
-                else ("bev_embed.bias", _same))
-    if head == "camera_bias_emb":
-        return head, _tril_to_torch
-    if head == "bev_cam_pos_emb":
-        return head, _same
-    if head == "final_norm":
-        return "transformer_blocks.norm.gamma", _same
-    m = re.fullmatch(r"layers_(\d+)_(attn|cross_attn|ff)", head)
-    base = (f"transformer_blocks.layers.{m[1]}."
-            f"{ {'attn': 0, 'cross_attn': 1, 'ff': 2}[m[2]] }")
-    sub = path[1]
-    if m[2] == "ff":
-        idx = {"norm_in": 0, "proj_in": 1, "norm_mid": 3, "proj_out": 4}[sub]
-        return ((f"{base}.{idx}.gamma", _same) if sub.startswith("norm")
-                else (f"{base}.{idx}.weight", _linear_to_torch))
-    if sub == "norm":
-        return f"{base}.norm.gamma", _same
-    if sub in ("to_q", "to_kv", "to_out"):
-        return f"{base}.{sub}.weight", _linear_to_torch
-    return f"{base}.{sub}", _same           # q_scale, k_scale, null_kv
-
-
-def gpt_ref_key(path):
-    """(reference torch key, layout change) of a leaf of the sparse GPT's
-    flax tree (mingpt_sparse.py's GPT)."""
-    import re
-    head = path[0]
-    if head in ("x_tok_emb", "cond_tok_emb"):
-        return f"{head}.weight", _same
-    if head in ("x_pos_emb", "cond_pos_emb", "bev_cam_pos_emb"):
-        return head, _same
-    if head == "camera_bias_emb":
-        return head, _tril_to_torch
-    if head in ("img_embed", "cam_embed"):
-        return f"{head}.weight", _conv1x1_to_torch
-    if head == "bev_embed":
-        return (("bev_embed.weight", _conv1x1_to_torch) if path[1] == "kernel"
-                else ("bev_embed.bias", _same))
-    if head == "ln_f":
-        return f"ln_f.{ {'scale': 'weight', 'bias': 'bias'}[path[-1]] }", _same
-    if head == "head":
-        return "head.weight", _linear_to_torch
-    i = re.fullmatch(r"block_(\d+)", head)[1]
-    sub, leaf = path[1], path[-1]
-    if sub in ("ln1", "ln2"):
-        return (f"blocks.{i}.{sub}.{ {'scale': 'weight', 'bias': 'bias'}[leaf] }",
-                _same)
-    owner = (f"attention.{sub}" if sub in ("query", "key", "value") else
-             f"mlp.{ {'mlp_fc': 0, 'mlp_proj': 2}[sub] }")
-    return ((f"blocks.{i}.{owner}.weight", _linear_to_torch) if leaf == "kernel"
-            else (f"blocks.{i}.{owner}.bias", _same))
-
-
-def reference_state_dict(tree):
-    """The reference's Lightning state dict (torch key -> contiguous numpy
-    array in torch's layout) of a serving pipeline's flax-layout tree
-    (`core/convert.py:export_jax_params`): the MUSE Net2NetTransformer,
-    whose SelfCritic holds `token_critic.net.*` aliases of the transformer
-    (the same arrays) and a `to_pred` head, or a separate TokenCritic
-    transformer at `token_critic.*`; or the AR one, whose sparse GPT sits at
-    top-level `transformer.*`. The inverse of the port's converters;
-    `tests/test_torch_checkpoint.py` holds it to the JAX package's test
-    oracle."""
-    out = {}
-
-    def put(key, arr, fn):
-        out[key] = np.ascontiguousarray(fn(np.asarray(arr)))
-        return out[key]
-
-    for part, prefix in (("first_stage", "first_stage_model."),
-                         ("cond_stage", "cond_stage_model.")):
-        for path, arr in _flat_tree(tree[part]["params"]):
-            key, fn = stage1_ref_key(path)
-            put(prefix + key, arr, fn)
-    if "maskgit" in tree:
-        mg = tree["maskgit"]["params"]
-        for path, arr in _flat_tree(mg["transformer"]):
-            key, fn = muse_ref_key(path)
-            gen = put("maskgit.transformer." + key, arr, fn)
-            if "critic" in mg:
-                out["maskgit.token_critic.net." + key] = gen
-        if "critic" in mg:
-            head = mg["critic"]["to_pred"]
-            put("maskgit.token_critic.to_pred.weight", head["kernel"],
-                _linear_to_torch)
-            put("maskgit.token_critic.to_pred.bias", head["bias"], _same)
-        else:
-            for path, arr in _flat_tree(mg["token_critic"]):
-                key, fn = muse_ref_key(path)
-                put("maskgit.token_critic." + key, arr, fn)
-    else:
-        for path, arr in _flat_tree(tree["gpt"]["params"]):
-            key, fn = gpt_ref_key(path)
-            put("transformer." + key, arr, fn)
-    return out
-
-
-def write_reference_ckpt(pipe, path):
-    """Write `pipe`'s weights as a reference Lightning `.ckpt` (fp32; the
-    SelfCritic aliases share their tensors, as in the reference's files).
-    Returns the file's bytes."""
-    import os
-    import torch
-    from bevgen_torch.core.convert import export_jax_params
-    tensors, shared = {}, {}
-    for key, arr in reference_state_dict(export_jax_params(pipe)).items():
-        if id(arr) not in shared:
-            shared[id(arr)] = torch.from_numpy(arr)
-        tensors[key] = shared[id(arr)]
-    torch.save({"state_dict": tensors, "epoch": 0, "global_step": 0}, path)
-    return os.path.getsize(path)
-
-
-def params_equal(a, b):
-    """(all parameters of pipelines a and b equal bit for bit, how many
-    differ, how many there are)."""
-    import torch
-    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
-    if pa.keys() != pb.keys():
-        raise SystemExit("the two pipelines hold different parameters")
-    diff = [n for n in pa if not torch.equal(pa[n], pb[n])]
-    return not diff, len(diff), len(pa)
+def cut_depth(cfg, layers):
+    """`cfg` with its transformer cut to `layers` layers."""
+    return dataclasses.replace(cfg, transformer=cfg.transformer.replace(
+        num_layers=layers))
 
 
 def checkpoint_phase(cfg, ar_cfg):
@@ -2636,6 +2476,8 @@ def checkpoint_phase(cfg, ar_cfg):
     from bevgen_torch.pipelines.ar_generate import ARPipeline
     from bevgen_torch.pipelines.generate import BEVGenPipeline
     from bevgen_torch.scripts import generate as cli
+    from bevgen_torch.scripts.weights_drill import (params_equal,
+                                                    write_reference_ckpt)
     from bevgen_torch.training.checkpoints import load_weights
     A, B = CKPT_SEED_A, CKPT_SEED_B
     t_phase = time.perf_counter()
@@ -2684,8 +2526,11 @@ def checkpoint_phase(cfg, ar_cfg):
         res["muse_launches"] = launches
 
         # the same with a TokenCritic and self-conditioning: the file holds
-        # a second transformer and the self_cond_to_init_embed weights
-        vcfg = variant_config(cfg, token_critic=True, self_cond=True)
+        # a second transformer and the self_cond_to_init_embed weights (at
+        # full width, cut to CKPT_CUT_LAYERS layers: the same converter and
+        # key layout per layer, a quarter of the file)
+        vcfg = cut_depth(variant_config(cfg, token_critic=True, self_cond=True),
+                         CKPT_CUT_LAYERS)
         path = os.path.join(tmp, "muse_variant.ckpt")
         pipe_a = BEVGenPipeline.create(vcfg, device="cuda").init_params(seed=A)
         t0 = time.perf_counter()
@@ -2696,7 +2541,8 @@ def checkpoint_phase(cfg, ar_cfg):
         pipe_b, outs = cli.run([
             "preset=argoverse_muse_7cam", f"batch_size={AR_BATCH}", "fake=1",
             f"seed={B}", "device=cuda", f"ckpt_path={path}",
-            f"out={os.path.join(tmp, 'out_variant')}", *VARIANT_OVERRIDES])
+            f"out={os.path.join(tmp, 'out_variant')}", *VARIANT_OVERRIDES,
+            f"transformer.num_layers={CKPT_CUT_LAYERS}"])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         launches = ca.cosine_attention_cuda.launches
@@ -2708,7 +2554,9 @@ def checkpoint_phase(cfg, ar_cfg):
             torch.Generator(device="cuda").manual_seed(B))
         got = np.load(outs[0])["ids"]
         agree = float((got == want.cpu().numpy()).mean())
-        print(f"[ckpt] MUSE {variant_name(vcfg)}: reference .ckpt "
+        expect = (steps + steps - 1) * CKPT_CUT_LAYERS * 2
+        print(f"[ckpt] MUSE {variant_name(vcfg)} cut to {CKPT_CUT_LAYERS} "
+              f"layers: reference .ckpt "
               f"{size / 1e6:.1f} MB written in {write_s:.1f} s; the generate "
               f"CLI (seed {B}, ckpt_path, {' '.join(VARIANT_OVERRIDES)}) in "
               f"{cli_s:.1f} s: parameters equal to seed {A}'s bit for bit "
@@ -2724,7 +2572,9 @@ def checkpoint_phase(cfg, ar_cfg):
                              "generate does not serve the checkpoint's weights")
         res["variant_launches"] = launches
 
-        # AR: load_weights at nuscenes_ar, a b=1 full forward
+        # AR: load_weights at nuscenes_ar (full width, cut to
+        # CKPT_CUT_LAYERS layers), a b=1 full forward
+        ar_cfg = cut_depth(ar_cfg, CKPT_CUT_LAYERS)
         path = os.path.join(tmp, "ar.ckpt")
         ar_a = ARPipeline.create(ar_cfg, device="cuda").init_params(seed=A)
         t0 = time.perf_counter()
@@ -2746,7 +2596,8 @@ def checkpoint_phase(cfg, ar_cfg):
                 counts.append(bs.block_sparse_attention_cuda.launches)
         exact = torch.equal(logits[0], logits[1])
         cos, top1 = logit_agreement(logits[0], logits[1])
-        print(f"[ckpt] AR nuscenes_ar: reference .ckpt {size / 1e6:.1f} MB "
+        print(f"[ckpt] AR nuscenes_ar cut to {CKPT_CUT_LAYERS} layers: "
+              f"reference .ckpt {size / 1e6:.1f} MB "
               f"written in {write_s:.1f} s, loaded as family {family!r} in "
               f"{load_s:.1f} s: parameters equal to seed {A}'s bit for bit "
               f"{same} ({n_diff} of {n_par} differ); b=1 full forward "
@@ -2771,7 +2622,7 @@ def checkpoint_phase(cfg, ar_cfg):
 VARIANT_OVERRIDES = ["muse.token_critic=true", "muse.self_token_critic=false",
                      "transformer.self_cond=true"]
 # each variant's generates: one warm-up, then this many timed
-VARIANT_TIMED = 5
+VARIANT_TIMED = 3
 
 
 def variant_config(cfg, real_cfg=False, token_critic=False, self_cond=False,
@@ -3175,7 +3026,7 @@ def rect_phase():
     """Phase 33: `argoverse_muse_rect` at full width: row 1 against its plain
     version at the preset's shapes (self 1008 x 1008, cross 1008 x 256 +
     the null column, b=2), then a b=2 generate: exactly 980 launches, finite
-    (2, 3, 256, 336, 3) images, images/s (median of five after a
+    (2, 3, 256, 336, 3) images, images/s (median of three after a
     warm-up)."""
     from bevgen_torch.core.config import argoverse_rect_config
     from bevgen_torch.pipelines.generate import BEVGenPipeline
@@ -3321,9 +3172,9 @@ W8_TOL = 2.0 ** -6
 INT8_COS_MIN = 0.995
 INT8_GAP_RMS = 4.0
 INT8_DECIDED_TOP1_MIN = 0.99
-INT8_TIMED = 5          # MUSE generates per mode, in turns, after a warm-up
+INT8_TIMED = 3          # MUSE generates per mode, in turns, after a warm-up
 AR_INT8_TIMED = 1       # AR int8 generates (the first counts the launches)
-AR_INT8_GREEDY_LAYERS = 8
+AR_INT8_GREEDY_LAYERS = 2
 # inputs cycled through while a kernel is timed, so that they exceed the
 # 50 MB L2 (the serving path finds each layer's weights and activations cold)
 INT8_COLD_BYTES = 150e6
@@ -3827,7 +3678,7 @@ def int8_ar_phase(cfg, bf16_e2e):
 
 def int8_cli_phase(cfg, ar_cfg):
     """Phase 38: the generate CLI with quant=int8 and quant=auto for both
-    pipelines (MUSE at full width, b=2; AR at full width cut to 2 layers,
+    pipelines (MUSE at full width, b=2; AR at full width cut to 1 layer,
     b=1): the mode served, the int8 kernels launched, the crossover table's
     card beside this card."""
     import os
@@ -3843,9 +3694,9 @@ def int8_cli_phase(cfg, ar_cfg):
           f"{card!r}", flush=True)
     runs = [("muse", "int8", ["fake=1", "batch_size=2"]),
             ("muse", "auto", ["fake=2", "batch_size=2"]),
-            ("ar", "int8", ["pipeline=ar", "transformer.num_layers=2",
+            ("ar", "int8", ["pipeline=ar", "transformer.num_layers=1",
                             "fake=1", "batch_size=1"]),
-            ("ar", "auto", ["pipeline=ar", "transformer.num_layers=2",
+            ("ar", "auto", ["pipeline=ar", "transformer.num_layers=1",
                             "fake=1", "batch_size=1"])]
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -4613,8 +4464,8 @@ def metrics_e2e_phase(cfg, lpips_npz, inception_npz, loftr_params, tf32):
 INFERENCE_KEYS = ["mode", "batch_size", "best_ms", "mean_ms",
                   "bytes_in_use_mb", "peak_bytes_in_use_mb", "bytes_limit_mb"]
 INFERENCE_WARMUP = 2    # profiling.benchmark's warm-up calls
-INFERENCE_DECODE_LAYERS = 4
-INFERENCE_FULL_DECODE_LAYERS = 2
+INFERENCE_DECODE_LAYERS = 1
+INFERENCE_FULL_DECODE_LAYERS = 1
 
 
 def inference_runs(tmp):
@@ -4627,13 +4478,8 @@ def inference_runs(tmp):
     forward for every token, at full width cut to
     INFERENCE_FULL_DECODE_LAYERS layers, as phase 15 runs it. (`tiny_test`,
     whose heads are 32 wide, cannot reach row 9: its kernel takes 64.)"""
-    import dataclasses
     from bevgen_torch.core.config import argoverse_muse_config, nuscenes_ar_config
     muse, ar = argoverse_muse_config(), nuscenes_ar_config()
-
-    def cut(cfg, layers):
-        return dataclasses.replace(cfg, transformer=cfg.transformer.replace(
-            num_layers=layers))
     runs = []
     for mode, b, reps, extra in (
             ("forward", 8, 2, []),
@@ -4653,7 +4499,7 @@ def inference_runs(tmp):
         runs.append((mode, ["preset=nuscenes_ar", f"mode={mode}",
                             "batch_size=1", "reps=1",
                             f"transformer.num_layers={layers}"], 1,
-                     cut(ar, layers)))
+                     cut_depth(ar, layers)))
     return runs
 
 
@@ -4915,6 +4761,447 @@ def inference_kernel_entries(res, bsb_stats):
                              f"{listed} of them at the listed shapes: "
                              f"{shapes}")
     return out
+
+
+# Phases 47-49: the training knobs and the weights drill. Phase 47 runs
+# phase 8's b=8 step on `argoverse_muse_7cam` with `transformer.remat=true`
+# in the plain and the glue form. Each block is a checkpointed region, so
+# the backward reruns each region's forward once: per differentiated
+# forward, every row-1 launch (all of them lie in regions) and every glue
+# launch inside a region (3L - 1 residual + LayerNorm, layer 0's self
+# attention having no delta and the final norm lying outside; L GEGLU +
+# LayerNorm) comes once more; the backward's launches stay as they are.
+# Against remat off on the same weights, batch and generator the loss and
+# the gradients must be equal bit for bit (the recomputation reruns the
+# same kernels on the same inputs; the port's kernels use no atomics).
+REMAT_BATCH_MAX = 32
+REMAT_TIMED = 3
+# where a cuBLAS product made the two differ after all, max |dg| of a
+# parameter group within 1e-6 of its max |g| (the phase names the group)
+REMAT_GRAD_RTOL = 1e-6
+# Phase 48: the train CLI at full width with ckpt_minutes=0 (a save every
+# step), once synchronous and once asynchronous, then resumed
+ASYNC_STEPS = 3
+
+
+def remat_launch_rule(layers, forwards, glue):
+    """(row-1, row-8, residual + LayerNorm, GEGLU + LayerNorm) launches of a
+    loss and its gradients, remat off and on: each region reruns its
+    forward's launches once in the backward."""
+    row1, row8 = forwards * 2 * layers, forwards * 2 * layers * 3
+    res, geglu = (forwards * 3 * layers, forwards * layers) if glue else (0, 0)
+    off = (row1, row8, res, geglu)
+    in_regions = (row1, 0, forwards * (3 * layers - 1) if glue else 0, geglu)
+    return off, tuple(a + b for a, b in zip(off, in_regions))
+
+
+def _maskgit(tf, cfg, seed=0):
+    """Phase 8's MaskGit (fp32 parameters, bf16 compute) on the card,
+    seeded, or with its weights unset for `seed=None`."""
+    import torch
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.stage2.maskgit import MaskGit
+    model = MaskGit(tf, cfg.muse, dtype=torch.bfloat16,
+                    param_dtype=torch.float32)
+    return (model if seed is None else init_weights(model, seed)).to("cuda")
+
+
+def _launch_counts():
+    from bevgen_torch.ops import attention_bwd as ab
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops import fused_glue as fg
+    return (ca.cosine_attention_cuda.launches, ab.attention_bwd_cuda.launches,
+            fg.residual_layernorm_cuda.launches,
+            fg.geglu_layernorm_cuda.launches)
+
+
+def _by_shape():
+    """(row-1 launches by (N, M), row-8 launches by (N, M + 1))."""
+    from bevgen_torch.ops import attention_bwd as ab
+    from bevgen_torch.ops import cosine_attention as ca
+    return (dict(ca.cosine_attention_cuda.launches_by_shape),
+            dict(ab.attention_bwd_cuda.launches_by_shape))
+
+
+def _reset_launch_counts():
+    from bevgen_torch.ops import attention_bwd as ab
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops import fused_glue as fg
+    ca.reset_launch_counts()
+    ab.reset_launch_counts()
+    fg.reset_launch_counts()
+
+
+def remat_steps(model, batch, timed):
+    """One warm-up and `timed` train steps of `model` at `batch`: (median
+    step s, peak GB over the timed steps, last metrics)."""
+    import torch
+    from bevgen_torch.training import optim, trainer
+    state = trainer.create_train_state(
+        model, optim.maskgit_optimizer(model, 1e-4, warmup_steps=1))
+    step = trainer.make_train_step()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    m = {k: float(v) for k, v in m.items()}
+    if not all(math.isfinite(v) for v in m.values()) or m["update_applied"] != 1:
+        raise SystemExit(f"remat train step metrics {m}")
+    del state
+    return sorted(times)[len(times) // 2], peak, m
+
+
+def remat_form(cfg, glue):
+    """Phase 47 for one form: launches and gradients remat off against on
+    at b=8, then each one's step time and peak. Returns the stats and the
+    remat model (for the larger batch)."""
+    import torch
+    from bevgen_torch.models.stage2.maskgit import maskgit_loss
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    tf = cfg.transformer.replace(use_fused_glue=glue)
+    B = TRAIN_BATCH
+    off_model = _maskgit(tf, cfg)
+    on_model = _maskgit(tf.replace(remat=True), cfg, seed=None)
+    on_model.load_state_dict(off_model.state_dict())
+    batch = to_device(next(fake_batches(tf, B, seed=0)))
+    names = [n for n, _ in off_model.named_parameters()]
+
+    def loss_and_grads(model):
+        params = list(model.parameters())
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        out = maskgit_loss(model, batch["tokens"], batch["cond_ids"],
+                           batch["intrinsics_inv"], batch["extrinsics_inv"],
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+        grads = torch.autograd.grad(out.loss, params)
+        torch.cuda.synchronize()
+        return out.loss.detach(), grads, _launch_counts(), _by_shape()
+
+    loss_off, g_off, n_off, _ = loss_and_grads(off_model)
+    loss_on, g_on, n_on, by_shape = loss_and_grads(on_model)
+    want_off, want_on = remat_launch_rule(tf.num_layers, 2, glue)
+    differ = {}
+    for n, a, b in zip(names, g_off, g_on):
+        if not torch.equal(a, b):
+            group = grad_group(n)
+            rel = ((a.float() - b.float()).abs().max()
+                   / a.float().abs().max().clamp_min(1e-30)).item()
+            differ[group] = max(differ.get(group, 0.0), rel)
+    same_loss = torch.equal(loss_off, loss_on)
+    del g_off, g_on
+    print(f"[remat] argoverse_muse_7cam b={B} use_fused_glue={glue}: launches "
+          f"(row 1, row 8, residual + LayerNorm, GEGLU + LayerNorm) remat off "
+          f"{n_off} (rule {want_off}), on {n_on} (rule {want_on}); loss "
+          f"{loss_off.item():.6f} / {loss_on.item():.6f} equal bit for bit "
+          f"{same_loss}; gradients equal bit for bit in all "
+          f"{len(names)} parameters {not differ}"
+          + (f", else max |dg| / max |g| by group {differ} (bound "
+             f"{REMAT_GRAD_RTOL})" if differ else ""), flush=True)
+    if n_off != want_off or n_on != want_on:
+        raise SystemExit("remat's launch counts break the rule")
+    if not same_loss or any(v > REMAT_GRAD_RTOL for v in differ.values()):
+        raise SystemExit("remat changed the loss or the gradients")
+    res = {"launches": n_on, "fwd": by_shape[0], "bwd": by_shape[1],
+           "grads_differ": differ}
+    for name, model in (("off", off_model), ("on", on_model)):
+        step_s, peak, m = remat_steps(model, batch, REMAT_TIMED)
+        res[name] = {"step_s": step_s, "peak_gb": peak}
+        print(f"[remat] use_fused_glue={glue} remat {name}: step {step_s:.4f} s "
+              f"({B * tf.num_cams * tf.num_cam_tokens / step_s:.1f} image "
+              f"tokens/s), peak {peak:.2f} GB (both models resident), loss "
+              f"{m['loss']:.4f}", flush=True)
+    del off_model
+    print(f"[remat] use_fused_glue={glue}: peak with remat "
+          f"{res['on']['peak_gb'] / res['off']['peak_gb']:.3f} of without, "
+          f"step time {res['on']['step_s'] / res['off']['step_s']:.3f}x",
+          flush=True)
+    if not res["on"]["peak_gb"] < res["off"]["peak_gb"]:
+        raise SystemExit("remat did not lower the peak")
+    return res, on_model
+
+
+def remat_big_batch(cfg, model):
+    """Phase 47's last part: `model` (plain form, remat on) at the largest
+    power-of-two batch up to REMAT_BATCH_MAX whose step fits, then rows 1
+    and 8 at that batch's shapes against their plain versions."""
+    import torch
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    tf = model.cfg
+    B = REMAT_BATCH_MAX
+    while True:
+        batch = to_device(next(fake_batches(tf, B, seed=0)))
+        try:
+            _reset_launch_counts()
+            step_s, peak, m = remat_steps(model, batch, REMAT_TIMED)
+            break
+        except torch.cuda.OutOfMemoryError:
+            if B <= TRAIN_BATCH:
+                raise
+            print(f"[remat] b={B} does not fit with remat", flush=True)
+            del batch
+            torch.cuda.empty_cache()
+            B //= 2
+    fwd, bwd = _by_shape()
+    tokens = B * tf.num_cams * tf.num_cam_tokens
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print(f"[remat] argoverse_muse_7cam b={B} remat on, plain form: step "
+          f"{step_s:.4f} s = {tokens / step_s:.1f} image tokens/s, peak "
+          f"{peak:.2f} GB of the card's {total:.1f} GB, loss {m['loss']:.4f}; "
+          f"launches over {1 + REMAT_TIMED} steps: forward {fwd}, backward "
+          f"{bwd}", flush=True)
+    if not fwd or not bwd:
+        raise SystemExit("the larger-batch remat step launched no kernel")
+    del batch
+    torch.cuda.empty_cache()
+    H, D = tf.num_heads, tf.dim_head
+    N, NC = tf.num_img_tokens, tf.num_cond_tokens
+    stats = {
+        ("fwd", "self"): check_kernel(f"remat train self b{B}", B, H, N, N, D,
+                                      True, None, 21),
+        ("fwd", "cross"): check_kernel(f"remat train cross b{B}", B, H, N, NC,
+                                       D, True, None, 22),
+        ("bwd", "self"): check_bwd(f"remat train self b{B}", B, H, N, N + 1,
+                                   D, True, None, 23),
+        ("bwd", "cross"): check_bwd(f"remat train cross b{B}", B, H, N,
+                                    NC + 1, D, True, None, 24)}
+    return {"B": B, "step_s": step_s, "peak_gb": peak, "fwd": fwd,
+            "bwd": bwd, "stats": stats}
+
+
+def remat_phase(cfg):
+    """Phase 47: remat at full width, the plain form at b=8 and at the
+    largest batch that fits, then the glue form at b=8."""
+    import torch
+    plain, model = remat_form(cfg, False)
+    big = remat_big_batch(cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    glue, model = remat_form(cfg, True)
+    del model
+    return {"plain": plain, "glue": glue, "big": big}
+
+
+def _tag_equal(a, b):
+    import torch
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tag_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_tag_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _load_tag(tag):
+    import torch
+    from bevgen_torch.training.checkpoints import EMA_FILE, STATE_FILE
+    return (torch.load(tag / STATE_FILE, weights_only=False),
+            torch.load(tag.with_name(tag.name + "-EMA") / EMA_FILE,
+                       weights_only=True))
+
+
+def ckpt_async_phase(cfg, tmp):
+    """Phase 48: `train_stage2` at full width with a save every step, with
+    ckpt_async=false and =true in two directories on one seed: the loop's
+    seconds per step and each save's wall time on the loop; the final tags
+    equal bit for bit; then the asynchronous run resumed to one more
+    step."""
+    import shutil
+    from pathlib import Path
+    from bevgen_torch.scripts import train_stage2
+    from bevgen_torch.training import checkpoints as ckpts
+    real_save_step, real_wait = (ckpts.CheckpointManager.save_step,
+                                 ckpts.CheckpointManager.wait)
+    on_loop, waits = [], []
+
+    def save_step(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        saved = real_save_step(self, *args, **kwargs)
+        on_loop.append(time.perf_counter() - t0)
+        return saved
+
+    def wait(self):
+        t0 = time.perf_counter()
+        real_wait(self)
+        waits.append(time.perf_counter() - t0)
+
+    def run(directory, steps, mode):
+        on_loop.clear()
+        waits.clear()
+        t0 = time.perf_counter()
+        rc, lines = run_cli(train_stage2.main, [
+            "preset=argoverse_muse_7cam", "fake=true", f"steps={steps}",
+            "ckpt_minutes=0", f"ckpt_async={mode}", "log_every=1",
+            f"ckpt_dir={directory}"])
+        wall = time.perf_counter() - t0
+        logs = [json.loads(ln) for ln in lines if ln.startswith('{"step"')]
+        if rc != 0 or lines[-1] != "done" or not logs:
+            raise SystemExit(f"train_stage2 ckpt_async={mode} failed: {lines[-3:]}")
+        return {"wall_s": wall, "s_per_step": 1 / logs[-1]["steps_per_sec"],
+                "saves_on_loop_s": list(on_loop), "waits_s": list(waits),
+                "lines": lines}
+
+    out = {}
+    ckpts.CheckpointManager.save_step = save_step
+    ckpts.CheckpointManager.wait = wait
+    try:
+        base = Path(tmp)
+        free = shutil.disk_usage(base).free / 1e9
+        _reset_launch_counts()
+        for mode in ("false", "true"):
+            d = base / f"ckpt_async_{mode}"
+            out[mode] = r = run(d, ASYNC_STEPS, mode)
+            tag = d / f"step_{ASYNC_STEPS:08d}"
+            size = sum(f.stat().st_size for p in (tag, tag.with_name(
+                tag.name + "-EMA")) for f in p.iterdir()) / 1e9
+            loop = r["saves_on_loop_s"]
+            # the joins: restore_latest's, one in each save (the previous
+            # write's, part of that save's time), the final one
+            joins = r["waits_s"][1:1 + len(loop)]
+            print(f"[ckpt_async] ckpt_async={mode}: {ASYNC_STEPS} steps, "
+                  f"{r['s_per_step']:.4f} s per step on the loop (saves "
+                  f"included); each save on the loop "
+                  f"{', '.join(f'{t:.3f}' for t in loop)} s (the last: the "
+                  f"final forced save), of which joining the previous write "
+                  f"{', '.join(f'{t:.3f}' for t in joins)} s; the final join "
+                  f"{r['waits_s'][-1]:.3f} s; tag {size:.2f} GB; run "
+                  f"{r['wall_s']:.1f} s; {free:.0f} GB free in TMPDIR at the "
+                  f"start", flush=True)
+            if mode == "false":
+                # only the final tag is compared: the others go, for the disk
+                for old in d.iterdir():
+                    if old.is_dir() and not old.name.startswith(tag.name):
+                        shutil.rmtree(old)
+        tags = [base / f"ckpt_async_{m}" / f"step_{ASYNC_STEPS:08d}"
+                for m in ("false", "true")]
+        want, got = (_load_tag(t) for t in tags)
+        same = _tag_equal(got, want)
+        print(f"[ckpt_async] the async tag equals the sync one bit for bit "
+              f"(parameters, optimizer state, step, EMA): {same}", flush=True)
+        if not same:
+            raise SystemExit("the async and sync checkpoints differ")
+        del want, got
+        shutil.rmtree(base / "ckpt_async_false")
+        resumed = run(base / "ckpt_async_true", ASYNC_STEPS + 1, "true")
+        latest = (base / "ckpt_async_true" / "LATEST").read_text()
+        want_line = (f"resumed from {tags[1]} at step {ASYNC_STEPS}")
+        ok = want_line in resumed["lines"] and \
+            latest == f"step_{ASYNC_STEPS + 1:08d}" and \
+            _load_tag(base / "ckpt_async_true" / latest)[0]["step"] == ASYNC_STEPS + 1
+        print(f"[ckpt_async] resumed: {want_line!r} printed "
+              f"{want_line in resumed['lines']}; LATEST {latest}; run "
+              f"{resumed['wall_s']:.1f} s", flush=True)
+        if not ok:
+            raise SystemExit("the async run did not resume")
+        shutil.rmtree(base / "ckpt_async_true")
+        steps = 2 * ASYNC_STEPS + 1
+        launches, (out["fwd"], out["bwd"]) = _launch_counts(), _by_shape()
+        per_step = remat_launch_rule(cfg.transformer.num_layers, 2, False)[0]
+        want = tuple(steps * n for n in per_step)
+        print(f"[ckpt_async] launches over the three runs' {steps} steps "
+              f"(row 1, row 8, residual, GEGLU): {launches} (expected {want})",
+              flush=True)
+        if launches != want:
+            raise SystemExit("the CLI's train steps broke phase 8's launch "
+                             "counts")
+    finally:
+        ckpts.CheckpointManager.save_step = real_save_step
+        ckpts.CheckpointManager.wait = real_wait
+    return out
+
+
+def drill_phase(tmp):
+    """Phase 49: `weights_drill.main` with its forwards on the card: every
+    chain passes, and the stage-2 chain's two `tiny_test` generates launch
+    row 1 (2 x (T + T - 1) x 2 x num_layers times)."""
+    import contextlib
+    import io
+    import os
+    from bevgen_torch.core.config import tiny_test_config
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.scripts import weights_drill
+    buf = io.StringIO()
+    _reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = weights_drill.main(["--tmp", os.path.join(tmp, "drill")])
+    lines = buf.getvalue().splitlines()
+    print("\n".join(lines), flush=True)
+    tiny = tiny_test_config()
+    steps = tiny.muse.sample_iterations
+    want = 2 * (steps + steps - 1) * 2 * tiny.transformer.num_layers
+    launches = ca.cosine_attention_cuda.launches
+    by_shape = dict(ca.cosine_attention_cuda.launches_by_shape)
+    passed = [ln for ln in lines if ": PASS (forwards on cuda)" in ln]
+    print(f"[drill] exit code {rc}; {len(passed)} of "
+          f"{len(weights_drill.DRILLS)} chains passed on cuda; row-1 "
+          f"launches {launches} {by_shape} (expected {want})", flush=True)
+    if rc != 0 or len(passed) != len(weights_drill.DRILLS) or launches != want:
+        raise SystemExit("the weights drill failed on the card")
+    tf = tiny.transformer
+    H, D, N, NC = tf.num_heads, tf.dim_head, tf.num_img_tokens, tf.num_cond_tokens
+    return {"by_shape": by_shape, "N": N, "NC": NC, "stats": {
+        "self": check_kernel("drill serve self", 2, H, N, N, D, True, None, 25),
+        "cross": check_kernel("drill serve cross", 2, H, N, NC, D, True, None,
+                              26)}}
+
+
+def knob_kernel_entries(cfg, remat, ckpt_async, drill, train_fwd_stats,
+                        bwd_stats, glue_stats):
+    """The kernels line's entries of phases 47-49."""
+    from bevgen_torch.ops import attention_bwd as ab
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops import fused_glue as fg
+    tf = cfg.transformer
+    N, NC, TB = tf.num_img_tokens, tf.num_cond_tokens, TRAIN_BATCH
+    out = []
+
+    def attention(path, fwd, bwd, b, fstats, bstats):
+        for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
+            out.append({
+                "name": f"cosine_attention_fwd[{path} {shape} b{b} {n}x{m}]",
+                "route": "cuda", "source": ca.SOURCE, "replaces": ca.REPLACES,
+                "launches": fwd.get((n, m), 0), **fstats[shape]})
+        for shape, (n, m) in (("self", (N, N + 1)), ("cross", (N, NC + 1))):
+            out.append({
+                "name": f"attention_bwd[{path} {shape} b{b} {n}x{m}, 3 kernels]",
+                "route": "cuda", "source": ab.SOURCE, "replaces": ab.REPLACES,
+                "launches": bwd.get((n, m), 0), **bstats[shape]})
+
+    attention("remat train", remat["plain"]["fwd"], remat["plain"]["bwd"], TB,
+              train_fwd_stats, bwd_stats)
+    big = remat["big"]
+    attention("remat train", big["fwd"], big["bwd"], big["B"],
+              {s: big["stats"][("fwd", s)] for s in ("self", "cross")},
+              {s: big["stats"][("bwd", s)] for s in ("self", "cross")})
+    attention("ckpt_async CLI train", ckpt_async["fwd"], ckpt_async["bwd"], TB,
+              train_fwd_stats, bwd_stats)
+    inner = int(tf.num_embed * tf.ff_mult * 2 / 3)
+    for i, (op, rep, width) in enumerate((
+            ("residual_layernorm", fg.RES_LN_REPLACES, tf.num_embed),
+            ("geglu_layernorm", fg.GEGLU_LN_REPLACES, inner))):
+        kind = op.split("_")[0]
+        out.append({
+            "name": f"{op}[remat glue train b{TB} {TB * N}x{width}]",
+            "route": "cuda", "source": fg.SOURCE, "replaces": rep,
+            "launches": remat["glue"]["launches"][2 + i],
+            **glue_stats[(kind, TB)]})
+    n, nc = drill["N"], drill["NC"]
+    for shape, (a, b) in (("self", (n, n)), ("cross", (n, nc))):
+        out.append({
+            "name": f"cosine_attention_fwd[weights drill tiny_test serve "
+                    f"{shape} b2 {a}x{b}]",
+            "route": "cuda", "source": ca.SOURCE, "replaces": ca.REPLACES,
+            "launches": drill["by_shape"].get((a, b), 0),
+            **drill["stats"][shape]})
+    return out
+
 
 
 def main() -> int:
@@ -5252,6 +5539,13 @@ def main() -> int:
     inference_res = timed_phase(46, inference_phase, tf32_defaults,
                                 sum(metrics_launches.values()))
 
+    # 47-49. the training knobs at full width (remat; the train CLI's
+    # asynchronous checkpoint writes), then the weights drill on the card
+    remat = timed_phase(47, remat_phase, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_async = timed_phase(48, ckpt_async_phase, cfg, tmp)
+        drill = timed_phase(49, drill_phase, tmp)
+
     kernels = []
     for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
         kernels.append({
@@ -5378,7 +5672,9 @@ def main() -> int:
     kernels.extend(int8_kernel_entries(cfg, ar_cfg, int8_stats, int8_muse,
                                        int8_ar, stats, dec_stats, glue_stats))
     kernels.extend(inference_kernel_entries(inference_res, bsb_stats))
-    print(f"[time] phases 1-46: {time.perf_counter() - t_start:.1f} s",
+    kernels.extend(knob_kernel_entries(cfg, remat, ckpt_async, drill,
+                                       train_fwd_stats, bwd_stats, glue_stats))
+    print(f"[time] phases 1-49: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

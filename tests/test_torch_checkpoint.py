@@ -10,8 +10,9 @@ leaf; `load_torch_checkpoint` the JAX loader's state dict; and a pipeline
 loaded with `training/checkpoints.py:load_weights` the JAX pipeline's
 greedy ids (images within 1e-4) after the JAX package loaded the same file.
 Then the routing, the errors, `resolve_ema_path` over the port's tags,
-the generate CLI's `ckpt_path=`/`ema=`, and `chip_smoke.py`'s inverse (the
-one phase 26 writes its files with) against the oracle.
+the generate CLI's `ckpt_path=`/`ema=`, and `scripts/weights_drill.py`'s
+inverse (the one phase 26 of chip_smoke.py writes its files with) against
+the oracle.
 """
 import re
 import types
@@ -562,15 +563,15 @@ def test_cli_serves_the_checkpoint(muse_ckpt, tmp_path, capsys):
 
 def test_cli_ar_and_ema(tmp_path, capsys):
     """`pipeline=ar` takes a reference checkpoint (written here from a port
-    pipeline of seed A with chip_smoke.py's writer), and `ema=true` a port
+    pipeline of seed A with the weights drill's writer), and `ema=true` a port
     run's EMA weights."""
-    import chip_smoke
     from bevgen_torch.scripts import generate as cli
+    from bevgen_torch.scripts.weights_drill import write_reference_ckpt
     from test_torch_ar import TINY_AR_CLI
     base = TINY_AR_CLI + ["batch_size=1", "fake=1", "device=cpu"]
     src, _ = cli.run(base + [f"seed={SEED_A}", f"out={tmp_path / 'a'}"])
     ckpt = tmp_path / "ar.ckpt"
-    chip_smoke.write_reference_ckpt(src, str(ckpt))
+    write_reference_ckpt(src, str(ckpt))
     _, outs = cli.run(base + [f"seed={SEED_B}", f"ckpt_path={ckpt}",
                               f"out={tmp_path / 'b'}"])
     assert "loaded ar weights" in capsys.readouterr().out
@@ -591,19 +592,19 @@ def test_cli_ar_and_ema(tmp_path, capsys):
         assert torch.equal((a * 5).to(b.dtype), b), n
 
 
-# ---- chip_smoke.py's inverse against the oracle ------------------------------
+# ---- the weights drill's inverse (phase 26 of chip_smoke.py writes with it) --
 
 @pytest.mark.parametrize("family", ["muse", "ar", "token_critic",
                                     "self_cond+token_critic"])
 def test_chip_smoke_reference_state_dict_matches_oracle(family):
     """The writer against the oracle: the MUSE and AR pipelines, and the
     MUSE variants phase 26 writes (a TokenCritic, self-conditioning)."""
-    import chip_smoke
+    from bevgen_torch.scripts.weights_drill import reference_state_dict
     tree = {"muse": tiny_tree, "ar": ar_tiny_tree}.get(
         family, lambda seed: variant_tree(family, seed))(SEED_A)
     critic = "token" if family.endswith("token_critic") else "self"
     want = ar_state(tree) if family == "ar" else muse_state(tree, critic)
-    got = chip_smoke.reference_state_dict(tree)
+    got = reference_state_dict(tree)
     assert got.keys() == want.keys(), sorted(set(got) ^ set(want))[:8]
     for k in want:
         assert got[k].shape == want[k].shape and np.array_equal(got[k], want[k]), k

@@ -549,13 +549,13 @@ def test_cli_serves_int8_after_a_checkpoint(quant, tmp_path, capsys):
     """The generate CLI at tiny_test on the CPU: `ckpt_path=` loads a
     reference checkpoint of one seed, `quant=` quantizes it, and the ids
     are those of that pipeline's own `quantized()` form."""
-    import chip_smoke
     from bevgen_torch.scripts import generate as cli
+    from bevgen_torch.scripts.weights_drill import write_reference_ckpt
     base = ["preset=tiny_test", "batch_size=2", "fake=1", "device=cpu",
             "dtype=float32"]
     src, _ = cli.run(base + ["seed=1", f"out={tmp_path / 'a'}"])
     ckpt = tmp_path / "muse.ckpt"
-    chip_smoke.write_reference_ckpt(src, str(ckpt))
+    write_reference_ckpt(src, str(ckpt))
     pipe, outs = cli.run(base + ["seed=2", f"ckpt_path={ckpt}",
                                  f"quant={quant}", f"out={tmp_path / 'b'}"])
     out = capsys.readouterr().out
@@ -573,13 +573,13 @@ def test_cli_serves_int8_after_a_checkpoint(quant, tmp_path, capsys):
 
 @pytest.mark.parametrize("quant", ["int8", "auto"])
 def test_cli_ar_serves_int8_after_a_checkpoint(quant, tmp_path, capsys):
-    import chip_smoke
     from bevgen_torch.scripts import generate as cli
+    from bevgen_torch.scripts.weights_drill import write_reference_ckpt
     from test_torch_ar import TINY_AR_CLI
     base = TINY_AR_CLI + ["batch_size=1", "fake=1", "device=cpu"]
     src, _ = cli.run(base + ["seed=1", f"out={tmp_path / 'a'}"])
     ckpt = tmp_path / "ar.ckpt"
-    chip_smoke.write_reference_ckpt(src, str(ckpt))
+    write_reference_ckpt(src, str(ckpt))
     pipe, outs = cli.run(base + ["seed=2", f"ckpt_path={ckpt}",
                                  f"quant={quant}", f"out={tmp_path / 'b'}"])
     assert "loaded ar weights" in capsys.readouterr().out
