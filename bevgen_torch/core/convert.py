@@ -171,6 +171,29 @@ def _jax_leaf(owner: nn.Module, leaf: str, val: np.ndarray
     return leaf, val
 
 
+def flax_leaf(module: nn.Module, name: str) -> Tuple[str, Tuple[int, ...]]:
+    """The flax path (`transformer/layers_0_attn/to_q/kernel`) of `module`'s
+    parameter `name`, and for each flax axis the port axis it is (a Dense
+    kernel is the Linear weight transposed: (1, 0))."""
+    owner_name, _, leaf = name.rpartition(".")
+    owner = module.get_submodule(owner_name)
+    ndim = module.get_parameter(name).ndim
+    key = _jax_leaf(owner, leaf, np.empty((0,) * ndim))[0]
+    path = owner_name.split(".") + [key] if owner_name else [key]
+    return "/".join(path), _axis_map(owner, leaf, ndim)
+
+
+def _axis_map(owner: nn.Module, leaf: str, ndim: int) -> Tuple[int, ...]:
+    """For each axis of the flax leaf, the axis of the port tensor (the
+    inverse of `_jax_leaf`'s transposes)."""
+    if ndim == 2 and (leaf == "kernel_q" and isinstance(owner, QUANT_MODULES)
+                      or leaf == "weight" and isinstance(owner, nn.Linear)):
+        return (1, 0)
+    if ndim == 4 and leaf == "weight" and isinstance(owner, nn.Conv2d):
+        return (2, 3, 1, 0)
+    return tuple(range(ndim))
+
+
 @torch.no_grad()
 def export_jax_params(module: nn.Module,
                       tensors: Optional[Mapping[str, torch.Tensor]] = None

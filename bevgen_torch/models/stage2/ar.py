@@ -9,7 +9,9 @@ per-token weights). The KV-cached decoder in `ar_cached.py` gives the same
 tokens as `ar_sample` with one position per step. Sampling and dropout
 draw from an explicit `torch.Generator`; its numbers differ from JAX's
 keys, so the tests compare greedy (top_k=1) trajectories and
-deterministic losses.
+deterministic losses. A token is drawn by inverse-CDF sampling on one
+uniform a row, so a data-parallel rank can draw its rows of a draw made at
+the global batch (`parallel.sharding.BatchShard`).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from bevgen_torch.core.config import MultiViewConfig
 from bevgen_torch.models.stage2.gpt import SparseGPT
+from bevgen_torch.parallel.sharding import BatchShard, rand_rows
 
 
 def bbox_token_weights(cfg: MultiViewConfig, bboxes, weight: float) -> torch.Tensor:
@@ -75,16 +78,32 @@ def top_k_logits(logits: torch.Tensor, k: int) -> torch.Tensor:
                        logits)
 
 
+def categorical(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """One category per row of `probs` (b, n) from one uniform per row `u`
+    (b,): the inverse of the cumulative distribution of the categories in
+    descending order of probability. Categories of probability 0 are never
+    drawn. Returns (b,) int64."""
+    p_sorted, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    cdf = p_sorted.cumsum(-1)
+    pos = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None], right=True)
+    # the positive categories come first; u * total can round up to total
+    last = (p_sorted > 0).sum(-1, keepdim=True) - 1
+    return order.gather(-1, torch.minimum(pos, last))[:, 0]
+
+
 def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator],
                   temperature: float = 1.0,
-                  top_k: Optional[int] = None) -> torch.Tensor:
+                  top_k: Optional[int] = None,
+                  shard: Optional[BatchShard] = None) -> torch.Tensor:
     """One token per row of fp32 logits (b, vocab): temperature, top-k,
-    then a categorical draw. Returns (b,) int64."""
+    then a categorical draw from one uniform a row (`shard`'s rows of a draw
+    at the global batch). Returns (b,) int64."""
     logits = logits.float() / temperature
     if top_k is not None:
         logits = top_k_logits(logits, top_k)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    u = rand_rows((logits.shape[0],), generator, logits.device, shard)
+    return categorical(probs, u)
 
 
 def decode_positions(model: SparseGPT):
@@ -99,12 +118,14 @@ def decode_positions(model: SparseGPT):
 def ar_sample(model: SparseGPT, bev_indices, intrinsics_inv, extrinsics_inv,
               generator: Optional[torch.Generator] = None,
               temperature: float = 1.0, top_k: Optional[int] = None,
-              init_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+              init_ids: Optional[torch.Tensor] = None,
+              shard: Optional[BatchShard] = None) -> torch.Tensor:
     """Decode all camera tokens autoregressively in the outward order.
 
     bev_indices: (b, nc). Returns (b, cam, h, w) int64. init_ids: optional
     (b, cam, hw) with `vocab_size` marking the positions to generate; the
-    others are kept (partial decoding)."""
+    others are kept (partial decoding). shard: the rows are this rank's of
+    a data-parallel batch (the draws are made at the global batch)."""
     cfg = model.cfg
     b = bev_indices.shape[0]
     cam, hw = cfg.num_cams, cfg.num_cam_tokens
@@ -119,7 +140,8 @@ def ar_sample(model: SparseGPT, bev_indices, intrinsics_inv, extrinsics_inv,
     for c_i, p_i, raw in decode_positions(model):
         logits = model(ids, bev_indices, intrinsics_inv, extrinsics_inv,
                        sampling=True)
-        tok = sample_logits(logits[:, raw], generator, temperature, top_k)
+        tok = sample_logits(logits[:, raw], generator, temperature, top_k,
+                            shard)
         if keep is not None:
             tok = torch.where(keep[:, c_i, p_i], ids[:, c_i, p_i], tok)
         ids[:, c_i, p_i] = tok

@@ -41,6 +41,7 @@ from bevgen_torch.models.stage2.ar import decode_positions, sample_logits
 from bevgen_torch.models.stage2.gpt import SparseGPT
 from bevgen_torch.ops.decode_attention import NEG_INF, decode_attention
 from bevgen_torch.ops.quant import Int8WeightDense
+from bevgen_torch.parallel.sharding import BatchShard
 
 PREFIX_BUCKET = 512
 
@@ -218,7 +219,8 @@ def _steps(model: SparseGPT):
 def ar_sample_cached(model: SparseGPT, bev_indices, intrinsics_inv,
                      extrinsics_inv, generator: Optional[torch.Generator] = None,
                      temperature: float = 1.0, top_k: Optional[int] = None,
-                     init_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     init_ids: Optional[torch.Tensor] = None,
+                     shard: Optional[BatchShard] = None) -> torch.Tensor:
     """The same tokens as `ar.ar_sample` (same arguments) from one position
     per step. Returns (b, cam, h, w) int64."""
     cfg = model.cfg
@@ -240,7 +242,7 @@ def ar_sample_cached(model: SparseGPT, bev_indices, intrinsics_inv,
     positions = decode_positions(model)
     for t, pl in _steps(model):
         c_i, p_i, raw = positions[t]
-        tok = sample_logits(logits, generator, temperature, top_k)
+        tok = sample_logits(logits, generator, temperature, top_k, shard)
         if keep is not None:
             tok = torch.where(keep[:, c_i, p_i], ids[:, c_i, p_i], tok)
         ids[:, c_i, p_i] = tok

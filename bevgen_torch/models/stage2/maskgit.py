@@ -36,6 +36,7 @@ from bevgen_torch.core.config import MultiViewConfig, MuseConfig
 from bevgen_torch.models.stage2.transformer import (MultiViewTransformer,
                                                     SelfCriticHead,
                                                     TransformerOutput)
+from bevgen_torch.parallel.sharding import BatchShard, rand_rows
 
 
 class MaskGit(nn.Module):
@@ -180,11 +181,13 @@ def _rank_desc(scores: torch.Tensor) -> torch.Tensor:
 
 def gumbel_sample(logits: torch.Tensor, temperature: float,
                   generator: Optional[torch.Generator] = None,
-                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  noise: Optional[torch.Tensor] = None,
+                  shard: Optional[BatchShard] = None) -> torch.Tensor:
     """argmax(logits / max(temperature, 1e-10) + g) with g standard gumbel
-    noise drawn from `generator`, or the given `noise` tensor."""
+    noise drawn from `generator` (`shard`'s rows of a draw at the global
+    batch), or the given `noise` tensor."""
     if noise is None:
-        u = torch.rand(logits.shape, generator=generator, device=logits.device)
+        u = rand_rows(logits.shape, generator, logits.device, shard)
         neg_log_u = torch.log(u.clamp_min(1e-20)).neg().clamp_min(1e-20)
         noise = torch.log(neg_log_u).neg()
     return torch.argmax(logits / max(temperature, 1e-10) + noise, dim=-1)
@@ -217,7 +220,8 @@ def generate(model: MaskGit, cond_ids: torch.Tensor,
              timesteps: Optional[int] = None,
              force_not_use_token_critic: bool = False,
              can_remask_prev_masked: bool = False,
-             return_trajectory: bool = False):
+             return_trajectory: bool = False,
+             shard: Optional[BatchShard] = None):
     """Iteratively decode image tokens for every camera.
 
     cond_ids: (b, num_cond) BEV tokens; intrinsics_inv / extrinsics_inv:
@@ -225,7 +229,10 @@ def generate(model: MaskGit, cond_ids: torch.Tensor,
     the mask id at positions to generate (partial decoding);
     force_not_use_token_critic: confidence-based re-masking instead of the
     critic forward; can_remask_prev_masked: in that path, let committed
-    tokens compete for re-masking. All random draws come from `generator`.
+    tokens compete for re-masking. All random draws come from `generator`;
+    with `shard` (this rank's rows of a data-parallel batch) each is drawn
+    at the global batch's shape and its rows kept, so the ranks together
+    decode what one process decodes for the whole batch.
     Returns (b, cam, h, w) int64 codebook indices, or (ids, trajectory)
     with return_trajectory: the (T, b, cam, hw) ids after every step, the
     last equal to the returned ids."""
@@ -266,7 +273,8 @@ def generate(model: MaskGit, cond_ids: torch.Tensor,
         if cfg.self_cond:
             sc = embed.float()
         filtered = top_k_filter(logits, muse.topk_filter_thres)
-        pred = gumbel_sample(filtered, float(temps[step]), generator)
+        pred = gumbel_sample(filtered, float(temps[step]), generator,
+                             shard=shard)
 
         is_mask = ids == mask_id
         ids = torch.where(is_mask, pred, ids)
@@ -278,7 +286,7 @@ def generate(model: MaskGit, cond_ids: torch.Tensor,
             scores = cfg_critic(model, ids, cond_ids, intrinsics_inv,
                                 extrinsics_inv, muse.cond_scale,
                                 real_cfg=muse.real_cfg, cache=critic_cache)
-            u = torch.rand(scores.shape, generator=generator, device=dev)
+            u = rand_rows(scores.shape, generator, dev, shard)
             scores = scores + (u - 0.5) * float(noise[step])
         else:
             probs = torch.softmax(logits, dim=-1)
@@ -304,22 +312,31 @@ class MaskGitLoss(NamedTuple):
     critic_loss: torch.Tensor
 
 
-def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                         ignore_index: int = -1) -> torch.Tensor:
-    """Mean fp32 cross entropy over the positions whose label is not
-    `ignore_index`."""
+def masked_nll(logits: torch.Tensor, labels: torch.Tensor,
+               ignore_index: int = -1):
+    """(sum of the fp32 cross entropy over the positions whose label is not
+    `ignore_index`, their count)."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros((), device=nll.device))
-    return nll.sum() / valid.sum().clamp_min(1)
+    return nll.sum(), valid.sum()
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         ignore_index: int = -1) -> torch.Tensor:
+    """Mean fp32 cross entropy over the positions whose label is not
+    `ignore_index`."""
+    total, count = masked_nll(logits, labels, ignore_index)
+    return total / count.clamp_min(1)
 
 
 def maskgit_loss(model: MaskGit, tokens, cond_ids, intrinsics_inv,
                  extrinsics_inv, generator: Optional[torch.Generator] = None,
                  mask_override: Optional[torch.Tensor] = None,
-                 gumbel_noise: Optional[torch.Tensor] = None) -> MaskGitLoss:
+                 gumbel_noise: Optional[torch.Tensor] = None,
+                 shard: Optional[BatchShard] = None) -> MaskGitLoss:
     """Training loss (the reference's `maskgit_loss`, maskgit.py:376-472).
 
     tokens: (b, cam, hw) ground-truth codebook indices. Per camera image a
@@ -337,14 +354,22 @@ def maskgit_loss(model: MaskGit, tokens, cond_ids, intrinsics_inv,
 
     All draws come from `generator`. mask_override: (b, cam, hw) bool in
     place of the random mask; gumbel_noise: (b, cam, hw, vocab) in place of
-    the gumbel draw (zeros make the resample an argmax). For the tests."""
+    the gumbel draw (zeros make the resample an argmax). For the tests.
+
+    shard: the batch is this rank's rows of a data-parallel batch. Each
+    draw with a batch axis is then made at the global batch's shape (its
+    rows kept), the CE's masked count is summed over the ranks before the
+    division (the global batch's CE: ranks mask different counts, so a
+    mean of their means would differ), and the BCE is divided by the
+    number of ranks. The returned terms are this rank's parts: summed over
+    the ranks, they and their gradients are the global batch's."""
     cfg, muse = model.cfg, model.muse
     b, cam, hw = tokens.shape
     dev = tokens.device
     tokens = tokens.long()
 
     def uniform(*shape):
-        return torch.rand(shape, generator=generator, device=dev)
+        return rand_rows(shape, generator, dev, shard)
 
     t = uniform(b, cam)
     mask_prob = torch.cos(t * math.pi / 2)
@@ -370,13 +395,16 @@ def maskgit_loss(model: MaskGit, tokens, cond_ids, intrinsics_inv,
     cond_keep = uniform(b) >= muse.cond_drop_prob
     out = model(x, cond_ids, intrinsics_inv, extrinsics_inv,
                 cond_keep=cond_keep, self_cond_embed=sc_embed)
-    ce = masked_cross_entropy(out.logits, labels)
+    nll_sum, count = masked_nll(out.logits, labels)
+    if shard is not None:
+        count = shard.sum(count)
+    ce = nll_sum / count.clamp_min(1)
     if not (muse.self_token_critic or muse.token_critic):
         return MaskGitLoss(ce, ce, torch.zeros_like(ce))
 
     temp = uniform()
     sampled = gumbel_sample(out.logits.detach().float(), temp, generator,
-                            noise=gumbel_noise)
+                            noise=gumbel_noise, shard=shard)
     critic_input = torch.where(mask, sampled, x)
     critic_labels = (tokens != critic_input).float()
     cond_keep2 = uniform(b) >= muse.cond_drop_prob
@@ -384,4 +412,6 @@ def maskgit_loss(model: MaskGit, tokens, cond_ids, intrinsics_inv,
                                  extrinsics_inv, cond_keep=cond_keep2).float()
     bce = torch.mean(logits.clamp_min(0) - logits * critic_labels
                      + torch.log1p(torch.exp(-logits.abs())))
+    if shard is not None:   # a mean over equal shards: each rank's part
+        bce = bce / (shard.total // b)
     return MaskGitLoss(ce + muse.critic_loss_weight * bce, ce, bce)

@@ -12,7 +12,8 @@ decode-attention kernel (`ops/decode_attention.py`) and the full-forward
 sampler through the block-sparse kernel (`ops/block_sparse.py`).
 `quantized()` gives the int8-weight serving pipeline
 (`ops.quant.quantize_gpt_tree`, its products through the `w8_linear`
-kernel), which serves KV-cached only.
+kernel), which serves KV-cached only. `make_sharded_ar_generate` serves
+data-parallel over a mesh, as `generate.make_sharded_generate` does.
 """
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ from bevgen_torch.core.convert import export_jax_params, load_jax_params
 from bevgen_torch.models.stage2 import ar, ar_cached
 from bevgen_torch.models.stage2.gpt import SparseGPT
 from bevgen_torch.ops.quant import quantize_gpt_tree
-from bevgen_torch.pipelines.generate import Stage1Pipeline
+from bevgen_torch.parallel.sharding import BatchShard, Mesh
+from bevgen_torch.pipelines.generate import (Stage1Pipeline,
+                                             make_sharded_generate)
 
 
 class ARPipeline(Stage1Pipeline):
@@ -53,12 +56,16 @@ class ARPipeline(Stage1Pipeline):
                     generator: Optional[torch.Generator] = None,
                     temperature: float = 1.0, top_k: Optional[int] = 100,
                     init_ids: Optional[torch.Tensor] = None,
-                    cached: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                    cached: bool = True,
+                    shard: Optional[BatchShard] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """BEV raster in, camera images out: (images (b, cam, H, W, 3), ids
         (b, cam, h, w)). Inputs may be numpy arrays or tensors; they are
         moved to the pipeline's device. `generator` (on that device) drives
-        the token draws. cached=False runs the reference-parity sampler, one
-        full forward per token (not for the int8 tree: it raises)."""
+        the token draws (with `shard`, at the global batch's shape: the
+        batch is this rank's rows). cached=False runs the reference-parity
+        sampler, one full forward per token (not for the int8 tree: it
+        raises)."""
         if not cached and self.config.transformer.quant != "none":
             raise ValueError("the int8 AR pipeline serves KV-cached only "
                              "(cached=True): the full forward takes the "
@@ -68,5 +75,15 @@ class ARPipeline(Stage1Pipeline):
         cond_ids = self.encode_bev(seg)
         sample = ar_cached.ar_sample_cached if cached else ar.ar_sample
         ids = sample(self.gpt, cond_ids, ii, ei, generator,
-                     temperature=temperature, top_k=top_k, init_ids=init_ids)
+                     temperature=temperature, top_k=top_k, init_ids=init_ids,
+                     shard=shard)
         return self.decode_tokens(ids), ids
+
+
+def make_sharded_ar_generate(pipe: ARPipeline, mesh: Mesh):
+    """Data-parallel AR serving over `mesh` (the counterpart of the JAX
+    package's `make_sharded_ar_generate`): (run, shard_params, shard_batch)
+    as `generate.make_sharded_generate` returns them; run(seg, ii, ei,
+    generator, **kw) decodes this rank's rows with the token draws made at
+    the global batch."""
+    return make_sharded_generate(pipe, mesh)

@@ -14,6 +14,10 @@ goes through the hand-written CUDA kernel (`ops/cosine_attention.py`).
 (`ops/quant.py`), or keeps this one where the crossover table measured on
 the card (`configs/int8_crossover.json`, written by
 `scripts/crossover_sweep.py`) says bf16 serves the batch faster.
+
+`make_sharded_generate` serves data-parallel over a mesh
+(`parallel/sharding.py`): each rank decodes its rows of the batch, on its
+own card, with its own copy of the weights (rank 0's).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from bevgen_torch.models.init import init_weights
 from bevgen_torch.models.stage1.vq import VQModel, VQSegmentationModel
 from bevgen_torch.models.stage2.maskgit import MaskGit, generate as maskgit_generate
 from bevgen_torch.ops.quant import quantize_dense_tree
+from bevgen_torch.parallel import sharding as shd
 
 # measured batch -> images/s of the argoverse_muse_7cam generate in bf16 and
 # int8 on the card (scripts/crossover_sweep.py writes it)
@@ -135,20 +140,23 @@ class BEVGenPipeline(Stage1Pipeline):
                     generator: Optional[torch.Generator] = None,
                     init_ids: Optional[torch.Tensor] = None,
                     force_not_use_token_critic: bool = False,
-                    return_trajectory: bool = False
+                    return_trajectory: bool = False,
+                    shard: Optional[shd.BatchShard] = None
                     ) -> Tuple[torch.Tensor, ...]:
         """BEV raster in, camera images out: (images (b, cam, H, W, 3),
         ids (b, cam, h, w)), and with return_trajectory the (T, b, cam, hw)
         ids after every decode step as a third entry. Inputs may be numpy
         arrays or tensors; they are moved to the pipeline's device.
-        `generator` (on that device) drives the gumbel and critic noise."""
+        `generator` (on that device) drives the gumbel and critic noise;
+        with `shard` the batch is this rank's rows of a data-parallel batch
+        and the noise is drawn at the global batch's shape."""
         seg, ii, ei = self.as_inputs(segmentation, intrinsics_inv,
                                      extrinsics_inv)
         cond_ids = self.encode_bev(seg)
         res = maskgit_generate(
             self.maskgit, cond_ids, ii, ei, generator, init_ids=init_ids,
             force_not_use_token_critic=force_not_use_token_critic,
-            return_trajectory=return_trajectory)
+            return_trajectory=return_trajectory, shard=shard)
         ids, traj = res if return_trajectory else (res, None)
         images = self.decode_tokens(ids)
         return (images, ids, traj) if return_trajectory else (images, ids)
@@ -197,3 +205,34 @@ class BEVGenPipeline(Stage1Pipeline):
         load_jax_params(pipe.maskgit,
                         quantize_dense_tree(export_jax_params(self.maskgit)))
         return pipe
+
+
+def make_sharded_generate(pipe: Stage1Pipeline, mesh: shd.Mesh):
+    """Data-parallel serving over `mesh` (the counterpart of the JAX
+    package's `make_sharded_generate`, batch over (dcn, dp)). Returns (run,
+    shard_params, shard_batch):
+
+      shard_params(pipe) -> pipe, with rank 0's parameters on every rank;
+      shard_batch(*arrays) -> this rank's rows of global batch arrays;
+      run(seg, ii, ei, generator, **kw) -> (images, ids) of this rank's
+        rows: `pipe.generate_fn` with the draws made at the global batch,
+        so the ranks' rows together are what one process generates for
+        the whole batch from an equally seeded generator.
+
+    A quantized pipeline (`quantized()`) serves the same way, each rank
+    with its own int8 copy. Works for `BEVGenPipeline` and
+    `ar_generate.ARPipeline` alike."""
+
+    def shard_params(p: Stage1Pipeline) -> Stage1Pipeline:
+        return mesh.broadcast_module(p)
+
+    def shard_batch(*arrays):
+        return shd.shard_batch(arrays, mesh, pipe.device)
+
+    def run(segmentation, intrinsics_inv, extrinsics_inv,
+            generator: Optional[torch.Generator] = None, **kw):
+        return pipe.generate_fn(segmentation, intrinsics_inv, extrinsics_inv,
+                                generator, shard=mesh.batch_shard(
+                                    len(segmentation)), **kw)
+
+    return run, shard_params, shard_batch

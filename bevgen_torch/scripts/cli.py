@@ -7,14 +7,17 @@ The counterpart of `bevgen_tpu/scripts/cli.py:28-140`: positional
 reference's mode mixins in order; dotted keys override any field
 (`transformer.num_layers=2`). yaml is imported only when `config=` is
 given. `pop_device` takes the reference's `platform=`/`devices=` flags
-beside the port's `device=`.
+beside the port's `device=`; `pop_mesh` the mesh axes `dp`, `tp`, `dcn`
+(data parallelism over the processes that torchrun starts).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Tuple
 
 from bevgen_torch.core.config import PRESETS, PipelineConfig, apply_overrides
+from bevgen_torch.parallel import distributed
 
 
 def parse_argv(argv: List[str]) -> Dict[str, str]:
@@ -39,35 +42,84 @@ def pop_device(args: Dict[str, str], default: str = "cuda") -> str:
     """Pop `device` and the reference's platform flags (`cli.setup_platform`
     there): `platform=cpu` means device=cpu, `platform=gpu` (or cuda)
     device=cuda; `devices=1` is accepted. Exits on another platform, on a
-    platform and a device that disagree, and on `devices` above 1 (the port
-    runs on one device). Returns the device string."""
+    platform and a device that disagree, and on `devices` above 1 (one
+    process drives one device: start one per device with torchrun). Returns
+    the device string; under torchrun a bare `cuda` is the rank's own card,
+    `cuda:<LOCAL_RANK % device count>`."""
     platform = args.pop("platform", None)
     device = args.pop("device", None)
     devices = args.pop("devices", "1")
     if not devices.isdigit() or int(devices) < 1:
         raise SystemExit(f"devices={devices!r}: pass a device count")
     if int(devices) > 1:
-        raise SystemExit(f"devices={devices}: the port runs on one device; "
-                         "sharding waits for torch.distributed")
+        raise SystemExit(f"devices={devices}: the port runs on one device per "
+                         "process; start one process per device with torchrun "
+                         "--nproc_per_node=N and pass dp=N")
     if platform is None:
-        return device or default
+        return _rank_device(device or default)
     if platform not in PLATFORM_DEVICES:
         raise SystemExit(f"platform={platform!r}: the port runs on cpu or "
                          "gpu (cuda); pick its device with device=cpu|cuda")
     if device is not None and device.split(":")[0] != PLATFORM_DEVICES[platform]:
         raise SystemExit(f"platform={platform} and device={device} disagree; "
                          "pass one of them")
-    return device or PLATFORM_DEVICES[platform]
+    return _rank_device(device or PLATFORM_DEVICES[platform])
 
 
-def refuse_sharding(args: Dict[str, str]) -> None:
-    """Pop the mesh axes `dp`, `tp` and `dcn`; exit on any above 1 or
-    `auto`: the port runs on one device."""
-    for axis in ("dp", "tp", "dcn"):
-        val = args.pop(axis, "1")
-        if val == "auto" or not val.isdigit() or int(val) > 1:
-            raise SystemExit(f"{axis}={val}: the port runs on one device; "
-                             "sharding waits for torch.distributed")
+def _rank_device(device: str) -> str:
+    """A bare `cuda` under torchrun (LOCAL_RANK set): the rank's card."""
+    if device != "cuda" or "LOCAL_RANK" not in os.environ:
+        return device
+    import torch
+    return f"cuda:{distributed.local_rank() % max(torch.cuda.device_count(), 1)}"
+
+
+def _count(name: str, val: str, auto: bool = False) -> str:
+    if not (val.isdigit() and int(val) >= 1) and not (auto and val == "auto"):
+        raise SystemExit(f"{name}={val!r}: pass a positive count"
+                         + (" or auto" if auto else ""))
+    return val
+
+
+def pop_mesh(args: Dict[str, str], device: str):
+    """Pop the mesh axes `dp`, `tp` and `dcn` (N or auto): data parallelism
+    over the processes that torchrun started (`WORLD_SIZE`). dcn x dp must
+    be their number, and dp defaults to it / dcn; `dcn=auto` makes each
+    node's ranks one dcn row. Returns None in one process (every axis 1),
+    else joins the process group (nccl on cuda, gloo on cpu) and returns the
+    `parallel.sharding.Mesh`. Exits on `tp` above 1 (tensor parallelism is
+    not ported yet), on axes that do not multiply to the process count, and
+    on `dcn=auto` without ranks."""
+    from bevgen_torch.parallel import sharding
+    dp = args.pop("dp", None)
+    dp = None if dp is None else int(_count("dp", dp))
+    tp = int(_count("tp", args.pop("tp", "1")))
+    dcn = _count("dcn", args.pop("dcn", "1"), auto=True)
+    world = distributed.world_size_from_env()
+    if tp > 1:
+        raise SystemExit(f"tp={tp}: tensor parallelism is not ported yet; the "
+                         "port splits the batch only (dp, dcn)")
+    if dcn == "auto" and world == 1:
+        raise SystemExit("dcn=auto groups the ranks by node, and this run has "
+                         "no ranks: start them with torchrun --nnodes=M "
+                         "--nproc_per_node=N")
+    if dcn != "auto":
+        ways = int(dcn) * (dp or max(world // int(dcn), 1))
+        if world == 1 and ways > 1:
+            raise SystemExit(
+                f"dp={dp or 1} dcn={dcn}: {ways} data-parallel ranks in one "
+                f"process; start one process per rank with torchrun "
+                f"--nproc_per_node={ways}")
+        if ways != world:
+            raise SystemExit(f"dp={dp} dcn={dcn}: dcn x dp must equal the "
+                             f"{world} processes started")
+    if world == 1:
+        return None
+    joined = distributed.initialize(device=device)
+    mesh = (sharding.make_multislice_mesh(device=device) if dcn == "auto"
+            else sharding.make_mesh(dp=dp, dcn=int(dcn), device=device))
+    mesh.owns_group = joined
+    return mesh
 
 
 def config_text(cfg, extra: Dict[str, object] = None) -> str:

@@ -13,6 +13,8 @@
         batch_size=2 fake=2 quant=auto
     python -m bevgen_torch.scripts.generate config=bevgen_torch/configs/\\
 argoverse_muse.yaml modes=[argoverse,generate] eval_generate=/data/out
+    torchrun --nproc_per_node=2 -m bevgen_torch.scripts.generate \\
+        preset=argoverse_muse_7cam batch_size=4 fake=2 dp=2
 
 Data: `fake=N` runs N batches of the fake-batch fixture; without it the
 CLI reads the Argoverse tree under ARGOVERSE_DATA_DIR
@@ -50,7 +52,15 @@ JSON object {"images", "seconds", "images_per_sec"}. The pipeline runs on
 the card (`device`, default cuda; it raises without one; `platform=cpu|gpu`
 and `devices=1` as the reference takes them, `scripts/cli.py:pop_device`).
 The composed config is printed first as plain text unless
-`print_config=false`; `dp`, `tp` and `dcn` above 1 exit (one device).
+`print_config=false`. Under torchrun, `dp` and `dcn` (`scripts/cli.py:
+pop_mesh`) split each batch over the ranks
+(`pipelines.generate.make_sharded_generate` or
+`ar_generate.make_sharded_ar_generate`: every rank reads the batch and
+decodes its rows, the draws made at the whole batch's shape), and rank 0
+gathers the ids and images and writes the same tree a one-process run
+writes; `quant=` quantizes each rank's copy (`auto` with the per-rank
+batch as the hint). `tp` above 1 exits (not ported yet), and so does
+`keep_cameras` with a mesh, as in the JAX CLI.
 `config=`, `preset=`, `modes=` and dotted overrides
 (`transformer.num_layers=2`) build the config (`scripts/cli.py`); any other
 argument exits.
@@ -105,8 +115,10 @@ def run(argv: List[str]):
     import torch
     from bevgen_torch.core.device import resolve_device
     from bevgen_torch.data.fake import fake_batch
-    from bevgen_torch.pipelines.ar_generate import ARPipeline
-    from bevgen_torch.pipelines.generate import BEVGenPipeline
+    from bevgen_torch.pipelines.ar_generate import (ARPipeline,
+                                                    make_sharded_ar_generate)
+    from bevgen_torch.pipelines.generate import (BEVGenPipeline,
+                                                 make_sharded_generate)
     from bevgen_torch.training.checkpoints import load_weights, resolve_ema_path
 
     args = cli.parse_argv(argv)
@@ -116,6 +128,7 @@ def run(argv: List[str]):
     seed = cfg.seed
     fake = int(args.pop("fake", 0))
     device = cli.pop_device(args)
+    mesh_args = {k: args.pop(k) for k in ("dp", "tp", "dcn") if k in args}
     save_dir = args.pop("eval_generate", None)
     out_dir = args.pop("out", None if save_dir else
                        os.path.join("output", "torch_generate"))
@@ -132,11 +145,19 @@ def run(argv: List[str]):
     kept = _kept_cameras(args.pop("keep_cameras", ""), tf.camera_names)
     sample_kw = {"cached": cli.pop_flag(args, "cached", "true")} if ar else {}
     quant = cli.pop_quant(args)
-    cli.refuse_sharding(args)
     show_config = cli.pop_flag(args, "print_config", "true")
     if args:
         raise SystemExit(f"unknown argument(s): {sorted(args)}")
-    if show_config:
+    mesh = cli.pop_mesh(mesh_args, device)
+    ways = 1 if mesh is None else mesh.size
+    main_rank = mesh is None or mesh.rank == 0
+    if mesh is not None and kept:
+        raise SystemExit("keep_cameras (partial decode) is not supported "
+                         "together with a device mesh")
+    if batch_size % ways:
+        raise SystemExit(f"batch_size={batch_size} must be divisible by the "
+                         f"data-parallel ways ({ways})")
+    if show_config and main_rank:
         print(cli.config_text(cfg, extra={
             "eval_generate": save_dir, "ckpt_path": ckpt_path,
             "pipeline": "ar" if ar else "muse", "quant": quant,
@@ -168,17 +189,22 @@ def run(argv: List[str]):
         family = load_weights(ckpt_path, pipe)
         print(f"[generate] loaded {family} weights from {ckpt_path}",
               flush=True)
-    pipe = cli.apply_quant(pipe, quant, batch_size)
-    if quant != "none":
+    pipe = cli.apply_quant(pipe, quant, batch_size // ways)
+    if quant != "none" and main_rank:
         print(f"[generate] quant={quant}: serving "
               f"{pipe.config.transformer.quant}", flush=True)
+    generate_fn = pipe.generate_fn
+    if mesh is not None:
+        make = make_sharded_ar_generate if ar else make_sharded_generate
+        generate_fn, shard_params, shard_batch = make(pipe, mesh)
+        shard_params(pipe)
     writer = None
-    if save_dir:
+    if save_dir and main_rank:
         from bevgen_torch.utils.outputs import GenerationWriter
         # background: JPEG encode and IO overlap the next batch
         writer = GenerationWriter(save_dir, layout=layout, background=True,
                                   rand_str=rand_str)
-    if out_dir:
+    if out_dir and main_rank:
         os.makedirs(out_dir, exist_ok=True)
     gen = torch.Generator(device=pipe.device).manual_seed(seed)
     h, w = tf.cam_latent_res
@@ -190,20 +216,32 @@ def run(argv: List[str]):
             break
         t0 = time.perf_counter()
         init_ids = rec = None
-        if (kept or save_rec) and "image" in batch:
-            gt_tokens = pipe.encode_images(batch["image"])   # (b, cam, hw)
+        arrays = [batch[k] for k in ("segmentation", "intrinsics_inv",
+                                     "extrinsics_inv")]
+        image = batch.get("image")
+        if mesh is not None:   # this rank's rows
+            arrays = shard_batch(*arrays)
+            if image is not None:
+                (image,) = shard_batch(image)
+        if (kept or save_rec) and image is not None:
+            gt_tokens = pipe.encode_images(image)            # (b, cam, hw)
             if kept:
                 init_ids = init_ids_keeping(gt_tokens, kept, tf.mask_token_id)
             if save_rec:
                 b, cam = gt_tokens.shape[:2]
                 rec = pipe.decode_tokens(gt_tokens.reshape(b, cam, h, w))
+                if mesh is not None:
+                    rec = mesh.gather_rows(rec)
                 rec = rec.float().cpu().numpy()
-        images, ids = pipe.generate_fn(batch["segmentation"],
-                                       batch["intrinsics_inv"],
-                                       batch["extrinsics_inv"], gen,
-                                       init_ids=init_ids, **sample_kw)
+        images, ids = generate_fn(*arrays, gen, init_ids=init_ids,
+                                  **sample_kw)
+        if mesh is not None:   # the whole batch, on every rank
+            images, ids = mesh.gather_rows(images), mesh.gather_rows(ids)
         images = images.float().cpu().numpy()
         dt = time.perf_counter() - t0
+        n_done += images.shape[0] * images.shape[1]
+        if not main_rank:
+            continue
         if out_dir:
             path = os.path.join(out_dir, f"batch_{i:04d}.npz")
             extra = {} if rec is None else {"rec": rec}
@@ -212,15 +250,18 @@ def run(argv: List[str]):
         if writer is not None:
             writer.write_batch(images, batch, gt_images=batch.get("image"),
                                rec_images=rec)
-        n_done += images.shape[0] * images.shape[1]
         print(f"[generate] batch {i}: {images.shape[0] * images.shape[1]} "
               f"images in {dt:.3f} s" + (f" -> {path}" if out_dir else ""),
               flush=True)
     if writer is not None:
         writer.flush()
     dt = time.perf_counter() - t_start
-    print(json.dumps({"images": n_done, "seconds": round(dt, 2),
-                      "images_per_sec": round(n_done / dt, 3) if dt else 0}))
+    if mesh is not None:
+        mesh.close()
+    if main_rank:
+        print(json.dumps({"images": n_done, "seconds": round(dt, 2),
+                          "images_per_sec": round(n_done / dt, 3) if dt
+                          else 0}))
     return pipe, paths
 
 

@@ -1,11 +1,20 @@
-"""Stage-2 MaskGit training CLI of the PyTorch port, on one device.
+"""Stage-2 MaskGit training CLI of the PyTorch port.
 
     python -m bevgen_torch.scripts.train_stage2 preset=argoverse_muse \\
         steps=1000 batch_size=8 tokens_dir=/data/tokens ckpt_dir=ckpts \\
         base_lr=1e-4
+    torchrun --nproc_per_node=4 -m bevgen_torch.scripts.train_stage2 \\
+        preset=argoverse_muse batch_size=32 dp=4 ckpt_dir=ckpts
 
-The counterpart of `bevgen_tpu/scripts/train_stage2.py` without the mesh:
-`dp`, `tp` and `dcn` above 1 raise. Token source: `tokens_dir` (shards of
+The counterpart of `bevgen_tpu/scripts/train_stage2.py`. Under torchrun,
+`dp` and `dcn` (N or auto; `scripts/cli.py:pop_mesh`) split the global
+`batch_size` over the ranks, each on its own card (`platform=cpu`: gloo on
+the CPU): each rank feeds its rows of every fake batch, or its contiguous
+share of the token shards (`parallel.distributed.host_shard_indices`),
+runs `trainer.make_sharded_train_step` (ZeRO-sliced moments and EMA), and
+rank 0 alone logs and writes the checkpoints; a stop signal to any rank
+stops every rank after the same step. `tp` above 1 exits (tensor
+parallelism is not ported yet). Token source: `tokens_dir` (shards of
 `data/tokens.py`) or seeded random tokens (`fake=true`, the default when no
 directory is given). The model keeps fp32 parameters and computes in the
 preset's dtype (bf16); on the card every attention runs through the CUDA
@@ -17,7 +26,8 @@ checkpoints from a background thread, so the loop pays only the host
 snapshots; the run joins the last write before `done`), `val_tokens_dir`
 with `eval_every` (and `eval_ema`, default true: validate with the EMA
 weights), `log_every`, `seed`, `device` (default cuda; raises without one;
-or `platform=cpu|gpu`, `devices=1`, `scripts/cli.py:pop_device`) and dotted
+or `platform=cpu|gpu`, `devices=1`, `scripts/cli.py:pop_device`), `dp`,
+`tp`, `dcn` and dotted
 preset overrides (`transformer.num_layers=2`; `transformer.remat=true`
 recomputes each block in the backward in place of holding its
 activations). Prints one JSON line per logged step, {"step", "loss",
@@ -78,8 +88,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     from bevgen_torch.data import tokens as token_data
     from bevgen_torch.models.init import init_weights
     from bevgen_torch.models.stage2.maskgit import MaskGit, maskgit_loss
+    from bevgen_torch.parallel import distributed
     from bevgen_torch.scripts.cli import (parse_argv, pop_device, pop_flag,
-                                          refuse_sharding)
+                                          pop_mesh)
     from bevgen_torch.training import optim, trainer
     from bevgen_torch.training.checkpoints import CheckpointManager
     from bevgen_torch.training.preemption import PreemptionGuard
@@ -88,7 +99,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     preset = args.pop("preset", "argoverse_muse")
     if preset not in PRESETS:
         raise SystemExit(f"unknown preset {preset!r}; one of {sorted(PRESETS)}")
-    refuse_sharding(args)
     steps = int(args.pop("steps", 1000))
     batch_size = int(args.pop("batch_size", 8))
     tokens_dir = args.pop("tokens_dir", None)
@@ -109,9 +119,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     ckpt_async = pop_flag(args, "ckpt_async", "false")
     log_every = int(args.pop("log_every", 50))
     device = pop_device(args)
+    mesh = pop_mesh(args, device)
     seed = int(args.pop("seed", 0))
     if not fake and not tokens_dir:
         raise SystemExit("fake=false needs tokens_dir=<shard directory>")
+    ways = 1 if mesh is None else mesh.size
+    if batch_size % ways:
+        raise SystemExit(f"batch_size={batch_size} must be divisible by the "
+                         f"data-parallel ways dcn*dp={ways} (mesh "
+                         f"{mesh.shape})")
+    rank, local_batch = (0 if mesh is None else mesh.rank), batch_size // ways
+    main_rank = rank == 0
+    if mesh is not None and main_rank:
+        print(f"mesh: {mesh.shape} over {ways} processes")
     try:
         cfg = apply_overrides(PRESETS[preset](), args)
     except TypeError as e:
@@ -124,10 +144,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     init_weights(model, seed).to(dev)
 
     if fake:
-        batches = fake_batches(tf, batch_size, seed)
+        rows = distributed.host_shard_indices(batch_size, rank, ways)
+        batches = ({k: v[rows] for k, v in b.items()}
+                   for b in fake_batches(tf, batch_size, seed))
     else:
-        loader = token_data.token_loader(token_data.TokenDataset(tokens_dir),
-                                         batch_size, shuffle=True, seed=seed)
+        ds = token_data.TokenDataset(tokens_dir)
+        share = distributed.host_shard_indices(len(ds), rank, ways)
+        loader = token_data.token_loader(
+            torch.utils.data.Subset(ds, range(share.start, share.stop)),
+            local_batch, shuffle=True, seed=seed)
         batches = token_data.epochs(loader, tf.num_cams)
 
     def on_device(batch):
@@ -140,14 +165,19 @@ def main(argv: Optional[List[str]] = None) -> int:
                                   total_steps=max(1, steps // accumulate),
                                   accumulate_steps=accumulate)
     state = trainer.create_train_state(model, opt)
-    mgr = (CheckpointManager(ckpt_dir, ckpt_minutes, async_save=ckpt_async)
-           if ckpt_dir else None)
+    mgr = (CheckpointManager(ckpt_dir, ckpt_minutes, async_save=ckpt_async,
+                             mesh=mesh) if ckpt_dir else None)
     if mgr is not None:
         tag = mgr.restore_latest(state)
-        if tag is not None:
+        if tag is not None and main_rank:
             print(f"resumed from {tag} at step {state.step}")
-    step_fn = trainer.make_train_step(ema_every=accumulate,
-                                      ema_warmup=ema_warmup)
+    if mesh is None:
+        step_fn = trainer.make_train_step(ema_every=accumulate,
+                                          ema_warmup=ema_warmup)
+    else:
+        step_fn, state = trainer.make_sharded_train_step(
+            model, opt, mesh, state, ema_every=accumulate,
+            ema_warmup=ema_warmup)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
 
     run_validation = None
@@ -158,8 +188,12 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         @torch.no_grad()
         def run_validation():
-            weights = (state.ema.params if eval_ema
+            # the EMA's gather is a collective: every rank takes part, and
+            # rank 0 alone runs the validation set
+            weights = (state.ema.full() if eval_ema
                        else {n: p for n, p in model.named_parameters()})
+            if not main_rank:
+                return None
             losses = []
             with swapped_params(model, weights):
                 model.eval()
@@ -180,26 +214,34 @@ def main(argv: Optional[List[str]] = None) -> int:
     with PreemptionGuard() as guard:
         for i in range(first, steps):
             metrics = step_fn(state, on_device(next(batches)), gen)
-            if (i + 1) % log_every == 0 or i == first:
+            if main_rank and ((i + 1) % log_every == 0 or i == first):
                 m = {k: round(float(v), 4) for k, v in metrics.items()}
                 m["steps_per_sec"] = round(
                     (i + 1 - first) / (time.perf_counter() - t0), 3)
                 print(json.dumps({"step": i + 1, **m}), flush=True)
             if mgr is not None:
-                mgr.save_step(i + 1, state, ema=state.ema.params)
+                mgr.save_step(i + 1, state, ema=state.ema)
             if run_validation is not None and (i + 1) % eval_every == 0:
-                print(json.dumps({"step": i + 1,
-                                  "val_ce": round(run_validation(), 4),
-                                  "val_ema": eval_ema}), flush=True)
-            if guard.should_stop:
-                print(json.dumps({"step": state.step, "preempted": True}))
+                val = run_validation()
+                if main_rank:
+                    print(json.dumps({"step": i + 1, "val_ce": round(val, 4),
+                                      "val_ema": eval_ema}), flush=True)
+            # one decision for every rank: a signal to any of them stops all
+            # after this step
+            if (guard.should_stop if mesh is None
+                    else mesh.any(guard.should_stop)):
+                if main_rank:
+                    print(json.dumps({"step": state.step, "preempted": True}))
                 break
     if mgr is not None:
         # tag = completed steps: a stop before the first step must not label
         # the untrained state as trained
-        mgr.save_step(state.step, state, force=True, ema=state.ema.params)
+        mgr.save_step(state.step, state, force=True, ema=state.ema)
         mgr.wait()
-    print("done")
+    if mesh is not None:
+        mesh.close()
+    if main_rank:
+        print("done")
     return 0
 
 

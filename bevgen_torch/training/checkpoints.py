@@ -20,6 +20,14 @@ before they read. `save_step(..., ema=)` writes the tag's `-EMA` sibling in
 the same job, so an asynchronous loop pays the two snapshots and not the
 step's write.
 
+With a `mesh` (data-parallel training, `parallel/sharding.py`) every rank
+calls `save_step` on the same steps: whether an interval save is due is
+agreed over the ranks, the optimizer's and the EMA's ZeRO slices are
+gathered into the unsliced layout (a collective), and only rank 0 writes
+(the JAX manager's `_is_writer`). Every rank restores from the same tag;
+the slices are cut again for the restoring run's ranks, so a tag restores
+at any rank count.
+
 `load_weights` (counterpart of `bevgen_tpu/training/checkpoints.py:
 load_weights` :193) fills a serving pipeline from a checkpoint: the
 reference's torch checkpoints through `core/checkpoint.py`'s converters,
@@ -54,9 +62,12 @@ def _cpu(tree: Any) -> Any:
 
 class CheckpointManager:
     def __init__(self, directory: str, interval_minutes: float = 30.0,
-                 keep_last: int = 3, async_save: bool = False):
+                 keep_last: int = 3, async_save: bool = False, mesh=None):
         self.dir = Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.rank == 0
+        if self.writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.interval_s = interval_minutes * 60.0
         self.keep_last = keep_last
         self._last_save = time.monotonic()
@@ -101,26 +112,36 @@ class CheckpointManager:
             fut.result()
 
     def save_step(self, step: int, state, force: bool = False,
-                  ema: Optional[Dict[str, torch.Tensor]] = None) -> bool:
+                  ema=None) -> bool:
         """Save `state` (a trainer.TrainState) once the wall-clock interval
         has passed since the last save, or now with force=True; with `ema`
-        (parameters by name), its `-EMA` sibling in the same job. Returns
-        whether it saved."""
+        (parameters by name, or an `optim.EmaState`), its `-EMA` sibling in
+        the same job. Returns whether it saved. With a mesh every rank calls
+        it on every step."""
+        from bevgen_torch.training.optim import EmaState
         now = time.monotonic()
-        if not force and now - self._last_save < self.interval_s:
+        due = force or now - self._last_save >= self.interval_s
+        if self.mesh is not None:
+            due = self.mesh.any(due)
+        if not due:
             return False
         tag = f"step_{step:08d}"
-        jobs = [(tag, STATE_FILE, _cpu({
-            "params": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "step": int(state.step)}), True)]
-        if ema is not None:
-            jobs.append((tag + "-EMA", EMA_FILE, _cpu(dict(ema)), False))
-        self._submit(jobs, prune=True)
+        snapshot = {"params": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict(),
+                    "step": int(state.step)}
+        if isinstance(ema, EmaState):
+            ema = ema.full()
+        if self.writer:
+            jobs = [(tag, STATE_FILE, _cpu(snapshot), True)]
+            if ema is not None:
+                jobs.append((tag + "-EMA", EMA_FILE, _cpu(dict(ema)), False))
+            self._submit(jobs, prune=True)
         self._last_save = now
         return True
 
     def save_ema(self, step: int, ema_params: Dict[str, torch.Tensor]) -> None:
+        if not self.writer:
+            return
         self._submit([(f"step_{step:08d}-EMA", EMA_FILE,
                        _cpu(dict(ema_params)), False)], prune=False)
 

@@ -13,14 +13,26 @@ with two parameter groups (decay 0.01 / 0), whose decoupled decay
 p <- p - lr wd p is the same update as optax's lr * (adam + wd p). The
 schedule counts applied updates from 0, as optax's does, so the first
 update has lr 0 (during warm-up).
+
+Data parallelism (`parallel/sharding.py`): `MaskGitOptimizer.shard(plan)`
+keeps on each rank only its slice of every AdamW moment (ZeRO-1). The
+optimizer is then handed each parameter's rank slice as a view into the
+parameter, steps it with the slice of the summed gradient, and gathers the
+slices back into the whole parameters; `state_dict` gathers the moments
+into the unsliced layout and `load_state_dict` slices them again, so a
+saved state restores at any number of ranks. `shard_ema` slices the EMA
+the same way.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
+
+if TYPE_CHECKING:
+    from bevgen_torch.parallel.sharding import ZeroPlan
 
 # the reference partition decays torch.nn.Linear weights only; its
 # geometric embeds (convs there, Linear here) land in the no-decay group
@@ -80,22 +92,43 @@ class MaskGitOptimizer:
                  grad_clip: Optional[float] = 1.0, accumulate_steps: int = 1,
                  decay: Optional[Dict[str, bool]] = None):
         named = list(named_params)
+        self.names: List[str] = [n for n, _ in named]
         self.params: List[nn.Parameter] = [p for _, p in named]
         decay = decay or {}
-        groups = [
-            {"params": [p for n, p in named if decay.get(n, False)],
-             "weight_decay": weight_decay},
-            {"params": [p for n, p in named if not decay.get(n, False)],
-             "weight_decay": 0.0},
-        ]
-        self.adam = torch.optim.AdamW([g for g in groups if g["params"]],
-                                      lr=0.0, betas=(b1, b2), eps=eps)
+        # AdamW's parameter groups by name, in the order its state counts them
+        self._groups = [g for g in (
+            ([n for n, _ in named if decay.get(n, False)], weight_decay),
+            ([n for n, _ in named if not decay.get(n, False)], 0.0)) if g[0]]
+        self._adam_args = dict(lr=0.0, betas=(b1, b2), eps=eps)
+        self.plan: Optional["ZeroPlan"] = None
+        self.adam = self._make_adam(dict(named))
         self.schedule = warmup_cosine(base_lr, warmup_steps, total_steps)
         self.grad_clip = grad_clip
         self.accumulate_steps = max(1, accumulate_steps)
         self.count = 0        # applied updates: the schedule's step
         self.mini_step = 0    # micro-batches in the current accumulation
         self.acc: Optional[List[torch.Tensor]] = None
+
+    def _make_adam(self, tensors: Dict[str, torch.Tensor]) -> torch.optim.AdamW:
+        self._targets = tensors   # what AdamW steps: parameters or slices
+        return torch.optim.AdamW(
+            [{"params": [tensors[n] for n in names], "weight_decay": wd}
+             for names, wd in self._groups], **self._adam_args)
+
+    def state_names(self) -> List[str]:
+        """Parameter names in the index order of `state_dict()["adam"]`."""
+        return [n for names, _ in self._groups for n in names]
+
+    def shard(self, plan: "ZeroPlan") -> None:
+        """Keep only this rank's slice of every moment (ZeRO-1 over the
+        plan's dp group): AdamW now steps views of the parameters' slices
+        and `step` gathers them. Moments already held are sliced."""
+        state = self.state_dict()
+        self.plan = plan
+        self.adam = self._make_adam({
+            n: plan.part(n, p.detach()) for n, p in zip(self.names,
+                                                        self.params)})
+        self.load_state_dict(state)
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> bool:
@@ -118,23 +151,57 @@ class MaskGitOptimizer:
             scale = torch.where(norm < self.grad_clip, 1.0,
                                 self.grad_clip / norm)
             grads = [g * scale.to(g.dtype) for g in grads]
-        for p, g in zip(self.params, grads):
-            p.grad = g
+        for n, g in zip(self.names, grads):
+            self._targets[n].grad = (g if self.plan is None
+                                     else self.plan.part(n, g))
         lr = self.schedule(self.count)
         for group in self.adam.param_groups:
             group["lr"] = lr
         self.adam.step()
-        for p in self.params:
-            p.grad = None
+        for t in self._targets.values():
+            t.grad = None
+        if self.plan is not None:
+            self._gather_params()
         self.count += 1
         return True
 
+    def _gather_params(self) -> None:
+        """Every rank's updated slices into the whole parameters."""
+        full = self.plan.gather({n: t for n, t in self._targets.items()
+                                 if self.plan.axes[n] is not None})
+        for n, p in zip(self.names, self.params):
+            if n in full:
+                p.detach().copy_(full[n])
+
     def state_dict(self) -> dict:
-        return {"adam": self.adam.state_dict(), "count": self.count,
+        """The optimizer state in the unsliced layout (with a plan: a
+        collective over the dp group, so every rank calls it together)."""
+        adam = self.adam.state_dict()
+        if self.plan is not None:
+            order = self.state_names()
+            parts = {(k, i): st[k] for i, st in adam["state"].items()
+                     for k in ("exp_avg", "exp_avg_sq")}
+            full = self.plan.gather(parts, {key: order[key[1]]
+                                            for key in parts})
+            adam = {"param_groups": adam["param_groups"], "state": {
+                i: {**st, "exp_avg": full[("exp_avg", i)],
+                    "exp_avg_sq": full[("exp_avg_sq", i)]}
+                for i, st in adam["state"].items()}}
+        return {"adam": adam, "count": self.count,
                 "mini_step": self.mini_step, "acc": self.acc}
 
     def load_state_dict(self, state: dict) -> None:
-        self.adam.load_state_dict(state["adam"])
+        """Load a state in the unsliced layout (any rank count's
+        `state_dict`), sliced to this rank's part when sharded."""
+        adam = state["adam"]
+        if self.plan is not None:
+            order = self.state_names()
+            adam = {"param_groups": adam["param_groups"], "state": {
+                i: {k: (self.plan.part(order[int(i)], v).clone()
+                        if k in ("exp_avg", "exp_avg_sq") else v)
+                    for k, v in st.items()}
+                for i, st in adam["state"].items()}}
+        self.adam.load_state_dict(adam)
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
         self.acc = state["acc"]
@@ -171,11 +238,26 @@ def scaled_lr(base_lr: float, batch_size: int, num_devices: int = 1,
 
 class EmaState:
     """Exponential moving average of the parameters (fp32 copies by name)
-    and the number of updates it has taken."""
+    and the number of updates it has taken. With a `plan` (`shard_ema`)
+    each entry is this rank's slice."""
 
-    def __init__(self, params: Dict[str, torch.Tensor], count: int = 0):
+    def __init__(self, params: Dict[str, torch.Tensor], count: int = 0,
+                 plan: Optional["ZeroPlan"] = None):
         self.params = params
         self.count = count
+        self.plan = plan
+
+    def full(self) -> Dict[str, torch.Tensor]:
+        """The whole EMA parameters by name (with a plan: gathered, a
+        collective over the dp group)."""
+        return self.params if self.plan is None else self.plan.gather(
+            self.params)
+
+
+def shard_ema(state: EmaState, plan: "ZeroPlan") -> EmaState:
+    """`state` keeping only this rank's slice of each entry."""
+    return EmaState({n: plan.part(n, t).clone() for n, t in state.params.items()},
+                    state.count, plan)
 
 
 def ema_init(model: nn.Module) -> EmaState:
@@ -194,6 +276,8 @@ def ema_update(state: EmaState, model: nn.Module, decay: float = 0.9999,
         d = min(decay, (1.0 + state.count) / (10.0 + state.count))
     names = list(state.params)
     params = dict(model.named_parameters())
+    if state.plan is not None:
+        params = {n: state.plan.part(n, params[n]) for n in names}
     ema = [state.params[n] for n in names]
     torch._foreach_mul_(ema, d)
     torch._foreach_add_(ema, [params[n].float() for n in names], alpha=1 - d)

@@ -129,14 +129,15 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      forward against its twin and the `LayerNormFn` gradients against
      autograd through it;
  26. the reference's torch checkpoints: a seeded `argoverse_muse_7cam`
-     pipeline written as a reference Lightning `.ckpt` (the reference's key
-     names and layouts, `scripts/weights_drill.py:reference_state_dict`),
-     served back by the generate CLI (`scripts/generate.py`, `ckpt_path=`,
-     another seed) at b=2: the parameters equal bit for bit, exactly 980
+     pipeline at full width cut to 4 layers written as a reference
+     Lightning `.ckpt` (the reference's key names and layouts,
+     `scripts/weights_drill.py:reference_state_dict`), served back by the
+     generate CLI (`scripts/generate.py`, `ckpt_path=`, another seed) at
+     b=2: the parameters equal bit for bit, exactly (18 + 17) x 4 x 2 = 280
      attention launches, the ids those of the seeded pipeline's
      `generate_fn` on the same batch and generator; the same for a pipeline
      with the TokenCritic and self-conditioning (the CLI given their
-     overrides), at full width cut to 4 layers (280 launches); then
+     overrides), 280 launches; then
      `nuscenes_ar` cut to 4 layers the same way through `load_weights`: the
      parameters bit for bit and a b=1 full forward (exactly 4 block-sparse
      launches) with the seeded model's logits, bit for bit;
@@ -211,8 +212,8 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      then greedy decoding cut to 2 layers: the plain int8 route's choice
      at every step of the kernels' trajectory (ties counted, >= 0.97);
  38. the generate CLI with `quant=int8` and `quant=auto` for MUSE (full
-     width, b=2; `auto` with fake=2) and AR (full width cut to 1 layer,
-     b=1): the mode served (`auto` follows the crossover table,
+     width cut to 4 layers, b=2; `auto` with fake=2) and AR (full width cut
+     to 1 layer, b=1): the mode served (`auto` follows the crossover table,
      `bevgen_torch/configs/int8_crossover.json`, whose card is printed
      beside this one), the int8 kernels launched, finite images.
 
@@ -292,18 +293,45 @@ kernel:
      peak; then the plain form with remat at the largest power-of-two batch
      up to 32 that fits (named), its step time, image tokens/s and peak,
      and rows 1 and 8 at that batch's shapes against their plain versions;
- 48. `scripts/train_stage2.py` at `argoverse_muse_7cam` b=8, 3 steps with
-     a save every step (`ckpt_minutes=0`), `ckpt_async=false` and `=true`
-     in two directories on one seed: the loop's seconds per step, each
-     save's wall time on the loop and the final join; the two final tags
-     (parameters, optimizer state, step, EMA) equal bit for bit; the
-     asynchronous run resumed to step 4; exactly phase 8's launches per
-     step;
+ 48. `scripts/train_stage2.py` at `argoverse_muse_7cam` b=8, 1 step with
+     a save every step (`ckpt_minutes=0`) and the final forced save,
+     `ckpt_async=false` and `=true` in two directories on one seed: the
+     loop's seconds per step, each save's wall time on the loop and the
+     final join; the two final tags (parameters, optimizer state, step, EMA)
+     equal bit for bit; the asynchronous run resumed to step 2; exactly
+     phase 8's launches per step;
  49. `scripts/weights_drill.py` with its forwards on the card: every chain
      passes (LPIPS, Inception, LoFTR, the CLIP vocabulary, the published
      checkpoints at `tiny_test`), the two `tiny_test` generates launch row 1
      exactly 2 x (4 + 3) x 2 x 2 = 56 times, and row 1 at those shapes
      against its plain version.
+
+Phases 50-51 run data parallelism on torch.distributed
+(`bevgen_torch/parallel/`), which adds no kernel:
+ 50. two rank processes on the one card (NCCL takes one rank per device),
+     over gloo passed explicitly with CUDA tensors (the torch version
+     printed; all_reduce, broadcast and all_gather checked first), each
+     running at its local batch: `make_sharded_train_step` at full
+     `argoverse_muse_7cam` width, global b=8 (4 a rank), 2 steps, exactly
+     56 row-1 and 168 row-8 launches per rank per step;
+     `make_sharded_generate` at global b=2, exactly 980 row-1 launches per
+     rank; `make_ar_sharded_train_step` at full `nuscenes_ar` width and
+     depth, global b=4, exactly 24 row-9 and 48 row-10 per rank per step;
+     `make_sharded_ar_generate` at global b=2, exactly 24 x 2100 row-11 per
+     rank. Both ranks hold equal parameters after the steps; each step's
+     final parameters equal, bit for bit (else each parameter group within
+     1e-6 of its largest entry, named), one process that sums the two
+     halves' gradients in rank order; its first step's loss is within 1e-3
+     of one process's at the global batch and the gradients' cosine per
+     group at least 0.999; each rank's generate output equals, bit for bit,
+     one process's `generate_fn` on that rank's row with the same draws.
+     Then rows 1, 8, 9, 10 at each rank's shapes against their plain
+     versions. Each rank's peak GB and seconds are printed (two ranks share
+     one card: no scaling number);
+ 51. the same four entry points through an nccl group of one process (a
+     MaskGit and an AR step at the ranks' batches, the MUSE generate at b=2,
+     the AR generate at b=1 cut to 2 layers), each equal bit for bit to the
+     unsharded function.
 
 Prints each phase's seconds (`[time]` lines) and their sum, the kernels'
 JSON line, then the card's name and power limit, and
@@ -317,6 +345,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2451,8 +2480,7 @@ def layernorm_g_phase(cfg):
 # and B give the writer and the reader different random weights, so a load
 # that did nothing fails.
 CKPT_SEED_A, CKPT_SEED_B = 0, 1
-# the TokenCritic + self_cond file and the AR file at full width, cut in
-# depth (the main MUSE file keeps its 14 layers)
+# every file at full width, cut in depth (for the time limit)
 CKPT_CUT_LAYERS = 4
 
 
@@ -2464,9 +2492,10 @@ def cut_depth(cfg, layers):
 
 def checkpoint_phase(cfg, ar_cfg):
     """Phase 26: reference-format checkpoints through the port's loader at
-    full width: the MUSE generate CLI fed from one (b=2, 980 row-1 launches,
-    the seed-A pipeline's ids), and the AR pipeline loaded from one (a b=1
-    full forward with 24 row-9 launches, the seed-A model's logits)."""
+    full width cut to CKPT_CUT_LAYERS layers: the MUSE generate CLI fed from
+    one (b=2, 35 x 2 row-1 launches a layer, the seed-A pipeline's ids), and
+    the AR pipeline loaded from one (a b=1 full forward with one row-9
+    launch a layer, the seed-A model's logits)."""
     import os
     import tempfile
     import torch
@@ -2483,7 +2512,10 @@ def checkpoint_phase(cfg, ar_cfg):
     t_phase = time.perf_counter()
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
-        # MUSE: the generate CLI with ckpt_path=, seed B
+        # MUSE: the generate CLI with ckpt_path=, seed B (full width, cut to
+        # CKPT_CUT_LAYERS layers: the same converter and key layout per
+        # layer, for the time limit)
+        cfg = cut_depth(cfg, CKPT_CUT_LAYERS)
         path = os.path.join(tmp, "muse.ckpt")
         pipe_a = BEVGenPipeline.create(cfg, device="cuda").init_params(seed=A)
         t0 = time.perf_counter()
@@ -2494,7 +2526,8 @@ def checkpoint_phase(cfg, ar_cfg):
         pipe_b, outs = cli.run([
             "preset=argoverse_muse_7cam", f"batch_size={AR_BATCH}", "fake=1",
             f"seed={B}", "device=cuda", f"ckpt_path={path}",
-            f"out={os.path.join(tmp, 'out')}"])
+            f"out={os.path.join(tmp, 'out')}",
+            f"transformer.num_layers={CKPT_CUT_LAYERS}"])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         launches = ca.cosine_attention_cuda.launches
@@ -2510,7 +2543,8 @@ def checkpoint_phase(cfg, ar_cfg):
         tf = cfg.transformer
         steps = cfg.muse.sample_iterations
         expect = (steps + steps - 1) * tf.num_layers * 2
-        print(f"[ckpt] MUSE argoverse_muse_7cam: reference .ckpt "
+        print(f"[ckpt] MUSE argoverse_muse_7cam cut to {CKPT_CUT_LAYERS} "
+              f"layers: reference .ckpt "
               f"{size / 1e6:.1f} MB written in {write_s:.1f} s; the generate "
               f"CLI (seed {B}, ckpt_path) in {cli_s:.1f} s: parameters equal "
               f"to seed {A}'s bit for bit {same} ({n_diff} of {n_par} "
@@ -3678,9 +3712,9 @@ def int8_ar_phase(cfg, bf16_e2e):
 
 def int8_cli_phase(cfg, ar_cfg):
     """Phase 38: the generate CLI with quant=int8 and quant=auto for both
-    pipelines (MUSE at full width, b=2; AR at full width cut to 1 layer,
-    b=1): the mode served, the int8 kernels launched, the crossover table's
-    card beside this card."""
+    pipelines (MUSE at full width cut to CKPT_CUT_LAYERS layers, b=2; AR at
+    full width cut to 1 layer, b=1): the mode served, the int8 kernels
+    launched, the crossover table's card beside this card."""
     import os
     import tempfile
     import torch
@@ -3692,8 +3726,9 @@ def int8_cli_phase(cfg, ar_cfg):
     print(f"[int8-cli] crossover table (bevgen_torch/configs/"
           f"int8_crossover.json) measured on {table['chip']!r}; this card "
           f"{card!r}", flush=True)
-    runs = [("muse", "int8", ["fake=1", "batch_size=2"]),
-            ("muse", "auto", ["fake=2", "batch_size=2"]),
+    cut = f"transformer.num_layers={CKPT_CUT_LAYERS}"
+    runs = [("muse", "int8", ["fake=1", "batch_size=2", cut]),
+            ("muse", "auto", ["fake=2", "batch_size=2", cut]),
             ("ar", "int8", ["pipeline=ar", "transformer.num_layers=1",
                             "fake=1", "batch_size=1"]),
             ("ar", "auto", ["pipeline=ar", "transformer.num_layers=1",
@@ -4781,7 +4816,7 @@ REMAT_TIMED = 3
 REMAT_GRAD_RTOL = 1e-6
 # Phase 48: the train CLI at full width with ckpt_minutes=0 (a save every
 # step), once synchronous and once asynchronous, then resumed
-ASYNC_STEPS = 3
+ASYNC_STEPS = 1
 
 
 def remat_launch_rule(layers, forwards, glue):
@@ -5204,6 +5239,730 @@ def knob_kernel_entries(cfg, remat, ckpt_async, drill, train_fwd_stats,
 
 
 
+# Phases 50-51: data parallelism on torch.distributed
+# (`bevgen_torch/parallel/`). The card's machine has one H100 and NCCL
+# takes one rank per device, so phase 50 runs two rank processes on cuda:0
+# over gloo, passed explicitly, with CUDA tensors: each runs the four
+# sharded entry points at its local batch (the kernels at its local
+# shapes), and this process holds their results against one-process runs.
+# Two ranks sharing one card say nothing about scaling: the phase's
+# seconds are printed as such. Phase 51 runs the same entry points through
+# an nccl group of one process against the unsharded functions.
+DP_WORLD = 2
+DP_TRAIN_BATCH = 8           # global MaskGit batch, 4 a rank
+DP_AR_TRAIN_BATCH = 4        # global AR batch, 2 a rank
+DP_GEN_BATCH = 2             # global generate batch, 1 a rank
+DP_STEPS = 2                 # the first has lr 0 (warm-up), the second moves
+DP_TIMEOUT_S = 480           # a rank slower than this fails the phase
+# where AdamW's sliced update differs from the whole one after all, each
+# parameter group within 1e-6 of its largest entry (the group named)
+DP_PARAM_RTOL = 1e-6
+DP_LOSS_RTOL = 1e-3          # dp=2 against one process at the global batch
+DP_GRAD_COS_MIN = 0.999
+NCCL_AR_LAYERS = 2           # phase 51's AR generate, full width
+
+
+def _json_counts(counter):
+    return {"x".join(map(str, k)) if isinstance(k, tuple) else str(k): v
+            for k, v in counter.items()}
+
+
+def dp_collectives(mesh):
+    """The collectives the port uses, on CUDA tensors of this backend:
+    all_reduce (sum of fp32 and int64, max), broadcast, all_gather."""
+    import torch
+    import torch.distributed as dist
+    r, n, dev = mesh.rank, mesh.size, mesh.device
+    checks = {}
+    t = torch.full((5,), float(r + 1), device=dev)
+    dist.all_reduce(t)
+    checks["all_reduce"] = bool((t == n * (n + 1) / 2).all())
+    c = torch.tensor([r + 3], device=dev)
+    dist.all_reduce(c)
+    checks["all_reduce_int64"] = int(c.item()) == sum(i + 3 for i in range(n))
+    m = torch.tensor([r], device=dev)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX)
+    checks["all_reduce_max"] = int(m.item()) == n - 1
+    b = torch.full((3,), float(r + 7), device=dev)
+    dist.broadcast(b, src=0)
+    checks["broadcast"] = bool((b == 7.0).all())
+    parts = [torch.empty(2, device=dev) for _ in range(n)]
+    dist.all_gather(parts, torch.full((2,), float(r), device=dev))
+    checks["all_gather"] = all(bool((p == i).all()) for i, p in enumerate(parts))
+    if not all(checks.values()):
+        raise SystemExit(f"collectives on CUDA tensors failed: {checks}")
+    return checks
+
+
+def _params_equal_on_ranks(mesh, model):
+    """Whether every rank holds rank 0's parameters bit for bit."""
+    import torch
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    ref = flat.clone()
+    mesh.broadcast_([ref])
+    return not mesh.any(not torch.equal(flat, ref))
+
+
+def _rank_rows(batch, mesh, rows):
+    return to_device({k: v[mesh.rank * rows:(mesh.rank + 1) * rows]
+                      for k, v in batch.items()})
+
+
+def dp_train(mesh, cfg, out, ar):
+    """One rank's sharded train steps from the seed-0 init: the MaskGit at
+    global b=8 or the AR GPT at global b=4, DP_STEPS steps, with each
+    step's launches; rank 0 saves the final parameters. Only rank 0 draws
+    the init: the sharded step broadcasts its parameters."""
+    import torch
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.stage2.gpt import SparseGPT
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    from bevgen_torch.training import optim, trainer
+    tf = cfg.transformer
+    B = DP_AR_TRAIN_BATCH if ar else DP_TRAIN_BATCH
+    seed = 0 if mesh.rank == 0 else None
+    if ar:
+        model = SparseGPT(tf, torch.bfloat16, param_dtype=torch.float32)
+        if seed is not None:
+            init_weights(model, seed)
+        model = model.to("cuda")
+        opt = optim.maskgit_optimizer(model, 1e-4, warmup_steps=1)
+        step, state = trainer.make_ar_sharded_train_step(
+            model, opt, mesh, trainer.create_ar_train_state(model, opt))
+    else:
+        model = _maskgit(tf, cfg, seed)
+        opt = optim.maskgit_optimizer(model, 1e-4, warmup_steps=1)
+        step, state = trainer.make_sharded_train_step(
+            model, opt, mesh, trainer.create_train_state(model, opt))
+    batches = fake_batches(tf, B, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = B // mesh.size
+    res = {"metrics": [], "launches": [], "s": []}
+    for _ in range(DP_STEPS):
+        batch = _rank_rows(next(batches), mesh, rows)
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        bs.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(state, batch) if ar else step(state, batch, gen)
+        torch.cuda.synchronize()
+        res["s"].append(time.perf_counter() - t0)
+        if ar:
+            res["launches"].append({
+                "fwd": _json_counts(bs.block_sparse_attention_cuda.launches_by_shape),
+                "bwd": _json_counts(bs.block_sparse_attention_bwd_cuda.launches_by_shape)})
+        else:
+            fwd, bwd = _by_shape()
+            res["launches"].append({"fwd": _json_counts(fwd),
+                                    "bwd": _json_counts(bwd)})
+        res["metrics"].append({k: float(v) for k, v in m.items()})
+    res["equal"] = _params_equal_on_ranks(mesh, model)
+    res["moments_sliced"] = sum(a is not None for a in opt.plan.axes.values())
+    if mesh.rank == 0:
+        torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+                   os.path.join(out, f"{'ar' if ar else 'muse'}_params.pt"))
+    return res
+
+
+def dp_generate(mesh, cfg, out, ar):
+    """One rank's sharded generate (global b=2, 1 a rank) from the seed-0
+    pipeline (rank 0's, broadcast by shard_params), with its launches; its
+    ids and images saved."""
+    import numpy as np
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops import decode_attention as da
+    from bevgen_torch.pipelines import ar_generate, generate
+    pipe_cls, make = ((ar_generate.ARPipeline, ar_generate.make_sharded_ar_generate)
+                      if ar else (generate.BEVGenPipeline,
+                                  generate.make_sharded_generate))
+    pipe = pipe_cls.create(cfg, device="cuda")
+    if mesh.rank == 0:
+        pipe.init_params(seed=0)
+    run, shard_params, shard_batch = make(pipe, mesh)
+    shard_params(pipe)
+    batch = fake_batch(cfg, DP_GEN_BATCH, seed=0)
+    seg, ii, ei = shard_batch(batch["segmentation"], batch["intrinsics_inv"],
+                              batch["extrinsics_inv"])
+    torch.cuda.synchronize()
+    ca.reset_launch_counts()
+    da.reset_launch_counts()
+    t0 = time.perf_counter()
+    images, ids = run(seg, ii, ei, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    name = "ar" if ar else "muse"
+    np.savez(os.path.join(out, f"{name}_gen_rank{mesh.rank}.npz"),
+             ids=ids.cpu().numpy(), images=images.float().cpu().numpy())
+    return {"s": s, "row1": _json_counts(ca.cosine_attention_cuda.launches_by_shape),
+            "row11": _json_counts(da.decode_attention_cuda.launches_by_shape)}
+
+
+def dp_rank_main(rank, world, rdv, out):
+    """Phase 50's rank process: joins a gloo group of `world` ranks on
+    cuda:0 (file rendezvous `rdv`), checks the collectives, runs the MaskGit
+    and AR sharded steps and the MUSE and AR sharded generates, and writes
+    its results to `out`/rank<r>.json. Any failure exits non-zero."""
+    import datetime
+    import torch
+    from bevgen_torch.core.config import (argoverse_muse_7cam_config,
+                                          nuscenes_ar_config)
+    from bevgen_torch.parallel import distributed, sharding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"file://{rdv}", world, rank, backend="gloo",
+                           device="cuda:0",
+                           timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    mesh = sharding.make_mesh(dp=world, device="cuda:0")
+    cfg, ar_cfg = argoverse_muse_7cam_config(), nuscenes_ar_config()
+    res = {"rank": rank, "collectives": dp_collectives(mesh)}
+    for key, fn, c, ar in (("muse_train", dp_train, cfg, False),
+                           ("muse_generate", dp_generate, cfg, False),
+                           ("ar_train", dp_train, ar_cfg, True),
+                           ("ar_generate", dp_generate, ar_cfg, True)):
+        t0 = time.perf_counter()
+        res[key] = fn(mesh, c, out, ar)
+        torch.cuda.empty_cache()
+        print(f"[dp rank {rank}] {key}: {time.perf_counter() - t0:.1f} s, "
+              f"{ {k: v for k, v in res[key].items() if k != 'metrics'} }",
+              flush=True)
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    distributed.shutdown()
+    return 0
+
+
+def run_ranks(world, tmp, meanwhile):
+    """Start `world` rank processes (`dp_rank_main`) from this checkout, run
+    `meanwhile()` here while they run, and wait for them; a rank that fails
+    or outlives DP_TIMEOUT_S fails the phase, and the others are killed at
+    once (they would wait in a collective until the group's timeout).
+    Returns (their output directory, each rank's results, meanwhile's)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, "dp")
+    os.makedirs(out, exist_ok=True)
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import sys, chip_smoke as cs; sys.exit("
+         f"cs.dp_rank_main({r}, {world}, {os.path.join(out, 'rdv')!r}, "
+         f"{out!r}))"], cwd=repo, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        extra = meanwhile()
+        while any(p.poll() is None for p in procs):
+            if (time.monotonic() > deadline
+                    or any(p.poll() not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.log")) as f:
+            for line in f.read().splitlines():
+                print(line if line.startswith("[dp ")
+                      else f"[dp rank {r} out] {line}", flush=True)
+    codes = [p.returncode for p in procs]
+    if any(c != 0 for c in codes):
+        raise SystemExit(f"data-parallel ranks failed or ran past "
+                         f"{DP_TIMEOUT_S} s (exit codes {codes})")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return out, ranks, extra
+
+
+def emulate_dp_step(state, batch, gen, ways, ar):
+    """One data-parallel step of `ways` ranks in one process: each rank's
+    rows' loss and gradients (the draws from the generator's state at the
+    step's start, the MaskGit's masked count summed over the ranks first),
+    the gradients summed in rank order, then the update the ranks make.
+    Returns (metrics, summed gradients)."""
+    import torch
+    from bevgen_torch.models.stage2.ar import ar_loss
+    from bevgen_torch.models.stage2.maskgit import maskgit_loss
+    from bevgen_torch.parallel.sharding import BatchShard
+    from bevgen_torch.training import optim
+    model, opt = state.model, state.optimizer
+    model.train()
+    b = batch["tokens"].shape[0]
+    rows = b // ways
+    args = ("tokens", "cond_ids", "intrinsics_inv", "extrinsics_inv")
+
+    def part(r):
+        return [batch[k][r * rows:(r + 1) * rows] for k in args]
+
+    start = None if ar else gen.get_state()
+    if not ar:   # the masked count of every rank's rows, as the all_reduce sums it
+        counts = []
+        for r in range(ways):
+            gen.set_state(start)
+            with torch.no_grad():
+                maskgit_loss(model, *part(r), generator=gen, shard=BatchShard(
+                    b, r * rows, lambda t: counts.append(t) or t))
+        total = sum(counts)
+    grads, terms = None, None
+    for r in range(ways):
+        if ar:
+            out = ar_loss(model, *part(r), deterministic=True) / ways
+            t = out.detach()[None]
+        else:
+            gen.set_state(start)
+            loss = maskgit_loss(model, *part(r), generator=gen, shard=BatchShard(
+                b, r * rows, lambda c: total.clone()))
+            out = loss.loss
+            t = torch.stack([loss.loss, loss.ce_loss, loss.critic_loss]).detach()
+        g = torch.autograd.grad(out, opt.params, allow_unused=True)
+        g = [torch.zeros_like(p) if x is None else x
+             for x, p in zip(g, opt.params)]
+        grads = g if grads is None else [a + x for a, x in zip(grads, g)]
+        terms = t if terms is None else terms + t
+        del out, g
+    grad_norm = optim.global_norm(grads)
+    ok = bool(torch.isfinite(terms[0]) & torch.isfinite(grad_norm))
+    if ok or ar:
+        opt.step(grads)
+    if not ar:
+        optim.ema_update(state.ema, model)
+    state.step += 1
+    keys = ("loss",) if ar else ("loss", "ce_loss", "critic_loss")
+    return {**{k: float(v) for k, v in zip(keys, terms)},
+            "grad_norm": float(grad_norm)}, grads
+
+
+def seeded_train_model(cfg, ar):
+    """The ranks' seed-0 train model (fp32 parameters, bf16 compute) on the
+    card: the MaskGit or the AR GPT."""
+    import torch
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.stage2.gpt import SparseGPT
+    if not ar:
+        return _maskgit(cfg.transformer, cfg)
+    return init_weights(SparseGPT(cfg.transformer, torch.bfloat16,
+                                  param_dtype=torch.float32), 0).to("cuda")
+
+
+def fresh_train_state(seeded, ar):
+    """A train state over a copy of `seeded` with the ranks' optimizer."""
+    import copy
+    from bevgen_torch.training import optim, trainer
+    m = copy.deepcopy(seeded)
+    opt = optim.maskgit_optimizer(m, 1e-4, warmup_steps=1)
+    return (trainer.create_ar_train_state(m, opt) if ar
+            else trainer.create_train_state(m, opt))
+
+
+def dp_train_reference(cfg, out, ranks, ar, seeded):
+    """Phase 50's one-process checks of a sharded train step: the ranks'
+    final parameters against `emulate_dp_step` from the same init (bit for
+    bit, else each group within DP_PARAM_RTOL), and their first step's loss
+    and gradients against one process's step at the global batch. `seeded`:
+    the seed-0 model, copied for each run."""
+    import torch
+    from bevgen_torch.models.stage2.ar import ar_loss
+    from bevgen_torch.models.stage2.maskgit import maskgit_loss
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    tf = cfg.transformer
+    B = DP_AR_TRAIN_BATCH if ar else DP_TRAIN_BATCH
+    key = "ar_train" if ar else "muse_train"
+    group = ar_grad_group if ar else grad_group
+
+    def fresh():
+        return fresh_train_state(seeded, ar)
+
+    batches = [to_device(b) for b, _ in zip(fake_batches(tf, B, seed=0),
+                                            range(DP_STEPS))]
+    args = ("tokens", "cond_ids", "intrinsics_inv", "extrinsics_inv")
+    # one process at the global batch: the first step's loss and gradients
+    state = fresh()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if ar:
+        loss = ar_loss(state.model, *(batches[0][k] for k in args),
+                       deterministic=True)
+    else:
+        loss = maskgit_loss(state.model, *(batches[0][k] for k in args),
+                            generator=gen).loss
+    whole = torch.autograd.grad(loss, state.optimizer.params, allow_unused=True)
+    whole_loss = float(loss.detach())
+    del loss, state
+    # the ranks' step in one process
+    state = fresh()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    emulated = []
+    for i, batch in enumerate(batches):
+        m, grads = emulate_dp_step(state, batch, gen, DP_WORLD, ar)
+        emulated.append(m)
+        if i == 0:
+            names = [n for n, _ in state.model.named_parameters()]
+            dots = {}
+            for n, a, w in zip(names, grads, whole):
+                if w is None:
+                    continue
+                d = dots.setdefault(group(n), [0.0, 0.0, 0.0])
+                a, w = a.double(), w.double()
+                d[0] += float((a * w).sum())
+                d[1] += float((a * a).sum())
+                d[2] += float((w * w).sum())
+        del grads
+    cos = {g: d[0] / max((d[1] * d[2]) ** 0.5, 1e-30) for g, d in dots.items()}
+    saved = torch.load(os.path.join(out, f"{'ar' if ar else 'muse'}_params.pt"))
+    worst, differ = {}, 0
+    for n, p in state.model.named_parameters():
+        got = saved[n].to("cuda")
+        if not torch.equal(got, p.detach()):
+            differ += 1
+        g = group(n)
+        d = float((got - p.detach()).abs().max())
+        scale = float(p.detach().abs().max())
+        worst[g] = max(worst.get(g, 0.0), d / max(scale, 1e-30))
+    rank_loss = ranks[0][key]["metrics"][0]["loss"]
+    rel = abs(rank_loss - whole_loss) / max(abs(whole_loss), 1e-30)
+    print(f"[dp] {key}: the ranks' losses "
+          f"{[[round(m['loss'], 6) for m in r[key]['metrics']] for r in ranks]}"
+          f", one process emulating them {[round(m['loss'], 6) for m in emulated]}"
+          f"; parameters after {DP_STEPS} steps against the emulation: "
+          f"{differ} of {len(saved)} tensors differ"
+          f"{'' if not differ else f', max |dp| / max |p| by group {worst}'}"
+          f"; step 1 against one process at b={B}: loss {rank_loss:.6f} vs "
+          f"{whole_loss:.6f} (rel {rel:.2e}, max {DP_LOSS_RTOL}), gradient "
+          f"cosine min {min(cos.values()):.6f} "
+          f"({min(cos, key=cos.get)}; min {DP_GRAD_COS_MIN})", flush=True)
+    if differ and max(worst.values()) > DP_PARAM_RTOL:
+        bad = {g: w for g, w in worst.items() if w > DP_PARAM_RTOL}
+        raise SystemExit(f"{key}: the dp=2 parameters differ from the "
+                         f"one-process sum of halves in {bad}")
+    if not (rel <= DP_LOSS_RTOL and min(cos.values()) >= DP_GRAD_COS_MIN):
+        raise SystemExit(f"{key}: the dp=2 step disagrees with one process "
+                         f"at b={B}: loss rel {rel}, cosines {cos}")
+    return {"differ": differ, "loss_rel": rel, "grad_cos_min": min(cos.values())}
+
+
+def dp_generate_reference(cfg, ar):
+    """One process's `generate_fn` on each rank's row with the ranks' draws
+    (run while the ranks run). Returns (the pipeline, [(ids, images)] per
+    rank)."""
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.parallel.sharding import BatchShard
+    from bevgen_torch.pipelines.ar_generate import ARPipeline
+    from bevgen_torch.pipelines.generate import BEVGenPipeline
+    pipe = (ARPipeline if ar else BEVGenPipeline).create(
+        cfg, device="cuda").init_params(seed=0)
+    batch = fake_batch(cfg, DP_GEN_BATCH, seed=0)
+    outs = []
+    for r in range(DP_WORLD):
+        rows = slice(r, r + 1)
+        images, ids = pipe.generate_fn(
+            batch["segmentation"][rows], batch["intrinsics_inv"][rows],
+            batch["extrinsics_inv"][rows],
+            torch.Generator(device="cuda").manual_seed(1),
+            shard=BatchShard(DP_GEN_BATCH, r))
+        outs.append((ids.cpu().numpy(), images.float().cpu().numpy()))
+    return pipe, outs
+
+
+def dp_generate_check(out, ar, want):
+    """Each rank's sharded generate output against `want`, one process on
+    its row, bit for bit."""
+    import numpy as np
+    name = "ar" if ar else "muse"
+    equal = []
+    for r, (ids, images) in enumerate(want):
+        got = np.load(os.path.join(out, f"{name}_gen_rank{r}.npz"))
+        equal.append(bool(np.array_equal(got["ids"], ids)
+                          and np.array_equal(got["images"], images)))
+    print(f"[dp] {name} generate: each rank's ids and images against one "
+          f"process on its row with the same draws, bit for bit: {equal}",
+          flush=True)
+    if not all(equal):
+        raise SystemExit(f"{name}: a rank's sharded generate differs from "
+                         f"one process on its rows")
+    return equal
+
+
+def dp_kernel_checks(cfg, ar_cfg):
+    """Rows 1, 8, 9 and 10 against their plain versions at each rank's
+    local shapes: row 1 at b=4 (train) and b=1 (serve), row 8 at b=4, rows 9
+    (with the lse) and 10 at b=2 (row 11 at b=1 is phase 46's)."""
+    tf = cfg.transformer
+    H, D, N, NC = tf.num_heads, tf.dim_head, tf.num_img_tokens, tf.num_cond_tokens
+    tb, gb = DP_TRAIN_BATCH // DP_WORLD, DP_GEN_BATCH // DP_WORLD
+    out = {"row1": {}, "row8": {}}
+    for i, (b, shape, m) in enumerate(((tb, "self", N), (tb, "cross", NC),
+                                       (gb, "self", N), (gb, "cross", NC))):
+        out["row1"][(b, shape)] = check_kernel(f"dp rank {shape} b{b}", b, H,
+                                               N, m, D, True, None, 90 + i)
+    for i, (shape, m) in enumerate((("self", N + 1), ("cross", NC + 1))):
+        out["row8"][shape] = check_bwd(f"dp rank train {shape} b{tb}", tb, H,
+                                       N, m, D, True, None, 94 + i)
+    ab = DP_AR_TRAIN_BATCH // DP_WORLD
+    out["row9"] = check_block_sparse(f"dp rank train b{ab} +lse",
+                                     "nuscenes_ar", ab, False, 96,
+                                     time_lse=True)
+    at, layouts = ar_layout("nuscenes_ar")
+    out["row10"] = check_block_sparse_bwd(
+        f"dp rank train b{ab}", layouts, at.gpt_block_size,
+        at.sparse_block_size, at.num_cond_tokens, at.num_pad_tokens, ab,
+        False, 97)
+    return out
+
+
+def dp_phase(cfg, ar_cfg, tmp):
+    """Phase 50: two gloo ranks on the one card (see DP_WORLD)."""
+    import torch
+    print(f"[dp] torch {torch.__version__}, {DP_WORLD} ranks on cuda:0 over "
+          f"gloo with CUDA tensors", flush=True)
+    t0 = time.perf_counter()
+    refs = {}
+
+    def meanwhile():
+        # the host-bound one-process generates overlap the ranks' work
+        for ar, c in ((False, cfg), (True, ar_cfg)):
+            refs[ar] = dp_generate_reference(c, ar)
+            print(f"[dp] the one-process {'AR' if ar else 'MUSE'} generates "
+                  f"of each rank's row: done at "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    out, ranks, _ = run_ranks(DP_WORLD, tmp, meanwhile)
+    ranks_s = time.perf_counter() - t0
+    tf, at = cfg.transformer, ar_cfg.transformer
+    nl, al = tf.num_layers, at.num_layers
+    for r, res in enumerate(ranks):
+        for i, step in enumerate(res["muse_train"]["launches"]):
+            n_fwd, n_bwd = sum(step["fwd"].values()), sum(step["bwd"].values())
+            if (n_fwd, n_bwd) != (4 * nl, 12 * nl):
+                raise SystemExit(f"rank {r} MaskGit step {i + 1}: {n_fwd} "
+                                 f"row-1 and {n_bwd} row-8 launches, expected "
+                                 f"{4 * nl} and {12 * nl}")
+        for i, step in enumerate(res["ar_train"]["launches"]):
+            n_fwd, n_bwd = sum(step["fwd"].values()), sum(step["bwd"].values())
+            if (n_fwd, n_bwd) != (al, 2 * al):
+                raise SystemExit(f"rank {r} AR step {i + 1}: {n_fwd} row-9 "
+                                 f"and {n_bwd} row-10 launches, expected "
+                                 f"{al} and {2 * al}")
+        n1 = sum(res["muse_generate"]["row1"].values())
+        steps = cfg.muse.sample_iterations
+        if n1 != (2 * steps - 1) * nl * 2:
+            raise SystemExit(f"rank {r} MUSE generate: {n1} row-1 launches")
+        n11 = sum(res["ar_generate"]["row11"].values())
+        if n11 != al * at.num_img_tokens:
+            raise SystemExit(f"rank {r} AR generate: {n11} row-11 launches")
+        if not (res["muse_train"]["equal"] and res["ar_train"]["equal"]):
+            raise SystemExit(f"rank {r} holds parameters other than rank 0's")
+        print(f"[dp] rank {r}: collectives {res['collectives']}; launches per "
+              f"rank: MaskGit step {res['muse_train']['launches'][-1]}, AR step "
+              f"{res['ar_train']['launches'][-1]}, MUSE generate "
+              f"{res['muse_generate']['row1']}, AR generate "
+              f"{res['ar_generate']['row11']}; step s MaskGit "
+              f"{[round(s, 4) for s in res['muse_train']['s']]}, AR "
+              f"{[round(s, 4) for s in res['ar_train']['s']]}; generate s MUSE "
+              f"{res['muse_generate']['s']:.3f}, AR "
+              f"{res['ar_generate']['s']:.3f}; moments sliced "
+              f"{res['muse_train']['moments_sliced']} / "
+              f"{res['ar_train']['moments_sliced']} tensors; parameters equal "
+              f"to rank 0's; peak {res['peak_gb']:.2f} GB", flush=True)
+    print(f"[dp] the two ranks: {ranks_s:.1f} s (two ranks sharing one card: "
+          f"no scaling number)", flush=True)
+    ref = {"muse_generate": dp_generate_check(out, False, refs[False][1]),
+           "ar_generate": dp_generate_check(out, True, refs[True][1])}
+    seeded = {}
+    for ar, c in ((False, cfg), (True, ar_cfg)):
+        seeded[ar] = seeded_train_model(c, ar)
+        ref["ar_train" if ar else "muse_train"] = dp_train_reference(
+            c, out, ranks, ar, seeded[ar])
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    checks = dp_kernel_checks(cfg, ar_cfg)
+    print(f"[dp] the kernels at the ranks' shapes: "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    # phase 51 starts from the same seeded models and MUSE pipeline
+    return {"ranks": ranks, "ref": ref, "checks": checks, "ranks_s": ranks_s,
+            "seeded": seeded, "muse_pipe": refs[False][0]}
+
+
+def nccl_phase(cfg, ar_cfg, tmp, shared):
+    """Phase 51: the four sharded entry points through an nccl group of one
+    process against the unsharded functions, bit for bit, from phase 50's
+    seed-0 models (`shared`)."""
+    import dataclasses as dc
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops import decode_attention as da
+    from bevgen_torch.parallel import sharding
+    from bevgen_torch.pipelines import ar_generate, generate
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    from bevgen_torch.training import trainer
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "nccl_rdv"), world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        mesh = sharding.make_mesh(dp=1, device="cuda:0")
+        backend = dist.get_backend(mesh.group)
+        res = {"backend": backend, "launches": {}}
+        # the two train steps, each from the seed-0 init, DP_STEPS steps
+        for ar, c, B in ((False, cfg, DP_TRAIN_BATCH // DP_WORLD),
+                         (True, ar_cfg, DP_AR_TRAIN_BATCH // DP_WORLD)):
+            tf = c.transformer
+            runs = []
+            for sharded in (False, True):
+                state = fresh_train_state(shared["seeded"][ar], ar)
+                model, opt = state.model, state.optimizer
+                if ar:
+                    step = (trainer.make_ar_sharded_train_step(
+                        model, opt, mesh, state)[0] if sharded
+                        else trainer.make_ar_train_step())
+                else:
+                    step = (trainer.make_sharded_train_step(
+                        model, opt, mesh, state)[0] if sharded
+                        else trainer.make_train_step())
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                metrics = []
+                for batch in (to_device(b) for b, _ in zip(
+                        fake_batches(tf, B, seed=0), range(DP_STEPS))):
+                    _reset_launch_counts()
+                    bs.reset_launch_counts()
+                    m = step(state, batch) if ar else step(state, batch, gen)
+                    metrics.append({k: float(v) for k, v in m.items()})
+                if sharded:
+                    fwd, bwd = ((dict(bs.block_sparse_attention_cuda.launches_by_shape),
+                                 dict(bs.block_sparse_attention_bwd_cuda.launches_by_shape))
+                                if ar else _by_shape())
+                    res["launches"]["ar_train" if ar else "muse_train"] = {
+                        "fwd": fwd, "bwd": bwd}
+                runs.append((metrics, [p.detach().clone()
+                                       for p in model.parameters()]))
+                del model, opt, state, step
+            same = (runs[0][0] == runs[1][0]
+                    and all(torch.equal(a, b) for a, b in zip(runs[0][1],
+                                                              runs[1][1])))
+            res["ar_train" if ar else "muse_train"] = same
+            del runs
+            torch.cuda.empty_cache()
+        # the two generates: MUSE at b=2, AR at b=1 cut to NCCL_AR_LAYERS
+        for ar in (False, True):
+            c = (dc.replace(ar_cfg, transformer=ar_cfg.transformer.replace(
+                num_layers=NCCL_AR_LAYERS)) if ar else cfg)
+            B = 1 if ar else DP_GEN_BATCH
+            make = (ar_generate.make_sharded_ar_generate if ar
+                    else generate.make_sharded_generate)
+            pipe = (ar_generate.ARPipeline.create(c, device="cuda").init_params(
+                seed=0) if ar else shared["muse_pipe"])
+            batch = fake_batch(c, B, seed=0)
+            arrays = (batch["segmentation"], batch["intrinsics_inv"],
+                      batch["extrinsics_inv"])
+            want = pipe.generate_fn(*arrays, torch.Generator(
+                device="cuda").manual_seed(1))
+            run, shard_params, shard_batch = make(pipe, mesh)
+            shard_params(pipe)
+            ca.reset_launch_counts()
+            da.reset_launch_counts()
+            got = run(*shard_batch(*arrays), torch.Generator(
+                device="cuda").manual_seed(1))
+            key = "ar_generate" if ar else "muse_generate"
+            res["launches"][key] = (dict(da.decode_attention_cuda.launches_by_shape)
+                                    if ar else dict(
+                                        ca.cosine_attention_cuda.launches_by_shape))
+            res[key] = all(np.array_equal(a.float().cpu().numpy(),
+                                          b.float().cpu().numpy())
+                           for a, b in zip(got, want))
+            del pipe
+    finally:
+        dist.destroy_process_group()
+    print(f"[nccl] backend {res['backend']}, world size 1: sharded against "
+          f"unsharded, bit for bit: MaskGit step {res['muse_train']}, AR step "
+          f"{res['ar_train']}, MUSE generate {res['muse_generate']}, AR "
+          f"generate ({NCCL_AR_LAYERS} layers) {res['ar_generate']}; "
+          f"launches {res['launches']}", flush=True)
+    if not all(res[k] for k in ("muse_train", "ar_train", "muse_generate",
+                                "ar_generate")):
+        raise SystemExit("an nccl world-size-1 entry point differs from the "
+                         "unsharded function")
+    return res
+
+
+def dp_kernel_entries(cfg, ar_cfg, dp, nccl, serve_stats, row11_stats):
+    """The kernels line's entries of phases 50 and 51: each kernel at each
+    rank's local shapes with rank 0's launches (phase 50; the checks of
+    `dp_kernel_checks`), and at phase 51's shapes with its launches (b=2
+    serving: phase 3's checks; row 11 at b=1: phase 46's)."""
+    from bevgen_torch.ops import attention_bwd as ab
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops import decode_attention as da
+    tf, at = cfg.transformer, ar_cfg.transformer
+    N, NC = tf.num_img_tokens, tf.num_cond_tokens
+    L, blk = at.gpt_block_size, at.sparse_block_size
+    tb, gb = DP_TRAIN_BATCH // DP_WORLD, DP_GEN_BATCH // DP_WORLD
+    ab_ = DP_AR_TRAIN_BATCH // DP_WORLD
+    checks, r0 = dp["checks"], dp["ranks"][0]
+    muse_step = r0["muse_train"]["launches"][-1]
+    ar_step = r0["ar_train"]["launches"][-1]
+    out = []
+
+    def add(name, src, rep, launches, st):
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": rep, "launches": launches, **st})
+
+    for shape, m in (("self", N), ("cross", NC)):
+        add(f"cosine_attention_fwd[dp=2 rank train {shape} b{tb} {N}x{m}]",
+            ca.SOURCE, ca.REPLACES, muse_step["fwd"].get(f"{N}x{m}", 0),
+            checks["row1"][(tb, shape)])
+        add(f"cosine_attention_fwd[nccl world 1 train {shape} b{tb} {N}x{m}]",
+            ca.SOURCE, ca.REPLACES,
+            nccl["launches"]["muse_train"]["fwd"].get((N, m), 0),
+            checks["row1"][(tb, shape)])
+    for shape, m in (("self", N + 1), ("cross", NC + 1)):
+        add(f"attention_bwd[dp=2 rank train {shape} b{tb} {N}x{m}, 3 kernels]",
+            ab.SOURCE, ab.REPLACES, muse_step["bwd"].get(f"{N}x{m}", 0),
+            checks["row8"][shape])
+        add(f"attention_bwd[nccl world 1 train {shape} b{tb} {N}x{m}, "
+            f"3 kernels]", ab.SOURCE, ab.REPLACES,
+            nccl["launches"]["muse_train"]["bwd"].get((N, m), 0),
+            checks["row8"][shape])
+    for shape, m in (("self", N), ("cross", NC)):
+        add(f"cosine_attention_fwd[dp=2 rank serve {shape} b{gb} {N}x{m}]",
+            ca.SOURCE, ca.REPLACES,
+            r0["muse_generate"]["row1"].get(f"{N}x{m}", 0),
+            checks["row1"][(gb, shape)])
+        add(f"cosine_attention_fwd[nccl world 1 serve {shape} b{DP_GEN_BATCH} "
+            f"{N}x{m}]", ca.SOURCE, ca.REPLACES,
+            nccl["launches"]["muse_generate"].get((N, m), 0),
+            serve_stats[shape])
+    for run, fwd, bwd in (("dp=2 rank", ar_step["fwd"].get(f"{L}x{blk}", 0),
+                           sum(ar_step["bwd"].values())),
+                          ("nccl world 1",
+                           nccl["launches"]["ar_train"]["fwd"].get((L, blk), 0),
+                           sum(nccl["launches"]["ar_train"]["bwd"].values()))):
+        add(f"block_sparse_fwd[{run} train nuscenes_ar b{ab_} L{L} block "
+            f"{blk}, with lse]", bs.SOURCE, bs.REPLACES, fwd,
+            checks["row9"])
+        add(f"block_sparse_bwd[{run} train nuscenes_ar b{ab_} L{L} block "
+            f"{blk}, 2 kernels]", bs.BWD_SOURCE, bs.BWD_REPLACES, bwd,
+            checks["row10"])
+    for run, counts in (("dp=2 rank", {int(k): v for k, v in
+                                       r0["ar_generate"]["row11"].items()}),
+                        (f"nccl world 1, {NCCL_AR_LAYERS} layers",
+                         nccl["launches"]["ar_generate"])):
+        for pl, n in sorted(counts.items()):
+            add(f"decode_attention[{run} b1 H{at.num_heads} pl{pl}]",
+                da.SOURCE, da.REPLACES, n, row11_stats[pl])
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5546,6 +6305,14 @@ def main() -> int:
         ckpt_async = timed_phase(48, ckpt_async_phase, cfg, tmp)
         drill = timed_phase(49, drill_phase, tmp)
 
+    # 50-51. data parallelism: two gloo ranks on the one card, then the
+    # sharded entry points through an nccl group of one process
+    with tempfile.TemporaryDirectory() as tmp:
+        dp = timed_phase(50, dp_phase, cfg, ar_cfg, tmp)
+        nccl = timed_phase(51, nccl_phase, cfg, ar_cfg, tmp, dp)
+    del dp["seeded"], dp["muse_pipe"]
+    torch.cuda.empty_cache()
+
     kernels = []
     for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
         kernels.append({
@@ -5674,7 +6441,9 @@ def main() -> int:
     kernels.extend(inference_kernel_entries(inference_res, bsb_stats))
     kernels.extend(knob_kernel_entries(cfg, remat, ckpt_async, drill,
                                        train_fwd_stats, bwd_stats, glue_stats))
-    print(f"[time] phases 1-49: {time.perf_counter() - t_start:.1f} s",
+    kernels.extend(dp_kernel_entries(cfg, ar_cfg, dp, nccl, stats,
+                                     inference_res["checks"]["row11"]))
+    print(f"[time] phases 1-51: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,8 +3,10 @@
 counterpart of `bevgen_tpu/scripts/cli.py:setup_platform`), and in the
 generate CLI `print_config` (the composed config as plain text, with the
 extra keys of `bevgen_tpu/scripts/generate.py`) and the mesh axes `dp`,
-`tp`, `dcn` at 1. Above one device, an unknown platform, or a platform that
-disagrees with `device=`, they exit.
+`tp`, `dcn` (`scripts/cli.py:pop_mesh`). Data-parallel axes above 1 in one
+process (they need torchrun's ranks), `tp` above 1 (not ported yet),
+`devices` above 1, an unknown platform, or a platform that disagrees with
+`device=` exit.
 """
 import dataclasses
 import json
@@ -66,9 +68,11 @@ def test_generate_takes_the_reference_flags(flags, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["dp=2"], "dp=2: the port runs on one device"),
-    (["tp=4"], "tp=4: the port runs on one device"),
-    (["dcn=auto"], "dcn=auto: the port runs on one device"),
+    (["dp=2"], "dp=2 dcn=1: 2 data-parallel ranks in one process; start one "
+               "process per rank with torchrun"),
+    (["tp=4"], "tp=4: tensor parallelism is not ported yet"),
+    (["dcn=auto"], "dcn=auto groups the ranks by node, and this run has no "
+                   "ranks"),
     (["platform=tpu"], "device=cpu"),
     (["devices=2"], "devices=2: the port runs on one device"),
     (["platform=cpu", "device=cuda"], "disagree"),
