@@ -35,10 +35,18 @@ unset, and on a shape mismatch.
 parameters (or any tensors by parameter name, such as gradients) as the
 reference's numpy tree, so port-trained weights load into the JAX package
 and the tests compare trees leaf by leaf.
+
+Tensor parallelism (`parallel/tensor.py`): `split_tp(tree, tp, rank)` is
+one rank's slice of a full tree (`parallel.sharding.tp_plan`, by meaning:
+a rank's heads of k then of v in `to_kv`, its columns of a then of gate in
+`proj_in`), `merge_tp(slices, like)` the full tree again, and
+`load_jax_params(..., mesh=)` loads a full tree into a tensor-parallel
+module, each leaf cut to the rank's slice as the module was
+(`parallel.tensor.shard_module_`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,12 +119,67 @@ def _unwrap(tree: Mapping[str, Any]) -> Mapping[str, Any]:
     return tree["params"] if set(tree) == {"params"} else tree
 
 
+def _tree_map(fn, trees: Sequence[Mapping[str, Any]], prefix=()):
+    """fn(path, [leaf of each tree]) over the leaves of equally shaped
+    nested dicts, as a nested dict."""
+    out = {}
+    for key, val in trees[0].items():
+        path = prefix + (str(key),)
+        vals = [t[key] for t in trees]
+        out[key] = (_tree_map(fn, vals, path) if isinstance(val, Mapping)
+                    else fn("/".join(path), vals))
+    return out
+
+
+def _tp_leaf(path: str, shape, tp: int):
+    """(flax axis, halves) where `tp_plan` splits the leaf, else None.
+    "params" levels are not part of a rule's path."""
+    from bevgen_torch.parallel.sharding import tp_axis, tp_halves
+    path = "/".join(p for p in path.split("/") if p != "params")
+    ax = tp_axis(path, shape, tp)
+    return None if ax is None else (ax, tp_halves(path))
+
+
+def split_tp(tree: Mapping[str, Any], tp: int, rank: int) -> Dict[str, Any]:
+    """Rank `rank`'s slice of a full numpy tree at `tp` ways: each leaf
+    `parallel.sharding.tp_plan` splits cut by meaning
+    (`parallel.tensor.take_part`), the others as they are."""
+    from bevgen_torch.parallel.tensor import take_part
+
+    def cut(path, leaves):
+        arr = np.asarray(leaves[0])
+        split = _tp_leaf(path, arr.shape, tp)
+        return arr if split is None else take_part(arr, *split, tp, rank)
+    return _tree_map(cut, [tree])
+
+
+def merge_tp(slices: Sequence[Mapping[str, Any]],
+             like: Mapping[str, Any]) -> Dict[str, Any]:
+    """The full tree from every rank's `split_tp` slice, in rank order.
+    `like` gives the full shapes (a tree of arrays or of anything with a
+    `shape`, such as `jax.eval_shape`'s): the plan is a function of them,
+    and a slice alone does not tell a split leaf from a whole one."""
+    from bevgen_torch.parallel.tensor import join_parts
+    tp = len(slices)
+
+    def join(path, leaves):
+        split = _tp_leaf(path, tuple(leaves[-1].shape), tp)
+        parts = [np.asarray(a) for a in leaves[:-1]]
+        return parts[0] if split is None else join_parts(parts, *split)
+    return _tree_map(join, [*slices, like])
+
+
 @torch.no_grad()
-def load_jax_params(pipeline: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
+def load_jax_params(pipeline: nn.Module, tree: Mapping[str, Any],
+                    mesh=None) -> nn.Module:
     """Copy every leaf of `tree` into `pipeline`'s parameters (converting
     layouts and dtypes); see the module docstring. `pipeline` is a serving
     pipeline (tree: its parts) or a bare model such as a `SparseGPT` (tree:
-    that model's own tree)."""
+    that model's own tree). With a tensor-parallel `mesh`, `pipeline` holds
+    this rank's tp slices (`parallel.tensor.shard_module_`) and each leaf of
+    the full `tree` is cut to this rank's slice as its parameter was."""
+    from bevgen_torch.parallel.tensor import take_part, tp_layout
+    layout = tp_layout(pipeline) if mesh is not None else {}
     params: Dict[str, torch.Tensor] = dict(pipeline.named_parameters())
     unset = set(params)
     unknown = []
@@ -139,6 +202,8 @@ def load_jax_params(pipeline: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
                 unknown.append("/".join(prefix + path))
                 continue
             val = _convert(leaf, arr)
+            if name in layout:
+                val = take_part(val, *layout[name], mesh.tp, mesh.tp_rank)
             p = params[name]
             if tuple(val.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: tree leaf {val.shape} does not fit "

@@ -26,6 +26,12 @@ weight-only int8 product (`ops.quant.w8_linear`: the `w8_linear` kernel on
 the card); `fuse_qkv` concatenates kernel_q, scale and bias along the output
 axis, as the reference's `_fuse_qkv_per_layer` does.
 
+Under tensor parallelism (`parallel/tensor.py`) each rank holds its heads'
+K/V caches and weights: the fused q|k|v product is built from its q, k and
+v slices, the decode kernel runs at b x heads / tp, and the heads' outputs
+and the logits are gathered (`SparseGPTBlock.merge_heads`,
+`SparseGPT.logits`), so every rank samples the same token.
+
 Not ported: the `stacked` decode variant (one scan over stacked weights,
 env `BEVGEN_AR_DECODE`).
 """
@@ -42,6 +48,7 @@ from bevgen_torch.models.stage2.gpt import SparseGPT
 from bevgen_torch.ops.decode_attention import NEG_INF, decode_attention
 from bevgen_torch.ops.quant import Int8WeightDense
 from bevgen_torch.parallel.sharding import BatchShard
+from bevgen_torch.parallel.tensor import copy_to_tp
 
 PREFIX_BUCKET = 512
 
@@ -84,7 +91,10 @@ def fuse_qkv(model: SparseGPT) -> List[FusedBlock]:
     out = []
     for blk in model.blocks():
         projs = (blk.query, blk.key, blk.value)
-        bias = torch.cat([p.bias for p in projs]).to(dt)
+        if isinstance(blk.query, Int8WeightDense):
+            bias = torch.cat([p.bias for p in projs]).to(dt)
+        else:    # this rank's outputs under tp
+            bias = torch.cat([p.local_bias() for p in projs])
         if isinstance(blk.query, Int8WeightDense):
             w_q = torch.cat([p.kernel_q for p in projs])
             scale = torch.cat([p.scale for p in projs])
@@ -106,8 +116,8 @@ def prefill(model: SparseGPT, static: ARStatic
     computes it outside any kernel."""
     cfg, dt = model.cfg, model.dtype
     b, nc, _ = static.cond_emb.shape
-    L, H = cfg.gpt_block_size, cfg.num_heads
-    dh = cfg.hidden_size // H
+    L, H = cfg.gpt_block_size, model.blocks()[0].local_heads
+    dh = cfg.hidden_size // cfg.num_heads
     block = cfg.sparse_block_size
     scale = 1.0 / math.sqrt(dh)
     nbc = -(-nc // block)
@@ -119,14 +129,13 @@ def prefill(model: SparseGPT, static: ARStatic
     k_cache, v_cache = [], []
     for blk in model.blocks():
         xn = blk.ln1(x, dt)
-        q, k, v = (proj(xn).reshape(b, nc, H, dh).transpose(1, 2)
-                   for proj in (blk.query, blk.key, blk.value))
+        q, k, v = blk.qkv(xn)
         s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float())
         s = torch.where(mask_cc[None], (s + bias_cc) * scale,
                         torch.full((), NEG_INF, device=s.device))
         probs = torch.softmax(s, dim=-1)
         attn = torch.einsum("bhij,bhjd->bhid", probs, v.float()).to(dt)
-        x = xn + attn.transpose(1, 2).reshape(b, nc, cfg.hidden_size)
+        x = xn + blk.merge_heads(attn)
         x = x + blk.mlp(x)
         kc = torch.zeros(b, H, L, dh, dtype=dt, device=x.device)
         vc = torch.zeros_like(kc)
@@ -134,7 +143,7 @@ def prefill(model: SparseGPT, static: ARStatic
         vc[:, :, :nc] = v
         k_cache.append(kc)
         v_cache.append(vc)
-    logits0 = model.head(model.ln_f(x[:, -1], dt))
+    logits0 = model.logits(x[:, -1])
     return k_cache, v_cache, logits0.float()
 
 
@@ -165,8 +174,8 @@ def decode_step_unrolled(model: SparseGPT, static: ARStatic,
     predict the next token. x_s: (b, d) input embedding; `prefix` (>= s+1)
     is the cache width the attention reads."""
     cfg, dt = model.cfg, model.dtype
-    H = cfg.num_heads
-    dh = cfg.hidden_size // H
+    H = blocks[0].block.local_heads
+    dh = cfg.hidden_size // cfg.num_heads
     b = x_s.shape[0]
     pl = cfg.gpt_block_size if prefix is None else prefix
     scale = 1.0 / math.sqrt(dh)
@@ -175,15 +184,15 @@ def decode_step_unrolled(model: SparseGPT, static: ARStatic,
     for fb, kc, vc in zip(blocks, k_cache, v_cache):
         blk = fb.block
         xn = blk.ln1(x, dt)
-        qkv = fb.qkv(xn[:, 0])                                  # (b, 3*hidden)
+        qkv = fb.qkv(copy_to_tp(xn[:, 0], model.mesh))         # (b, 3*hidden)
         q, k, v = qkv.reshape(b, 3, H, dh).unbind(1)
         kc[:, :, s] = k
         vc[:, :, s] = v
         attn = decode_attention(q.contiguous(), kc[:, :, :pl], vc[:, :, :pl],
                                 addend, scale)
-        x = xn + attn.reshape(b, 1, cfg.hidden_size).to(dt)
+        x = xn + blk.merge_heads(attn.reshape(b, H, 1, dh))
         x = x + blk.mlp(x)
-    return model.head(model.ln_f(x[:, 0], dt)).float()
+    return model.logits(x[:, 0]).float()
 
 
 def bucket_ranges(L: int, nc: int, N: int, bucket: int):

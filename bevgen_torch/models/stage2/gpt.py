@@ -31,6 +31,15 @@ Submodule names mirror the reference's parameter tree (`block_{i}`,
 `ln1/norm`, `query`, `x_tok_emb`, ...), so `core/convert.py` maps one onto
 the other.
 
+Tensor parallelism (`parallel/tensor.py:shard_module_`, serving only: the
+AR training step keeps the model whole on every rank, as the JAX package
+does): each block keeps `num_heads / tp` heads, its `query`, `key`,
+`value` and `mlp_fc` column-split and `mlp_proj` row-split (biases whole,
+each rank using its part); the attention has no out-projection, so the
+ranks' heads are gathered (`gather_from_tp`) before the residual add; the
+`head` is column-split and its logits gathered. The block-sparse attention
+runs on this rank's heads' layouts.
+
 `cfg.quant == "int8"` builds the serving tree of
 `ops.quant.quantize_gpt_tree`: the six dense layers (`query`, `key`,
 `value`, `mlp_fc`, `mlp_proj`, `head`) become `ops.quant.Int8WeightDense`
@@ -52,6 +61,8 @@ from bevgen_torch.models import geometry, masks
 from bevgen_torch.models.stage2.transformer import Dense, Embed
 from bevgen_torch.ops.block_sparse import SparseAttention
 from bevgen_torch.ops.quant import Int8WeightDense
+from bevgen_torch.parallel import tensor as tpar
+from bevgen_torch.parallel.tensor import copy_to_tp, gather_from_tp
 
 
 def gpt_dense(cfg: MultiViewConfig, in_f: int, out_f: int, bias: bool, dtype,
@@ -98,24 +109,49 @@ class SparseGPTBlock(nn.Module):
         self.ln2 = TorchLayerNorm(d)
         self.mlp_fc = gpt_dense(cfg, d, 4 * d, True, dtype, param_dtype)
         self.mlp_proj = gpt_dense(cfg, 4 * d, d, True, dtype, param_dtype)
+        self.mesh = None
+        self.local_heads = cfg.num_heads
+
+    def tp_ready(self, mesh) -> None:
+        """After `tensor.shard_module_`: this rank's heads / tp heads."""
+        if self.cfg.quant != "none":
+            raise NotImplementedError(
+                "int8 serving does not run under tensor parallelism yet "
+                "(ROADMAP item 3c)")
+        h = self.cfg.num_heads
+        if h % mesh.tp or not tpar.is_split(self.query):
+            raise ValueError(f"{h} heads do not split over tp={mesh.tp}")
+        self.mesh, self.local_heads = mesh, h // mesh.tp
 
     def mlp(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.gelu(self.mlp_fc(self.ln2(x, self.dtype)), approximate="none")
-        return self.mlp_proj(h)
+        """mlp_proj sums over tp when the MLP is split."""
+        h = self.ln2(x, self.dtype)
+        if tpar.is_split(self.mlp_fc):
+            h = copy_to_tp(h, self.mesh)
+        return self.mlp_proj(F.gelu(self.mlp_fc(h), approximate="none"))
+
+    def qkv(self, xn: torch.Tensor):
+        """(q, k, v) of this rank's heads, each (b, h, L, dh)."""
+        b, L, _ = xn.shape
+        h = self.local_heads
+        xn = copy_to_tp(xn, self.mesh)
+        return tuple(proj(xn).reshape(b, L, h, -1).transpose(1, 2)
+                     for proj in (self.query, self.key, self.value))
+
+    def merge_heads(self, attn: torch.Tensor) -> torch.Tensor:
+        """(b, h, L, dh) of this rank's heads -> (b, L, hidden) of every
+        head, in the compute dtype."""
+        b, h, L, dh = attn.shape
+        attn = attn.transpose(1, 2).reshape(b, L, h * dh).to(self.dtype)
+        return gather_from_tp(attn, self.mesh)
 
     def forward(self, x: torch.Tensor, bias, attn_fn,
                 resid_drop: Optional[Callable] = None) -> torch.Tensor:
-        cfg = self.cfg
-        h = cfg.num_heads
-        dh = cfg.hidden_size // h
         xn = self.ln1(x, self.dtype)
-        b, L, _ = xn.shape
-        q, k, v = (proj(xn).reshape(b, L, h, dh).transpose(1, 2)
-                   for proj in (self.query, self.key, self.value))
+        q, k, v = self.qkv(xn)
         attn = attn_fn(q, k, v, bias)                        # (b, h, L, dh)
-        attn = attn.transpose(1, 2).reshape(b, L, cfg.hidden_size)
         # reference quirk: the residual adds onto the normalised input
-        x = xn + attn.to(self.dtype)
+        x = xn + self.merge_heads(attn)
         mh = self.mlp(x)
         if resid_drop is not None:
             mh = resid_drop(mh)
@@ -169,6 +205,26 @@ class SparseGPT(nn.Module):
         self.attn = SparseAttention(masks.sparse_masks(cfg).layouts,
                                     cfg.sparse_block_size, nc,
                                     cfg.num_pad_tokens)
+        self.mesh = None
+
+    def tp_ready(self, mesh) -> None:
+        """After `tensor.shard_module_`: the attention over this rank's
+        heads' layouts; the logits gathered where `head` was cut."""
+        h = self.cfg.num_heads // mesh.tp
+        layouts = masks.sparse_masks(self.cfg).layouts
+        self.attn = SparseAttention(
+            layouts[mesh.tp_rank * h:(mesh.tp_rank + 1) * h],
+            self.cfg.sparse_block_size, self.cfg.num_cond_tokens,
+            self.cfg.num_pad_tokens)
+        self.mesh = mesh
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The head over final-normed `x`: every rank's vocabulary columns."""
+        x = self.ln_f(x, self.dtype)
+        if tpar.is_split(self.head):
+            return gather_from_tp(self.head(copy_to_tp(x, self.mesh)),
+                                  self.mesh)
+        return self.head(x)
 
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.cfg.num_layers)]
@@ -255,7 +311,7 @@ class SparseGPT(nn.Module):
             seq = embd_drop(seq)
         for blk in self.blocks():
             seq = blk(seq, bias, self.attn, resid_drop)
-        logits = self.head(self.ln_f(seq, dt))
+        logits = self.logits(seq)
         logits = logits[:, :L - pad_len]
         # logits at position p predict token p+1
         return logits[:, nc - 1:-1][:, self.bwd_order]

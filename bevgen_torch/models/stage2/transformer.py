@@ -51,6 +51,21 @@ dynamic ones, as `ops.quant.quantize_dense_tree` builds the tree; each
 pass turns off under int8 (the residual + LayerNorm glue does not), and
 `self_cond_to_init_embed` stays in the compute dtype.
 
+Tensor parallelism (`parallel/tensor.py`; `shard_module_` cuts the weights
+and calls each module's `tp_ready`): every attention keeps `heads / tp`
+heads (`to_q`, `to_kv` and `null_kv` column-split, `to_out` row-split, its
+`Dense` summing over tp); the GEGLU keeps F / tp columns of each half
+of `proj_in` and rows of `proj_out`, with `norm_mid` over the whole F through
+`tensor.layer_norm`; `to_logits` is column-split and followed by
+`gather_from_tp`, so the logits come out whole on every rank. An axis that
+tp does not divide stays whole (the TokenCritic's 1-wide head; the GEGLU at
+F = 2730 and tp = 4, which then runs replicated with no collective).
+Replicated parameters used inside a rank's share (q_scale, k_scale, the
+norm_mid gain, the camera-bias slices) and the inputs of the column-split
+products pass through `copy_to_tp`, so their gradients sum the ranks'
+shares and stay equal on every rank. The fused glue and int8 do not run
+under tp.
+
 Submodule names mirror the reference's parameter tree (`layers_{i}_attn`,
 `norm.norm`, `to_kv`, ...), so `core/convert.py` maps one onto the other.
 The attention core is `ops.cosine_attention.cosine_attention`: the CUDA
@@ -71,22 +86,51 @@ from bevgen_torch.ops.cosine_attention import cosine_attention
 from bevgen_torch.ops.fused_glue import geglu_layernorm, residual_layernorm
 from bevgen_torch.ops.layernorm import layernorm
 from bevgen_torch.ops.quant import QuantDense
+from bevgen_torch.parallel import tensor as tpar
+from bevgen_torch.parallel.tensor import (copy_to_tp, gather_from_tp,
+                                          reduce_from_tp)
 
 
 class Dense(nn.Linear):
     """nn.Linear stored in `param_dtype`; weight, bias and input are cast
-    to the compute `dtype` at use (flax Dense with dtype/param_dtype)."""
+    to the compute `dtype` at use (flax Dense with dtype/param_dtype).
+
+    Tensor-parallel (`tp_ready` after `tensor.shard_module_` cut the
+    weight): a column-split product (output axis cut) computes this rank's
+    outputs with its part of the whole bias; a row-split one (input axis
+    cut) sums its partial products over tp (`reduce_from_tp`) and adds the
+    bias once. The caller passes the input of a column-split product
+    through `copy_to_tp`."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool,
                  dtype, param_dtype=None):
         super().__init__(in_features, out_features, bias=bias,
                          dtype=param_dtype or dtype)
         self.compute_dtype = dtype
+        self.mesh = None
+
+    def tp_ready(self, mesh) -> None:
+        if tpar.is_split(self):
+            self.mesh = mesh
+
+    def local_bias(self) -> Optional[torch.Tensor]:
+        """The bias of this rank's outputs (the whole bias unless the
+        output axis is cut), in the compute dtype."""
+        b = self.bias
+        if b is None:
+            return None
+        if self.mesh is not None and self._tp_split["weight"][0] == 0:
+            b = tpar.take_part(b, 0, self._tp_split["weight"][1],
+                               self.mesh.tp, self.mesh.tp_rank)
+        return b.to(self.compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        if self.mesh is not None and self._tp_split["weight"][0] == 1:
+            y = reduce_from_tp(F.linear(x.to(dt), self.weight.to(dt)),
+                               self.mesh)
+            return y if self.bias is None else y + self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), self.local_bias())
 
 
 def make_dense(quant: str):
@@ -171,15 +215,25 @@ class CosineAttention(nn.Module):
         self.q_scale = nn.Parameter(torch.ones(dim_head))
         self.k_scale = nn.Parameter(torch.ones(dim_head))
         self.core: Callable = cosine_attention
+        self.mesh = None
+        self.local_heads = heads
+
+    def tp_ready(self, mesh) -> None:
+        """After `tensor.shard_module_`: this rank's heads / tp heads."""
+        if self.heads % mesh.tp or not tpar.is_split(self, "null_kv"):
+            raise ValueError(f"{self.heads} heads do not split over tp="
+                             f"{mesh.tp}")
+        self.mesh, self.local_heads = mesh, self.heads // mesh.tp
 
     def precompute_kv(self, context: torch.Tensor):
-        """Decode-cache build: (k^, v) in (b, h, m, dh), K already
-        l2-normalised and k_scale-d, both contiguous."""
+        """Decode-cache build: (k^, v) in (b, h, m, dh) with this rank's h
+        heads, K already l2-normalised and k_scale-d, both contiguous."""
         b, m, _ = context.shape
-        h, dh = self.heads, self.dim_head
-        kv = self.to_kv(context)
+        h, dh = self.local_heads, self.dim_head
+        kv = self.to_kv(copy_to_tp(context, self.mesh))
         kvt = kv.reshape(b, m, 2, h, dh).permute(2, 0, 3, 1, 4)
-        kf = (l2norm(kvt[0]) * self.k_scale).to(self.dtype).contiguous()
+        k_scale = copy_to_tp(self.k_scale, self.mesh)
+        kf = (l2norm(kvt[0]) * k_scale).to(self.dtype).contiguous()
         return kf, kvt[1].contiguous()
 
     def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
@@ -196,25 +250,29 @@ class CosineAttention(nn.Module):
         norm (`LayerNormG(residual=)`); `return_residual` returns (x_new,
         out), so the caller chains the deltas."""
         b, n, _ = x.shape
-        h, dh = self.heads, self.dim_head
+        h, dh, mesh = self.local_heads, self.dim_head, self.mesh
         if residual_delta is not None:
             x_new, xn = self.norm(x, self.dtype, residual=residual_delta)
         else:
             x_new, xn = x, self.norm(x, self.dtype)
+        xn = copy_to_tp(xn, mesh)
+        q_scale = copy_to_tp(self.q_scale, mesh)
+        k_scale = copy_to_tp(self.k_scale, mesh)
         q = self.to_q(xn).reshape(b, n, h, dh).transpose(1, 2)
         if cached_kv is None:
             k, v = self.to_kv(xn).chunk(2, dim=-1)
             # K norm in the projection's (b, n, h, dh) layout, before the
             # head transpose, as the reference does
-            kf = (l2norm(k.reshape(b, n, h, dh)) * self.k_scale).to(self.dtype)
+            kf = (l2norm(k.reshape(b, n, h, dh)) * k_scale).to(self.dtype)
             k = kf.transpose(1, 2)
             v = v.reshape(b, n, h, dh).transpose(1, 2)
         else:
             k, v = cached_kv
-        out = self.core(q, k, v, self.null_kv, self.q_scale, self.k_scale,
-                        attn_bias, keep, sm_scale=self.scale)
+        out = self.core(q, k, v, self.null_kv, q_scale, k_scale, attn_bias,
+                        keep, sm_scale=self.scale)
         # on the card `out` is a (b, h, n, dh) view of a (b, n, h, dh)
-        # tensor, so the merge of the heads is a view too
+        # tensor, so the merge of the heads is a view too; a row-split
+        # to_out sums the heads of every rank
         out = self.to_out(out.transpose(1, 2).reshape(b, n, h * dh))
         return (x_new, out) if return_residual else out
 
@@ -239,6 +297,24 @@ class GEGLUFeedForward(nn.Module):
         self.proj_in = dense(dim, inner * 2, dtype, param_dtype, static=True)
         self.norm_mid = LayerNormG(inner)
         self.proj_out = dense(inner, dim, dtype, param_dtype, static=True)
+        self.mesh = None
+
+    def tp_ready(self, mesh) -> None:
+        """After `tensor.shard_module_`: split when tp divides the hidden
+        width (proj_in and proj_out were cut), else replicated."""
+        if tpar.is_split(self.proj_in) != tpar.is_split(self.proj_out):
+            raise ValueError("proj_in and proj_out split differently")
+        self.mesh = mesh if tpar.is_split(self.proj_in) else None
+
+    def _norm_mid(self, h: torch.Tensor) -> torch.Tensor:
+        """norm_mid over the whole hidden width: this rank's columns of it
+        under tp (`tensor.layer_norm`, the gain's gradient summed over tp)."""
+        if self.mesh is None:
+            return self.norm_mid(h, self.dtype)
+        n, mesh = self.norm_mid.norm, self.mesh
+        gain = tpar.take_part(copy_to_tp(n.weight, mesh), 0, 1, mesh.tp,
+                              mesh.tp_rank)
+        return tpar.layer_norm(h, gain, n.eps, mesh).to(self.dtype)
 
     def forward(self, x: torch.Tensor,
                 residual_delta: Optional[torch.Tensor] = None,
@@ -247,14 +323,13 @@ class GEGLUFeedForward(nn.Module):
             x_new, h = self.norm_in(x, self.dtype, residual=residual_delta)
         else:
             x_new, h = x, self.norm_in(x, self.dtype)
-        y = self.proj_in(h)
+        y = self.proj_in(copy_to_tp(h, self.mesh))
         if self.use_glue:
             hid = geglu_layernorm(y, self.norm_mid.norm.weight)
         else:
             a, gate = y.chunk(2, dim=-1)
-            hid = self.norm_mid(gate * F.gelu(a, approximate="none"),
-                                self.dtype)
-        out = self.proj_out(hid)
+            hid = self._norm_mid(gate * F.gelu(a, approximate="none"))
+        out = self.proj_out(hid)     # summed over tp when split
         return (x_new, out) if return_residual else out
 
 
@@ -321,7 +396,16 @@ class MultiViewTransformer(nn.Module):
         self.to_logits = make_dense(q)(
             dim, cfg.vocab_size if dim_out is None else dim_out, dtype, pdt,
             static=True)
+        self.mesh = None
 
+    def tp_ready(self, mesh) -> None:
+        """After `tensor.shard_module_`: refuse what does not run under tp;
+        the logits are gathered where `to_logits` was cut."""
+        if self.use_glue or self.cfg.quant != "none":
+            raise NotImplementedError(
+                "transformer.use_fused_glue and int8 serving do not run under "
+                "tensor parallelism yet (ROADMAP item 3c)")
+        self.mesh = mesh
     def layer(self, i: int):
         return (getattr(self, f"layers_{i}_attn"),
                 getattr(self, f"layers_{i}_cross_attn"),
@@ -363,7 +447,9 @@ class MultiViewTransformer(nn.Module):
 
         self_bias = cross_bias = None
         if cfg.camera_bias:
-            bias = self.camera_bias_emb * self.tril + self.bias_prior
+            # under tp every attention adds its heads' share of the gradient
+            bias = copy_to_tp(self.camera_bias_emb, self.mesh) * self.tril \
+                + self.bias_prior
             self_bias = bias[nc:, nc:].contiguous()
             cross_bias = bias[nc:, :nc].contiguous()
         cross_kv = tuple(self.layer(i)[1].precompute_kv(context)
@@ -421,7 +507,11 @@ class MultiViewTransformer(nn.Module):
                                    cached_kv=cache["cross_kv"][i])
                 x = x + self.block(ff, x)
             embed = self.final_norm(x, dt)
-        logits = self.to_logits(embed)
+        if tpar.is_split(self.to_logits):
+            logits = gather_from_tp(self.to_logits(
+                copy_to_tp(embed, self.mesh)), self.mesh)
+        else:
+            logits = self.to_logits(embed)
         return TransformerOutput(logits=logits.reshape(b, cam, hw, -1),
                                  embed=embed)
 

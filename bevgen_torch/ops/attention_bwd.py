@@ -157,16 +157,19 @@ def attention_bwd_cuda(qf, kf, vc, biasp, keep, out, do, lse,
     n = 3 if biasp is not None else 2
     attention_bwd_cuda.launches += n
     attention_bwd_cuda.launches_by_shape[(N, M)] += n
+    attention_bwd_cuda.launches_by_heads[H] += n
     return dq, dk, dv, dbias
 
 
 attention_bwd_cuda.launches = 0
 attention_bwd_cuda.launches_by_shape = Counter()
+attention_bwd_cuda.launches_by_heads = Counter()
 
 
 def reset_launch_counts() -> None:
     attention_bwd_cuda.launches = 0
     attention_bwd_cuda.launches_by_shape.clear()
+    attention_bwd_cuda.launches_by_heads.clear()
 
 
 def attention_bwd(qf, kf, vc, biasp, keep, do, sm_scale: float = 8.0,

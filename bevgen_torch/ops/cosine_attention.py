@@ -154,18 +154,21 @@ def cosine_attention_cuda(q, k, v, null_kv, q_scale, k_scale,
     cosine_attention_cuda.launches += 1
     cosine_attention_cuda.launches_by_shape[(N, M)] += 1
     cosine_attention_cuda.launches_by_batch_shape[(B, N, M)] += 1
+    cosine_attention_cuda.launches_by_heads[H] += 1
     return (out, lse) if return_lse else out
 
 
 cosine_attention_cuda.launches = 0
 cosine_attention_cuda.launches_by_shape = Counter()
 cosine_attention_cuda.launches_by_batch_shape = Counter()
+cosine_attention_cuda.launches_by_heads = Counter()
 
 
 def reset_launch_counts() -> None:
     cosine_attention_cuda.launches = 0
     cosine_attention_cuda.launches_by_shape.clear()
     cosine_attention_cuda.launches_by_batch_shape.clear()
+    cosine_attention_cuda.launches_by_heads.clear()
 
 
 def _forward(q, k, v, null_kv, q_scale, k_scale, bias, keep, sm_scale,

@@ -139,16 +139,19 @@ def decode_attention_cuda(q, k, v, addend, sm_scale: float):
                            f"error {err} at b={b} H={H} pl={pl} dh={dh}")
     decode_attention_cuda.launches += 1
     decode_attention_cuda.launches_by_shape[pl] += 1
+    decode_attention_cuda.launches_by_heads[H] += 1
     return out
 
 
 decode_attention_cuda.launches = 0
 decode_attention_cuda.launches_by_shape = Counter()
+decode_attention_cuda.launches_by_heads = Counter()
 
 
 def reset_launch_counts() -> None:
     decode_attention_cuda.launches = 0
     decode_attention_cuda.launches_by_shape.clear()
+    decode_attention_cuda.launches_by_heads.clear()
 
 
 def decode_attention(q, k, v, addend, sm_scale: float):

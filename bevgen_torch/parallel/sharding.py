@@ -1,33 +1,39 @@
-"""The data-parallel mesh, ZeRO slices of the optimizer state, and each
-rank's rows of a batch.
+"""The (dcn, dp, tp) mesh, the tensor-parallel plan of the weights, ZeRO
+slices of the optimizer state, and each rank's rows of a batch.
 
-Port of `bevgen_tpu/parallel/sharding.py` for data parallelism, the
-reference's own layout (DDP with DeepSpeed ZeRO-2, SURVEY §2.8): one
-process per device, parameters replicated, the batch split over the ranks.
+Port of `bevgen_tpu/parallel/sharding.py`: one process per device. The
+batch splits over dcn x dp, the reference's own layout (DDP with DeepSpeed
+ZeRO-2, SURVEY §2.8); the stage-2 transformer's heads and FFN hidden split
+over tp (Megatron-style, the collectives written out in
+`parallel/tensor.py`).
 
-Mesh axes:
+Mesh axes, in the JAX package's rank order (`devices.reshape(dcn, dp, tp)`:
+rank = (dcn_index * dp + dp_index) * tp + tp_index, so a tp group is
+consecutive ranks, on one node):
   dcn: an outer data-parallel axis across nodes; the gradient sum crosses
        it once per step.
   dp:  data parallel within a node. The optimizer moments and the EMA are
-       sliced over dp only (one process group per dcn row), replicated
-       across dcn, so their gather stays inside a node.
-  tp:  always 1. Tensor parallelism is not ported yet; `make_mesh` raises
-       for tp > 1.
+       sliced over dp only (one process group per (dcn row, tp index)),
+       replicated across dcn, so their gather stays inside a node.
+  tp:  tensor parallel: the ranks of a tp group hold one slice each of the
+       weights `tp_plan` splits, and compute the same rows of the batch.
+       The gradient sum runs over the ranks that hold the same slice (one
+       group per tp index); at tp = 1 every group is the data-parallel one.
 
-ZeRO-1 on `all_reduce` and `all_gather`: every rank sums the full
-gradient, clips with the global norm, updates its slice of each parameter
-with its slice of the moments, and the slices are gathered back into the
-parameters, so all ranks hold the same parameters bit for bit. Each
-moment is sliced along the axis the JAX package's `moment_pspec` picks
-for it (the largest dp-divisible axis that no tensor-parallel rule
-reserves; none for the embedding tables a rule pins replicated). The
-port's parameters carry the flax names, so `_TP_RULES` apply to their
-flax paths (`core/convert.py:flax_leaf`).
+ZeRO-1 on `all_reduce` and `all_gather`: every rank sums its (tp-sliced)
+gradient over its data group, clips with the global norm, updates its
+slice of each parameter with its slice of the moments, and the slices are
+gathered back into the parameters, so all ranks of a data group hold the
+same parameters bit for bit. Each moment is sliced along the axis the JAX
+package's `moment_pspec` picks for it (the largest dp-divisible axis that
+no tensor-parallel rule reserves; none for the embedding tables a rule
+pins replicated). The port's parameters carry the flax names, so
+`_TP_RULES` apply to their flax paths (`core/convert.py:flax_leaf`).
 
-Random draws ignore dp: every rank seeds the same generator, draws each
-random tensor at the global batch's shape and keeps its own rows
-(`BatchShard.rand`), so a run over any number of ranks draws what one
-process draws for the whole batch.
+Random draws ignore dp and tp: every rank seeds the same generator, draws
+each random tensor at the global batch's shape and keeps its data row's
+rows (`BatchShard.rand`), so a run over any mesh draws what one process
+draws for the whole batch, and the tp ranks of a row draw alike.
 
 The JAX `host_shard_batch` (one global array from every process's rows)
 has no counterpart: a rank's local batch is its part of the global batch
@@ -136,13 +142,16 @@ def flat_apply(tensors: Sequence[torch.Tensor],
 
 @dataclasses.dataclass
 class Mesh:
-    """A (dcn, dp) data-parallel mesh over the processes of the default
-    group, in rank order (rank = dcn_index * dp + dp_index).
+    """A (dcn, dp, tp) mesh over the processes of the default group, in
+    rank order (rank = (dcn_index * dp + dp_index) * tp + tp_index).
 
     group: the world's group, None in one process without a group (every
-    collective is then the identity); dp_group: this rank's dcn row, over
-    which the ZeRO slices are gathered; device: where the collectives'
-    own small tensors live (a CUDA device for nccl)."""
+    collective is then the identity); dp_group: the ranks of this rank's
+    dcn row with its tp index, over which the ZeRO slices are gathered;
+    device: where the collectives' own small tensors live (a CUDA device
+    for nccl). tp_group: this rank's tp group (None at tp = 1);
+    data_group: the ranks with this rank's tp index, over which the
+    gradients and the losses' counts are summed (the world at tp = 1)."""
     dcn: int
     dp: int
     rank: int
@@ -150,12 +159,19 @@ class Mesh:
     dp_group: Optional[dist.ProcessGroup]
     device: torch.device
     owns_group: bool = False    # close() leaves the default group
+    tp: int = 1
+    tp_group: Optional[dist.ProcessGroup] = None
+    data_group: Optional[dist.ProcessGroup] = None
+
+    def __post_init__(self):
+        if self.data_group is None and self.tp == 1:
+            self.data_group = self.group
 
     @property
     def shape(self) -> Dict[str, int]:
         if self.dcn > 1:
-            return {"dcn": self.dcn, "dp": self.dp, "tp": 1}
-        return {"dp": self.dp, "tp": 1}
+            return {"dcn": self.dcn, "dp": self.dp, "tp": self.tp}
+        return {"dp": self.dp, "tp": self.tp}
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -163,28 +179,51 @@ class Mesh:
 
     @property
     def size(self) -> int:
+        """The data-parallel ways, dcn * dp."""
         return self.dcn * self.dp
 
     @property
+    def world(self) -> int:
+        return self.size * self.tp
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's row of the batch: dcn_index * dp + dp_index."""
+        return self.rank // self.tp
+
+    @property
     def dp_rank(self) -> int:
-        return self.rank % self.dp
+        return self.data_rank % self.dp
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
 
     def batch_shard(self, rows: int) -> BatchShard:
-        """This rank's place in a global batch of `rows` rows per rank."""
-        return BatchShard(rows * self.size, self.rank * rows, self.sum)
+        """This rank's place in a global batch of `rows` rows per data row."""
+        return BatchShard(rows * self.size, self.data_rank * rows, self.sum)
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """A new tensor: `t` summed over every rank."""
+        """A new tensor: `t` summed over the data group."""
         t = t.clone()
-        if self.group is not None:
-            dist.all_reduce(t, group=self.group)
+        if self.data_group is not None:
+            dist.all_reduce(t, group=self.data_group)
         return t
 
     def sum_all(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """`tensors` summed over every rank, in one collective per dtype."""
-        if self.group is None:
+        """`tensors` summed over the data group, in one collective per
+        dtype."""
+        if self.data_group is None:
             return list(tensors)
-        return flat_apply(tensors, lambda f: dist.all_reduce(f, group=self.group))
+        return flat_apply(tensors, lambda f: dist.all_reduce(
+            f, group=self.data_group))
+
+    def tp_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """A new tensor: `t` summed over the tp group."""
+        t = t.clone()
+        if self.tp_group is not None:
+            dist.all_reduce(t, group=self.tp_group)
+        return t
 
     def any(self, flag: bool) -> bool:
         """True on every rank when `flag` is true on any rank."""
@@ -195,14 +234,17 @@ class Mesh:
         return bool(t.item())
 
     @torch.no_grad()
-    def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
-        """Rank 0's `tensors` into every rank's, in place."""
-        if self.group is None:
+    def broadcast_(self, tensors: Sequence[torch.Tensor],
+                   group: Optional[dist.ProcessGroup] = None) -> None:
+        """The first rank's `tensors` into every rank's, in place: rank 0's
+        over the world, or over `group` (a tp group: its first rank's)."""
+        group = self.group if group is None else group
+        if group is None:
             return
         tensors = [t.detach() for t in tensors]
-        src = dist.get_global_rank(self.group, 0)
+        src = dist.get_global_rank(group, 0)
         got = flat_apply(tensors, lambda f: dist.broadcast(
-            f, src=src, group=self.group))
+            f, src=src, group=group))
         for t, v in zip(tensors, got):
             t.copy_(v)
 
@@ -217,38 +259,38 @@ class Mesh:
             distributed.shutdown()
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's `t` (equal shapes) concatenated along axis 0 in rank
-        order: the global batch from each rank's rows."""
-        if self.group is None:
+        """Every data row's `t` (equal shapes) concatenated along axis 0 in
+        row order: the global batch from each row's rows."""
+        if self.data_group is None or self.size == 1:
             return t
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t, group=self.group)
+        dist.all_gather(parts, t, group=self.data_group)
         return torch.cat(parts)
 
 
 def mesh_layout(n: int, dp: Optional[int] = None, tp: int = 1,
                 dcn: int = 1) -> Tuple[int, int]:
-    """(dcn, dp) of a mesh over all `n` processes: dp = n // dcn when not
-    given; the product must be n (every rank takes part)."""
-    if tp != 1:
-        raise NotImplementedError(
-            f"tp={tp}: tensor parallelism is not ported yet (dp and dcn are)")
+    """(dcn, dp) of a (dcn, dp, tp) mesh over all `n` processes: dp =
+    n // (dcn * tp) when not given; the product must be n (every rank takes
+    part)."""
     if dp is None:
-        if n % dcn:
-            raise ValueError(f"{n} processes do not split into dcn={dcn} rows")
-        dp = n // dcn
-    if dcn * dp != n:
-        raise ValueError(f"a dcn={dcn} x dp={dp} mesh needs {dcn * dp} "
-                         f"processes; {n} were started")
+        if n % (dcn * tp):
+            raise ValueError(f"{n} processes do not split into dcn={dcn} x "
+                             f"tp={tp}")
+        dp = n // (dcn * tp)
+    if dcn * dp * tp != n:
+        raise ValueError(f"a dcn={dcn} x dp={dp} x tp={tp} mesh needs "
+                         f"{dcn * dp * tp} processes; {n} were started")
     return dcn, dp
 
 
 def multislice_layout(n: int, slice_index_of: Callable[[int], int]
                       ) -> Tuple[int, int]:
-    """(dcn, dp) of a mesh whose dcn rows are the nodes: ranks grouped by
-    `slice_index_of(rank)`, one row per node. The ranks of a node must be
-    contiguous (torchrun numbers them so) and the nodes of equal size."""
+    """(dcn, ranks per node) of a mesh whose dcn rows are the nodes: ranks
+    grouped by `slice_index_of(rank)`, one row per node. The ranks of a
+    node must be contiguous (torchrun numbers them so) and the nodes of
+    equal size."""
     groups: Dict[int, List[int]] = {}
     for r in range(n):
         groups.setdefault(slice_index_of(r), []).append(r)
@@ -264,21 +306,41 @@ def multislice_layout(n: int, slice_index_of: Callable[[int], int]
     return len(groups), sizes.pop()
 
 
+def _groups(ranks: Iterable[List[int]], rank: int, world: int
+            ) -> Optional[dist.ProcessGroup]:
+    """One process group per list of `ranks` (every rank creates every
+    group, in order); the one holding `rank`. A list of the whole world is
+    the world's group."""
+    mine = None
+    for members in ranks:
+        g = (dist.group.WORLD if len(members) == world
+             else dist.new_group(members))
+        if rank in members:
+            mine = g
+    return mine
+
+
 def make_mesh(dp: Optional[int] = None, tp: int = 1, dcn: int = 1,
               device="cpu") -> Mesh:
-    """The (dcn, dp) mesh over every process of the default group (one
-    process without a group: a mesh of one). With dcn > 1, one dp group per
-    dcn row (every rank creates every row's group, in order)."""
-    dcn, dp = mesh_layout(distributed.process_count(), dp, tp, dcn)
+    """The (dcn, dp, tp) mesh over every process of the default group (one
+    process without a group: a mesh of one). Its groups: one tp group per
+    data row, one data group per tp index, one dp group per (dcn row, tp
+    index); every rank creates every group, in that order."""
+    n = distributed.process_count()
+    dcn, dp = mesh_layout(n, dp, tp, dcn)
     rank = distributed.process_index()
-    group = dist.group.WORLD if dist.is_initialized() else None
-    dp_group = group
-    if dcn > 1:
-        for row in range(dcn):
-            g = dist.new_group(list(range(row * dp, (row + 1) * dp)))
-            if row == rank // dp:
-                dp_group = g
-    return Mesh(dcn, dp, rank, group, dp_group, torch.device(device))
+    if not dist.is_initialized():
+        return Mesh(dcn, dp, rank, None, None, torch.device(device), tp=tp)
+    rows = dcn * dp
+    tp_group = (_groups([list(range(d * tp, (d + 1) * tp))
+                         for d in range(rows)], rank, n) if tp > 1 else None)
+    data_group = _groups([list(range(t, n, tp)) for t in range(tp)], rank, n)
+    dp_group = data_group if dcn == 1 else _groups(
+        [[(row * dp + i) * tp + t for i in range(dp)]
+         for row in range(dcn) for t in range(tp)], rank, n)
+    return Mesh(dcn, dp, rank, dist.group.WORLD, dp_group,
+                torch.device(device), tp=tp, tp_group=tp_group,
+                data_group=data_group)
 
 
 def node_of_rank(rank: int) -> int:
@@ -294,10 +356,13 @@ def make_multislice_mesh(tp: int = 1, device="cpu",
                          ) -> Mesh:
     """The mesh of a multi-node job (`dcn=auto`): one dcn row per node,
     `slice_index_of` (rank -> node, `node_of_rank` by default) telling
-    them apart; one node gives the plain (dp,) mesh."""
-    dcn, dp = multislice_layout(distributed.process_count(),
-                                slice_index_of or node_of_rank)
-    return make_mesh(dp=dp // tp, tp=tp, dcn=dcn, device=device)
+    them apart, dp = the node's ranks / tp; one node gives the plain
+    (dp, tp) mesh."""
+    dcn, per = multislice_layout(distributed.process_count(),
+                                 slice_index_of or node_of_rank)
+    if per % tp:
+        raise ValueError(f"{per} ranks per node do not split into tp={tp}")
+    return make_mesh(dp=per // tp, tp=tp, dcn=dcn, device=device)
 
 
 def batch_axes(mesh: Mesh) -> tuple:
@@ -311,27 +376,31 @@ def data_parallelism(mesh: Mesh) -> int:
 
 
 def shard_batch(arrays: Iterable, mesh: Mesh, device) -> Tuple[torch.Tensor, ...]:
-    """This rank's rows of global batch arrays (numpy or tensors), as
-    tensors on `device`; the batch must split evenly over the mesh."""
+    """This rank's data row's rows of global batch arrays (numpy or
+    tensors), as tensors on `device`; the batch must split evenly over the
+    data-parallel ways."""
     out = []
     for a in arrays:
         b = len(a)
         if b % mesh.size:
             raise ValueError(f"a batch of {b} does not split over "
                              f"{mesh.size} data-parallel ranks")
-        sl = distributed.host_shard_indices(b, mesh.rank, mesh.size)
+        sl = distributed.host_shard_indices(b, mesh.data_rank, mesh.size)
         out.append(torch.as_tensor(np.asarray(a[sl]) if not torch.is_tensor(a)
                                    else a[sl], device=device))
     return tuple(out)
 
 
 # ---------------------------------------------------------------------------
-# where each optimizer moment is sliced (the JAX package's rules, tp = 1)
+# the tensor-parallel plan of the weights, and where each optimizer moment is
+# sliced (the JAX package's rules)
 # ---------------------------------------------------------------------------
 
 # flax path regex -> the weight's tensor-parallel spec (a copy of the JAX
-# package's rules): `moment_pspec` keeps dp off the axes these reserve, and
-# keeps the moments of the tables pinned fully replicated replicated
+# package's rules): column-parallel products split their output axis,
+# row-parallel ones their input axis; `moment_pspec` keeps dp off the axes
+# these reserve, and keeps the moments of the tables pinned fully
+# replicated replicated
 _TP_RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
     (r".*(to_q|to_kv)/kernel(_q)?$", (None, "tp")),
     (r".*proj_in/kernel(_q)?$", (None, "tp")),
@@ -346,6 +415,10 @@ _TP_RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
     (r".*null_kv$", (None, "tp", None, None)),
 )
 
+# outputs that are two tensors side by side, [k | v] and [a | gate]: a rank
+# takes its share of each half
+_TWO_HALVES = r".*(to_kv|proj_in)/(kernel(_q)?|scale)$"
+
 
 def match_rule(path: str, ndim: int) -> Optional[Tuple[Optional[str], ...]]:
     """The first rule whose regex matches the flax `path` and whose spec
@@ -356,17 +429,49 @@ def match_rule(path: str, ndim: int) -> Optional[Tuple[Optional[str], ...]]:
     return None
 
 
+def tp_halves(path: str) -> int:
+    """2 for a leaf whose split axis holds two tensors side by side
+    (`to_kv`: k then v; `proj_in`: a then gate), else 1."""
+    return 2 if re.match(_TWO_HALVES, path) else 1
+
+
+def tp_plan(path: str, shape: Sequence[int], tp: int
+            ) -> Tuple[Optional[str], ...]:
+    """The port's `param_shardings` for the flax leaf at `path` of the full
+    `shape`: "tp" on the axis a rule splits, None elsewhere (one entry per
+    axis). An annotated axis that tp does not divide stays replicated, as
+    in JAX; a two-halves axis must divide into 2 * tp, since a rank takes
+    its share of each half. That is the one departure from JAX: at F = 2730
+    and tp = 4 `proj_in` (2F columns) stays whole where JAX splits it, so
+    the whole GEGLU feed-forward is replicated."""
+    rule = match_rule(path, len(shape)) or ()
+    dims: List[Optional[str]] = []
+    for i, size in enumerate(shape):
+        ax = rule[i] if i < len(rule) else None
+        if ax == "tp" and int(size) % (tp * tp_halves(path)):
+            ax = None
+        dims.append(ax)
+    return tuple(dims)
+
+
+def tp_axis(path: str, shape: Sequence[int], tp: int) -> Optional[int]:
+    """The flax axis `tp_plan` splits (tp > 1), or None."""
+    spec = tp_plan(path, shape, tp)
+    return spec.index("tp") if tp > 1 and "tp" in spec else None
+
+
 def zero_pspec(shape: Sequence[int], dp: int = 1,
                base: Optional[Sequence[Optional[str]]] = None
                ) -> Tuple[Optional[str], ...]:
-    """The JAX package's `zero_pspec` at tp = 1: dp on the largest
-    dp-divisible axis that `base` leaves free; () when nothing is sliced."""
+    """The JAX package's `zero_pspec`: dp on the largest dp-divisible axis
+    that `base` (the tensor-parallel spec, already divisible) leaves free;
+    () when nothing is sliced."""
     shape = tuple(int(s) for s in shape)
     if not shape:
         return ()
     dims: List[Optional[str]] = [None] * len(shape)
     for i, ax in enumerate(tuple(base or ())[:len(shape)]):
-        dims[i] = ax     # a tensor-parallel axis of size 1 divides every size
+        dims[i] = ax
     for ax in np.argsort(shape)[::-1]:
         ax = int(ax)
         if dims[ax] is None and (dp <= 1 or shape[ax] % dp == 0):
@@ -375,34 +480,52 @@ def zero_pspec(shape: Sequence[int], dp: int = 1,
     return () if all(d is None for d in dims) else tuple(dims)
 
 
-def moment_pspec(path: str, shape: Sequence[int], dp: int
+def moment_pspec(path: str, shape: Sequence[int], dp: int, tp: int = 1
                  ) -> Tuple[Optional[str], ...]:
-    """The JAX package's `moment_pspec` on a (dp, tp=1) mesh for the flax
-    leaf at `path` with `shape`."""
+    """The JAX package's `moment_pspec` on a (dp, tp) mesh for the flax
+    leaf at `path` with (full) `shape`: the rule's tp annotations that tp
+    divides, and dp on the largest free dp-divisible axis."""
     rule = match_rule(path, len(shape))
     if rule is not None and all(ax is None for ax in rule):
         return ()
-    return zero_pspec(shape, dp, base=rule)
+    base = [rule[i] if rule is not None and i < len(rule) else None
+            for i in range(len(shape))]
+    base = [None if ax == "tp" and int(shape[i]) % tp else ax
+            for i, ax in enumerate(base)]
+    return zero_pspec(shape, dp, base=base)
 
 
-def moment_axis(path: str, shape: Sequence[int], dp: int) -> Optional[int]:
-    """The flax axis a moment of that leaf is sliced along, or None."""
-    spec = moment_pspec(path, shape, dp)
+def moment_axis(path: str, shape: Sequence[int], dp: int, tp: int = 1
+                ) -> Optional[int]:
+    """The flax axis a moment of that leaf is sliced along over dp, or
+    None."""
+    spec = moment_pspec(path, shape, dp, tp)
     return spec.index("dp") if "dp" in spec else None
 
 
 class ZeroPlan:
     """This rank's slice of each parameter of `module` over the mesh's dp
     group: `axes[name]` is the port tensor's axis, None where the moments
-    stay whole (a rule pins them, no axis divides by dp, or dp = 1)."""
+    stay whole (a rule pins them, no axis divides by dp, or dp = 1).
+
+    `module` may be tensor-parallel (`parallel.tensor.shard_module_`): its
+    parameters are then this rank's tp slices, `tp_axes[name]` says where
+    (port axis, halves) for the sliced ones, and the dp slice is cut from
+    the local tensor along an axis the tp split leaves whole."""
 
     def __init__(self, module: nn.Module, mesh: Mesh):
         from bevgen_torch.core.convert import flax_leaf
+        from bevgen_torch.parallel.tensor import tp_layout
         self.mesh = mesh
+        self.tp_axes = tp_layout(module)
         self.axes: Dict[str, Optional[int]] = {}
         for name, p in module.named_parameters():
             path, perm = flax_leaf(module, name)
-            ax = moment_axis(path, [p.shape[a] for a in perm], mesh.dp)
+            shape = [p.shape[a] for a in perm]
+            if name in self.tp_axes:
+                ax, _ = self.tp_axes[name]
+                shape[perm.index(ax)] *= mesh.tp
+            ax = moment_axis(path, shape, mesh.dp, mesh.tp)
             self.axes[name] = None if ax is None or mesh.dp == 1 else perm[ax]
 
     def part(self, name: str, t: torch.Tensor) -> torch.Tensor:
@@ -413,11 +536,25 @@ class ZeroPlan:
         n = t.shape[ax] // self.mesh.dp
         return t.narrow(ax, self.mesh.dp_rank * n, n)
 
+    def tp_part(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's tp slice of the unsliced `t`, or `t` itself."""
+        from bevgen_torch.parallel.tensor import take_part
+        if name not in self.tp_axes:
+            return t
+        return take_part(t, *self.tp_axes[name], self.mesh.tp,
+                         self.mesh.tp_rank)
+
+    def part_full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the unsliced `t`: its tp part, then its dp
+        part."""
+        return self.part(name, self.tp_part(name, t))
+
     def gather(self, parts: Dict, owners: Optional[Dict] = None) -> Dict:
         """The whole tensors from every dp rank's slices (a collective over
         the dp group: every rank calls it with the same keys). A key of
         `parts` is a parameter name, or a key that `owners` maps to one (a
-        moment of that parameter)."""
+        moment of that parameter). The result is still tp-sliced
+        (`gather_full` merges the tp slices too)."""
         def axis(key):
             return self.axes[key if owners is None else owners[key]]
         out = dict(parts)
@@ -436,3 +573,11 @@ class ZeroPlan:
                 out[names[i]] = torch.cat([p[j] for p in pieces],
                                           dim=axis(names[i]))
         return out
+
+    def gather_full(self, parts: Dict, owners: Optional[Dict] = None) -> Dict:
+        """`gather`, then every tp slice merged by meaning: the unsliced
+        tensors (collectives over the dp and the tp groups)."""
+        from bevgen_torch.parallel.tensor import gather_tp
+        out = self.gather(parts, owners)
+        return gather_tp(out, {k: self.tp_axes.get(
+            k if owners is None else owners[k]) for k in out}, self.mesh)

@@ -13,7 +13,8 @@ sampler through the block-sparse kernel (`ops/block_sparse.py`).
 `quantized()` gives the int8-weight serving pipeline
 (`ops.quant.quantize_gpt_tree`, its products through the `w8_linear`
 kernel), which serves KV-cached only. `make_sharded_ar_generate` serves
-data-parallel over a mesh, as `generate.make_sharded_generate` does.
+over a (dcn, dp, tp) mesh, as `generate.make_sharded_generate` does: the
+batch over dcn x dp, the GPT's heads and MLP over tp.
 """
 from __future__ import annotations
 
@@ -81,9 +82,9 @@ class ARPipeline(Stage1Pipeline):
 
 
 def make_sharded_ar_generate(pipe: ARPipeline, mesh: Mesh):
-    """Data-parallel AR serving over `mesh` (the counterpart of the JAX
-    package's `make_sharded_ar_generate`): (run, shard_params, shard_batch)
-    as `generate.make_sharded_generate` returns them; run(seg, ii, ei,
-    generator, **kw) decodes this rank's rows with the token draws made at
-    the global batch."""
+    """AR serving over `mesh` (the counterpart of the JAX package's
+    `make_sharded_ar_generate`: batch over dcn x dp, GPT weights over tp):
+    (run, shard_params, shard_batch) as `generate.make_sharded_generate`
+    returns them; run(seg, ii, ei, generator, **kw) decodes this data row's
+    rows with the token draws made at the global batch."""
     return make_sharded_generate(pipe, mesh)

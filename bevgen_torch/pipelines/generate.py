@@ -15,9 +15,11 @@ goes through the hand-written CUDA kernel (`ops/cosine_attention.py`).
 the card (`configs/int8_crossover.json`, written by
 `scripts/crossover_sweep.py`) says bf16 serves the batch faster.
 
-`make_sharded_generate` serves data-parallel over a mesh
-(`parallel/sharding.py`): each rank decodes its rows of the batch, on its
-own card, with its own copy of the weights (rank 0's).
+`make_sharded_generate` serves over a (dcn, dp, tp) mesh
+(`parallel/sharding.py`): each data row decodes its rows of the batch, on
+its own cards, with rank 0's weights; under tp the row's ranks each hold
+their slice of the transformer (`parallel/tensor.py`) and decode the same
+rows together.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from bevgen_torch.models.stage1.vq import VQModel, VQSegmentationModel
 from bevgen_torch.models.stage2.maskgit import MaskGit, generate as maskgit_generate
 from bevgen_torch.ops.quant import quantize_dense_tree
 from bevgen_torch.parallel import sharding as shd
+from bevgen_torch.parallel.tensor import shard_module_
 
 # measured batch -> images/s of the argoverse_muse_7cam generate in bf16 and
 # int8 on the card (scripts/crossover_sweep.py writes it)
@@ -207,24 +210,35 @@ class BEVGenPipeline(Stage1Pipeline):
         return pipe
 
 
+def stage2_model(pipe: Stage1Pipeline) -> nn.Module:
+    """The pipeline's transformer: the MaskGit, or the AR pipeline's GPT."""
+    model = getattr(pipe, "maskgit", None)
+    return model if isinstance(model, nn.Module) else pipe.gpt
+
+
 def make_sharded_generate(pipe: Stage1Pipeline, mesh: shd.Mesh):
-    """Data-parallel serving over `mesh` (the counterpart of the JAX
-    package's `make_sharded_generate`, batch over (dcn, dp)). Returns (run,
-    shard_params, shard_batch):
+    """Serving over `mesh` (the counterpart of the JAX package's
+    `make_sharded_generate`: batch over (dcn, dp), the transformer's heads
+    and FFN hidden over tp). Returns (run, shard_params, shard_batch):
 
-      shard_params(pipe) -> pipe, with rank 0's parameters on every rank;
-      shard_batch(*arrays) -> this rank's rows of global batch arrays;
-      run(seg, ii, ei, generator, **kw) -> (images, ids) of this rank's
-        rows: `pipe.generate_fn` with the draws made at the global batch,
-        so the ranks' rows together are what one process generates for
-        the whole batch from an equally seeded generator.
+      shard_params(pipe) -> pipe, with rank 0's parameters on every rank,
+        and under tp the transformer cut to this rank's slice, in place
+        (`parallel.tensor.shard_module_`);
+      shard_batch(*arrays) -> this data row's rows of global batch arrays;
+      run(seg, ii, ei, generator, **kw) -> (images, ids) of this row's
+        rows, the same on every tp rank of the row: `pipe.generate_fn` with
+        the draws made at the global batch, so the rows together are what
+        one process generates for the whole batch from an equally seeded
+        generator.
 
-    A quantized pipeline (`quantized()`) serves the same way, each rank
-    with its own int8 copy. Works for `BEVGenPipeline` and
+    A quantized pipeline (`quantized()`) serves the same way at tp = 1,
+    each rank with its own int8 copy. Works for `BEVGenPipeline` and
     `ar_generate.ARPipeline` alike."""
 
     def shard_params(p: Stage1Pipeline) -> Stage1Pipeline:
-        return mesh.broadcast_module(p)
+        mesh.broadcast_module(p)
+        shard_module_(stage2_model(p), mesh)
+        return p
 
     def shard_batch(*arrays):
         return shd.shard_batch(arrays, mesh, pipe.device)

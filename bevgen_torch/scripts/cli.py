@@ -8,7 +8,7 @@ reference's mode mixins in order; dotted keys override any field
 (`transformer.num_layers=2`). yaml is imported only when `config=` is
 given. `pop_device` takes the reference's `platform=`/`devices=` flags
 beside the port's `device=`; `pop_mesh` the mesh axes `dp`, `tp`, `dcn`
-(data parallelism over the processes that torchrun starts).
+(data and tensor parallelism over the processes that torchrun starts).
 """
 from __future__ import annotations
 
@@ -81,43 +81,59 @@ def _count(name: str, val: str, auto: bool = False) -> str:
     return val
 
 
-def pop_mesh(args: Dict[str, str], device: str):
-    """Pop the mesh axes `dp`, `tp` and `dcn` (N or auto): data parallelism
-    over the processes that torchrun started (`WORLD_SIZE`). dcn x dp must
-    be their number, and dp defaults to it / dcn; `dcn=auto` makes each
+def pop_mesh(args: Dict[str, str], device: str, transformer=None,
+             quant: str = "none"):
+    """Pop the mesh axes `dp`, `tp` and `dcn` (N or auto) over the
+    processes that torchrun started (`WORLD_SIZE`): dcn x dp x tp must be
+    their number, and dp defaults to it / (dcn x tp); `dcn=auto` makes each
     node's ranks one dcn row. Returns None in one process (every axis 1),
     else joins the process group (nccl on cuda, gloo on cpu) and returns the
-    `parallel.sharding.Mesh`. Exits on `tp` above 1 (tensor parallelism is
-    not ported yet), on axes that do not multiply to the process count, and
-    on `dcn=auto` without ranks."""
+    `parallel.sharding.Mesh`. Exits on a `tp` that does not divide the
+    heads of `transformer` (the stage-2 config), on `tp` above 1 with
+    `transformer.use_fused_glue=true` or int8 serving (`quant`), on axes
+    that do not multiply to the process count, on more than one rank in one
+    process, and on `dcn=auto` without ranks."""
     from bevgen_torch.parallel import sharding
     dp = args.pop("dp", None)
     dp = None if dp is None else int(_count("dp", dp))
     tp = int(_count("tp", args.pop("tp", "1")))
     dcn = _count("dcn", args.pop("dcn", "1"), auto=True)
     world = distributed.world_size_from_env()
-    if tp > 1:
-        raise SystemExit(f"tp={tp}: tensor parallelism is not ported yet; the "
-                         "port splits the batch only (dp, dcn)")
+    if tp > 1 and transformer is not None:
+        if transformer.num_heads % tp:
+            raise SystemExit(f"tp={tp}: num_heads={transformer.num_heads} is "
+                             f"not divisible by tp")
+        if transformer.use_fused_glue or quant != "none":
+            raise SystemExit(
+                f"tp={tp}: transformer.use_fused_glue=true and quant=int8|auto "
+                "do not run under tensor parallelism yet (ROADMAP item 3c); "
+                "serve them with tp=1")
     if dcn == "auto" and world == 1:
         raise SystemExit("dcn=auto groups the ranks by node, and this run has "
                          "no ranks: start them with torchrun --nnodes=M "
                          "--nproc_per_node=N")
     if dcn != "auto":
-        ways = int(dcn) * (dp or max(world // int(dcn), 1))
-        if world == 1 and ways > 1:
+        ranks = int(dcn) * (dp or max(world // (int(dcn) * tp), 1)) * tp
+        tp_axis, tp_x = (f" tp={tp}", " x tp") if tp > 1 else ("", "")
+        if world == 1 and ranks > 1:
+            kind = "data-parallel ranks" if tp == 1 else "ranks"
             raise SystemExit(
-                f"dp={dp or 1} dcn={dcn}: {ways} data-parallel ranks in one "
+                f"dp={dp or 1} dcn={dcn}{tp_axis}: {ranks} {kind} in one "
                 f"process; start one process per rank with torchrun "
-                f"--nproc_per_node={ways}")
-        if ways != world:
-            raise SystemExit(f"dp={dp} dcn={dcn}: dcn x dp must equal the "
-                             f"{world} processes started")
+                f"--nproc_per_node={ranks}")
+        if ranks != world:
+            raise SystemExit(f"dp={dp} dcn={dcn}{tp_axis}: dcn x dp{tp_x} must "
+                             f"equal the {world} processes started")
     if world == 1:
         return None
     joined = distributed.initialize(device=device)
-    mesh = (sharding.make_multislice_mesh(device=device) if dcn == "auto"
-            else sharding.make_mesh(dp=dp, dcn=int(dcn), device=device))
+    try:
+        mesh = (sharding.make_multislice_mesh(tp=tp, device=device)
+                if dcn == "auto"
+                else sharding.make_mesh(dp=dp, tp=tp, dcn=int(dcn),
+                                        device=device))
+    except ValueError as e:
+        raise SystemExit(str(e))
     mesh.owns_group = joined
     return mesh
 

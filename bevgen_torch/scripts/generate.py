@@ -15,6 +15,8 @@
 argoverse_muse.yaml modes=[argoverse,generate] eval_generate=/data/out
     torchrun --nproc_per_node=2 -m bevgen_torch.scripts.generate \\
         preset=argoverse_muse_7cam batch_size=4 fake=2 dp=2
+    torchrun --nproc_per_node=4 -m bevgen_torch.scripts.generate \\
+        preset=argoverse_muse_7cam batch_size=4 fake=2 dp=2 tp=2
 
 Data: `fake=N` runs N batches of the fake-batch fixture; without it the
 CLI reads the Argoverse tree under ARGOVERSE_DATA_DIR
@@ -53,14 +55,16 @@ the card (`device`, default cuda; it raises without one; `platform=cpu|gpu`
 and `devices=1` as the reference takes them, `scripts/cli.py:pop_device`).
 The composed config is printed first as plain text unless
 `print_config=false`. Under torchrun, `dp` and `dcn` (`scripts/cli.py:
-pop_mesh`) split each batch over the ranks
+pop_mesh`) split each batch over the data rows and `tp` the transformer's
+heads and FFN hidden over the ranks of a row
 (`pipelines.generate.make_sharded_generate` or
 `ar_generate.make_sharded_ar_generate`: every rank reads the batch and
-decodes its rows, the draws made at the whole batch's shape), and rank 0
-gathers the ids and images and writes the same tree a one-process run
-writes; `quant=` quantizes each rank's copy (`auto` with the per-rank
-batch as the hint). `tp` above 1 exits (not ported yet), and so does
-`keep_cameras` with a mesh, as in the JAX CLI.
+decodes its row's rows, the draws made at the whole batch's shape), and
+rank 0 gathers the ids and images and writes the same tree a one-process
+run writes; `quant=` quantizes each rank's copy (`auto` with the per-row
+batch as the hint) at tp = 1. A `tp` that does not divide the heads, `tp`
+above 1 with `quant=int8|auto` or `transformer.use_fused_glue=true`, and
+`keep_cameras` with a mesh exit, the last as in the JAX CLI.
 `config=`, `preset=`, `modes=` and dotted overrides
 (`transformer.num_layers=2`) build the config (`scripts/cli.py`); any other
 argument exits.
@@ -148,7 +152,7 @@ def run(argv: List[str]):
     show_config = cli.pop_flag(args, "print_config", "true")
     if args:
         raise SystemExit(f"unknown argument(s): {sorted(args)}")
-    mesh = cli.pop_mesh(mesh_args, device)
+    mesh = cli.pop_mesh(mesh_args, device, tf, quant)
     ways = 1 if mesh is None else mesh.size
     main_rank = mesh is None or mesh.rank == 0
     if mesh is not None and kept:
@@ -156,7 +160,7 @@ def run(argv: List[str]):
                          "together with a device mesh")
     if batch_size % ways:
         raise SystemExit(f"batch_size={batch_size} must be divisible by the "
-                         f"data-parallel ways ({ways})")
+                         f"data-parallel ways dcn*dp ({ways})")
     if show_config and main_rank:
         print(cli.config_text(cfg, extra={
             "eval_generate": save_dir, "ckpt_path": ckpt_path,

@@ -5,16 +5,22 @@
         base_lr=1e-4
     torchrun --nproc_per_node=4 -m bevgen_torch.scripts.train_stage2 \\
         preset=argoverse_muse batch_size=32 dp=4 ckpt_dir=ckpts
+    torchrun --nproc_per_node=4 -m bevgen_torch.scripts.train_stage2 \\
+        preset=argoverse_muse batch_size=32 dp=2 tp=2 ckpt_dir=ckpts
 
 The counterpart of `bevgen_tpu/scripts/train_stage2.py`. Under torchrun,
 `dp` and `dcn` (N or auto; `scripts/cli.py:pop_mesh`) split the global
-`batch_size` over the ranks, each on its own card (`platform=cpu`: gloo on
-the CPU): each rank feeds its rows of every fake batch, or its contiguous
-share of the token shards (`parallel.distributed.host_shard_indices`),
-runs `trainer.make_sharded_train_step` (ZeRO-sliced moments and EMA), and
-rank 0 alone logs and writes the checkpoints; a stop signal to any rank
-stops every rank after the same step. `tp` above 1 exits (tensor
-parallelism is not ported yet). Token source: `tokens_dir` (shards of
+`batch_size` over the data rows and `tp` the transformer's heads and FFN
+hidden over the ranks of a row, each rank on its own card (`platform=cpu`:
+gloo on the CPU): each row feeds its rows of every fake batch, or its
+contiguous share of the token shards
+(`parallel.distributed.host_shard_indices`), runs
+`trainer.make_sharded_train_step` (tp-sliced weights, ZeRO-sliced moments
+and EMA), and rank 0 alone logs and writes the checkpoints (unsliced, so a
+tag resumes at any mesh); a stop signal to any rank stops every rank after
+the same step. `batch_size` must divide by dcn x dp, and `tp` must divide
+`transformer.num_heads`; `tp` above 1 with `transformer.use_fused_glue=true`
+exits. Token source: `tokens_dir` (shards of
 `data/tokens.py`) or seeded random tokens (`fake=true`, the default when no
 directory is given). The model keeps fp32 parameters and computes in the
 preset's dtype (bf16); on the card every attention runs through the CUDA
@@ -119,24 +125,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     ckpt_async = pop_flag(args, "ckpt_async", "false")
     log_every = int(args.pop("log_every", 50))
     device = pop_device(args)
-    mesh = pop_mesh(args, device)
+    mesh_args = {k: args.pop(k) for k in ("dp", "tp", "dcn") if k in args}
     seed = int(args.pop("seed", 0))
     if not fake and not tokens_dir:
         raise SystemExit("fake=false needs tokens_dir=<shard directory>")
-    ways = 1 if mesh is None else mesh.size
-    if batch_size % ways:
-        raise SystemExit(f"batch_size={batch_size} must be divisible by the "
-                         f"data-parallel ways dcn*dp={ways} (mesh "
-                         f"{mesh.shape})")
-    rank, local_batch = (0 if mesh is None else mesh.rank), batch_size // ways
-    main_rank = rank == 0
-    if mesh is not None and main_rank:
-        print(f"mesh: {mesh.shape} over {ways} processes")
     try:
         cfg = apply_overrides(PRESETS[preset](), args)
     except TypeError as e:
         raise SystemExit(f"unknown argument: {e}")
     tf = cfg.transformer
+    mesh = pop_mesh(mesh_args, device, tf)
+    ways = 1 if mesh is None else mesh.size
+    if batch_size % ways:
+        raise SystemExit(f"batch_size={batch_size} must be divisible by the "
+                         f"data-parallel ways dcn*dp={ways} (mesh "
+                         f"{mesh.shape})")
+    rank = 0 if mesh is None else mesh.data_rank
+    local_batch = batch_size // ways
+    main_rank = mesh is None or mesh.rank == 0
+    if mesh is not None and main_rank:
+        print(f"mesh: {mesh.shape} over {mesh.world} processes")
     dev = resolve_device(device)
 
     model = MaskGit(tf, cfg.muse, dtype=resolve_dtype(cfg.dtype),
@@ -189,10 +197,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         @torch.no_grad()
         def run_validation():
             # the EMA's gather is a collective: every rank takes part, and
-            # rank 0 alone runs the validation set
-            weights = (state.ema.full() if eval_ema
+            # the first data row alone (its tp ranks together) runs the
+            # validation set
+            weights = (state.ema.local() if eval_ema
                        else {n: p for n, p in model.named_parameters()})
-            if not main_rank:
+            if rank != 0:
                 return None
             losses = []
             with swapped_params(model, weights):

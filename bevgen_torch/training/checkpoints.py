@@ -26,7 +26,9 @@ agreed over the ranks, the optimizer's and the EMA's ZeRO slices are
 gathered into the unsliced layout (a collective), and only rank 0 writes
 (the JAX manager's `_is_writer`). Every rank restores from the same tag;
 the slices are cut again for the restoring run's ranks, so a tag restores
-at any rank count.
+at any rank count. Under tensor parallelism every tp slice (parameters,
+moments, EMA) is gathered and joined by meaning (`parallel/tensor.py`)
+before the write, so a tag holds the one-process layout whatever the tp.
 
 `load_weights` (counterpart of `bevgen_tpu/training/checkpoints.py:
 load_weights` :193) fills a serving pipeline from a checkpoint: the
@@ -44,6 +46,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+
+from bevgen_torch.parallel.tensor import full_state_dict
 
 STATE_FILE = "state.pt"
 EMA_FILE = "params.pt"
@@ -126,7 +130,7 @@ class CheckpointManager:
         if not due:
             return False
         tag = f"step_{step:08d}"
-        snapshot = {"params": state.model.state_dict(),
+        snapshot = {"params": full_state_dict(state.model, self.mesh),
                     "optimizer": state.optimizer.state_dict(),
                     "step": int(state.step)}
         if isinstance(ema, EmaState):

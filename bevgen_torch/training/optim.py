@@ -21,12 +21,17 @@ parameter, steps it with the slice of the summed gradient, and gathers the
 slices back into the whole parameters; `state_dict` gathers the moments
 into the unsliced layout and `load_state_dict` slices them again, so a
 saved state restores at any number of ranks. `shard_ema` slices the EMA
-the same way.
+the same way. Under tensor parallelism (`parallel/tensor.py`) the
+parameters are already this rank's tp slices: the moments and the EMA are
+cut from them, the unsliced layout is gathered over tp too, and the
+clipping norm counts a tp-sliced gradient's squares over the tp group and
+a replicated one's once, so the clip is the same on every rank.
 """
 from __future__ import annotations
 
 import math
-from typing import TYPE_CHECKING, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import (TYPE_CHECKING, Callable, Dict, Iterable, List, Optional,
+                    Sequence, Tuple)
 
 import torch
 from torch import nn
@@ -69,10 +74,23 @@ def warmup_cosine(base_lr: float, warmup_steps: int, total_steps: int,
     return schedule
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every entry, in fp32, on the device."""
+def global_norm(tensors: Iterable[torch.Tensor],
+                sliced: Optional[Sequence[bool]] = None,
+                tp_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of squares of every entry, in fp32, on the device.
+    With `sliced` (a flag per tensor) and `tp_sum` (a sum over the tp
+    group), the flagged tensors are tp slices: their squares are summed over
+    the group, the others' counted once."""
     norms = [t.float().norm() for t in tensors]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if sliced is None or not any(sliced):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    zero = norms[0].new_zeros(())
+    rep = [n for n, s in zip(norms, sliced) if not s]
+    cut = torch.linalg.vector_norm(torch.stack(
+        [n for n, s in zip(norms, sliced) if s]))
+    rep = torch.linalg.vector_norm(torch.stack(rep)) if rep else zero
+    return torch.sqrt(rep * rep + tp_sum(cut * cut))
 
 
 class MaskGitOptimizer:
@@ -119,11 +137,13 @@ class MaskGitOptimizer:
         """Parameter names in the index order of `state_dict()["adam"]`."""
         return [n for names, _ in self._groups for n in names]
 
-    def shard(self, plan: "ZeroPlan") -> None:
+    def shard(self, plan: "ZeroPlan", state: Optional[dict] = None) -> None:
         """Keep only this rank's slice of every moment (ZeRO-1 over the
         plan's dp group): AdamW now steps views of the parameters' slices
-        and `step` gathers them. Moments already held are sliced."""
-        state = self.state_dict()
+        and `step` gathers them. Moments already held are sliced; `state`
+        (this optimizer's `state_dict()` taken before the parameters were
+        cut to tp slices) is loaded in their place."""
+        state = self.state_dict() if state is None else state
         self.plan = plan
         self.adam = self._make_adam({
             n: plan.part(n, p.detach()) for n, p in zip(self.names,
@@ -147,7 +167,7 @@ class MaskGitOptimizer:
             self.acc, self.mini_step = None, 0
         grads = [g.to(p.dtype) for g, p in zip(grads, self.params)]
         if self.grad_clip:
-            norm = global_norm(grads)
+            norm = self.grad_norm(grads)
             scale = torch.where(norm < self.grad_clip, 1.0,
                                 self.grad_clip / norm)
             grads = [g * scale.to(g.dtype) for g in grads]
@@ -165,6 +185,14 @@ class MaskGitOptimizer:
         self.count += 1
         return True
 
+    def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of one gradient per parameter: the tp slices'
+        squares summed over the tp group (the same on every rank)."""
+        if self.plan is None or not self.plan.tp_axes:
+            return global_norm(grads)
+        return global_norm(grads, [n in self.plan.tp_axes for n in self.names],
+                           self.plan.mesh.tp_sum)
+
     def _gather_params(self) -> None:
         """Every rank's updated slices into the whole parameters."""
         full = self.plan.gather({n: t for n, t in self._targets.items()
@@ -175,36 +203,46 @@ class MaskGitOptimizer:
 
     def state_dict(self) -> dict:
         """The optimizer state in the unsliced layout (with a plan: a
-        collective over the dp group, so every rank calls it together)."""
+        collective over the dp and tp groups, so every rank calls it
+        together)."""
         adam = self.adam.state_dict()
+        acc = self.acc
         if self.plan is not None:
             order = self.state_names()
             parts = {(k, i): st[k] for i, st in adam["state"].items()
                      for k in ("exp_avg", "exp_avg_sq")}
-            full = self.plan.gather(parts, {key: order[key[1]]
-                                            for key in parts})
+            full = self.plan.gather_full(parts, {key: order[key[1]]
+                                                 for key in parts})
             adam = {"param_groups": adam["param_groups"], "state": {
                 i: {**st, "exp_avg": full[("exp_avg", i)],
                     "exp_avg_sq": full[("exp_avg_sq", i)]}
                 for i, st in adam["state"].items()}}
+            if acc is not None:
+                from bevgen_torch.parallel.tensor import gather_tp
+                got = gather_tp(dict(zip(self.names, acc)), self.plan.tp_axes,
+                                self.plan.mesh)
+                acc = [got[n] for n in self.names]
         return {"adam": adam, "count": self.count,
-                "mini_step": self.mini_step, "acc": self.acc}
+                "mini_step": self.mini_step, "acc": acc}
 
     def load_state_dict(self, state: dict) -> None:
         """Load a state in the unsliced layout (any rank count's
         `state_dict`), sliced to this rank's part when sharded."""
-        adam = state["adam"]
+        adam, acc = state["adam"], state["acc"]
         if self.plan is not None:
             order = self.state_names()
             adam = {"param_groups": adam["param_groups"], "state": {
-                i: {k: (self.plan.part(order[int(i)], v).clone()
+                i: {k: (self.plan.part_full(order[int(i)], v).clone()
                         if k in ("exp_avg", "exp_avg_sq") else v)
                     for k, v in st.items()}
                 for i, st in adam["state"].items()}}
+            if acc is not None:
+                acc = [self.plan.tp_part(n, a).clone()
+                       for n, a in zip(self.names, acc)]
         self.adam.load_state_dict(adam)
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
-        self.acc = state["acc"]
+        self.acc = acc
 
 
 def maskgit_optimizer(model: nn.Module, base_lr: float,
@@ -248,16 +286,22 @@ class EmaState:
         self.plan = plan
 
     def full(self) -> Dict[str, torch.Tensor]:
-        """The whole EMA parameters by name (with a plan: gathered, a
-        collective over the dp group)."""
+        """The whole EMA parameters by name, unsliced (with a plan:
+        gathered, a collective over the dp and tp groups)."""
+        return self.params if self.plan is None else self.plan.gather_full(
+            self.params)
+
+    def local(self) -> Dict[str, torch.Tensor]:
+        """The EMA parameters at the shapes of this rank's model (its tp
+        slices; with a plan: gathered over the dp group, a collective)."""
         return self.params if self.plan is None else self.plan.gather(
             self.params)
 
 
 def shard_ema(state: EmaState, plan: "ZeroPlan") -> EmaState:
-    """`state` keeping only this rank's slice of each entry."""
-    return EmaState({n: plan.part(n, t).clone() for n, t in state.params.items()},
-                    state.count, plan)
+    """`state` (unsliced) keeping only this rank's slice of each entry."""
+    return EmaState({n: plan.part_full(n, t).clone()
+                     for n, t in state.params.items()}, state.count, plan)
 
 
 def ema_init(model: nn.Module) -> EmaState:

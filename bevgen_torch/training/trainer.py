@@ -27,6 +27,16 @@ every rank), each rank updates its ZeRO slice of the parameters and the
 slices are gathered, so every rank holds the same parameters. At a mesh of
 one process the steps compute what `make_train_step` and
 `make_ar_train_step` compute.
+
+With tp > 1 the MaskGit step cuts the model's heads and FFN hidden to this
+rank's tp slices in place (`parallel/tensor.py:shard_module_`): the ranks
+of a tp group compute the same rows, the loss comes out the same on each
+(the logits are gathered), the gradients are summed over each tp index's
+data group, and the clipping norm counts the tp slices over the tp group.
+The AR step keeps its parameters whole on every rank, as the JAX package's
+does (the reference's AR training is data-parallel only): the tp ranks of
+a row compute the same rows, and take the first one's summed gradients,
+so they cannot drift apart.
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ from bevgen_torch.models.stage2.ar import ar_loss
 from bevgen_torch.models.stage2.gpt import SparseGPT
 from bevgen_torch.models.stage2.maskgit import MaskGit, maskgit_loss
 from bevgen_torch.parallel.sharding import Mesh, ZeroPlan
+from bevgen_torch.parallel.tensor import shard_module_
 from bevgen_torch.training import optim
 
 
@@ -66,13 +77,17 @@ def _grads(loss: torch.Tensor, params: List[torch.Tensor],
     return grads if mesh is None else mesh.sum_all(grads)
 
 
-def _shard_state(model, optimizer, mesh: Mesh, state):
-    """Rank 0's parameters (and EMA) on every rank, the moments sliced."""
+def _shard_state(model, optimizer, mesh: Mesh, state, split: bool):
+    """Rank 0's parameters on every rank, cut to this rank's tp slices when
+    `split`, the moments sliced."""
     if state.model is not model or state.optimizer is not optimizer:
         raise ValueError("model and optimizer must be the state's own")
+    unsliced = optimizer.state_dict()
     mesh.broadcast_module(model)
+    if split:
+        shard_module_(model, mesh)
     plan = ZeroPlan(model, mesh)
-    optimizer.shard(plan)
+    optimizer.shard(plan, unsliced)
     return plan
 
 
@@ -108,7 +123,7 @@ def make_train_step(ema_decay: float = 0.9999, skip_nonfinite: bool = True,
         grads = _grads(out.loss, opt.params, mesh)
         terms = torch.stack([out.loss, out.ce_loss, out.critic_loss]).detach()
         loss, ce, critic = terms if mesh is None else mesh.sum(terms)
-        grad_norm = optim.global_norm(grads)
+        grad_norm = opt.grad_norm(grads)
         ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
         if ok or not skip_nonfinite:
             opt.step(grads)
@@ -127,13 +142,15 @@ def make_sharded_train_step(model: MaskGit, optimizer: optim.MaskGitOptimizer,
                             mesh: Mesh, state: TrainState,
                             ema_decay: float = 0.9999,
                             ema_warmup: bool = False, ema_every: int = 1):
-    """The MaskGit step data-parallel over `mesh`. Returns (step_fn,
-    sharded_state): rank 0's parameters broadcast to every rank, the AdamW
-    moments and the EMA sliced over dp (ZeRO-1). step_fn(state, batch,
-    generator, mask_override=None, gumbel_noise=None) takes this rank's rows
-    of the global batch (and of the override tensors); every rank seeds its
-    generator alike. `model` and `optimizer` are the state's own."""
-    plan = _shard_state(model, optimizer, mesh, state)
+    """The MaskGit step over `mesh`. Returns (step_fn, sharded_state): rank
+    0's parameters broadcast to every rank and, with tp > 1, cut to this
+    rank's tp slices (the model, in place), the AdamW moments and the EMA
+    sliced over dp (ZeRO-1). step_fn(state, batch, generator,
+    mask_override=None, gumbel_noise=None) takes this data row's rows of the
+    global batch (and of the override tensors); every rank seeds its
+    generator alike. `model` and `optimizer` are the state's own, unsliced
+    (a restored state is restored before this call)."""
+    plan = _shard_state(model, optimizer, mesh, state, split=True)
     mesh.broadcast_(list(state.ema.params.values()))
     state.ema = optim.shard_ema(state.ema, plan)
     step_fn = make_train_step(ema_decay, ema_every=ema_every,
@@ -176,6 +193,9 @@ def make_ar_train_step(mesh: Optional[Mesh] = None
         if mesh is not None:
             loss = loss / mesh.size
         grads = _grads(loss, opt.params, mesh)
+        if mesh is not None and mesh.tp > 1:
+            # the tp ranks of a row computed the same rows: one gradient
+            mesh.broadcast_(grads, group=mesh.tp_group)
         loss = loss.detach() if mesh is None else mesh.sum(loss.detach())
         grad_norm = optim.global_norm(grads)
         opt.step(grads)
@@ -191,7 +211,8 @@ def make_ar_sharded_train_step(model: SparseGPT,
                                state: ARTrainState):
     """The AR step data-parallel over `mesh`, deterministic (no dropout), as
     the reference's. Returns (step_fn, sharded_state) as
-    `make_sharded_train_step` does; step_fn(state, batch) takes this rank's
-    rows."""
-    _shard_state(model, optimizer, mesh, state)
+    `make_sharded_train_step` does; step_fn(state, batch) takes this data
+    row's rows. The parameters stay whole under tp (the JAX package's
+    `make_ar_sharded_train_step`: the AR model trains data-parallel only)."""
+    _shard_state(model, optimizer, mesh, state, split=False)
     return make_ar_train_step(mesh), state

@@ -116,7 +116,7 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      registers, shared memory, spill bytes (none allowed) and blocks per SM,
      and the form each case took;
  22. `generate_fn` with `transformer.use_fused_glue=true` on phase 4's
-     weights and inputs, 6 pairs timed in turns with the switch off: exactly
+     weights and inputs, 4 pairs timed in turns with the switch off: exactly
      (18 + 17) x 42 = 1470 residual + LayerNorm, 35 x 14 = 490 GEGLU +
      LayerNorm and 980 attention launches per generate;
  23. one full-width forward, glue against no glue, on the same weights and
@@ -293,13 +293,14 @@ kernel:
      peak; then the plain form with remat at the largest power-of-two batch
      up to 32 that fits (named), its step time, image tokens/s and peak,
      and rows 1 and 8 at that batch's shapes against their plain versions;
- 48. `scripts/train_stage2.py` at `argoverse_muse_7cam` b=8, 1 step with
+ 48. `scripts/train_stage2.py` at `argoverse_muse_7cam` b=8, full width
+     cut to 7 layers, 1 step with
      a save every step (`ckpt_minutes=0`) and the final forced save,
      `ckpt_async=false` and `=true` in two directories on one seed: the
      loop's seconds per step, each save's wall time on the loop and the
      final join; the two final tags (parameters, optimizer state, step, EMA)
      equal bit for bit; the asynchronous run resumed to step 2; exactly
-     phase 8's launches per step;
+     phase 8's launch rule per step at 7 layers;
  49. `scripts/weights_drill.py` with its forwards on the card: every chain
      passes (LPIPS, Inception, LoFTR, the CLIP vocabulary, the published
      checkpoints at `tiny_test`), the two `tiny_test` generates launch row 1
@@ -317,10 +318,11 @@ Phases 50-51 run data parallelism on torch.distributed
      `make_sharded_generate` at global b=2, exactly 980 row-1 launches per
      rank; `make_ar_sharded_train_step` at full `nuscenes_ar` width and
      depth, global b=4, exactly 24 row-9 and 48 row-10 per rank per step;
-     `make_sharded_ar_generate` at global b=2, exactly 24 x 2100 row-11 per
-     rank. Both ranks hold equal parameters after the steps; each step's
-     final parameters equal, bit for bit (else each parameter group within
-     1e-6 of its largest entry, named), one process that sums the two
+     `make_sharded_ar_generate` at global b=2, full width cut to 4 layers,
+     exactly 4 x 2100 row-11 per rank. Both ranks hold equal parameters
+     after the steps; each step's final parameters equal, bit for bit
+     (else each parameter group within 1e-6 of its largest entry, named),
+     one process that sums the two
      halves' gradients in rank order; its first step's loss is within 1e-3
      of one process's at the global batch and the gradients' cosine per
      group at least 0.999; each rank's generate output equals, bit for bit,
@@ -332,6 +334,31 @@ Phases 50-51 run data parallelism on torch.distributed
      MaskGit and an AR step at the ranks' batches, the MUSE generate at b=2,
      the AR generate at b=1 cut to 2 layers), each equal bit for bit to the
      unsharded function.
+
+Phase 52 runs tensor parallelism (`parallel/tensor.py`), which adds no
+kernel: the attention kernels run at the heads of one tp rank.
+ 52. (a) rows 1 (self and cross, b=2 and b=4), 8 (b=4) and 11 (every
+     bucket) at 8 heads, and rows 1 and 11 (pl 512, 2368) at 4 heads,
+     against their plain versions; then phase 50's two rank processes as a
+     dp=1 x tp=2 mesh (gloo, CUDA tensors) at `argoverse_muse` full width
+     and depth: (b) one bf16 teacher-forced forward, whose gathered logits
+     lie no farther from a one-process fp32 forward (on the CPU) than twice
+     the one-process bf16 logits do (relative L2); (c) a b=2 generate, the
+     two ranks' ids and images equal bit for bit, the share of ids equal to
+     one process's printed; (d) `make_sharded_train_step` at b=4, 2 steps:
+     the loss within 1e-3 of one process's, the ranks' merged gradients'
+     cosine per group at least 0.999, every replicated parameter equal
+     on both ranks bit for bit, exactly 4L row-1 and 12L row-8 launches
+     per rank per step, all at 8 heads; (e) `make_sharded_ar_generate` at
+     `nuscenes_ar` full width cut to 2 layers, b=1: the ranks' ids equal,
+     exactly 2 x 2100 row-11 launches per rank, at 8 heads; (f)
+     `make_ar_sharded_train_step` on the tp mesh (the GPT whole on both
+     ranks, as in the JAX package) at full width cut to 2 layers, b=2, 2
+     steps: exactly 2 row-9 and 4 row-10 launches per rank per step, the
+     ranks' parameters equal. Each
+     rank's seconds and peak GB are printed (two ranks share one card, and
+     gloo copies every collective through the host: no NVLink or scaling
+     number).
 
 Prints each phase's seconds (`[time]` lines) and their sum, the kernels'
 JSON line, then the card's name and power limit, and
@@ -2256,7 +2283,7 @@ def glue_pipelines(cfg):
 
 # phase 22's A/B: pairs of generates, glue on and off, in turns (which
 # goes first alternates), after two warm-ups of each
-GLUE_AB_PAIRS = 6
+GLUE_AB_PAIRS = 4
 
 
 def glue_generate_phase(cfg, plain, glue, phase4_med):
@@ -4817,6 +4844,7 @@ REMAT_GRAD_RTOL = 1e-6
 # Phase 48: the train CLI at full width with ckpt_minutes=0 (a save every
 # step), once synchronous and once asynchronous, then resumed
 ASYNC_STEPS = 1
+ASYNC_LAYERS = 7             # phase 48's model: full width, half the depth
 
 
 def remat_launch_rule(layers, forwards, glue):
@@ -5073,6 +5101,7 @@ def ckpt_async_phase(cfg, tmp):
         t0 = time.perf_counter()
         rc, lines = run_cli(train_stage2.main, [
             "preset=argoverse_muse_7cam", "fake=true", f"steps={steps}",
+            f"transformer.num_layers={ASYNC_LAYERS}",
             "ckpt_minutes=0", f"ckpt_async={mode}", "log_every=1",
             f"ckpt_dir={directory}"])
         wall = time.perf_counter() - t0
@@ -5138,7 +5167,7 @@ def ckpt_async_phase(cfg, tmp):
         shutil.rmtree(base / "ckpt_async_true")
         steps = 2 * ASYNC_STEPS + 1
         launches, (out["fwd"], out["bwd"]) = _launch_counts(), _by_shape()
-        per_step = remat_launch_rule(cfg.transformer.num_layers, 2, False)[0]
+        per_step = remat_launch_rule(ASYNC_LAYERS, 2, False)[0]
         want = tuple(steps * n for n in per_step)
         print(f"[ckpt_async] launches over the three runs' {steps} steps "
               f"(row 1, row 8, residual, GEGLU): {launches} (expected {want})",
@@ -5215,7 +5244,8 @@ def knob_kernel_entries(cfg, remat, ckpt_async, drill, train_fwd_stats,
     attention("remat train", big["fwd"], big["bwd"], big["B"],
               {s: big["stats"][("fwd", s)] for s in ("self", "cross")},
               {s: big["stats"][("bwd", s)] for s in ("self", "cross")})
-    attention("ckpt_async CLI train", ckpt_async["fwd"], ckpt_async["bwd"], TB,
+    attention(f"ckpt_async CLI train {ASYNC_LAYERS} layers", ckpt_async["fwd"],
+              ckpt_async["bwd"], TB,
               train_fwd_stats, bwd_stats)
     inner = int(tf.num_embed * tf.ff_mult * 2 / 3)
     for i, (op, rep, width) in enumerate((
@@ -5260,6 +5290,17 @@ DP_PARAM_RTOL = 1e-6
 DP_LOSS_RTOL = 1e-3          # dp=2 against one process at the global batch
 DP_GRAD_COS_MIN = 0.999
 NCCL_AR_LAYERS = 2           # phase 51's AR generate, full width
+DP_AR_GEN_LAYERS = 4         # phase 50's AR generate, full width
+TP_WAYS = 2                  # phase 52: dp=1 x tp=2 on phase 50's ranks
+TP_GEN_BATCH = 2
+TP_TRAIN_BATCH = 4           # the global batch; every tp rank computes it
+TP_AR_TRAIN_BATCH = 2
+TP_STEPS = 2                 # the first has lr 0 (warm-up), the second moves
+TP_LOGIT_RATIO_MAX = 2.0     # tp bf16 logits vs fp32, against bf16 vs fp32
+# the tp ranks' bf16 gradients against one process's: phase 50's bound for
+# another summation order in bf16 (the split products' partial sums round to
+# bf16 apart; an H100 run measured a minimum of 0.999689, below 0.9999)
+TP_GRAD_COS_MIN = DP_GRAD_COS_MIN
 
 
 def _json_counts(counter):
@@ -5400,6 +5441,12 @@ def dp_generate(mesh, cfg, out, ar):
             "row11": _json_counts(da.decode_attention_cuda.launches_by_shape)}
 
 
+def dp_ar_gen_cfg(ar_cfg):
+    """Phase 50's AR generate config: full width, DP_AR_GEN_LAYERS deep."""
+    return dataclasses.replace(ar_cfg, transformer=ar_cfg.transformer.replace(
+        num_layers=DP_AR_GEN_LAYERS))
+
+
 def dp_rank_main(rank, world, rdv, out):
     """Phase 50's rank process: joins a gloo group of `world` ranks on
     cuda:0 (file rendezvous `rdv`), checks the collectives, runs the MaskGit
@@ -5421,7 +5468,8 @@ def dp_rank_main(rank, world, rdv, out):
     for key, fn, c, ar in (("muse_train", dp_train, cfg, False),
                            ("muse_generate", dp_generate, cfg, False),
                            ("ar_train", dp_train, ar_cfg, True),
-                           ("ar_generate", dp_generate, ar_cfg, True)):
+                           ("ar_generate", dp_generate,
+                            dp_ar_gen_cfg(ar_cfg), True)):
         t0 = time.perf_counter()
         res[key] = fn(mesh, c, out, ar)
         torch.cuda.empty_cache()
@@ -5429,6 +5477,7 @@ def dp_rank_main(rank, world, rdv, out):
               f"{ {k: v for k, v in res[key].items() if k != 'metrics'} }",
               flush=True)
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["tp"] = tp_rank_work(out)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     distributed.shutdown()
@@ -5726,11 +5775,15 @@ def dp_phase(cfg, ar_cfg, tmp):
 
     def meanwhile():
         # the host-bound one-process generates overlap the ranks' work
-        for ar, c in ((False, cfg), (True, ar_cfg)):
+        for ar, c in ((False, cfg), (True, dp_ar_gen_cfg(ar_cfg))):
             refs[ar] = dp_generate_reference(c, ar)
             print(f"[dp] the one-process {'AR' if ar else 'MUSE'} generates "
                   f"of each rank's row: done at "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
+        # phase 52's one-process references, while the ranks run its part
+        refs["tp"] = tp_references()
+        print(f"[tp] the one-process references: done at "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     out, ranks, _ = run_ranks(DP_WORLD, tmp, meanwhile)
     ranks_s = time.perf_counter() - t0
@@ -5754,7 +5807,7 @@ def dp_phase(cfg, ar_cfg, tmp):
         if n1 != (2 * steps - 1) * nl * 2:
             raise SystemExit(f"rank {r} MUSE generate: {n1} row-1 launches")
         n11 = sum(res["ar_generate"]["row11"].values())
-        if n11 != al * at.num_img_tokens:
+        if n11 != DP_AR_GEN_LAYERS * at.num_img_tokens:
             raise SystemExit(f"rank {r} AR generate: {n11} row-11 launches")
         if not (res["muse_train"]["equal"] and res["ar_train"]["equal"]):
             raise SystemExit(f"rank {r} holds parameters other than rank 0's")
@@ -5786,7 +5839,8 @@ def dp_phase(cfg, ar_cfg, tmp):
           f"{time.perf_counter() - t1:.1f} s", flush=True)
     # phase 51 starts from the same seeded models and MUSE pipeline
     return {"ranks": ranks, "ref": ref, "checks": checks, "ranks_s": ranks_s,
-            "seeded": seeded, "muse_pipe": refs[False][0]}
+            "seeded": seeded, "muse_pipe": refs[False][0],
+            "tp_refs": refs["tp"], "out": out}
 
 
 def nccl_phase(cfg, ar_cfg, tmp, shared):
@@ -5960,6 +6014,505 @@ def dp_kernel_entries(cfg, ar_cfg, dp, nccl, serve_stats, row11_stats):
         for pl, n in sorted(counts.items()):
             add(f"decode_attention[{run} b1 H{at.num_heads} pl{pl}]",
                 da.SOURCE, da.REPLACES, n, row11_stats[pl])
+    return out
+
+# ---------------------------------------------------------------------------
+# phase 52: tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def tp_cfg():
+    from bevgen_torch.core.config import argoverse_muse_config
+    return argoverse_muse_config()
+
+
+def tp_ar_cfg():
+    import dataclasses as dc
+    from bevgen_torch.core.config import nuscenes_ar_config
+    c = nuscenes_ar_config()
+    return dc.replace(c, transformer=c.transformer.replace(
+        num_layers=NCCL_AR_LAYERS))
+
+
+def tp_forward_inputs(cfg):
+    """(ids, cond_ids, ii, ei) of phase 52's teacher-forced forward, b=1,
+    from seeds, on the card."""
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    tf = cfg.transformer
+    rng = np.random.default_rng(52)
+    batch = fake_batch(cfg, 1, seed=0)
+    return (torch.as_tensor(rng.integers(0, tf.vocab_size, (
+                1, tf.num_cams, tf.num_cam_tokens)), device="cuda"),
+            torch.as_tensor(rng.integers(0, tf.cond_vocab_size, (
+                1, tf.num_cond_tokens)), device="cuda"),
+            torch.as_tensor(batch["intrinsics_inv"], device="cuda").float(),
+            torch.as_tensor(batch["extrinsics_inv"], device="cuda").float())
+
+
+def _heads_counts():
+    from bevgen_torch.ops import attention_bwd as ab
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops import decode_attention as da
+    return {"row1": _json_counts(ca.cosine_attention_cuda.launches_by_heads),
+            "row8": _json_counts(ab.attention_bwd_cuda.launches_by_heads),
+            "row11": _json_counts(da.decode_attention_cuda.launches_by_heads),
+            "row9": bs.block_sparse_attention_cuda.launches,
+            "row10": bs.block_sparse_attention_bwd_cuda.launches}
+
+
+def _reset_all_counts():
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.ops import decode_attention as da
+    _reset_launch_counts()
+    bs.reset_launch_counts()
+    da.reset_launch_counts()
+
+
+def _replicated_equal(mesh, model):
+    """Whether every rank holds rank 0's parameters, bit for bit, where the
+    model is not tp-sliced (all of them for a model kept whole)."""
+    import torch
+    from bevgen_torch.parallel.tensor import tp_layout
+    split = tp_layout(model)
+    flat = torch.cat([p.detach().reshape(-1) for n, p in
+                      model.named_parameters() if n not in split])
+    ref = flat.clone()
+    mesh.broadcast_([ref])
+    return not mesh.any(not torch.equal(flat, ref))
+
+
+def tp_serve(mesh, out):
+    """(b) and (c) on one tp rank: the seed-0 bf16 pipeline (rank 0's,
+    broadcast and cut by shard_params), one teacher-forced forward whose
+    gathered logits are saved, then the b=2 generate, its ids and images
+    saved; the launches of each."""
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.pipelines import generate
+    cfg = tp_cfg()
+    pipe = generate.BEVGenPipeline.create(cfg, device="cuda")
+    if mesh.rank == 0:
+        pipe.init_params(seed=0)
+    run, shard_params, shard_batch = generate.make_sharded_generate(pipe, mesh)
+    shard_params(pipe)
+    res = {}
+    with torch.inference_mode():
+        inputs = tp_forward_inputs(cfg)
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        logits = pipe.maskgit(*inputs).logits
+        torch.cuda.synchronize()
+        res["forward_s"] = time.perf_counter() - t0
+        res["forward_launches"] = _heads_counts()
+        torch.save(logits.float().cpu(),
+                   os.path.join(out, f"tp_logits_rank{mesh.rank}.pt"))
+    batch = fake_batch(cfg, TP_GEN_BATCH, seed=0)
+    arrays = shard_batch(batch["segmentation"], batch["intrinsics_inv"],
+                         batch["extrinsics_inv"])
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    images, ids = run(*arrays, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    res["generate_s"] = time.perf_counter() - t0
+    res["generate_launches"] = _heads_counts()
+    np.savez(os.path.join(out, f"tp_muse_gen_rank{mesh.rank}.npz"),
+             ids=ids.cpu().numpy(), images=images.float().cpu().numpy())
+    return res
+
+
+def tp_train(mesh, out):
+    """(d) on one tp rank: the seed-0 MaskGit (fp32 parameters, bf16
+    compute) through `make_sharded_train_step` at b=4, TP_STEPS steps with
+    their launches; the first step's gradients merged over tp (rank 0 saves
+    them), and the replicated parameters compared across the ranks."""
+    import torch
+    from bevgen_torch.parallel.tensor import gather_tp, tp_layout
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    from bevgen_torch.training import optim, trainer
+    cfg = tp_cfg()
+    tf = cfg.transformer
+    model = _maskgit(tf, cfg, 0 if mesh.rank == 0 else None)
+    opt = optim.maskgit_optimizer(model, 1e-4, warmup_steps=1)
+    step, state = trainer.make_sharded_train_step(
+        model, opt, mesh, trainer.create_train_state(model, opt))
+    # the first step's gradients, summed over the data group, as the
+    # optimizer receives them (before its clip)
+    first = []
+    real_step = opt.step
+
+    def capturing(grads):
+        if not first:
+            first.append([g.detach().clone() for g in grads])
+        return real_step(grads)
+
+    opt.step = capturing
+    batches = fake_batches(tf, TP_TRAIN_BATCH, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = {"launches": [], "s": [], "metrics": [],
+           "split": len(tp_layout(model))}
+    for i in range(TP_STEPS):
+        batch = to_device(next(batches))
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        res["s"].append(time.perf_counter() - t0)
+        res["launches"].append(_heads_counts())
+        res["metrics"].append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            full = gather_tp(dict(zip(opt.names, first[0])),
+                             tp_layout(model), mesh)
+            first[0] = None
+            if mesh.rank == 0:
+                torch.save({n: g.cpu() for n, g in full.items()},
+                           os.path.join(out, "tp_grads.pt"))
+            del full
+    res["replicated_equal"] = _replicated_equal(mesh, model)
+    return res
+
+
+def tp_ar(mesh, out):
+    """(e) and (f) on one tp rank: the AR cached generate at b=1, 2 layers
+    (rank 0's seed-0 pipeline, the GPT cut over tp), ids saved; then the AR
+    step on the tp mesh (the GPT whole, 2 layers, b=2, TP_STEPS steps) with
+    its launches and the ranks' parameters compared."""
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.models.init import init_weights
+    from bevgen_torch.models.stage2.gpt import SparseGPT
+    from bevgen_torch.pipelines import ar_generate
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    from bevgen_torch.training import optim, trainer
+    c = tp_ar_cfg()
+    pipe = ar_generate.ARPipeline.create(c, device="cuda")
+    if mesh.rank == 0:
+        pipe.init_params(seed=0)
+    run, shard_params, shard_batch = ar_generate.make_sharded_ar_generate(
+        pipe, mesh)
+    shard_params(pipe)
+    batch = fake_batch(c, 1, seed=0)
+    arrays = shard_batch(batch["segmentation"], batch["intrinsics_inv"],
+                         batch["extrinsics_inv"])
+    res = {}
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    _, ids = run(*arrays, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    res["generate_s"] = time.perf_counter() - t0
+    res["generate_launches"] = _heads_counts()
+    np.save(os.path.join(out, f"tp_ar_ids_rank{mesh.rank}.npy"),
+            ids.cpu().numpy())
+    del pipe
+    torch.cuda.empty_cache()
+    tf = c.transformer
+    model = SparseGPT(tf, torch.bfloat16, param_dtype=torch.float32)
+    if mesh.rank == 0:
+        init_weights(model, 0)
+    model = model.to("cuda")
+    opt = optim.maskgit_optimizer(model, 1e-4, warmup_steps=1)
+    step, state = trainer.make_ar_sharded_train_step(
+        model, opt, mesh, trainer.create_ar_train_state(model, opt))
+    batches = fake_batches(tf, TP_AR_TRAIN_BATCH, seed=0)
+    res["train_launches"], res["train_s"] = [], []
+    for _ in range(TP_STEPS):
+        b = to_device(next(batches))
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        step(state, b)
+        torch.cuda.synchronize()
+        res["train_s"].append(time.perf_counter() - t0)
+        res["train_launches"].append(_heads_counts())
+    res["train_equal"] = _replicated_equal(mesh, model)
+    return res
+
+
+def tp_rank_work(out):
+    """Phase 52's part in each of phase 50's rank processes: the group as a
+    dp=1 x tp=TP_WAYS mesh; (b)-(c), (d), (e)-(f) with their seconds and
+    the peak GB of this part."""
+    import torch
+    from bevgen_torch.parallel import sharding
+    mesh = sharding.make_mesh(dp=1, tp=TP_WAYS, device="cuda:0")
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    res = {"mesh": mesh.shape, "tp_rank": mesh.tp_rank}
+    for key, fn in (("serve", tp_serve), ("train", tp_train), ("ar", tp_ar)):
+        t0 = time.perf_counter()
+        res[key] = fn(mesh, out)
+        res[key]["phase_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        print(f"[tp rank {mesh.rank}] {key}: {res[key]['phase_s']:.1f} s "
+              f"{ {k: v for k, v in res[key].items() if k == 's' or k.endswith('_s')} }",
+              flush=True)
+    res["s"] = time.perf_counter() - t_all
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def tp_references():
+    """Phase 52's one-process references (run in the parent while the
+    ranks run): the teacher-forced logits of the seed-0 bf16 pipeline on
+    the card and of its weights in fp32 on the CPU (the attention kernels
+    take bf16 only), the b=2 generate's ids, and the first train step's
+    loss and gradients at b=4 with the ranks' draws."""
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.models.stage2.maskgit import MaskGit, maskgit_loss
+    from bevgen_torch.pipelines.generate import BEVGenPipeline
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    cfg = tp_cfg()
+    tf = cfg.transformer
+    pipe = BEVGenPipeline.create(cfg, device="cuda").init_params(seed=0)
+    inputs = tp_forward_inputs(cfg)
+    with torch.inference_mode():
+        bf16 = pipe.maskgit(*inputs).logits.float().cpu()
+        m32 = MaskGit(tf, cfg.muse, torch.float32)
+        m32.load_state_dict({k: v.float().cpu() for k, v in
+                             pipe.maskgit.state_dict().items()})
+        fp32 = m32(*(t.cpu() for t in inputs)).logits
+    del m32
+    batch = fake_batch(cfg, TP_GEN_BATCH, seed=0)
+    _, ids = pipe.generate_fn(batch["segmentation"], batch["intrinsics_inv"],
+                              batch["extrinsics_inv"],
+                              torch.Generator(device="cuda").manual_seed(1))
+    del pipe
+    model = _maskgit(tf, cfg, 0)
+    model.train()
+    b = to_device(next(fake_batches(tf, TP_TRAIN_BATCH, seed=0)))
+    loss = maskgit_loss(model, *(b[k] for k in (
+        "tokens", "cond_ids", "intrinsics_inv", "extrinsics_inv")),
+        generator=torch.Generator(device="cuda").manual_seed(0)).loss
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, list(model.parameters()),
+                                allow_unused=True)
+    res = {"bf16": bf16, "fp32": fp32, "ids": ids.cpu().numpy(),
+           "loss": float(loss.detach()),
+           "grads": {n: g.detach() for n, g in zip(names, grads)
+                     if g is not None}}
+    del loss, model
+    return res
+
+
+def tp_kernel_checks(cfg, ar_cfg):
+    """(a): rows 1, 8 and 11 at one tp rank's heads against their plain
+    versions: 8 heads (tp=2) at the shapes phase 52 runs them, and rows 1
+    and 11 at 4 heads (tp=4)."""
+    tf, at = cfg.transformer, ar_cfg.transformer
+    H, D, N, NC = tf.num_heads, tf.dim_head, tf.num_img_tokens, tf.num_cond_tokens
+    out = {"row1": {}, "row8": {}, "row11": {}}
+    seed = 150
+    for ways in (2, 4):
+        h = H // ways
+        for b in ((TP_GEN_BATCH, TP_TRAIN_BATCH) if ways == 2
+                  else (TP_GEN_BATCH,)):
+            for shape, m in (("self", N), ("cross", NC)):
+                seed += 1
+                out["row1"][(h, b, shape)] = check_kernel(
+                    f"tp={ways} rank {shape} b{b}", b, h, N, m, D, True,
+                    None, seed)
+    for shape, m in (("self", N + 1), ("cross", NC + 1)):
+        seed += 1
+        out["row8"][shape] = check_bwd(f"tp=2 rank train {shape} "
+                                       f"b{TP_TRAIN_BATCH}", TP_TRAIN_BATCH,
+                                       H // 2, N, m, D, True, None, seed)
+    L = at.gpt_block_size
+    for ways, pls in ((2, (512, 1024, 1536, 2048, L)), (4, (512, L))):
+        for pl in pls:
+            seed += 1
+            out["row11"][(at.num_heads // ways, pl)] = check_decode(
+                1, at.num_heads // ways, pl, L, seed)
+    return out
+
+
+def _rel_l2(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def tp_phase(dp):
+    """Phase 52: (a) the kernels at a tp rank's heads, then the checks of
+    the ranks' part of the phase (run in phase 50's processes) against the
+    one-process references."""
+    import torch
+    cfg, ar_cfg = tp_cfg(), tp_ar_cfg()
+    tf, at = cfg.transformer, ar_cfg.transformer
+    nl, al = tf.num_layers, at.num_layers
+    H8 = str(tf.num_heads // TP_WAYS)
+    t1 = time.perf_counter()
+    checks = tp_kernel_checks(cfg, ar_cfg)
+    print(f"[tp] (a) the kernels at a tp rank's heads: "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    out, ref = dp["out"], dp["tp_refs"]
+    ranks = [r["tp"] for r in dp["ranks"]]
+    card = gpu_name_and_power()
+    # (b) the gathered logits against fp32
+    got = [torch.load(os.path.join(out, f"tp_logits_rank{r}.pt"))
+           for r in range(TP_WAYS)]
+    same_logits = all(torch.equal(g, got[0]) for g in got)
+    tp_err, bf16_err = _rel_l2(got[0], ref["fp32"]), _rel_l2(ref["bf16"],
+                                                             ref["fp32"])
+    tp_max = float((got[0] - ref["fp32"]).abs().max())
+    bf16_max = float((ref["bf16"] - ref["fp32"]).abs().max())
+    print(f"[tp] (b) argoverse_muse full width and depth, b=1, bf16 on a "
+          f"dp=1 x tp={TP_WAYS} mesh: gathered logits vs one-process fp32 "
+          f"(CPU): rel L2 {tp_err:.4e} (max abs {tp_max:.4e}); one-process "
+          f"bf16 vs fp32: rel L2 {bf16_err:.4e} (max abs {bf16_max:.4e}); "
+          f"ratio {tp_err / bf16_err:.3f} (max {TP_LOGIT_RATIO_MAX}); the "
+          f"ranks' logits equal: {same_logits}", flush=True)
+    if not (same_logits and tp_err <= TP_LOGIT_RATIO_MAX * bf16_err):
+        raise SystemExit("(b) the tp logits are farther from fp32 than "
+                         "the bound, or differ between the ranks")
+    # (c) the generate
+    gens = [np.load(os.path.join(out, f"tp_muse_gen_rank{r}.npz"))
+            for r in range(TP_WAYS)]
+    same_gen = all(np.array_equal(g["ids"], gens[0]["ids"])
+                   and np.array_equal(g["images"], gens[0]["images"])
+                   for g in gens)
+    share = float((gens[0]["ids"] == ref["ids"]).mean())
+    print(f"[tp] (c) b={TP_GEN_BATCH} generate: the ranks' ids and images "
+          f"equal bit for bit: {same_gen}; share of ids equal to one "
+          f"process's {share:.4f} (not bounded: bf16 sums in another order)",
+          flush=True)
+    if not same_gen:
+        raise SystemExit("(c) the tp ranks generated different ids or images")
+    # (d) the train step
+    saved = torch.load(os.path.join(out, "tp_grads.pt"))
+    dots = {}
+    for n, w in ref["grads"].items():
+        a, w = saved[n].to("cuda").double(), w.double()
+        d = dots.setdefault(grad_group(n), [0.0, 0.0, 0.0])
+        d[0] += float((a * w).sum())
+        d[1] += float((a * a).sum())
+        d[2] += float((w * w).sum())
+    cos = {g: d[0] / max((d[1] * d[2]) ** 0.5, 1e-30) for g, d in dots.items()}
+    del saved
+    tr = [r["train"] for r in ranks]
+    loss = tr[0]["metrics"][0]["loss"]
+    rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    print(f"[tp] (d) MaskGit step at b={TP_TRAIN_BATCH}: loss {loss:.6f} "
+          f"vs one process {ref['loss']:.6f} (rel {rel:.2e}, max "
+          f"{DP_LOSS_RTOL}); step losses per rank "
+          f"{[[round(m['loss'], 6) for m in t['metrics']] for t in tr]}; "
+          f"merged gradient cosine per group min {min(cos.values()):.6f} "
+          f"({min(cos, key=cos.get)}; min {TP_GRAD_COS_MIN}); "
+          f"{tr[0]['split']} tensors tp-sliced; replicated parameters equal "
+          f"on the ranks after {TP_STEPS} steps: "
+          f"{[t['replicated_equal'] for t in tr]}", flush=True)
+    if not (rel <= DP_LOSS_RTOL and min(cos.values()) >= TP_GRAD_COS_MIN
+            and all(t["replicated_equal"] for t in tr)
+            and tr[0]["metrics"] == tr[1]["metrics"]):
+        raise SystemExit(f"(d) the tp step disagrees: loss rel {rel}, "
+                         f"cosines {cos}")
+    # launches: the rule, at 8 heads
+    for r, res in enumerate(ranks):
+        for i, st in enumerate(res["train"]["launches"]):
+            if (st["row1"], st["row8"]) != ({H8: 4 * nl}, {H8: 12 * nl}):
+                raise SystemExit(f"rank {r} tp step {i + 1}: launches {st}")
+        st = res["serve"]["forward_launches"]
+        if st["row1"] != {H8: 2 * nl}:
+            raise SystemExit(f"rank {r} tp forward: launches {st}")
+        st = res["serve"]["generate_launches"]
+        if st["row1"] != {H8: (2 * cfg.muse.sample_iterations - 1) * nl * 2}:
+            raise SystemExit(f"rank {r} tp generate: launches {st}")
+        st = res["ar"]["generate_launches"]
+        if st["row11"] != {str(at.num_heads // TP_WAYS): al * at.num_img_tokens}:
+            raise SystemExit(f"rank {r} tp AR generate: launches {st}")
+        for i, st in enumerate(res["ar"]["train_launches"]):
+            if (st["row9"], st["row10"]) != (al, 2 * al):
+                raise SystemExit(f"rank {r} tp AR step {i + 1}: launches {st}")
+    # (e), (f)
+    ar_ids = [np.load(os.path.join(out, f"tp_ar_ids_rank{r}.npy"))
+              for r in range(TP_WAYS)]
+    same_ar = all(np.array_equal(a, ar_ids[0]) for a in ar_ids)
+    ar_equal = [r["ar"]["train_equal"] for r in ranks]
+    print(f"[tp] (e) AR cached generate, nuscenes_ar full width, "
+          f"{al} layers, b=1: the ranks' ids equal: {same_ar}; (f) AR step "
+          f"on the tp mesh (the GPT whole on both ranks): parameters equal "
+          f"{ar_equal}", flush=True)
+    if not (same_ar and all(ar_equal)):
+        raise SystemExit("(e)/(f) the tp ranks differ")
+    for r, res in enumerate(ranks):
+        print(f"[tp] rank {r}: launches per rank: forward "
+              f"{res['serve']['forward_launches']['row1']}, generate "
+              f"{res['serve']['generate_launches']['row1']}, MaskGit step "
+              f"row 1 {res['train']['launches'][-1]['row1']} row 8 "
+              f"{res['train']['launches'][-1]['row8']}, AR generate row 11 "
+              f"{res['ar']['generate_launches']['row11']}, AR step rows 9/10 "
+              f"{res['ar']['train_launches'][-1]['row9']}/"
+              f"{res['ar']['train_launches'][-1]['row10']}; s: forward "
+              f"{res['serve']['forward_s']:.3f}, generate "
+              f"{res['serve']['generate_s']:.3f}, MaskGit steps "
+              f"{[round(x, 3) for x in res['train']['s']]}, AR generate "
+              f"{res['ar']['generate_s']:.3f}, AR steps "
+              f"{[round(x, 3) for x in res['ar']['train_s']]}; the rank's "
+              f"part {res['s']:.1f} s; peak {res['peak_gb']:.2f} GB ({card}; "
+              f"two ranks share one card and gloo copies every collective "
+              f"through the host: no NVLink or scaling number)", flush=True)
+    return {"ranks": ranks, "checks": checks, "logit_rel": tp_err,
+            "bf16_rel": bf16_err, "id_share": share, "loss_rel": rel,
+            "grad_cos_min": min(cos.values())}
+
+
+def tp_kernel_entries(tp, dp_checks):
+    """The kernels line's entries of phase 52: each kernel at one tp rank's
+    shapes with rank 0's launches and phase 52's checks (rows 9 and 10,
+    which the AR step runs whole on each rank, with phase 50's at the same
+    b=2 shapes)."""
+    from bevgen_torch.ops import attention_bwd as ab
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops import decode_attention as da
+    cfg, ar_cfg = tp_cfg(), tp_ar_cfg()
+    tf, at = cfg.transformer, ar_cfg.transformer
+    N, NC, nl = tf.num_img_tokens, tf.num_cond_tokens, tf.num_layers
+    h = tf.num_heads // TP_WAYS
+    r0, checks = tp["ranks"][0], tp["checks"]
+    out = []
+
+    def add(name, src, rep, launches, st):
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": rep, "launches": launches, **st})
+
+    gen = r0["serve"]["generate_launches"]["row1"].get(str(h), 0) // 2
+    step = r0["train"]["launches"][-1]
+    for shape, m in (("self", N), ("cross", NC)):
+        add(f"cosine_attention_fwd[tp=2 rank serve {shape} b{TP_GEN_BATCH} "
+            f"H{h} {N}x{m}]", ca.SOURCE, ca.REPLACES, gen,
+            checks["row1"][(h, TP_GEN_BATCH, shape)])
+        add(f"cosine_attention_fwd[tp=2 rank train {shape} b{TP_TRAIN_BATCH} "
+            f"H{h} {N}x{m}]", ca.SOURCE, ca.REPLACES,
+            step["row1"].get(str(h), 0) // 2,
+            checks["row1"][(h, TP_TRAIN_BATCH, shape)])
+    for shape, m in (("self", N + 1), ("cross", NC + 1)):
+        add(f"attention_bwd[tp=2 rank train {shape} b{TP_TRAIN_BATCH} H{h} "
+            f"{N}x{m}, 3 kernels]", ab.SOURCE, ab.REPLACES,
+            step["row8"].get(str(h), 0) // 2, checks["row8"][shape])
+    ar_step = r0["ar"]["train_launches"][-1]
+    L, blk = at.gpt_block_size, at.sparse_block_size
+    add(f"block_sparse_fwd[tp=2 rank train nuscenes_ar b{TP_AR_TRAIN_BATCH} "
+        f"H{at.num_heads} (whole) L{L} block {blk}, with lse]", bs.SOURCE,
+        bs.REPLACES, ar_step["row9"], dp_checks["row9"])
+    add(f"block_sparse_bwd[tp=2 rank train nuscenes_ar b{TP_AR_TRAIN_BATCH} "
+        f"H{at.num_heads} (whole) L{L} block {blk}, 2 kernels]",
+        bs.BWD_SOURCE, bs.BWD_REPLACES, ar_step["row10"], dp_checks["row10"])
+    ha = at.num_heads // TP_WAYS
+    total = r0["ar"]["generate_launches"]["row11"].get(str(ha), 0)
+    # the 2-layer generate's launches by prefix bucket: each step's layers
+    from bevgen_torch.models.stage2.ar_cached import PREFIX_BUCKET, bucket_ranges
+    per_pl = {pl: (t1 - t0) * at.num_layers for t0, t1, pl in bucket_ranges(
+        L, at.num_cond_tokens, at.num_img_tokens, PREFIX_BUCKET)}
+    if sum(per_pl.values()) != total:
+        raise SystemExit(f"tp AR generate: {total} row-11 launches, the "
+                         f"buckets make {sum(per_pl.values())}")
+    for pl, n in sorted(per_pl.items()):
+        add(f"decode_attention[tp=2 rank b1 H{ha} pl{pl}, {at.num_layers} "
+            f"layers]", da.SOURCE, da.REPLACES, n, checks["row11"][(ha, pl)])
     return out
 
 
@@ -6307,10 +6860,13 @@ def main() -> int:
 
     # 50-51. data parallelism: two gloo ranks on the one card, then the
     # sharded entry points through an nccl group of one process
+    # 52. tensor parallelism: its ranks' part runs in phase 50's processes
     with tempfile.TemporaryDirectory() as tmp:
         dp = timed_phase(50, dp_phase, cfg, ar_cfg, tmp)
         nccl = timed_phase(51, nccl_phase, cfg, ar_cfg, tmp, dp)
-    del dp["seeded"], dp["muse_pipe"]
+        del dp["seeded"], dp["muse_pipe"]
+        tp = timed_phase(52, tp_phase, dp)
+    del dp["tp_refs"]
     torch.cuda.empty_cache()
 
     kernels = []
@@ -6443,7 +6999,8 @@ def main() -> int:
                                        train_fwd_stats, bwd_stats, glue_stats))
     kernels.extend(dp_kernel_entries(cfg, ar_cfg, dp, nccl, stats,
                                      inference_res["checks"]["row11"]))
-    print(f"[time] phases 1-51: {time.perf_counter() - t_start:.1f} s",
+    kernels.extend(tp_kernel_entries(tp, dp["checks"]))
+    print(f"[time] phases 1-52: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -70,7 +70,7 @@ def test_generate_takes_the_reference_flags(flags, tmp_path, capsys):
 @pytest.mark.parametrize("flags,message", [
     (["dp=2"], "dp=2 dcn=1: 2 data-parallel ranks in one process; start one "
                "process per rank with torchrun"),
-    (["tp=4"], "tp=4: tensor parallelism is not ported yet"),
+    (["tp=4"], "tp=4: num_heads=2 is not divisible by tp"),
     (["dcn=auto"], "dcn=auto groups the ranks by node, and this run has no "
                    "ranks"),
     (["platform=tpu"], "device=cpu"),

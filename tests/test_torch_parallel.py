@@ -177,8 +177,8 @@ def test_multislice_layout_matches_jax(per):
 
 
 def test_mesh_layout_refuses_what_the_port_cannot_run():
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        tshd.mesh_layout(4, 2, 2)
+    with pytest.raises(ValueError, match="tp=4 mesh needs 8 processes"):
+        tshd.mesh_layout(4, 2, 4)
     with pytest.raises(ValueError, match="needs 4 processes"):
         tshd.mesh_layout(8, 2, 1, 2)
     with pytest.raises(ValueError, match="not contiguous"):
@@ -195,8 +195,9 @@ def test_mesh_layout_refuses_what_the_port_cannot_run():
 @pytest.mark.parametrize("args,world,message", [
     ({"dp": "2"}, 1, "torchrun --nproc_per_node=2"),
     ({"dcn": "2"}, 1, "torchrun --nproc_per_node=2"),
-    ({"tp": "4"}, 1, "tensor parallelism is not ported yet"),
-    ({"tp": "2", "dp": "2"}, 2, "tensor parallelism is not ported yet"),
+    ({"tp": "4"}, 1, "tp=4: 4 ranks in one process; start one process per "
+                     "rank with torchrun --nproc_per_node=4"),
+    ({"tp": "2", "dp": "2"}, 2, "dcn x dp x tp must equal the 2 processes"),
     ({"dcn": "auto"}, 1, "has no ranks"),
     ({"dp": "3"}, 2, "must equal the 2 processes"),
     ({"dcn": "3"}, 2, "must equal the 2 processes"),

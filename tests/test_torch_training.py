@@ -349,12 +349,13 @@ def test_cli_token_shards_with_validation(tmp_path, capsys):
 
 
 def test_cli_refuses_a_mesh():
-    """In one process: data-parallel axes above 1 need torchrun's ranks, and
-    tensor parallelism is not ported (`scripts/cli.py:pop_mesh`)."""
+    """In one process: mesh axes above 1 need torchrun's ranks
+    (`scripts/cli.py:pop_mesh`)."""
     from bevgen_torch.scripts import train_stage2
     for arg, message in (("dp=2", "ranks in one process; start one process "
                                   "per rank with torchrun"),
-                         ("tp=2", "tensor parallelism is not ported yet"),
+                         ("tp=2", "tp=2: 2 ranks in one process; start one "
+                                  "process per rank with torchrun"),
                          ("dcn=2", "ranks in one process; start one process "
                                    "per rank with torchrun")):
         with pytest.raises(SystemExit, match=message):
