@@ -20,6 +20,23 @@
 //                     (bevgen_tpu/models/stage2/ar_cached.py:41-49):
 //                     x (M, K) bf16, Wq (N, K) int8, fp32 accumulation.
 //
+// Under tensor parallelism (tp) a row-split product holds the rank's
+// columns of x and rows of the weight, and the sum over tp comes between
+// the pieces above (ops/quant.py):
+//
+//   row_amax          the dynamic path's first half: amax (rows,) fp32 of the
+//                     rank's columns; the caller takes the max over tp;
+//   quantize_scaled   its second half: scale = max(amax, 1e-8) * fp32(1/127)
+//                     from that max, formed once per row, and the rank's
+//                     int8 columns with it, as quantize_dynamic writes them.
+//                     The int32 accumulators are then summed over tp (exact)
+//                     before one int8_epilogue, so the output equals one
+//                     process's bit for bit;
+//   w8_linear, raw    scale NULL: bf16(x @ Wq^T) alone, the partial product
+//                     that the bf16 sum over tp adds up;
+//   w8_tail           then the tail, bf16(bf16(y * bf16(scale)) + bias), on
+//                     the summed y, the bias added once.
+//
 // Bit-exactness with the reference: the static path multiplies by the fp32
 // reciprocal (1 / in_scale, correctly rounded, nvcc's default -prec-div),
 // the dynamic path multiplies amax by the fp32 constant 1/127 and divides
@@ -33,7 +50,10 @@
 // element (3584 x 1024 bf16 at MUSE b=2: 11.0 MB, 3.3 us); the epilogue
 // reads 4 and writes 2 per output element (3584 x 5460: 117 MB, 35 us). At
 // the AR decode's M = 2, w8_linear reads its int8 weights once (1 byte per
-// weight, half of bf16's 2): qkv 3 MB, 0.94 us.
+// weight, half of bf16's 2): qkv 3 MB, 0.94 us. The tp pieces are bytes
+// bound too: row_amax reads 2 bytes per element (a tp = 2 rank's to_out
+// input, 1536 x 512 at b = 2: 1.6 MB, 0.47 us), quantize_scaled 2 and
+// writes 1, w8_tail reads 2 and writes 2 per element.
 //
 // Design, a first version. The quantizers and the epilogue are one pass each,
 // 8 (quantize) or 4 (epilogue) consecutive elements a thread, with 16-byte
@@ -141,18 +161,11 @@ quantize_static_kernel(const bf16* __restrict__ x, const float* __restrict__ in_
   }
 }
 
-// one warp per row: the row's amax (first pass), then the int8 row (second
-// pass; the row is read again, from L1)
+// the dynamic path's pieces, one warp per row: the row's amax over its
+// columns (every lane holds it after the shuffles) ...
 template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-quantize_dynamic_kernel(const bf16* __restrict__ x, int8_t* __restrict__ q,
-                        float* __restrict__ scale, long long rows, int K,
-                        int Kp) {
-  const int lane = threadIdx.x & 31;
-  const long long r = blockIdx.x * static_cast<long long>(THREADS / 32) +
-                      (threadIdx.x >> 5);
-  if (r >= rows) return;
-  const bf16* xr = x + r * K;
+__device__ __forceinline__ float warp_row_amax(const bf16* xr, int K, int Kp,
+                                               int lane) {
   float amax = 0.f;
   for (int c = lane * 8; c < Kp; c += 32 * 8) {
     float v[8];
@@ -163,16 +176,76 @@ quantize_dynamic_kernel(const bf16* __restrict__ x, int8_t* __restrict__ q,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float s = __fmul_rn(fmaxf(amax, 1e-8f), 1.0f / 127.0f);
-  if (lane == 0) scale[r] = s;
+  return amax;
+}
+
+// ... the row scale from it, formed once: the reference's / 127.0 as XLA
+// compiles it ...
+__device__ __forceinline__ float row_scale(float amax) {
+  return __fmul_rn(fmaxf(amax, 1e-8f), 1.0f / 127.0f);
+}
+
+// ... and the int8 row with that scale (the row is read again, from L1)
+template <bool VEC>
+__device__ __forceinline__ void warp_quantize_row(const bf16* xr, int8_t* qr,
+                                                  float s, int K, int Kp,
+                                                  int lane) {
   for (int c = lane * 8; c < Kp; c += 32 * 8) {
     float v[8];
     int o[8];
     load_cols<VEC>(xr, c, K, v);
 #pragma unroll
     for (int j = 0; j < 8; ++j) o[j] = c + j < K ? q8(__fdiv_rn(v[j], s)) : 0;
-    store8(q + r * Kp + c, o);
+    store8(qr + c, o);
   }
+}
+
+__device__ __forceinline__ long long warp_row() {
+  return blockIdx.x * static_cast<long long>(THREADS / 32) + (threadIdx.x >> 5);
+}
+
+// one warp per row: the row's amax, its scale and the int8 row
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+quantize_dynamic_kernel(const bf16* __restrict__ x, int8_t* __restrict__ q,
+                        float* __restrict__ scale, long long rows, int K,
+                        int Kp) {
+  const int lane = threadIdx.x & 31;
+  const long long r = warp_row();
+  if (r >= rows) return;
+  const bf16* xr = x + r * K;
+  const float s = row_scale(warp_row_amax<VEC>(xr, K, Kp, lane));
+  if (lane == 0) scale[r] = s;
+  warp_quantize_row<VEC>(xr, q + r * Kp, s, K, Kp, lane);
+}
+
+// the row-split form's first half (tp): the amax of the rank's columns,
+// which the caller reduces with a max over tp
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+row_amax_kernel(const bf16* __restrict__ x, float* __restrict__ amax,
+                long long rows, int K, int Kp) {
+  const int lane = threadIdx.x & 31;
+  const long long r = warp_row();
+  if (r >= rows) return;
+  const float a = warp_row_amax<VEC>(x + r * K, K, Kp, lane);
+  if (lane == 0) amax[r] = a;
+}
+
+// its second half: the scale from the amax over every rank's columns, then
+// the rank's int8 columns with it
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+quantize_scaled_kernel(const bf16* __restrict__ x,
+                       const float* __restrict__ amax, int8_t* __restrict__ q,
+                       float* __restrict__ scale, long long rows, int K,
+                       int Kp) {
+  const int lane = threadIdx.x & 31;
+  const long long r = warp_row();
+  if (r >= rows) return;
+  const float s = row_scale(amax[r]);
+  if (lane == 0) scale[r] = s;
+  warp_quantize_row<VEC>(x + r * K, q + r * Kp, s, K, Kp, lane);
 }
 
 // 4 consecutive output columns a thread where VEC (N % 4 == 0: 16-byte acc
@@ -208,10 +281,13 @@ int8_epilogue_kernel(const int32_t* __restrict__ acc,
 }
 
 // the AR product's tail on fp32 accumulator `a` of column n: bf16(a), times
-// bf16(scale), plus the bias, each step rounded to bf16
+// bf16(scale), plus the bias, each step rounded to bf16. Without a scale
+// (the row-split product under tp) bf16(a) alone: the tail then runs after
+// the sum over tp (w8_tail_kernel)
 __device__ __forceinline__ bf16 w8_finish(float a, const float* scale,
                                           const bf16* bias, int n) {
   using mma_common::round_bf16;
+  if (scale == nullptr) return __float2bfloat16_rn(a);
   float o = round_bf16(__fmul_rn(round_bf16(a), round_bf16(scale[n])));
   if (bias != nullptr) o = __fadd_rn(o, __bfloat162float(bias[n]));
   return __float2bfloat16_rn(o);
@@ -365,6 +441,19 @@ w8_gemm_bf16_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
+// the tail alone, on the bf16 product summed over tp: w8_finish per element
+__global__ void __launch_bounds__(THREADS)
+w8_tail_kernel(const bf16* __restrict__ y, const float* __restrict__ scale,
+               const bf16* __restrict__ bias, bf16* __restrict__ out,
+               long long M, int N) {
+  const long long total = M * N;
+  for (long long i = blockIdx.x * static_cast<long long>(THREADS) + threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * THREADS) {
+    const int n = static_cast<int>(i % N);
+    out[i] = w8_finish(__bfloat162float(y[i]), scale, bias, n);
+  }
+}
+
 unsigned grid_for(long long total) {
   long long blocks = (total + THREADS - 1) / THREADS;
   const long long cap = 132LL * 64;  // grid-stride beyond 64 blocks per SM
@@ -435,6 +524,42 @@ extern "C" int quantize_dynamic(const void* x, void* q, void* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
+// x (rows, K) contiguous bf16; amax (rows,) fp32: the row's max |x| over
+// its K columns.
+extern "C" int row_amax(const void* x, void* amax, long long rows, int K,
+                        void* stream) {
+  const int Kp = (K + 7) / 8 * 8;
+  const bool vec = K % 8 == 0 && aligned16(x);
+  const unsigned grid =
+      static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto args = [&](auto kernel) {
+    kernel<<<grid, THREADS, 0, s>>>(static_cast<const bf16*>(x),
+                                    static_cast<float*>(amax), rows, K, Kp);
+  };
+  vec ? args(row_amax_kernel<true>) : args(row_amax_kernel<false>);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (rows, K) contiguous bf16; amax (rows,) fp32, the max over tp; q (>= rows,
+// Kp) int8; scale (rows,) fp32 out.
+extern "C" int quantize_scaled(const void* x, const void* amax, void* q,
+                               void* scale, long long rows, int K, int Kp,
+                               void* stream) {
+  const bool vec = K % 8 == 0 && aligned16(x);
+  const unsigned grid =
+      static_cast<unsigned>((rows + THREADS / 32 - 1) / (THREADS / 32));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto args = [&](auto kernel) {
+    kernel<<<grid, THREADS, 0, s>>>(static_cast<const bf16*>(x),
+                                    static_cast<const float*>(amax),
+                                    static_cast<int8_t*>(q),
+                                    static_cast<float*>(scale), rows, K, Kp);
+  };
+  vec ? args(quantize_scaled_kernel<true>) : args(quantize_scaled_kernel<false>);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // acc (>= rows, Np) int32; w_scale (N,) fp32; x_scale (rows,) fp32 or NULL;
 // out (rows, N), bf16 (out_fp32 0) or fp32 (1).
 extern "C" int int8_epilogue(const void* acc, const void* w_scale,
@@ -446,7 +571,8 @@ extern "C" int int8_epilogue(const void* acc, const void* w_scale,
 }
 
 // x (M, K) contiguous bf16; w (N, K) int8; scale (N,) fp32; bias (N,) bf16
-// or NULL; out (M, N) bf16.
+// or NULL; out (M, N) bf16. scale NULL (bias NULL too): the raw product
+// bf16(x @ Wq^T), whose tail `w8_tail` applies after the sum over tp.
 extern "C" int w8_linear(const void* x, const void* w, const void* scale,
                          const void* bias, void* out, long long M, int N, int K,
                          void* stream) {
@@ -473,5 +599,15 @@ extern "C" int w8_linear(const void* x, const void* w, const void* scale,
       gemv_launch<8>(xb, wq, sc, bb, o, m, N, K, vec, s);
     }
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y (M, N) contiguous bf16, the raw product summed over tp; scale (N,) fp32;
+// bias (N,) bf16 or NULL; out (M, N) bf16.
+extern "C" int w8_tail(const void* y, const void* scale, const void* bias,
+                       void* out, long long M, int N, void* stream) {
+  w8_tail_kernel<<<grid_for(M * N), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(y), static_cast<const float*>(scale),
+      static_cast<const bf16*>(bias), static_cast<bf16*>(out), M, N);
   return static_cast<int>(cudaGetLastError());
 }

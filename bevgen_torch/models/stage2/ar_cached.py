@@ -24,7 +24,8 @@ The int8 tree (`cfg.quant == "int8"`, `ops.quant.quantize_gpt_tree`) runs
 every product, the prefill's, the decode steps' and the head's, through the
 weight-only int8 product (`ops.quant.w8_linear`: the `w8_linear` kernel on
 the card); `fuse_qkv` concatenates kernel_q, scale and bias along the output
-axis, as the reference's `_fuse_qkv_per_layer` does.
+axis, as the reference's `_fuse_qkv_per_layer` does (under tp the rank's
+kernel_q rows, scale and bias parts: q, k and v are column-split).
 
 Under tensor parallelism (`parallel/tensor.py`) each rank holds its heads'
 K/V caches and weights: the fused q|k|v product is built from its q, k and
@@ -91,10 +92,8 @@ def fuse_qkv(model: SparseGPT) -> List[FusedBlock]:
     out = []
     for blk in model.blocks():
         projs = (blk.query, blk.key, blk.value)
-        if isinstance(blk.query, Int8WeightDense):
-            bias = torch.cat([p.bias for p in projs]).to(dt)
-        else:    # this rank's outputs under tp
-            bias = torch.cat([p.local_bias() for p in projs])
+        # this rank's outputs under tp
+        bias = torch.cat([p.local_bias() for p in projs])
         if isinstance(blk.query, Int8WeightDense):
             w_q = torch.cat([p.kernel_q for p in projs])
             scale = torch.cat([p.scale for p in projs])

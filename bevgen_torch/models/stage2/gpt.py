@@ -45,7 +45,10 @@ runs on this rank's heads' layouts.
 `value`, `mlp_fc`, `mlp_proj`, `head`) become `ops.quant.Int8WeightDense`
 (int8 weights, the product in the compute dtype). Only the KV-cached
 decoder (`ar_cached.py`) serves that tree; the full forward raises, as the
-reference's module cannot run it either.
+reference's module cannot run it either. Under tp the int8 layers split as
+the float ones do (`scale` with the output axis): the column-split ones
+take their part of the bias, and the row-split `mlp_proj` sums its raw
+products over tp before the scale and the bias.
 """
 from __future__ import annotations
 
@@ -114,10 +117,6 @@ class SparseGPTBlock(nn.Module):
 
     def tp_ready(self, mesh) -> None:
         """After `tensor.shard_module_`: this rank's heads / tp heads."""
-        if self.cfg.quant != "none":
-            raise NotImplementedError(
-                "int8 serving does not run under tensor parallelism yet "
-                "(ROADMAP item 3c)")
         h = self.cfg.num_heads
         if h % mesh.tp or not tpar.is_split(self.query):
             raise ValueError(f"{h} heads do not split over tp={mesh.tp}")

@@ -63,8 +63,21 @@ F = 2730 and tp = 4, which then runs replicated with no collective).
 Replicated parameters used inside a rank's share (q_scale, k_scale, the
 norm_mid gain, the camera-bias slices) and the inputs of the column-split
 products pass through `copy_to_tp`, so their gradients sum the ranks'
-shares and stay equal on every rank. The fused glue and int8 do not run
-under tp.
+shares and stay equal on every rank.
+
+The fused glue under tp: the residual + LayerNorm pass runs whole on every
+rank (the stream is replicated, and the delta it adds comes from a
+row-split `to_out` or `proj_out`, already summed over tp); the GEGLU +
+LayerNorm pass runs split over the rank's F / tp columns
+(`ops/fused_glue.py:geglu_layernorm` with the mesh: the row statistics
+summed over tp between two kernels), and whole where the GEGLU is. int8
+serving under tp: the int8 tree is quantized whole, then cut by the same
+plan (`kernel_q` as the kernel it replaces, `scale` with the output axis,
+`in_scale` whole and taken in part at use); the column-split `QuantDense`s
+run as they are on the rank's outputs, and the row-split `to_out` and
+`proj_out` sum their int32 accumulators over tp before the epilogue
+(`to_out`'s per-row scale from the amax over every rank's columns), so
+their outputs equal one process's bit for bit.
 
 Submodule names mirror the reference's parameter tree (`layers_{i}_attn`,
 `norm.norm`, `to_kv`, ...), so `core/convert.py` maps one onto the other.
@@ -306,15 +319,22 @@ class GEGLUFeedForward(nn.Module):
             raise ValueError("proj_in and proj_out split differently")
         self.mesh = mesh if tpar.is_split(self.proj_in) else None
 
+    def _gain(self) -> torch.Tensor:
+        """norm_mid's gains of this rank's hidden columns (all of them when
+        the GEGLU is whole); under tp their gradient sums over the ranks."""
+        w, mesh = self.norm_mid.norm.weight, self.mesh
+        if mesh is None:
+            return w
+        return tpar.take_part(copy_to_tp(w, mesh), 0, 1, mesh.tp, mesh.tp_rank)
+
     def _norm_mid(self, h: torch.Tensor) -> torch.Tensor:
         """norm_mid over the whole hidden width: this rank's columns of it
-        under tp (`tensor.layer_norm`, the gain's gradient summed over tp)."""
+        under tp (`tensor.layer_norm`, two passes, as the unfused form
+        computes it)."""
         if self.mesh is None:
             return self.norm_mid(h, self.dtype)
-        n, mesh = self.norm_mid.norm, self.mesh
-        gain = tpar.take_part(copy_to_tp(n.weight, mesh), 0, 1, mesh.tp,
-                              mesh.tp_rank)
-        return tpar.layer_norm(h, gain, n.eps, mesh).to(self.dtype)
+        return tpar.layer_norm(h, self._gain(), self.norm_mid.norm.eps,
+                               self.mesh).to(self.dtype)
 
     def forward(self, x: torch.Tensor,
                 residual_delta: Optional[torch.Tensor] = None,
@@ -324,8 +344,8 @@ class GEGLUFeedForward(nn.Module):
         else:
             x_new, h = x, self.norm_in(x, self.dtype)
         y = self.proj_in(copy_to_tp(h, self.mesh))
-        if self.use_glue:
-            hid = geglu_layernorm(y, self.norm_mid.norm.weight)
+        if self.use_glue:   # the split form when tp cuts the hidden width
+            hid = geglu_layernorm(y, self._gain(), self.mesh)
         else:
             a, gate = y.chunk(2, dim=-1)
             hid = self._norm_mid(gate * F.gelu(a, approximate="none"))
@@ -399,13 +419,10 @@ class MultiViewTransformer(nn.Module):
         self.mesh = None
 
     def tp_ready(self, mesh) -> None:
-        """After `tensor.shard_module_`: refuse what does not run under tp;
-        the logits are gathered where `to_logits` was cut."""
-        if self.use_glue or self.cfg.quant != "none":
-            raise NotImplementedError(
-                "transformer.use_fused_glue and int8 serving do not run under "
-                "tensor parallelism yet (ROADMAP item 3c)")
+        """After `tensor.shard_module_`: the logits are gathered where
+        `to_logits` was cut."""
         self.mesh = mesh
+
     def layer(self, i: int):
         return (getattr(self, f"layers_{i}_attn"),
                 getattr(self, f"layers_{i}_cross_attn"),

@@ -43,6 +43,23 @@ take their place:
     (`bevgen_tpu/models/stage2/ar_cached.py:41-49`), the int8 weights read
     once and converted in registers.
 
+Under tensor parallelism (`parallel/tensor.py`) a column-split product runs
+as it is on the rank's outputs. A row-split one (`to_out`, `proj_out`;
+the AR tree's `mlp_proj`) holds the rank's columns of the input and rows
+of the weight, and sums over tp inside the product (the `mesh` argument):
+
+  * W8A8: the int32 accumulators are summed over tp (`sum_int_over_tp`,
+    exact) before the epilogue, once; on the static path the rank's part of
+    in_scale quantizes its columns; on the dynamic path the row scale comes
+    from the amax over every rank's columns, as GSPMD reduces the
+    reference's `quantize_activations` over the split axis: `row_amax`, a
+    max over tp (`max_over_tp`), then `quantize_scaled`. The output equals
+    one process's bit for bit;
+  * the AR form: the raw product dtype(x @ Wq^T) of each rank (`w8_linear`
+    with no scale), its sum over tp in the compute dtype, then the tail
+    `w8_tail` (times dtype(scale), plus the bias, once), in the reference's
+    order.
+
 On the TPU, XLA fuses each of these into the dot; eager PyTorch cannot, and
 the kernels keep an int8 product to 3 launches (2 for the AR form's 1).
 What bounds them on an H100 and their design are in `csrc/int8.cu`. Each
@@ -52,7 +69,8 @@ tensors launch the kernels or raise.
 `QuantDense` is the reference's module (kernel_q stored (out, in) like a
 Linear weight, scale, and in_scale on the static path); `Int8WeightDense`
 holds the AR form (kernel_q, scale, bias). Both are serving-only: their
-parameters take no gradient.
+parameters take no gradient. Both take a `tp_ready` hook
+(`parallel.tensor.shard_module_`).
 """
 from __future__ import annotations
 
@@ -66,6 +84,7 @@ import torch
 from torch import nn
 
 from bevgen_torch.ops import _build
+from bevgen_torch.parallel import tensor as tpar
 
 SOURCE = "bevgen_torch/csrc/int8.cu"
 # the JAX functions the kernels stand in for (XLA fuses them into the dot on
@@ -226,14 +245,26 @@ def dequantize_dense_tree(params, layer_names: Sequence[str] = QUANT_LAYER_NAMES
 INV_127 = float(np.float32(1.0) / np.float32(127.0))
 
 
+def row_amax(x: torch.Tensor) -> torch.Tensor:
+    """max |x| per row, fp32 (..., 1)."""
+    return x.float().abs().amax(dim=-1, keepdim=True)
+
+
+def row_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The dynamic row scale from the row's amax: max(amax, 1e-8) *
+    fp32(1/127), as the jitted reference computes it."""
+    return amax.clamp_min(1e-8) * INV_127
+
+
+def quantize_with_scale(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """clip(round(x / scale), +-127) as int8, scale fp32 (..., 1)."""
+    return torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int8)
+
+
 def quantize_activations(x: torch.Tensor):
-    """Per-row symmetric int8: (x_q int8, scale fp32 (..., 1)), scale =
-    max(amax, 1e-8) * fp32(1/127) as the jitted reference computes it."""
-    xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = amax.clamp_min(1e-8) * INV_127
-    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
-    return q, scale
+    """Per-row symmetric int8: (x_q int8, scale fp32 (..., 1))."""
+    scale = row_scale(row_amax(x))
+    return quantize_with_scale(x, scale), scale
 
 
 def quantize_activations_static(x: torch.Tensor,
@@ -271,28 +302,46 @@ def int8_matmul(x_q, x_scale, w_q, w_scale, out_dtype):
 
 def int8_dense_reference(x: torch.Tensor, w_q: torch.Tensor,
                          scale: torch.Tensor,
-                         in_scale: Optional[torch.Tensor]) -> torch.Tensor:
+                         in_scale: Optional[torch.Tensor],
+                         mesh=None) -> torch.Tensor:
     """`QuantDense`'s product in plain PyTorch, in x's dtype: w_q (N, K) or
-    its padded operand (the padding is cut off)."""
+    its padded operand (the padding is cut off). With a tensor-parallel
+    `mesh` the product is row-split: x holds the rank's columns, w_q and
+    in_scale their rows; the row amax is taken over tp and the int32
+    products summed over tp before the epilogue."""
     N, K = scale.numel(), x.shape[-1]
     w_q = w_q[:N, :K]
     if in_scale is not None:
-        x_q = quantize_activations_static(x, 1.0 / in_scale)
-        return int8_matmul(x_q, None, w_q, scale, x.dtype)
-    x_q, x_s = quantize_activations(x)
-    return int8_matmul(x_q, x_s, w_q, scale, x.dtype)
+        x_q, x_s = quantize_activations_static(x, 1.0 / in_scale), None
+    else:
+        x_s = row_scale(tpar.max_over_tp(row_amax(x), mesh))
+        x_q = quantize_with_scale(x, x_s)
+    acc = tpar.sum_int_over_tp(int8_product(x_q, w_q), mesh)
+    return int8_epilogue_reference(acc, scale, x_s, x.dtype)
+
+
+def w8_tail_reference(y: torch.Tensor, scale: torch.Tensor,
+                      bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The AR product's tail in y's dtype: y * dtype(scale) (+ dtype(bias))."""
+    dt = y.dtype
+    out = y * scale.to(dt)
+    if bias is not None:
+        out = out + bias.to(dt)
+    return out
 
 
 def w8_linear_reference(x: torch.Tensor, w_q: torch.Tensor,
                         scale: torch.Tensor,
-                        bias: Optional[torch.Tensor]) -> torch.Tensor:
+                        bias: Optional[torch.Tensor],
+                        mesh=None) -> torch.Tensor:
     """The AR tree's product in x's dtype: dtype(x @ w_q^T) * dtype(scale)
-    (+ dtype(bias)), with w_q (N, K) int8."""
-    dt = x.dtype
-    out = (x @ w_q.to(dt).T) * scale.to(dt)
-    if bias is not None:
-        out = out + bias.to(dt)
-    return out
+    (+ dtype(bias)), with w_q (N, K) int8. With a tensor-parallel `mesh`
+    the product is row-split: dtype(x @ w_q^T) is summed over tp before the
+    tail."""
+    y = x @ w_q.to(x.dtype).T
+    if tpar.active(mesh):
+        y = tpar.reduce_from_tp(y, mesh)
+    return w8_tail_reference(y, scale, bias)
 
 
 # ---- device side: the kernels -----------------------------------------------
@@ -363,6 +412,48 @@ def quantize_dynamic_cuda(x: torch.Tensor, k_pad: int):
     return q, scale
 
 
+def _rows_amax_check(x: torch.Tensor, what: str):
+    _check_cuda(x, what)
+    rows, K = x.shape
+    _build.check("x", x, torch.bfloat16, (rows, K), x.device, align=2)
+    return rows, K
+
+
+def row_amax_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch `row_amax`: x (rows, K) contiguous bf16 -> fp32 (rows,), max
+    |x| per row (a row-split dynamic product's first half under tp)."""
+    rows, K = _rows_amax_check(x, "row_amax_cuda")
+    amax = torch.empty(rows, dtype=torch.float32, device=x.device)
+    if rows:
+        _launch("row_amax", [_PTR, _PTR, _I64, _INT], x.device, x.data_ptr(),
+                amax.data_ptr(), rows, K)
+    row_amax_cuda.launches += 1
+    row_amax_cuda.launches_by_shape[(rows, K)] += 1
+    return amax
+
+
+def quantize_scaled_cuda(x: torch.Tensor, amax: torch.Tensor, k_pad: int):
+    """Launch `quantize_scaled`: x (rows, K) contiguous bf16, amax (rows,)
+    fp32 (the max over tp) -> (int8 (max(rows, 17), k_pad), scale fp32
+    (rows,)), scale = max(amax, 1e-8) * fp32(1/127): `quantize_dynamic_cuda`
+    with the amax given; rows past `rows` unset."""
+    rows, K = _rows_amax_check(x, "quantize_scaled_cuda")
+    dev = x.device
+    _build.check("amax", amax, torch.float32, (rows,), dev, align=4)
+    if k_pad % PAD or k_pad < K:
+        raise ValueError(f"k_pad {k_pad} must be a multiple of 8 >= K = {K}")
+    q = torch.empty(max(rows, INT_MM_MIN_ROWS), k_pad, dtype=torch.int8,
+                    device=dev)
+    scale = torch.empty(rows, dtype=torch.float32, device=dev)
+    if rows:
+        _launch("quantize_scaled", [_PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT],
+                dev, x.data_ptr(), amax.data_ptr(), q.data_ptr(),
+                scale.data_ptr(), rows, K, k_pad)
+    quantize_scaled_cuda.launches += 1
+    quantize_scaled_cuda.launches_by_shape[(rows, K)] += 1
+    return q, scale
+
+
 def int8_epilogue_cuda(acc: torch.Tensor, w_scale: torch.Tensor,
                        x_scale: Optional[torch.Tensor], rows: int,
                        out_dtype: torch.dtype) -> torch.Tensor:
@@ -396,42 +487,74 @@ def int8_epilogue_cuda(acc: torch.Tensor, w_scale: torch.Tensor,
     return out
 
 
-def w8_linear_cuda(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+def w8_linear_cuda(x: torch.Tensor, w_q: torch.Tensor,
+                   scale: Optional[torch.Tensor],
                    bias: Optional[torch.Tensor]) -> torch.Tensor:
     """Launch `w8_linear`: x (M, K) contiguous bf16, w_q (N, K) contiguous
     int8, scale (N,) fp32, bias (N,) bf16 or None -> (M, N) bf16,
-    `w8_linear_reference`'s function."""
+    `w8_linear_reference`'s function. scale None (and bias None): the raw
+    product bf16(x @ w_q^T), a row-split rank's part before the sum over tp
+    (counted in `raw_launches` as well)."""
     _check_cuda(x, "w8_linear_cuda")
     M, K = x.shape
     N = w_q.shape[0]
     dev = x.device
     _build.check("x", x, torch.bfloat16, (M, K), dev, align=2)
     _build.check("w_q", w_q, torch.int8, (N, K), dev, align=1)
-    _build.check("scale", scale, torch.float32, (N,), dev, align=4)
+    if scale is not None:
+        _build.check("scale", scale, torch.float32, (N,), dev, align=4)
+    elif bias is not None:
+        raise ValueError("the raw product (no scale) takes no bias")
     if bias is not None:
         _build.check("bias", bias, torch.bfloat16, (N,), dev, align=2)
     out = torch.empty(M, N, dtype=x.dtype, device=dev)
     if M:
         _launch("w8_linear", [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT],
-                dev, x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                dev, x.data_ptr(), w_q.data_ptr(),
+                None if scale is None else scale.data_ptr(),
                 None if bias is None else bias.data_ptr(), out.data_ptr(),
                 M, N, K)
     w8_linear_cuda.launches += 1
     w8_linear_cuda.launches_by_shape[(M, N, K)] += 1
+    w8_linear_cuda.raw_launches += scale is None
+    return out
+
+
+def w8_tail_cuda(y: torch.Tensor, scale: torch.Tensor,
+                 bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch `w8_tail`: y (M, N) contiguous bf16 (the raw product summed
+    over tp), scale (N,) fp32, bias (N,) bf16 or None -> (M, N) bf16,
+    `w8_tail_reference`'s function."""
+    _check_cuda(y, "w8_tail_cuda")
+    M, N = y.shape
+    dev = y.device
+    _build.check("y", y, torch.bfloat16, (M, N), dev, align=2)
+    _build.check("scale", scale, torch.float32, (N,), dev, align=4)
+    if bias is not None:
+        _build.check("bias", bias, torch.bfloat16, (N,), dev, align=2)
+    out = torch.empty_like(y)
+    if M:
+        _launch("w8_tail", [_PTR, _PTR, _PTR, _PTR, _I64, _INT], dev,
+                y.data_ptr(), scale.data_ptr(),
+                None if bias is None else bias.data_ptr(), out.data_ptr(), M,
+                N)
+    w8_tail_cuda.launches += 1
+    w8_tail_cuda.launches_by_shape[(M, N)] += 1
     return out
 
 
 KERNELS = (quantize_static_cuda, quantize_dynamic_cuda, int8_epilogue_cuda,
-           w8_linear_cuda)
+           w8_linear_cuda, row_amax_cuda, quantize_scaled_cuda, w8_tail_cuda)
 
 
 def reset_launch_counts() -> None:
     """Zero each wrapper's `launches` and its `launches_by_shape`: (rows, K)
-    for the quantizers, (rows, N, dynamic) for the epilogue, (M, N, K) for
-    w8_linear."""
+    for the quantizers and row_amax, (rows, N, dynamic) for the epilogue,
+    (M, N, K) for w8_linear (and its `raw_launches`), (M, N) for w8_tail."""
     for k in KERNELS:
         k.launches = 0
         k.launches_by_shape = Counter()
+    w8_linear_cuda.raw_launches = 0
 
 
 reset_launch_counts()
@@ -444,39 +567,54 @@ def launch_counts() -> dict:
 # ---- the dispatching entries ------------------------------------------------
 
 def int8_dense(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
-               in_scale: Optional[torch.Tensor]) -> torch.Tensor:
+               in_scale: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
     """`QuantDense`'s product in x's dtype. CPU tensors take the plain
     version; CUDA tensors launch quantize_static (in_scale given) or
     quantize_dynamic, `torch._int_mm` and int8_epilogue, with w_q the padded
-    (Np, Kp) operand (`QuantDense.operand`)."""
+    (Np, Kp) operand (`QuantDense.operand`). With a tensor-parallel `mesh`
+    (a row-split product, `int8_dense_reference`'s), the dynamic path
+    launches row_amax and quantize_scaled around a max over tp, and the
+    int32 accumulators are summed over tp before the epilogue."""
     if x.device.type == "cpu":
-        return int8_dense_reference(x, w_q, scale, in_scale)
+        return int8_dense_reference(x, w_q, scale, in_scale, mesh)
     if x.device.type != "cuda":
         raise ValueError(f"no int8 product for device {x.device}")
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K).contiguous()
-    k_pad = w_q.shape[1]
+    rows, k_pad = x2.shape[0], w_q.shape[1]
+    split = tpar.active(mesh)
     if in_scale is not None:
         x_q, x_s = quantize_static_cuda(x2, in_scale, k_pad), None
+    elif split:
+        amax = tpar.max_over_tp(row_amax_cuda(x2), mesh)
+        x_q, x_s = quantize_scaled_cuda(x2, amax, k_pad)
     else:
         x_q, x_s = quantize_dynamic_cuda(x2, k_pad)
     acc = torch._int_mm(x_q, w_q.t())
-    out = int8_epilogue_cuda(acc, scale, x_s, x2.shape[0], x.dtype)
+    if split:   # the rows past `rows` are unset: they stay out of the sum
+        tpar.sum_int_over_tp(acc[:rows], mesh)
+    out = int8_epilogue_cuda(acc, scale, x_s, rows, x.dtype)
     return out.reshape(*lead, scale.numel())
 
 
 def w8_linear(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
-              bias: Optional[torch.Tensor]) -> torch.Tensor:
+              bias: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
     """The AR tree's product in x's dtype. CPU tensors take the plain
-    version; CUDA tensors launch the `w8_linear` kernel."""
+    version; CUDA tensors launch the `w8_linear` kernel, or with a
+    tensor-parallel `mesh` (row-split) its raw form, a bf16 sum over tp and
+    `w8_tail`."""
     if x.device.type == "cpu":
-        return w8_linear_reference(x, w_q, scale, bias)
+        return w8_linear_reference(x, w_q, scale, bias, mesh)
     if x.device.type != "cuda":
         raise ValueError(f"no int8 product for device {x.device}")
     lead, K = x.shape[:-1], x.shape[-1]
+    x2, w_q = x.reshape(-1, K).contiguous(), w_q.contiguous()
     b = None if bias is None else bias.to(x.dtype).contiguous()
-    out = w8_linear_cuda(x.reshape(-1, K).contiguous(), w_q.contiguous(),
-                         scale.contiguous(), b)
+    if tpar.active(mesh):
+        y = tpar.reduce_from_tp(w8_linear_cuda(x2, w_q, None, None), mesh)
+        out = w8_tail_cuda(y.contiguous(), scale.contiguous(), b)
+    else:
+        out = w8_linear_cuda(x2, w_q, scale.contiguous(), b)
     return out.reshape(*lead, w_q.shape[0])
 
 
@@ -494,7 +632,13 @@ class QuantDense(nn.Module):
     `quantize_dense_tree`. The output is in the compute `dtype`.
 
     `route` is the product (`int8_dense` by default; `int8_dense_reference`
-    for the plain version on any device)."""
+    for the plain version on any device).
+
+    Tensor-parallel (`tp_ready` after `tensor.shard_module_` cut it): a
+    column-split product runs as it is on the rank's outputs (its kernel_q
+    rows and scale are the rank's); a row-split one takes its part of
+    in_scale at use and sums over tp inside the product (`int8_dense`'s
+    `mesh`)."""
 
     def __init__(self, in_features: int, out_features: int, dtype,
                  static_input: bool = False):
@@ -509,6 +653,11 @@ class QuantDense(nn.Module):
                          if static_input else None)
         self.route: Callable = int8_dense
         self._operand = None
+        self.mesh = None    # set for a row-split product
+
+    def tp_ready(self, mesh) -> None:
+        if tpar.split_axis(self) == 1:
+            self.mesh = mesh
 
     def operand(self) -> torch.Tensor:
         """kernel_q itself on the CPU; on the card the (Np, Kp) operand of
@@ -534,15 +683,23 @@ class QuantDense(nn.Module):
         return op
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        in_scale, mesh = self.in_scale, self.mesh
+        if mesh is not None and in_scale is not None:
+            in_scale = tpar.take_part(in_scale, 0, 1, mesh.tp, mesh.tp_rank)
         return self.route(x.to(self.compute_dtype), self.operand(), self.scale,
-                          self.in_scale)
+                          in_scale, mesh)
 
 
 class Int8WeightDense(nn.Module):
     """The AR tree's int8-weight Linear (`quantize_gpt_tree`): kernel_q
     (out, in) int8, scale (out,) fp32 and an optional bias stored in
     `param_dtype`; the product runs in the compute `dtype`
-    (`w8_linear`). `route` as in `QuantDense`."""
+    (`w8_linear`). `route` as in `QuantDense`.
+
+    Tensor-parallel: a column-split product takes its part of the whole
+    bias (`local_bias`, as `Dense`'s); a row-split one sums the raw
+    products over tp before the scale and the bias (`w8_linear`'s
+    `mesh`)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool,
                  dtype, param_dtype=None):
@@ -556,10 +713,32 @@ class Int8WeightDense(nn.Module):
                                               dtype=param_dtype or dtype),
                                   requires_grad=False) if bias else None)
         self.route: Callable = w8_linear
+        self.mesh = None        # set for a split product
+        self.row_split = False
+
+    def tp_ready(self, mesh) -> None:
+        axis = tpar.split_axis(self)
+        if axis is not None:
+            self.mesh, self.row_split = mesh, axis == 1
+
+    def local_bias(self) -> Optional[torch.Tensor]:
+        """The bias of this rank's outputs (the whole bias unless the
+        output axis is cut), in the compute dtype."""
+        b = self.bias
+        if b is None:
+            return None
+        if self.mesh is not None and not self.row_split:
+            b = tpar.take_part(b, 0, self._tp_split["kernel_q"][1],
+                               self.mesh.tp, self.mesh.tp_rank)
+        return b.to(self.compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return self.route(x.to(self.compute_dtype), self.kernel_q,
+                              self.scale, self.bias)
         return self.route(x.to(self.compute_dtype), self.kernel_q, self.scale,
-                          self.bias)
+                          self.local_bias(),
+                          self.mesh if self.row_split else None)
 
 
 QUANT_MODULES = (QuantDense, Int8WeightDense)

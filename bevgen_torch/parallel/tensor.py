@@ -17,7 +17,13 @@ out as `torch.autograd.Function`s over the mesh's tp group
                   from the gathered tensor, so no sum is needed.
   sum_over_tp:    `all_reduce` forward and backward: a statistic that every
                   rank's share feeds and every rank's share reads (the row
-                  sums of the split LayerNorm, `layer_norm`).
+                  sums of the split LayerNorm, `layer_norm`, and of the
+                  split GEGLU + LayerNorm glue, `ops/fused_glue.py`).
+
+Serving's int8 products (`ops/quant.py`) add two collectives without
+autograd, in place: `sum_int_over_tp` (the int32 accumulators of a
+row-split product, an exact sum) and `max_over_tp` (the per-row amax of a
+row-split dynamic quantization).
 
 Only `all_reduce` and `all_gather` are used, in the tensor's own dtype
 (gloo runs both on CUDA tensors as well, through the host). A bf16 sum over
@@ -122,6 +128,23 @@ def sum_over_tp(x: torch.Tensor, mesh) -> torch.Tensor:
     return _SumOverTP.apply(x, mesh) if active(mesh) else x
 
 
+def sum_int_over_tp(acc: torch.Tensor, mesh) -> torch.Tensor:
+    """`acc` (int32, contiguous) summed over tp in place, no autograd: the
+    partial accumulators of a row-split int8 product. Integer sums are
+    exact, so every rank holds the one-process product bit for bit."""
+    if active(mesh):
+        dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=mesh.tp_group)
+    return acc
+
+
+def max_over_tp(t: torch.Tensor, mesh) -> torch.Tensor:
+    """`t` (contiguous) as its elementwise maximum over tp, in place, no
+    autograd: a row's amax over every rank's columns."""
+    if active(mesh):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.tp_group)
+    return t
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
                mesh) -> torch.Tensor:
     """Scale-only LayerNorm in fp32 over a last axis split over tp: `x`
@@ -205,9 +228,23 @@ def shard_module_(module: nn.Module, mesh) -> nn.Module:
     return module
 
 
-def is_split(module: nn.Module, leaf: str = "weight") -> bool:
-    """Whether `module`'s parameter `leaf` is a tp slice."""
+def is_split(module: nn.Module, leaf: Optional[str] = None) -> bool:
+    """Whether `module`'s parameter `leaf` is a tp slice; by default its
+    product's weight (`weight`, or the int8 modules' `kernel_q`)."""
+    if leaf is None:
+        return split_axis(module) is not None
     return leaf in getattr(module, "_tp_split", {})
+
+
+def split_axis(module: nn.Module) -> Optional[int]:
+    """The port axis along which `module`'s product weight is cut (0: the
+    output axis, a column-split product; 1: the input axis, a row-split
+    one), or None when it is whole."""
+    splits = getattr(module, "_tp_split", {})
+    for leaf in ("weight", "kernel_q"):
+        if leaf in splits:
+            return splits[leaf][0]
+    return None
 
 
 def gather_tp(tensors: Mapping[str, torch.Tensor],

@@ -231,9 +231,12 @@ def make_sharded_generate(pipe: Stage1Pipeline, mesh: shd.Mesh):
         one process generates for the whole batch from an equally seeded
         generator.
 
-    A quantized pipeline (`quantized()`) serves the same way at tp = 1,
-    each rank with its own int8 copy. Works for `BEVGenPipeline` and
-    `ar_generate.ARPipeline` alike."""
+    A quantized pipeline (`quantized()`, the whole tree quantized on each
+    rank first, as the JAX package quantizes before `shard_params`) serves
+    the same way: broadcast, then cut by the same plan (`kernel_q` as the
+    kernel, `scale` with the output axis). So does the fused-glue form,
+    its GEGLU + LayerNorm split over the rank's hidden columns. Works for
+    `BEVGenPipeline` and `ar_generate.ARPipeline` alike."""
 
     def shard_params(p: Stage1Pipeline) -> Stage1Pipeline:
         mesh.broadcast_module(p)

@@ -81,33 +81,27 @@ def _count(name: str, val: str, auto: bool = False) -> str:
     return val
 
 
-def pop_mesh(args: Dict[str, str], device: str, transformer=None,
-             quant: str = "none"):
+def pop_mesh(args: Dict[str, str], device: str, transformer=None):
     """Pop the mesh axes `dp`, `tp` and `dcn` (N or auto) over the
     processes that torchrun started (`WORLD_SIZE`): dcn x dp x tp must be
     their number, and dp defaults to it / (dcn x tp); `dcn=auto` makes each
     node's ranks one dcn row. Returns None in one process (every axis 1),
     else joins the process group (nccl on cuda, gloo on cpu) and returns the
     `parallel.sharding.Mesh`. Exits on a `tp` that does not divide the
-    heads of `transformer` (the stage-2 config), on `tp` above 1 with
-    `transformer.use_fused_glue=true` or int8 serving (`quant`), on axes
-    that do not multiply to the process count, on more than one rank in one
-    process, and on `dcn=auto` without ranks."""
+    heads of `transformer` (the stage-2 config), on axes that do not
+    multiply to the process count, on more than one rank in one process,
+    and on `dcn=auto` without ranks. Every form runs under tp: the fused
+    glue (serving and training) and int8 serving (quantized whole, then
+    cut) as well."""
     from bevgen_torch.parallel import sharding
     dp = args.pop("dp", None)
     dp = None if dp is None else int(_count("dp", dp))
     tp = int(_count("tp", args.pop("tp", "1")))
     dcn = _count("dcn", args.pop("dcn", "1"), auto=True)
     world = distributed.world_size_from_env()
-    if tp > 1 and transformer is not None:
-        if transformer.num_heads % tp:
-            raise SystemExit(f"tp={tp}: num_heads={transformer.num_heads} is "
-                             f"not divisible by tp")
-        if transformer.use_fused_glue or quant != "none":
-            raise SystemExit(
-                f"tp={tp}: transformer.use_fused_glue=true and quant=int8|auto "
-                "do not run under tensor parallelism yet (ROADMAP item 3c); "
-                "serve them with tp=1")
+    if tp > 1 and transformer is not None and transformer.num_heads % tp:
+        raise SystemExit(f"tp={tp}: num_heads={transformer.num_heads} is "
+                         f"not divisible by tp")
     if dcn == "auto" and world == 1:
         raise SystemExit("dcn=auto groups the ranks by node, and this run has "
                          "no ranks: start them with torchrun --nnodes=M "

@@ -61,10 +61,11 @@ heads and FFN hidden over the ranks of a row
 `ar_generate.make_sharded_ar_generate`: every rank reads the batch and
 decodes its row's rows, the draws made at the whole batch's shape), and
 rank 0 gathers the ids and images and writes the same tree a one-process
-run writes; `quant=` quantizes each rank's copy (`auto` with the per-row
-batch as the hint) at tp = 1. A `tp` that does not divide the heads, `tp`
-above 1 with `quant=int8|auto` or `transformer.use_fused_glue=true`, and
-`keep_cameras` with a mesh exit, the last as in the JAX CLI.
+run writes; `quant=` quantizes each rank's whole copy (`auto` with the
+global batch as the hint, as the JAX CLI decides), which `tp` then cuts,
+and `transformer.use_fused_glue=true` serves its glue under tp as well. A
+`tp` that does not divide the heads and `keep_cameras` with a mesh exit,
+the last as in the JAX CLI.
 `config=`, `preset=`, `modes=` and dotted overrides
 (`transformer.num_layers=2`) build the config (`scripts/cli.py`); any other
 argument exits.
@@ -152,7 +153,7 @@ def run(argv: List[str]):
     show_config = cli.pop_flag(args, "print_config", "true")
     if args:
         raise SystemExit(f"unknown argument(s): {sorted(args)}")
-    mesh = cli.pop_mesh(mesh_args, device, tf, quant)
+    mesh = cli.pop_mesh(mesh_args, device, tf)
     ways = 1 if mesh is None else mesh.size
     main_rank = mesh is None or mesh.rank == 0
     if mesh is not None and kept:
@@ -193,7 +194,7 @@ def run(argv: List[str]):
         family = load_weights(ckpt_path, pipe)
         print(f"[generate] loaded {family} weights from {ckpt_path}",
               flush=True)
-    pipe = cli.apply_quant(pipe, quant, batch_size // ways)
+    pipe = cli.apply_quant(pipe, quant, batch_size)
     if quant != "none" and main_rank:
         print(f"[generate] quant={quant}: serving "
               f"{pipe.config.transformer.quant}", flush=True)

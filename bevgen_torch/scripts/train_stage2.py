@@ -19,8 +19,9 @@ contiguous share of the token shards
 and EMA), and rank 0 alone logs and writes the checkpoints (unsliced, so a
 tag resumes at any mesh); a stop signal to any rank stops every rank after
 the same step. `batch_size` must divide by dcn x dp, and `tp` must divide
-`transformer.num_heads`; `tp` above 1 with `transformer.use_fused_glue=true`
-exits. Token source: `tokens_dir` (shards of
+`transformer.num_heads`; `transformer.use_fused_glue=true` trains under tp
+too (its GEGLU + LayerNorm split over each rank's hidden columns). Token
+source: `tokens_dir` (shards of
 `data/tokens.py`) or seeded random tokens (`fake=true`, the default when no
 directory is given). The model keeps fp32 parameters and computes in the
 preset's dtype (bf16); on the card every attention runs through the CUDA

@@ -74,8 +74,10 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      the plain version, then `teacher_forced_logits` through the decode
      kernel (exactly 24 x 2100 = 50,400 launches) against the full forward;
  14. `ARPipeline.generate_fn` end to end at `nuscenes_ar`, b=2, KV-cached,
-     top_k=100: one warm-up by stages (encode_bev, the AR decode,
-     decode_tokens, each timed), one timed; exactly 50,400 decode and 0
+     top_k=100: a warm-up of encode_bev, the prefill and decode_tokens
+     (phases 12-13 warmed the decode step), then one generate by stages
+     (encode_bev, the AR decode, decode_tokens, each timed); exactly 50,400
+     decode and 0
      block-sparse launches per generate, ids in range, images finite;
  15. greedy decoding on the card at nuScenes widths with 2 layers, b=1: the
      reference-parity sampler (`cached=False`, 2100 full forwards through
@@ -129,17 +131,17 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      forward against its twin and the `LayerNormFn` gradients against
      autograd through it;
  26. the reference's torch checkpoints: a seeded `argoverse_muse_7cam`
-     pipeline at full width cut to 4 layers written as a reference
+     pipeline at full width cut to 2 layers written as a reference
      Lightning `.ckpt` (the reference's key names and layouts,
      `scripts/weights_drill.py:reference_state_dict`), served back by the
      generate CLI (`scripts/generate.py`, `ckpt_path=`, another seed) at
-     b=2: the parameters equal bit for bit, exactly (18 + 17) x 4 x 2 = 280
+     b=2: the parameters equal bit for bit, exactly (18 + 17) x 2 x 2 = 140
      attention launches, the ids those of the seeded pipeline's
      `generate_fn` on the same batch and generator; the same for a pipeline
      with the TokenCritic and self-conditioning (the CLI given their
-     overrides), 280 launches; then
-     `nuscenes_ar` cut to 4 layers the same way through `load_weights`: the
-     parameters bit for bit and a b=1 full forward (exactly 4 block-sparse
+     overrides), 140 launches; then
+     `nuscenes_ar` cut to 2 layers the same way through `load_weights`: the
+     parameters bit for bit and a b=1 full forward (exactly 2 block-sparse
      launches) with the seeded model's logits, bit for bit;
  27. real classifier-free guidance (`muse.real_cfg`) at
      `argoverse_muse_7cam`: the cosine-attention kernel against its plain
@@ -149,7 +151,7 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      bound and the L2 bytes; one decode step's mixed logits through the
      kernel and the plain version (cosine, top-1); a b=2 generate: exactly
      504 launches at batch 4 (18 guided forwards) and 476 at batch 2 (17
-     SelfCritic forwards); images/s, median of three after one warm-up;
+     SelfCritic forwards); images/s, median of two after one warm-up;
  28. the TokenCritic (`muse.token_critic`): exactly 980 launches per b=2
      generate, all at batch 2; with `force_not_use_token_critic` 18 x 28 =
      504; with real_cfg too, 980, all at batch 4; images/s of each;
@@ -198,7 +200,7 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      pipeline at b=2: one forward through the int8 kernels against the
      plain int8 route (the same cache), int8 against bf16 logits (cosine,
      top-1 where the bf16 top-2 gap exceeds the int8 error); generates in
-     turns with bf16 (one warm-up, three timed each): images/s, MaskGit
+     turns with bf16 (one warm-up, two timed each): images/s, MaskGit
      weight MB, peak above the resident set, exactly 2485 quantize_static,
      994 quantize_dynamic, 3479 int8_epilogue and 980 row-1 launches per
      int8 generate; the same with `use_fused_glue=true` (1470 residual +
@@ -209,10 +211,10 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      (images/s, peak above the resident set, against phase 14's bf16),
      GPT weight MB int8 against bf16, exactly 50,400 row-11 and 153,421
      w8_linear launches and no block-sparse or W8A8 launch per generate;
-     then greedy decoding cut to 2 layers: the plain int8 route's choice
+     then greedy decoding cut to 1 layer: the plain int8 route's choice
      at every step of the kernels' trajectory (ties counted, >= 0.97);
  38. the generate CLI with `quant=int8` and `quant=auto` for MUSE (full
-     width cut to 4 layers, b=2; `auto` with fake=2) and AR (full width cut
+     width cut to 2 layers, b=2; `auto` with fake=2) and AR (full width cut
      to 1 layer, b=1): the mode served (`auto` follows the crossover table,
      `bevgen_torch/configs/int8_crossover.json`, whose card is printed
      beside this one), the int8 kernels launched, finite images.
@@ -269,8 +271,8 @@ Phase 46 runs the reference's benchmark-and-trace CLI, which adds no kernel:
      `stage1_train` at b=8 (`argoverse_muse`, 14 layers at width 1024),
      `ar_train` at b=4 (`nuscenes_ar`, full depth), `ar_decode` and
      `ar_decode_int8` at b=1 cut to 1 layer and `ar_decode_full` at b=1
-     cut to 1 layer (full width); reps 2 (1 for the AR decodes) after the
-     CLI's two warm-up calls. Each last line has the JAX script's keys,
+     cut to 1 layer (full width); reps 1 after the CLI's two warm-up
+     calls. Each last line has the JAX script's keys,
      positive times and a peak above 0 and below the card's memory; each
      kernel is launched exactly its count per call times the calls;
      `train`, `decode` and `stage1_train` run with `profile=true`: each
@@ -300,7 +302,7 @@ kernel:
      loop's seconds per step, each save's wall time on the loop and the
      final join; the two final tags (parameters, optimizer state, step, EMA)
      equal bit for bit; the asynchronous run resumed to step 2; exactly
-     phase 8's launch rule per step at 7 layers;
+     phase 8's launch rule per step at 4 layers;
  49. `scripts/weights_drill.py` with its forwards on the card: every chain
      passes (LPIPS, Inception, LoFTR, the CLIP vocabulary, the published
      checkpoints at `tiny_test`), the two `tiny_test` generates launch row 1
@@ -313,13 +315,13 @@ Phases 50-51 run data parallelism on torch.distributed
      over gloo passed explicitly with CUDA tensors (the torch version
      printed; all_reduce, broadcast and all_gather checked first), each
      running at its local batch: `make_sharded_train_step` at full
-     `argoverse_muse_7cam` width, global b=8 (4 a rank), 2 steps, exactly
-     56 row-1 and 168 row-8 launches per rank per step;
-     `make_sharded_generate` at global b=2, exactly 980 row-1 launches per
+     `argoverse_muse_7cam` width cut to 4 layers, global b=8 (4 a rank), 2
+     steps, exactly 16 row-1 and 48 row-8 launches per rank per step;
+     `make_sharded_generate` at global b=2, exactly 280 row-1 launches per
      rank; `make_ar_sharded_train_step` at full `nuscenes_ar` width and
      depth, global b=4, exactly 24 row-9 and 48 row-10 per rank per step;
-     `make_sharded_ar_generate` at global b=2, full width cut to 4 layers,
-     exactly 4 x 2100 row-11 per rank. Both ranks hold equal parameters
+     `make_sharded_ar_generate` at global b=2, full width cut to 2 layers,
+     exactly 2 x 2100 row-11 per rank. Both ranks hold equal parameters
      after the steps; each step's final parameters equal, bit for bit
      (else each parameter group within 1e-6 of its largest entry, named),
      one process that sums the two
@@ -331,8 +333,9 @@ Phases 50-51 run data parallelism on torch.distributed
      versions. Each rank's peak GB and seconds are printed (two ranks share
      one card: no scaling number);
  51. the same four entry points through an nccl group of one process (a
-     MaskGit and an AR step at the ranks' batches, the MUSE generate at b=2,
-     the AR generate at b=1 cut to 2 layers), each equal bit for bit to the
+     MaskGit and an AR step at the ranks' batches and the MUSE generate at
+     b=2, all at phase 50's 4 layers, the AR generate at b=1 cut to 2
+     layers), each equal bit for bit to the
      unsharded function.
 
 Phase 52 runs tensor parallelism (`parallel/tensor.py`), which adds no
@@ -359,6 +362,41 @@ kernel: the attention kernels run at the heads of one tp rank.
      rank's seconds and peak GB are printed (two ranks share one card, and
      gloo copies every collective through the host: no NVLink or scaling
      number).
+
+Phase 53 runs the fused glue and int8 serving under tp: the GEGLU +
+LayerNorm split over a rank's hidden columns (two kernels of
+`csrc/fused_glue.cu` around a sum over tp), the row-split int8 products
+(`csrc/int8.cu`: the row amax and the quantize with the tp-wide scale
+around a max over tp, the int32 accumulators summed over tp; the AR
+form's raw product and its tail around a bf16 sum).
+ 53. (a) `geglu_stats` + `geglu_norm` at a tp=2 rank's serve (b=2) and
+     train (b=4) rows of `argoverse_muse` (F = 2730, 1365 columns a rank)
+     against their plain versions and, joined over both ranks, against the
+     whole kernel, with the whole kernel's and the eager chain's times;
+     `row_amax` + `quantize_scaled` at `to_out`'s (rows, 512) bit for bit
+     against their plain versions and against `quantize_dynamic` on the
+     whole rows; the `w8_linear` raw mode and `w8_tail` at `mlp_proj`'s
+     local K = 2048 of `nuscenes_ar` (M = 1 and 256). (b) In phase 50's
+     two rank processes, dp=1 x tp=2, `argoverse_muse` full width cut to 2
+     layers: the glue and the int8 teacher-forced forwards' gathered logits
+     no farther from a one-process fp32 forward (CPU) than 1.10x one
+     process's glue or int8 logits (relative L2), equal on both ranks;
+     one b=2 generate each of bf16, glue and int8 (ids equal on the ranks,
+     images/s printed); two glue-form `make_sharded_train_step` steps at b=4
+     (loss within 1e-3, merged gradient cosine per group >= 0.999,
+     replicated parameters equal); the int8 `nuscenes_ar` KV-cached generate
+     cut to 1 layer, b=1 (ids equal), and the first decode step's logits
+     within the same 1.10x rule against one process's int8 GPT. Launches
+     per rank exactly the rule: a forward of L layers launches L
+     `geglu_stats`, L `geglu_norm`, 3L `residual_layernorm` and no
+     `geglu_layernorm` (glue); 4L + 1 + L `quantize_static`, L
+     `quantize_dynamic` (the cross K/V), 2L `row_amax` and 2L
+     `quantize_scaled` (`to_out`) and 8L + 1 `int8_epilogue` (int8); a
+     glue step twice the glue forward's and 4L / 12L of rows 1 / 8; the int8
+     AR generate phase 37's `w8_linear` count, of which L (1 + 2100) raw
+     (by shape: L x 2100 at M = 1 and L at M = 256, the row-split
+     `mlp_proj`'s N = 1024, K = 2048), as many `w8_tail`, and L x 2100 row
+     11 at 8 heads.
 
 Prints each phase's seconds (`[time]` lines) and their sum, the kernels'
 JSON line, then the card's name and power limit, and
@@ -1156,7 +1194,6 @@ GREEDY_AGREE_MIN = 0.97
 AR_BATCH = 2
 # 8 caches of b=2, H=16, 2368 x 64 bf16 K and V: 155 MB, three times the L2
 DECODE_CACHES = 8
-AR_TIMED = 1
 
 
 def row7_shapes(B, H, N, D):
@@ -1585,48 +1622,46 @@ def ar_generate_phase(cfg):
           f"({sum(p.numel() for p in pipe.parameters()) / 1e6:.1f} M params)",
           flush=True)
 
-    def generate(seed):
-        return pipe.generate_fn(*inputs, torch.Generator(
-            device="cuda").manual_seed(seed), top_k=100)
-
-    # the warm-up: one generate by stages (host clock around synchronised
-    # stages)
-    gen = torch.Generator(device="cuda").manual_seed(9)
+    # the warm-up: the stages phases 12-13 did not run at this batch
+    # (encode_bev, the prefill, decode_tokens); they ran the decode kernel
+    # at every prefix bucket and the cached decode step
     with torch.inference_mode():
         seg, ii, ei = pipe.as_inputs(*inputs)
+        static = ar_cached.precompute_static(pipe.gpt, pipe.encode_bev(seg),
+                                             ii, ei)
+        ar_cached.prefill(pipe.gpt, static)
+        h, w = tf.cam_latent_res
+        pipe.decode_tokens(torch.zeros(B, tf.num_cams, h, w, dtype=torch.long,
+                                       device="cuda"))
+        del static
+    # one generate, timed and counted, by its stages (host clock around
+    # synchronised stages: generate_fn's three calls)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    da.reset_launch_counts()
+    bs.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with torch.inference_mode():
         t = [time.perf_counter()]
+        seg, ii, ei = pipe.as_inputs(*inputs)
         cond_ids = pipe.encode_bev(seg)
         torch.cuda.synchronize(); t.append(time.perf_counter())
-        gids = ar_cached.ar_sample_cached(pipe.gpt, cond_ids, ii, ei, gen,
-                                          top_k=100)
+        ids = ar_cached.ar_sample_cached(pipe.gpt, cond_ids, ii, ei, gen,
+                                         top_k=100)
         torch.cuda.synchronize(); t.append(time.perf_counter())
-        pipe.decode_tokens(gids)
+        images = pipe.decode_tokens(ids)
         torch.cuda.synchronize(); t.append(time.perf_counter())
-    warm_s = t[3] - t[0]
-    times, peak = [], 0
-    for i in range(AR_TIMED):
-        torch.cuda.synchronize()
-        if i == 0:
-            da.reset_launch_counts()
-            bs.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        images, ids = generate(1 + i)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        peak = max(peak, torch.cuda.max_memory_allocated() - before)
-        if i == 0:
-            n_dec = da.decode_attention_cuda.launches
-            by_pl = dict(da.decode_attention_cuda.launches_by_shape)
-            n_bs = bs.block_sparse_attention_cuda.launches
-    med = sorted(times)[len(times) // 2]
+    peak = torch.cuda.max_memory_allocated() - before
+    n_dec = da.decode_attention_cuda.launches
+    by_pl = dict(da.decode_attention_cuda.launches_by_shape)
+    n_bs = bs.block_sparse_attention_cuda.launches
+    med = t[3] - t[0]
     n_img = B * tf.num_cams
-    print(f"[ar-e2e] generate_fn b={B} cached top_k=100: warm-up (by stages) {warm_s:.3f} s, "
-          f"timed {', '.join(f'{t:.4f}' for t in times)} s, median {med:.4f} s "
-          f"= {n_img / med:.4f} images/s, peak above the resident set "
-          f"{peak / 1e6:.1f} MB; launches in the first timed run: "
-          f"decode {n_dec} {by_pl}, block-sparse {n_bs}", flush=True)
+    print(f"[ar-e2e] generate_fn b={B} cached top_k=100: one run by stages "
+          f"{med:.4f} s = {n_img / med:.4f} images/s, peak above the resident "
+          f"set {peak / 1e6:.1f} MB; launches: decode {n_dec} {by_pl}, "
+          f"block-sparse {n_bs}", flush=True)
     if n_dec != tf.num_layers * tf.num_img_tokens or n_bs != 0:
         raise SystemExit(f"expected {tf.num_layers * tf.num_img_tokens} decode "
                          f"and 0 block-sparse launches, got {n_dec} and {n_bs}")
@@ -1638,7 +1673,7 @@ def ar_generate_phase(cfg):
     if ids.min() < 0 or ids.max() >= tf.vocab_size:
         raise SystemExit("AR ids out of range")
     print(f"[ar-e2e] images {tuple(images.shape)} finite, ids in "
-          f"[{ids.min().item()}, {ids.max().item()}]; the warm-up's stages: "
+          f"[{ids.min().item()}, {ids.max().item()}]; the stages: "
           f"encode_bev {t[1] - t[0]:.4f} s, ar decode {t[2] - t[1]:.4f} s, "
           f"decode_tokens {t[3] - t[2]:.4f} s", flush=True)
     return {"s": med, "images_per_s": n_img / med, "by_pl": by_pl,
@@ -2508,7 +2543,7 @@ def layernorm_g_phase(cfg):
 # that did nothing fails.
 CKPT_SEED_A, CKPT_SEED_B = 0, 1
 # every file at full width, cut in depth (for the time limit)
-CKPT_CUT_LAYERS = 4
+CKPT_CUT_LAYERS = 2
 
 
 def cut_depth(cfg, layers):
@@ -2683,7 +2718,7 @@ def checkpoint_phase(cfg, ar_cfg):
 VARIANT_OVERRIDES = ["muse.token_critic=true", "muse.self_token_critic=false",
                      "transformer.self_cond=true"]
 # each variant's generates: one warm-up, then this many timed
-VARIANT_TIMED = 3
+VARIANT_TIMED = 2
 
 
 def variant_config(cfg, real_cfg=False, token_critic=False, self_cond=False,
@@ -3087,7 +3122,7 @@ def rect_phase():
     """Phase 33: `argoverse_muse_rect` at full width: row 1 against its plain
     version at the preset's shapes (self 1008 x 1008, cross 1008 x 256 +
     the null column, b=2), then a b=2 generate: exactly 980 launches, finite
-    (2, 3, 256, 336, 3) images, images/s (median of three after a
+    (2, 3, 256, 336, 3) images, images/s (median of two after a
     warm-up)."""
     from bevgen_torch.core.config import argoverse_rect_config
     from bevgen_torch.pipelines.generate import BEVGenPipeline
@@ -3233,9 +3268,9 @@ W8_TOL = 2.0 ** -6
 INT8_COS_MIN = 0.995
 INT8_GAP_RMS = 4.0
 INT8_DECIDED_TOP1_MIN = 0.99
-INT8_TIMED = 3          # MUSE generates per mode, in turns, after a warm-up
+INT8_TIMED = 2          # MUSE generates per mode, in turns, after a warm-up
 AR_INT8_TIMED = 1       # AR int8 generates (the first counts the launches)
-AR_INT8_GREEDY_LAYERS = 2
+AR_INT8_GREEDY_LAYERS = 1
 # inputs cycled through while a kernel is timed, so that they exceed the
 # 50 MB L2 (the serving path finds each layer's weights and activations cold)
 INT8_COLD_BYTES = 150e6
@@ -4544,17 +4579,17 @@ def inference_runs(tmp):
     muse, ar = argoverse_muse_config(), nuscenes_ar_config()
     runs = []
     for mode, b, reps, extra in (
-            ("forward", 8, 2, []),
-            ("train", 8, 2, ["profile=true", f"trace_dir={tmp}/train"]),
-            ("decode", 2, 2, ["profile=true", f"trace_dir={tmp}/decode"]),
-            ("stage1_recon", 8, 2, []),
-            ("stage1_train", 8, 2, ["profile=true",
+            ("forward", 8, 1, []),
+            ("train", 8, 1, ["profile=true", f"trace_dir={tmp}/train"]),
+            ("decode", 2, 1, ["profile=true", f"trace_dir={tmp}/decode"]),
+            ("stage1_recon", 8, 1, []),
+            ("stage1_train", 8, 1, ["profile=true",
                                     f"trace_dir={tmp}/stage1_train"])):
         runs.append((mode, ["preset=argoverse_muse", f"mode={mode}",
                             f"batch_size={b}", f"reps={reps}", *extra],
                      reps, muse))
     runs.append(("ar_train", ["preset=nuscenes_ar", "mode=ar_train",
-                              "batch_size=4", "reps=2"], 2, ar))
+                              "batch_size=4", "reps=1"], 1, ar))
     for mode, layers in (("ar_decode", INFERENCE_DECODE_LAYERS),
                          ("ar_decode_int8", INFERENCE_DECODE_LAYERS),
                          ("ar_decode_full", INFERENCE_FULL_DECODE_LAYERS)):
@@ -4844,7 +4879,7 @@ REMAT_GRAD_RTOL = 1e-6
 # Phase 48: the train CLI at full width with ckpt_minutes=0 (a save every
 # step), once synchronous and once asynchronous, then resumed
 ASYNC_STEPS = 1
-ASYNC_LAYERS = 7             # phase 48's model: full width, half the depth
+ASYNC_LAYERS = 4             # phase 48's model: full width, 4 of 14 layers
 
 
 def remat_launch_rule(layers, forwards, glue):
@@ -5290,7 +5325,8 @@ DP_PARAM_RTOL = 1e-6
 DP_LOSS_RTOL = 1e-3          # dp=2 against one process at the global batch
 DP_GRAD_COS_MIN = 0.999
 NCCL_AR_LAYERS = 2           # phase 51's AR generate, full width
-DP_AR_GEN_LAYERS = 4         # phase 50's AR generate, full width
+DP_AR_GEN_LAYERS = 2         # phase 50's AR generate, full width
+DP_MUSE_LAYERS = 4           # phases 50-51's MaskGit steps and generates
 TP_WAYS = 2                  # phase 52: dp=1 x tp=2 on phase 50's ranks
 TP_GEN_BATCH = 2
 TP_TRAIN_BATCH = 4           # the global batch; every tp rank computes it
@@ -5441,6 +5477,11 @@ def dp_generate(mesh, cfg, out, ar):
             "row11": _json_counts(da.decode_attention_cuda.launches_by_shape)}
 
 
+def dp_muse_cfg(cfg):
+    """Phases 50-51's MUSE config: full width, DP_MUSE_LAYERS deep."""
+    return cut_depth(cfg, DP_MUSE_LAYERS)
+
+
 def dp_ar_gen_cfg(ar_cfg):
     """Phase 50's AR generate config: full width, DP_AR_GEN_LAYERS deep."""
     return dataclasses.replace(ar_cfg, transformer=ar_cfg.transformer.replace(
@@ -5463,7 +5504,7 @@ def dp_rank_main(rank, world, rdv, out):
                            device="cuda:0",
                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
     mesh = sharding.make_mesh(dp=world, device="cuda:0")
-    cfg, ar_cfg = argoverse_muse_7cam_config(), nuscenes_ar_config()
+    cfg, ar_cfg = dp_muse_cfg(argoverse_muse_7cam_config()), nuscenes_ar_config()
     res = {"rank": rank, "collectives": dp_collectives(mesh)}
     for key, fn, c, ar in (("muse_train", dp_train, cfg, False),
                            ("muse_generate", dp_generate, cfg, False),
@@ -5784,6 +5825,9 @@ def dp_phase(cfg, ar_cfg, tmp):
         refs["tp"] = tp_references()
         print(f"[tp] the one-process references: done at "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        refs["tp53"] = tp53_references()
+        print(f"[tp53] the one-process references: done at "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     out, ranks, _ = run_ranks(DP_WORLD, tmp, meanwhile)
     ranks_s = time.perf_counter() - t0
@@ -5840,7 +5884,7 @@ def dp_phase(cfg, ar_cfg, tmp):
     # phase 51 starts from the same seeded models and MUSE pipeline
     return {"ranks": ranks, "ref": ref, "checks": checks, "ranks_s": ranks_s,
             "seeded": seeded, "muse_pipe": refs[False][0],
-            "tp_refs": refs["tp"], "out": out}
+            "tp_refs": refs["tp"], "tp53_refs": refs["tp53"], "out": out}
 
 
 def nccl_phase(cfg, ar_cfg, tmp, shared):
@@ -6065,9 +6109,11 @@ def _heads_counts():
 def _reset_all_counts():
     from bevgen_torch.ops import block_sparse as bs
     from bevgen_torch.ops import decode_attention as da
+    from bevgen_torch.ops import quant as tq
     _reset_launch_counts()
     bs.reset_launch_counts()
     da.reset_launch_counts()
+    tq.reset_launch_counts()
 
 
 def _replicated_equal(mesh, model):
@@ -6124,16 +6170,17 @@ def tp_serve(mesh, out):
     return res
 
 
-def tp_train(mesh, out):
+def tp_train(mesh, out, cfg=None, tag="tp"):
     """(d) on one tp rank: the seed-0 MaskGit (fp32 parameters, bf16
-    compute) through `make_sharded_train_step` at b=4, TP_STEPS steps with
-    their launches; the first step's gradients merged over tp (rank 0 saves
-    them), and the replicated parameters compared across the ranks."""
+    compute; `cfg`, by default phase 52's) through `make_sharded_train_step`
+    at b=4, TP_STEPS steps with their launches; the first step's gradients
+    merged over tp (rank 0 saves them as `<tag>_grads.pt`), and the
+    replicated parameters compared across the ranks."""
     import torch
     from bevgen_torch.parallel.tensor import gather_tp, tp_layout
     from bevgen_torch.scripts.train_stage2 import fake_batches
     from bevgen_torch.training import optim, trainer
-    cfg = tp_cfg()
+    cfg = cfg or tp_cfg()
     tf = cfg.transformer
     model = _maskgit(tf, cfg, 0 if mesh.rank == 0 else None)
     opt = optim.maskgit_optimizer(model, 1e-4, warmup_steps=1)
@@ -6162,7 +6209,7 @@ def tp_train(mesh, out):
         m = step(state, batch, gen)
         torch.cuda.synchronize()
         res["s"].append(time.perf_counter() - t0)
-        res["launches"].append(_heads_counts())
+        res["launches"].append({**_heads_counts(), **_glue_int8_counts()})
         res["metrics"].append({k: float(v) for k, v in m.items()})
         if i == 0:
             full = gather_tp(dict(zip(opt.names, first[0])),
@@ -6170,7 +6217,7 @@ def tp_train(mesh, out):
             first[0] = None
             if mesh.rank == 0:
                 torch.save({n: g.cpu() for n, g in full.items()},
-                           os.path.join(out, "tp_grads.pt"))
+                           os.path.join(out, f"{tag}_grads.pt"))
             del full
     res["replicated_equal"] = _replicated_equal(mesh, model)
     return res
@@ -6235,8 +6282,8 @@ def tp_ar(mesh, out):
 
 def tp_rank_work(out):
     """Phase 52's part in each of phase 50's rank processes: the group as a
-    dp=1 x tp=TP_WAYS mesh; (b)-(c), (d), (e)-(f) with their seconds and
-    the peak GB of this part."""
+    dp=1 x tp=TP_WAYS mesh; (b)-(c), (d), (e)-(f) with their seconds, then
+    phase 53's part (`tp53`), and the peak GB of both."""
     import torch
     from bevgen_torch.parallel import sharding
     mesh = sharding.make_mesh(dp=1, tp=TP_WAYS, device="cuda:0")
@@ -6252,6 +6299,7 @@ def tp_rank_work(out):
               f"{ {k: v for k, v in res[key].items() if k == 's' or k.endswith('_s')} }",
               flush=True)
     res["s"] = time.perf_counter() - t_all
+    res["tp53"] = tp53_rank_work(mesh, out)
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return res
 
@@ -6513,6 +6561,715 @@ def tp_kernel_entries(tp, dp_checks):
     for pl, n in sorted(per_pl.items()):
         add(f"decode_attention[tp=2 rank b1 H{ha} pl{pl}, {at.num_layers} "
             f"layers]", da.SOURCE, da.REPLACES, n, checks["row11"][(ha, pl)])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 53: the fused glue and int8 serving under tensor parallelism
+# ---------------------------------------------------------------------------
+
+TP53_LAYERS = 2          # the MUSE forwards', generates' and steps' depth
+TP53_AR_LAYERS = 1       # the int8 AR generate's depth, full width
+TP53_AR_TOKEN = 7        # the token fed to the first decode step
+# tp logits vs fp32, against one process's of the same form vs fp32
+TP53_RATIO_MAX = 1.10
+# the statistics kernel against its plain version: fp32 sums of ~1365
+# bf16-exact terms in another order
+TP53_STATS_RTOL = 1e-4
+
+
+def tp53_glue_cfg(cfg):
+    """`cfg` with transformer.use_fused_glue=true."""
+    return dataclasses.replace(cfg, transformer=cfg.transformer.replace(
+        use_fused_glue=True))
+
+
+def tp53_cfg():
+    """argoverse_muse at full width, TP53_LAYERS deep."""
+    return dataclasses.replace(tp_cfg(), transformer=tp_cfg().transformer.replace(
+        num_layers=TP53_LAYERS))
+
+
+def tp53_ar_cfg():
+    return dataclasses.replace(tp_ar_cfg(), transformer=tp_ar_cfg(
+        ).transformer.replace(num_layers=TP53_AR_LAYERS))
+
+
+def _glue_int8_counts():
+    """Launches of the glue kernels and the int8 kernels."""
+    from bevgen_torch.ops import fused_glue as fg
+    from bevgen_torch.ops import quant as tq
+    return {"geglu_stats": fg.geglu_stats_cuda.launches,
+            "geglu_norm": fg.geglu_norm_cuda.launches,
+            "geglu_ln": fg.geglu_layernorm_cuda.launches,
+            "residual_ln": fg.residual_layernorm_cuda.launches,
+            "quantize_static": _json_counts(tq.quantize_static_cuda.launches_by_shape),
+            "quantize_dynamic": _json_counts(tq.quantize_dynamic_cuda.launches_by_shape),
+            "row_amax": _json_counts(tq.row_amax_cuda.launches_by_shape),
+            "quantize_scaled": _json_counts(tq.quantize_scaled_cuda.launches_by_shape),
+            "epilogue": tq.int8_epilogue_cuda.launches,
+            "w8": tq.w8_linear_cuda.launches,
+            "w8_raw": tq.w8_linear_cuda.raw_launches,
+            "w8_shapes": _json_counts(tq.w8_linear_cuda.launches_by_shape),
+            "w8_tail": _json_counts(tq.w8_tail_cuda.launches_by_shape)}
+
+
+def tp53_pipelines(mesh, cfg, ar=False):
+    """Rank 0's seed-0 bf16 pipeline of `cfg` on every rank, then its three
+    serving forms: {"bf16", "glue", "int8"} (MUSE) or {"int8"} (AR), each
+    cut to this rank's slice by `shard_params` (the int8 tree quantized
+    whole on rank 0 and broadcast, then cut). Returns form -> (pipeline,
+    run, shard_batch)."""
+    import torch
+    from bevgen_torch.pipelines import ar_generate, generate
+    kind = ar_generate.ARPipeline if ar else generate.BEVGenPipeline
+    make = (ar_generate.make_sharded_ar_generate if ar
+            else generate.make_sharded_generate)
+    bf16 = kind.create(cfg, device="cuda")
+    if mesh.rank == 0:
+        bf16.init_params(seed=0)
+    mesh.broadcast_module(bf16)
+    forms = {"int8": bf16.quantized() if mesh.rank == 0
+             else bf16.with_transformer("int8")}
+    if not ar:
+        glue = kind.create(tp53_glue_cfg(cfg), device="cuda")
+        glue.load_state_dict(bf16.state_dict())
+        forms.update(bf16=bf16, glue=glue)
+    out = {}
+    for name, pipe in forms.items():
+        run, shard_params, shard_batch = make(pipe, mesh)
+        shard_params(pipe)
+        out[name] = (pipe, run, shard_batch)
+    del bf16
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp53_serve(mesh, out):
+    """(b) on one tp rank: the glue and int8 forwards' gathered logits
+    (saved) and launches; then the bf16, glue and int8 generates at b=2, in
+    turn, their ids saved, s and launches (all TP53_LAYERS deep)."""
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    res = {}
+    cfg = tp53_cfg()
+    forms = tp53_pipelines(mesh, cfg)
+    with torch.inference_mode():
+        inputs = tp_forward_inputs(cfg)
+        for name in ("glue", "int8"):
+            torch.cuda.synchronize()
+            _reset_all_counts()
+            logits = forms[name][0].maskgit(*inputs).logits
+            torch.cuda.synchronize()
+            res[f"{name}_forward_launches"] = {**_heads_counts(),
+                                               **_glue_int8_counts()}
+            torch.save(logits.float().cpu(), os.path.join(
+                out, f"tp53_{name}_logits_rank{mesh.rank}.pt"))
+    batch = fake_batch(cfg, TP_GEN_BATCH, seed=0)
+    for name in ("bf16", "glue", "int8"):
+        pipe, run, shard_batch = forms[name]
+        arrays = shard_batch(batch["segmentation"], batch["intrinsics_inv"],
+                             batch["extrinsics_inv"])
+        torch.cuda.synchronize()
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        _, ids = run(*arrays, torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        res[f"{name}_generate_s"] = time.perf_counter() - t0
+        res[f"{name}_generate_launches"] = {**_heads_counts(),
+                                            **_glue_int8_counts()}
+        np.save(os.path.join(out, f"tp53_{name}_ids_rank{mesh.rank}.npy"),
+                ids.cpu().numpy())
+    return res
+
+
+def ar_step_logits(model, cond, ii, ei):
+    """The cached decoder's first two logits: the prefill's (predicting
+    decode step 0) and decode step 0's, fed TP53_AR_TOKEN; fp32."""
+    import torch
+    from bevgen_torch.models.stage2 import ar_cached
+    from bevgen_torch.models.stage2.ar import decode_positions
+    tf = model.cfg
+    with torch.inference_mode():
+        static = ar_cached.precompute_static(model, cond, ii, ei)
+        kc, vc, logits0 = ar_cached.prefill(model, static)
+        blocks = ar_cached.fuse_qkv(model)
+        tok = torch.full((cond.shape[0],), TP53_AR_TOKEN, dtype=torch.long,
+                         device=cond.device)
+        raw = decode_positions(model)[0][2]
+        x_s = ar_cached.token_embedding(model, static, tok, raw)
+        pl = ar_cached.bucket_ranges(tf.gpt_block_size, tf.num_cond_tokens,
+                                     tf.num_img_tokens,
+                                     ar_cached.PREFIX_BUCKET)[0][2]
+        logits1 = ar_cached.decode_step_unrolled(
+            model, static, blocks, kc, vc, tf.num_cond_tokens, x_s, pl)
+    return logits0.float().cpu(), logits1.float().cpu()
+
+
+def tp53_ar(mesh, out):
+    """(b) on one tp rank: the int8 AR cached generate at TP53_AR_LAYERS
+    layers, b=1 (rank 0's seed-0 GPT quantized whole, then cut), ids saved,
+    launches; then the first decode step's logits (saved)."""
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    c = tp53_ar_cfg()
+    pipe, run, shard_batch = tp53_pipelines(mesh, c, ar=True)["int8"]
+    batch = fake_batch(c, 1, seed=0)
+    arrays = shard_batch(batch["segmentation"], batch["intrinsics_inv"],
+                         batch["extrinsics_inv"])
+    torch.cuda.synchronize()
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    _, ids = run(*arrays, torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    res = {"generate_s": time.perf_counter() - t0,
+           "generate_launches": {**_heads_counts(), **_glue_int8_counts()}}
+    np.save(os.path.join(out, f"tp53_ar_ids_rank{mesh.rank}.npy"),
+            ids.cpu().numpy())
+    with torch.inference_mode():
+        seg, ii, ei = arrays
+        cond = pipe.encode_bev(seg)
+    torch.save(ar_step_logits(pipe.gpt, cond, ii, ei), os.path.join(
+        out, f"tp53_ar_logits_rank{mesh.rank}.pt"))
+    return res
+
+
+def tp53_train(mesh, out):
+    """(b) on one tp rank: TP_STEPS glue-form MaskGit steps at b=4 (phase
+    52's step with transformer.use_fused_glue=true, TP53_LAYERS deep)."""
+    return tp_train(mesh, out, cfg=tp53_glue_cfg(tp53_cfg()), tag="tp53_glue")
+
+
+def tp53_references():
+    """Phase 53's one-process references (run in the parent while the
+    ranks run), TP53_LAYERS deep: the seed-0 pipeline's glue and int8
+    logits on the card and its fp32 logits on the CPU (the attention
+    kernels take bf16 only), the glue step's loss and gradients at b=4, the
+    seed-0 int8 GPT's first decode step, and that GPT's unquantized fp32
+    one on the CPU."""
+    import torch
+    from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.models.stage2.gpt import SparseGPT
+    from bevgen_torch.models.stage2.maskgit import maskgit_loss
+    from bevgen_torch.pipelines.ar_generate import ARPipeline
+    from bevgen_torch.pipelines.generate import BEVGenPipeline
+    from bevgen_torch.scripts.train_stage2 import fake_batches
+    from bevgen_torch.models.stage2.maskgit import MaskGit
+    cfg = tp53_cfg()
+    glue_cfg = tp53_glue_cfg(cfg)
+    res = {}
+    pipe = BEVGenPipeline.create(cfg, device="cuda").init_params(seed=0)
+    inputs = tp_forward_inputs(cfg)
+    with torch.inference_mode():
+        m32 = MaskGit(cfg.transformer, cfg.muse, torch.float32)
+        m32.load_state_dict({k: v.float().cpu() for k, v in
+                             pipe.maskgit.state_dict().items()})
+        res["fp32"] = m32(*(t.cpu() for t in inputs)).logits
+        del m32
+        glue = BEVGenPipeline.create(glue_cfg, device="cuda")
+        glue.load_state_dict(pipe.state_dict())
+        res["glue"] = glue.maskgit(*inputs).logits.float().cpu()
+        del glue
+        res["int8"] = pipe.quantized().maskgit(*inputs).logits.float().cpu()
+    del pipe
+    torch.cuda.empty_cache()
+    model = _maskgit(glue_cfg.transformer, glue_cfg, 0)
+    model.train()
+    b = to_device(next(fake_batches(glue_cfg.transformer, TP_TRAIN_BATCH,
+                                    seed=0)))
+    loss = maskgit_loss(model, *(b[k] for k in (
+        "tokens", "cond_ids", "intrinsics_inv", "extrinsics_inv")),
+        generator=torch.Generator(device="cuda").manual_seed(0)).loss
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, list(model.parameters()),
+                                allow_unused=True)
+    res["loss"] = float(loss.detach())
+    res["grads"] = {n: g.detach() for n, g in zip(names, grads)
+                    if g is not None}
+    del loss, model, grads
+    torch.cuda.empty_cache()
+    c = tp53_ar_cfg()
+    ar = ARPipeline.create(c, device="cuda").init_params(seed=0)
+    batch = fake_batch(c, 1, seed=0)
+    with torch.inference_mode():
+        seg, ii, ei = ar.as_inputs(batch["segmentation"],
+                                   batch["intrinsics_inv"],
+                                   batch["extrinsics_inv"])
+        cond = ar.encode_bev(seg)
+    g32 = SparseGPT(c.transformer, torch.float32)
+    g32.load_state_dict({k: v.float().cpu() for k, v in
+                         ar.gpt.state_dict().items()})
+    res["ar_fp32"] = ar_step_logits(g32, cond.cpu(), ii.float().cpu(),
+                                    ei.float().cpu())
+    res["ar_int8"] = ar_step_logits(ar.quantized().gpt, cond, ii, ei)
+    del ar, g32
+    torch.cuda.empty_cache()
+    return res
+
+
+def glue_split_case(rows, F, seed):
+    """A rank's inputs of the split GEGLU + LayerNorm at tp = 2: input sets
+    of the whole y (rows, 2F) beyond the L2, rank 0's contiguous part of
+    each (rows, 2 * F/2), the gains and rank 0's part of them."""
+    import torch
+    from bevgen_torch.parallel.tensor import take_part
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_sets = max(1, min(16, math.ceil(GLUE_COLD_BYTES / (rows * F * 2))))
+    whole = [torch.randn(rows, 2 * F, generator=g, device="cuda").bfloat16()
+             for _ in range(n_sets)]
+    parts = [[take_part(y, 1, 2, TP_WAYS, r).contiguous() for r in range(TP_WAYS)]
+             for y in whole]
+    gamma = 1.0 + 0.1 * torch.randn(F, generator=g, device="cuda")
+    return whole, parts, gamma, take_part(gamma, 0, 1, TP_WAYS, 0).contiguous()
+
+
+def check_glue_split(name, rows, F, seed):
+    """geglu_stats and geglu_norm on rank 0's columns against their plain
+    versions (the statistics summed over both ranks' kernel outputs, as
+    the sum over tp gives them), and the pair against the whole kernel at
+    the same rows: times, bounds, the eager chain's time."""
+    import itertools
+    import torch
+    import torch.nn.functional as F_
+    from bevgen_torch.ops import fused_glue as fg
+    whole, parts, gamma, g0 = glue_split_case(rows, F, seed)
+    Fl = F // TP_WAYS
+    y0, y1 = parts[0]
+    stats = fg.geglu_stats_cuda(y0)
+    total = stats + fg.geglu_stats_cuda(y1)
+    want_stats = fg.geglu_stats_reference(y0)
+    s_err = float(((stats - want_stats).abs() / want_stats.abs().clamp_min(1.0)
+                   ).max())
+    got = fg.geglu_norm_cuda(y0, total, g0, F)
+    want = fg.geglu_norm_reference(y0.float(), total, g0, F)
+    err = (got.float() - want).abs()
+    max_err, mean_err = err.max().item(), err.mean().item()
+    within = bool((err <= torch.clamp(2.0 ** -7 * want.abs(),
+                                      min=GLUE_MAX_ABS_TOL)).all())
+    # the joined ranks against the whole kernel on the whole rows
+    g1 = gamma[Fl:].contiguous()
+    joined = torch.cat([got, fg.geglu_norm_cuda(y1, total, g1, F)], dim=-1)
+    w_err = (joined.float() - fg.geglu_layernorm_cuda(whole[0], gamma).float()
+             ).abs().max().item()
+    finite = bool(torch.isfinite(got).all())
+    del err, want
+    sets = [p[0] for p in parts]
+    totals = [fg.geglu_stats_cuda(p[0]) + fg.geglu_stats_cuda(p[1])
+              for p in parts]
+    cyc, tcyc, wcyc = (itertools.cycle(x) for x in (sets, totals, whole))
+    stats_ms = time_ms(lambda: fg.geglu_stats_cuda(next(cyc)), iters=50)
+    norm_ms = time_ms(lambda: fg.geglu_norm_cuda(next(cyc), next(tcyc), g0, F),
+                      iters=50)
+    whole_ms = time_ms(lambda: fg.geglu_layernorm_cuda(next(wcyc), gamma),
+                       iters=50)
+    stats_plain = time_ms(lambda: fg.geglu_stats_reference(next(cyc)), iters=10)
+    norm_plain = time_ms(lambda: fg.geglu_norm_reference(
+        next(cyc), next(tcyc), g0, F), iters=10)
+
+    def chain(y):
+        # the unfused form's eager ops on the rank (its split norm_mid
+        # without the two sums over tp)
+        a, gate = y.chunk(2, dim=-1)
+        x = (gate * F_.gelu(a, approximate="none")).float()
+        xc = x - x.sum(-1, keepdim=True) / F
+        var = (xc * xc).sum(-1, keepdim=True) / F
+        return (xc * torch.rsqrt(var + 1e-5) * g0).bfloat16()
+    chain_ms = time_ms(lambda: chain(next(cyc)), iters=50)
+    s_bytes = rows * 2 * Fl * 2 + rows * 8
+    n_bytes = rows * 2 * Fl * 2 + rows * 8 + Fl * 4 + rows * Fl * 2
+    s_flops, n_flops = 9.0 * rows * Fl, 12.0 * rows * Fl
+    st = {}
+    for kind, nbytes, flops, ms, plain in (
+            ("stats", s_bytes, s_flops, stats_ms, stats_plain),
+            ("norm", n_bytes, n_flops, norm_ms, norm_plain)):
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+        st[kind] = {"max_abs_err": s_err if kind == "stats" else max_err,
+                    "ms": ms, "plain_ms": plain,
+                    "bound_ms": max(t_ops, t_bytes) * 1e3,
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "library_ms": None}
+    ok = (s_err <= TP53_STATS_RTOL and within and finite
+          and mean_err <= GLUE_MEAN_ABS_TOL)
+    print(f"[tp53] geglu_stats + geglu_norm {name}: rows={rows} Fl={Fl} of "
+          f"F={F}: stats max rel err {s_err:.3e} (max {TP53_STATS_RTOL}); "
+          f"norm max_abs_err={max_err:.3e} mean {mean_err:.3e}; both ranks "
+          f"joined vs the whole kernel max abs {w_err:.3e}; ms stats "
+          f"{stats_ms:.5f} + norm {norm_ms:.5f} = {stats_ms + norm_ms:.5f} "
+          f"against the whole kernel at the same rows {whole_ms:.5f}; plain "
+          f"{stats_plain:.5f} + {norm_plain:.5f}; eager chain {chain_ms:.5f}; "
+          f"bound {st['stats']['bound_ms']:.5f} + {st['norm']['bound_ms']:.5f} "
+          f"(bytes: {s_bytes / 1e6:.2f} + {n_bytes / 1e6:.2f} MB) timed over "
+          f"{len(sets)} input set(s) -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"the split glue kernels disagree at {name}")
+    return st
+
+
+def check_amax_scaled(name, rows, K, seed):
+    """row_amax and quantize_scaled on rank 0's K of 2K columns against
+    their plain versions, bit for bit, and the two ranks' max against
+    quantize_dynamic on the whole rows (the same scale, the same int8
+    columns)."""
+    import itertools
+    import torch
+    import torch.nn.functional as F
+    from bevgen_torch.ops import quant as tq
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Kp = tq.padded(K)
+    sets = _cold_sets(rows * 2 * K * 2, lambda i: (3 * torch.randn(
+        rows, 2 * K, generator=g, device="cuda")).bfloat16())
+    x = sets[0]
+    x0, x1 = x[:, :K].contiguous(), x[:, K:].contiguous()
+    a0 = tq.row_amax_cuda(x0)
+    exact = torch.equal(a0, tq.row_amax(x0)[:, 0])
+    amax = torch.maximum(a0, tq.row_amax_cuda(x1))
+    q, sc = tq.quantize_scaled_cuda(x0, amax, Kp)
+    want_s = tq.row_scale(amax[:, None])
+    exact &= torch.equal(sc, want_s[:, 0]) and torch.equal(
+        q[:rows], F.pad(tq.quantize_with_scale(x0, want_s), (0, Kp - K)))
+    qw, sw = tq.quantize_dynamic_cuda(x, tq.padded(2 * K))
+    exact &= torch.equal(sw, sc) and torch.equal(qw[:rows, :K], q[:rows, :K])
+    halves = [(s[:, :K].contiguous(), s) for s in sets]
+    cyc = itertools.cycle(halves)
+    amaxes = itertools.cycle([tq.row_amax_cuda(h) for h, _ in halves])
+    a_ms = time_ms(lambda: tq.row_amax_cuda(next(cyc)[0]), iters=50)
+    q_ms = time_ms(lambda: tq.quantize_scaled_cuda(next(cyc)[0], next(amaxes),
+                                                   Kp), iters=50)
+    a_plain = time_ms(lambda: tq.row_amax(next(cyc)[0]), iters=20)
+    q_plain = time_ms(lambda: F.pad(tq.quantize_with_scale(
+        next(cyc)[0], tq.row_scale(next(amaxes)[:, None])), (0, Kp - K)),
+        iters=20)
+    a_lib = time_ms(lambda: torch.linalg.vector_norm(
+        next(cyc)[0], float("inf"), dim=-1), iters=50)
+    st = {}
+    for kind, nbytes, flops, ms, plain, lib in (
+            ("row_amax", rows * K * 2 + rows * 4, 2.0 * rows * K, a_ms,
+             a_plain, a_lib),
+            ("quantize_scaled", rows * K * 2 + rows * 4 + rows * Kp + rows * 4,
+             4.0 * rows * K, q_ms, q_plain, None)):
+        bms, bound_by = bound(flops, nbytes)
+        st[kind] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                    "bound_ms": bms, "bound_by": bound_by, "library_ms": lib}
+    print(f"[tp53] row_amax + quantize_scaled {name}: rows={rows} K={K} of "
+          f"{2 * K} (padded {Kp}); bit-exact against the plain versions and "
+          f"against quantize_dynamic on the whole rows: {exact}; ms "
+          f"{a_ms:.5f} + {q_ms:.5f} (plain {a_plain:.5f} + {q_plain:.5f}; "
+          f"library vector_norm(inf) {a_lib:.5f}); bound "
+          f"{st['row_amax']['bound_ms']:.5f} + "
+          f"{st['quantize_scaled']['bound_ms']:.5f} (bytes) timed over "
+          f"{len(sets)} input set(s) -> {'ok' if exact else 'FAIL'}",
+          flush=True)
+    if not exact:
+        raise SystemExit(f"row_amax / quantize_scaled {name} disagree")
+    return st
+
+
+def check_w8_split(name, M, N, K, seed):
+    """The w8 raw mode on rank 0's K of 2K columns against its plain
+    version (fp32, W8_TOL), the two ranks' sum then w8_tail against its
+    plain version bit for bit, and against w8_linear on the whole rows
+    (W8_TOL: another rounding order)."""
+    import itertools
+    import torch
+    import torch.nn.functional as F
+    from bevgen_torch.ops import quant as tq
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(M, 2 * K, generator=g, device="cuda").bfloat16()
+    sets = _cold_sets(N * K, lambda i: torch.randint(
+        -127, 128, (N, 2 * K), generator=g, device="cuda", dtype=torch.int8))
+    scale = torch.rand(N, generator=g, device="cuda") * 0.03 / math.sqrt(2 * K)
+    bias = (0.02 * torch.randn(N, generator=g, device="cuda")).bfloat16()
+    w = sets[0]
+    x0, x1 = x[:, :K].contiguous(), x[:, K:].contiguous()
+    w0, w1 = w[:, :K].contiguous(), w[:, K:].contiguous()
+    raw = tq.w8_linear_cuda(x0, w0, None, None)
+    want = x0.float() @ w0.float().T
+    r_err = (raw.float() - want).abs().max().item()
+    ok = r_err <= W8_TOL * want.abs().max().item()
+    y = raw + tq.w8_linear_cuda(x1, w1, None, None)
+    tail = tq.w8_tail_cuda(y, scale, bias)
+    ok &= torch.equal(tail, tq.w8_tail_reference(y, scale, bias))
+    full = tq.w8_linear_reference(x.float(), w, scale, bias.float())
+    t_err = (tail.float() - full).abs().max().item()
+    ok &= t_err <= W8_TOL * full.abs().max().item()
+    parts = [(s[:, :K].contiguous(),) for s in sets]
+    cyc = itertools.cycle(parts)
+    r_ms = time_ms(lambda: tq.w8_linear_cuda(x0, next(cyc)[0], None, None),
+                   iters=50)
+    r_plain = time_ms(lambda: x0 @ next(cyc)[0].to(torch.bfloat16).T, iters=20)
+    bf = itertools.cycle([p[0].bfloat16() for p in parts])
+    r_lib = time_ms(lambda: F.linear(x0, next(bf)), iters=50)
+    t_ms = time_ms(lambda: tq.w8_tail_cuda(y, scale, bias), iters=50)
+    t_plain = time_ms(lambda: tq.w8_tail_reference(y, scale, bias), iters=20)
+    st = {}
+    for kind, nbytes, flops, ms, plain, lib in (
+            ("raw", M * K * 2 + N * K + M * N * 2, 2.0 * M * N * K, r_ms,
+             r_plain, r_lib),
+            ("tail", M * N * 2 + N * 4 + N * 2 + M * N * 2, 2.0 * M * N, t_ms,
+             t_plain, None)):
+        bms, bound_by = bound(flops, nbytes)
+        st[kind] = {"max_abs_err": r_err if kind == "raw" else t_err, "ms": ms,
+                    "plain_ms": plain, "bound_ms": bms, "bound_by": bound_by,
+                    "library_ms": lib}
+    print(f"[tp53] w8_linear raw + w8_tail {name}: M={M} N={N} K={K} of "
+          f"{2 * K}: raw max_abs_err {r_err:.3e}, tail bit-exact and vs the "
+          f"whole product {t_err:.3e}; ms raw {r_ms:.5f} (plain {r_plain:.5f}, "
+          f"library F.linear bf16 {r_lib:.5f}), tail {t_ms:.5f} (plain "
+          f"{t_plain:.5f}); bound {st['raw']['bound_ms']:.5f} "
+          f"({st['raw']['bound_by']}) + {st['tail']['bound_ms']:.5f} timed "
+          f"over {len(sets)} weight set(s) -> {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit(f"w8 raw / w8_tail {name} disagree")
+    return st
+
+
+def tp53_kernel_checks():
+    """(a): the new kernels at a tp=2 rank's shapes, full width."""
+    cfg, ac = tp_cfg(), tp53_ar_cfg()
+    tf, at = cfg.transformer, ac.transformer
+    N, F = tf.num_img_tokens, int(tf.num_embed * tf.ff_mult * 2 / 3)
+    inner = tf.num_heads * tf.dim_head
+    out = {"glue": {}, "int8": {}, "w8": {}}
+    for i, b in enumerate((TP_GEN_BATCH, TP_TRAIN_BATCH)):
+        out["glue"][b] = check_glue_split(f"tp=2 rank b{b}", b * N, F, 160 + i)
+    out["int8"][TP_GEN_BATCH] = check_amax_scaled(
+        f"tp=2 rank to_out b{TP_GEN_BATCH}", TP_GEN_BATCH * N,
+        inner // TP_WAYS, 162)
+    d = at.num_embed
+    for i, M in enumerate((1, at.num_cond_tokens)):
+        out["w8"][M] = check_w8_split(f"tp=2 rank mlp_proj M{M}", M, d,
+                                      4 * d // TP_WAYS, 163 + i)
+    return out
+
+
+def _rule_forward(nl, int8, rows, ctx, Fl, h8, d):
+    """The launches of one tp rank's full forward (the decode cache built
+    inside it), glue or int8."""
+    if not int8:
+        return {"row1": {h8: 2 * nl}, "geglu_stats": nl, "geglu_norm": nl,
+                "geglu_ln": 0, "residual_ln": 3 * nl}
+    return {"row1": {h8: 2 * nl},
+            "quantize_static": {f"{rows}x{d}": 4 * nl + 1, f"{rows}x{Fl}": nl},
+            "quantize_dynamic": {f"{ctx}x{d}": nl},
+            "row_amax": {f"{rows}x{d // TP_WAYS}": 2 * nl},
+            "quantize_scaled": {f"{rows}x{d // TP_WAYS}": 2 * nl},
+            "epilogue": 8 * nl + 1, "geglu_ln": 0, "geglu_stats": 0,
+            "residual_ln": 0}
+
+
+def _rule_generate(nl, f, int8, rows, ctx, Fl, h8, d):
+    """The launches of one tp rank's generate of `f` forwards (the decode
+    cache built once)."""
+    if not int8:
+        return {"row1": {h8: 2 * f * nl}, "geglu_stats": f * nl,
+                "geglu_norm": f * nl, "geglu_ln": 0, "residual_ln": 3 * f * nl}
+    return {"row1": {h8: 2 * f * nl},
+            "quantize_static": {f"{rows}x{d}": f * (4 * nl + 1),
+                                f"{rows}x{Fl}": f * nl},
+            "quantize_dynamic": {f"{ctx}x{d}": nl},
+            "row_amax": {f"{rows}x{d // TP_WAYS}": 2 * f * nl},
+            "quantize_scaled": {f"{rows}x{d // TP_WAYS}": 2 * f * nl},
+            "epilogue": 7 * f * nl + f + nl, "geglu_ln": 0, "geglu_stats": 0,
+            "residual_ln": 0}
+
+
+def _check_rule(what, got, want):
+    bad = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if bad:
+        raise SystemExit(f"{what}: launches (got, expected) {bad}")
+
+
+def tp53_phase(dp):
+    """Phase 53: (a) the new kernels at a tp=2 rank's shapes against their
+    plain versions, then the checks of the ranks' part (run in phase 50's
+    processes after phase 52's) against the one-process references."""
+    import torch
+    cfg, ac = tp53_cfg(), tp53_ar_cfg()
+    tf, at = cfg.transformer, ac.transformer
+    nl, al = tf.num_layers, at.num_layers
+    N, NC = tf.num_img_tokens, tf.num_cond_tokens
+    d, Fl = tf.num_embed, int(tf.num_embed * tf.ff_mult * 2 / 3) // TP_WAYS
+    h8 = str(tf.num_heads // TP_WAYS)
+    f = 2 * cfg.muse.sample_iterations - 1
+    t1 = time.perf_counter()
+    checks = tp53_kernel_checks()
+    print(f"[tp53] (a) the new kernels at a tp=2 rank's shapes: "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    out, ref = dp["out"], dp["tp53_refs"]
+    fp32 = ref["fp32"]
+    ranks = [r["tp"]["tp53"] for r in dp["ranks"]]
+    card = gpu_name_and_power()
+    rel = {}
+    for name in ("glue", "int8"):
+        got = [torch.load(os.path.join(out, f"tp53_{name}_logits_rank{r}.pt"))
+               for r in range(TP_WAYS)]
+        same = all(torch.equal(g, got[0]) for g in got)
+        rel[name] = (_rel_l2(got[0], fp32), _rel_l2(ref[name], fp32))
+        print(f"[tp53] (b) {name} forward, argoverse_muse full width, {nl} "
+              f"layers, b=1: gathered logits vs one-process fp32 (CPU) rel L2 "
+              f"{rel[name][0]:.4e}; one-process {name} vs fp32 "
+              f"{rel[name][1]:.4e}; ratio {rel[name][0] / rel[name][1]:.4f} "
+              f"(max {TP53_RATIO_MAX}); the ranks' logits equal: {same}",
+              flush=True)
+        if not (same and rel[name][0] <= TP53_RATIO_MAX * rel[name][1]):
+            raise SystemExit(f"(b) the tp {name} logits break the rule")
+    ids = {}
+    for name in ("bf16", "glue", "int8", "ar"):
+        got = [np.load(os.path.join(out, f"tp53_{name}_ids_rank{r}.npy"))
+               for r in range(TP_WAYS)]
+        ids[name] = all(np.array_equal(g, got[0]) for g in got)
+    print(f"[tp53] (b) the ranks' ids equal: {ids}", flush=True)
+    if not all(ids.values()):
+        raise SystemExit("(b) the tp ranks generated different ids")
+    ar = [torch.load(os.path.join(out, f"tp53_ar_logits_rank{r}.pt"))
+          for r in range(TP_WAYS)]
+    ar_same = all(torch.equal(a[i], ar[0][i]) for a in ar for i in (0, 1))
+    ar_rel = [(_rel_l2(ar[0][i], ref["ar_fp32"][i]),
+               _rel_l2(ref["ar_int8"][i], ref["ar_fp32"][i])) for i in (0, 1)]
+    print(f"[tp53] (b) int8 AR, nuscenes_ar full width, {al} layer(s), b=1: "
+          f"prefill logits rel L2 vs fp32 {ar_rel[0][0]:.4e} (one process "
+          f"{ar_rel[0][1]:.4e}); first decode step {ar_rel[1][0]:.4e} (one "
+          f"process {ar_rel[1][1]:.4e}, ratio "
+          f"{ar_rel[1][0] / ar_rel[1][1]:.4f}, max {TP53_RATIO_MAX}); the "
+          f"ranks' logits equal: {ar_same}", flush=True)
+    if not (ar_same and ar_rel[1][0] <= TP53_RATIO_MAX * ar_rel[1][1]):
+        raise SystemExit("(b) the tp int8 AR logits break the rule")
+    # the glue steps
+    saved = torch.load(os.path.join(out, "tp53_glue_grads.pt"))
+    dots = {}
+    for n, w in ref["grads"].items():
+        a, w = saved[n].to("cuda").double(), w.double()
+        dd = dots.setdefault(grad_group(n), [0.0, 0.0, 0.0])
+        dd[0] += float((a * w).sum())
+        dd[1] += float((a * a).sum())
+        dd[2] += float((w * w).sum())
+    cos = {g: v[0] / max((v[1] * v[2]) ** 0.5, 1e-30) for g, v in dots.items()}
+    del saved
+    tr = [r["train"] for r in ranks]
+    loss = tr[0]["metrics"][0]["loss"]
+    loss_rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    print(f"[tp53] (b) glue MaskGit step at b={TP_TRAIN_BATCH}: loss "
+          f"{loss:.6f} vs one process {ref['loss']:.6f} (rel {loss_rel:.2e}, "
+          f"max {DP_LOSS_RTOL}); merged gradient cosine per group min "
+          f"{min(cos.values()):.6f} ({min(cos, key=cos.get)}; min "
+          f"{TP_GRAD_COS_MIN}); replicated parameters equal after "
+          f"{TP_STEPS} steps: {[t['replicated_equal'] for t in tr]}",
+          flush=True)
+    if not (loss_rel <= DP_LOSS_RTOL and min(cos.values()) >= TP_GRAD_COS_MIN
+            and all(t["replicated_equal"] for t in tr)
+            and tr[0]["metrics"] == tr[1]["metrics"]):
+        raise SystemExit(f"(b) the tp glue step disagrees: loss rel "
+                         f"{loss_rel}, cosines {cos}")
+    # launches per rank: exactly the rule
+    rows, ctx = TP_GEN_BATCH * N, TP_GEN_BATCH * NC
+    K_ar = 4 * at.num_embed // TP_WAYS
+    for r, g in enumerate(ranks):
+        for name, int8 in (("glue", False), ("int8", True)):
+            _check_rule(f"rank {r} tp {name} forward",
+                        g["serve"][f"{name}_forward_launches"],
+                        _rule_forward(nl, int8, N, NC, Fl, h8, d))
+            _check_rule(f"rank {r} tp {name} generate",
+                        g["serve"][f"{name}_generate_launches"],
+                        _rule_generate(nl, f, int8, rows, ctx, Fl, h8, d))
+        _check_rule(f"rank {r} tp bf16 generate",
+                    g["serve"]["bf16_generate_launches"],
+                    {"row1": {h8: 2 * f * nl}, "geglu_stats": 0,
+                     "residual_ln": 0, "epilogue": 0})
+        for i, st in enumerate(g["train"]["launches"]):
+            _check_rule(f"rank {r} tp glue step {i + 1}", st, {
+                "row1": {h8: 4 * nl}, "row8": {h8: 12 * nl},
+                "geglu_stats": 2 * nl, "geglu_norm": 2 * nl, "geglu_ln": 0,
+                "residual_ln": 6 * nl})
+        steps, ag = at.num_img_tokens, g["ar"]["generate_launches"]
+        _check_rule(f"rank {r} tp int8 AR generate", ag, {
+            "row11": {str(at.num_heads // TP_WAYS): al * steps},
+            "w8": ar_int8_launches(ac), "w8_raw": al * (1 + steps),
+            "w8_tail": {f"1x{at.num_embed}": al * steps,
+                        f"{at.num_cond_tokens}x{at.num_embed}": al},
+            "epilogue": 0, "row9": 0})
+        # the row-split mlp_proj's (M, N, K): no other product of the rank
+        # has it, so these are its raw launches, one before each tail
+        _check_rule(f"rank {r} tp int8 AR generate, w8_linear by shape",
+                    ag["w8_shapes"], {
+                        f"1x{at.num_embed}x{K_ar}": al * steps,
+                        f"{at.num_cond_tokens}x{at.num_embed}x{K_ar}": al})
+    r0 = ranks[0]
+    gen_s = {k: r0["serve"][f"{k}_generate_s"] for k in ("bf16", "glue", "int8")}
+    n_img = TP_GEN_BATCH * tf.num_cams
+    ips = {k: n_img / v for k, v in gen_s.items()}
+    print(f"[tp53] rank 0: one generate each at {nl} layers, b={TP_GEN_BATCH}, "
+          f"in turn: s {gen_s}; images/s bf16 {ips['bf16']:.3f}, glue {ips['glue']:.3f}, int8 "
+          f"{ips['int8']:.3f}; int8 AR generate {r0['ar']['generate_s']:.2f} s "
+          f"at {al} layer(s); glue steps "
+          f"{[round(x, 3) for x in r0['train']['s']]} s; the rank's part "
+          f"{r0['s']:.1f} s ({card}; two ranks share one card and gloo "
+          f"copies every collective through the host: no scaling number)",
+          flush=True)
+    return {"checks": checks, "ranks": ranks}
+
+
+def tp53_rank_work(mesh, out):
+    """Phase 53's part in each rank process (after phase 52's): the glue
+    and int8 forwards and generates, the glue steps, the int8 AR generate;
+    each with its seconds."""
+    import torch
+    t_all = time.perf_counter()
+    res = {}
+    for key, fn in (("serve", tp53_serve), ("train", tp53_train),
+                    ("ar", tp53_ar)):
+        t0 = time.perf_counter()
+        res[key] = fn(mesh, out)
+        res[key]["phase_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        print(f"[tp53 rank {mesh.rank}] {key}: {res[key]['phase_s']:.1f} s",
+              flush=True)
+    res["s"] = time.perf_counter() - t_all
+    return res
+
+
+def tp53_kernel_entries(tp53):
+    """The kernels line's entries of phase 53: the new kernels at a tp=2
+    rank's shapes with rank 0's launches."""
+    from bevgen_torch.ops import fused_glue as fg
+    from bevgen_torch.ops import quant as tq
+    cfg, ac = tp_cfg(), tp53_ar_cfg()
+    tf, at = cfg.transformer, ac.transformer
+    N, d = tf.num_img_tokens, tf.num_embed
+    Fl = int(d * tf.ff_mult * 2 / 3) // TP_WAYS
+    r0, checks = tp53["ranks"][0], tp53["checks"]
+    gen = r0["serve"]["glue_generate_launches"]
+    step = r0["train"]["launches"][-1]
+    int8 = r0["serve"]["int8_generate_launches"]
+    ar = r0["ar"]["generate_launches"]
+    out = []
+
+    def add(name, src, rep, launches, st):
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": rep, "launches": launches, **st})
+
+    for b, run, counts in ((TP_GEN_BATCH, "serve", gen),
+                           (TP_TRAIN_BATCH, "train", step)):
+        for kind, op in (("stats", "geglu_stats"), ("norm", "geglu_norm")):
+            add(f"{op}[tp=2 rank {run} b{b} {b * N}x{Fl} of "
+                f"{Fl * TP_WAYS}]", fg.SOURCE, fg.GEGLU_LN_REPLACES,
+                counts[op], checks["glue"][b][kind])
+    rows, k = TP_GEN_BATCH * N, d // TP_WAYS
+    for op, rep in (("row_amax", tq.QUANTIZE_DYNAMIC_REPLACES),
+                    ("quantize_scaled", tq.QUANTIZE_DYNAMIC_REPLACES)):
+        add(f"{op}[tp=2 rank to_out serve b{TP_GEN_BATCH} {rows}x{k}]",
+            tq.SOURCE, rep, int8[op].get(f"{rows}x{k}", 0),
+            checks["int8"][TP_GEN_BATCH][op])
+    K = 4 * at.num_embed // TP_WAYS
+    for M in (1, at.num_cond_tokens):
+        add(f"w8_linear[raw, tp=2 rank mlp_proj M{M} N{at.num_embed} K{K}]",
+            tq.SOURCE, tq.W8_LINEAR_REPLACES,
+            ar["w8_shapes"].get(f"{M}x{at.num_embed}x{K}", 0),
+            checks["w8"][M]["raw"])
+        add(f"w8_tail[tp=2 rank mlp_proj M{M} N{at.num_embed}]", tq.SOURCE,
+            tq.W8_LINEAR_REPLACES,
+            ar["w8_tail"].get(f"{M}x{at.num_embed}", 0),
+            checks["w8"][M]["tail"])
     return out
 
 
@@ -6861,12 +7618,14 @@ def main() -> int:
     # 50-51. data parallelism: two gloo ranks on the one card, then the
     # sharded entry points through an nccl group of one process
     # 52. tensor parallelism: its ranks' part runs in phase 50's processes
+    # 53. the fused glue and int8 serving under tp: so does its ranks' part
     with tempfile.TemporaryDirectory() as tmp:
-        dp = timed_phase(50, dp_phase, cfg, ar_cfg, tmp)
-        nccl = timed_phase(51, nccl_phase, cfg, ar_cfg, tmp, dp)
+        dp = timed_phase(50, dp_phase, dp_muse_cfg(cfg), ar_cfg, tmp)
+        nccl = timed_phase(51, nccl_phase, dp_muse_cfg(cfg), ar_cfg, tmp, dp)
         del dp["seeded"], dp["muse_pipe"]
         tp = timed_phase(52, tp_phase, dp)
-    del dp["tp_refs"]
+        tp53 = timed_phase(53, tp53_phase, dp)
+    del dp["tp_refs"], dp["tp53_refs"]
     torch.cuda.empty_cache()
 
     kernels = []
@@ -6997,10 +7756,11 @@ def main() -> int:
     kernels.extend(inference_kernel_entries(inference_res, bsb_stats))
     kernels.extend(knob_kernel_entries(cfg, remat, ckpt_async, drill,
                                        train_fwd_stats, bwd_stats, glue_stats))
-    kernels.extend(dp_kernel_entries(cfg, ar_cfg, dp, nccl, stats,
+    kernels.extend(dp_kernel_entries(dp_muse_cfg(cfg), ar_cfg, dp, nccl, stats,
                                      inference_res["checks"]["row11"]))
     kernels.extend(tp_kernel_entries(tp, dp["checks"]))
-    print(f"[time] phases 1-52: {time.perf_counter() - t_start:.1f} s",
+    kernels.extend(tp53_kernel_entries(tp53))
+    print(f"[time] phases 1-53: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,10 +2,10 @@
 axis of `parallel/sharding.py`) against the JAX package, on the CPU.
 
 In one process: the port's weight plan `tp_plan` on every leaf of the
-full-width `argoverse_muse` and `nuscenes_ar` trees (shapes from
-`jax.eval_shape`) against JAX `param_pspec` with `param_shardings`'
-divisibility drop at tp = 2 and 4 (one documented departure: the GEGLU's
-`proj_in` at F = 2730, tp = 4), the moment axes at (dp=2, tp=2) against JAX
+full-width `argoverse_muse` and `nuscenes_ar` trees and of their int8
+serving trees (shapes from `jax.eval_shape`) against JAX `param_pspec` with
+`param_shardings`' divisibility drop at tp = 2 and 4 (one documented
+departure: the GEGLU's `proj_in` at F = 2730, tp = 4), the moment axes at (dp=2, tp=2) against JAX
 `moment_pspec`, and `split_tp`/`merge_tp` by meaning.
 
 Across processes: one spawn of four gloo ranks (`tests/
@@ -32,6 +32,7 @@ below read its results:
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -50,9 +51,7 @@ from bevgen_tpu.models.stage2 import maskgit as jmg
 from bevgen_tpu.parallel import sharding as jshd
 from bevgen_torch.core.convert import export_jax_params, merge_tp, split_tp
 from bevgen_torch.models.stage2.ar import ar_loss
-from bevgen_torch.models.stage2.maskgit import MaskGit
 from bevgen_torch.parallel import sharding as tshd
-from bevgen_torch.parallel import tensor as tten
 from bevgen_torch.training import optim as toptim
 from bevgen_torch.training import trainer as ttrainer
 from torch_parity import (ar_tiny_pipelines, assert_steps_close,
@@ -95,17 +94,41 @@ def _two_threads():
 # ---------------------------------------------------------------------------
 
 
+def _int8_gpt_shapes(tree):
+    """The shapes of `quantize_gpt_tree` of a GPT tree: each quantized
+    layer's (in, out) kernel as an int8 kernel_q and an (out,) scale."""
+    from bevgen_tpu.ops.quant import GPT_QUANT_LAYER_NAMES
+
+    def rec(node, name):
+        if name in GPT_QUANT_LAYER_NAMES and "kernel" in node:
+            k = node["kernel"]
+            out = {n: v for n, v in node.items() if n != "kernel"}
+            out["kernel_q"] = jax.ShapeDtypeStruct(k.shape, jnp.int8)
+            out["scale"] = jax.ShapeDtypeStruct(k.shape[-1:], jnp.float32)
+            return out
+        return {n: rec(v, n) if isinstance(v, dict) else v
+                for n, v in node.items()}
+    return rec(tree, "")
+
+
 @lru_cache(maxsize=None)
 def _full_tree(name):
-    """The maskgit or gpt tree of a full-width JAX pipeline, shapes only."""
+    """The maskgit or gpt tree of a full-width JAX pipeline, shapes only;
+    `_int8`: its int8 serving tree (the MUSE one from the JAX int8
+    pipeline's own init)."""
     from bevgen_tpu.pipelines.ar_generate import ARPipeline
     from bevgen_tpu.pipelines.generate import BEVGenPipeline
     key = jax.random.PRNGKey(0)
-    if name == "argoverse_muse":
-        pipe = BEVGenPipeline.create(jcfg.argoverse_muse_config())
+    if name.startswith("argoverse_muse"):
+        cfg = jcfg.argoverse_muse_config()
+        if name.endswith("_int8"):
+            cfg = dataclasses.replace(cfg, transformer=cfg.transformer.replace(
+                quant="int8"))
+        pipe = BEVGenPipeline.create(cfg)
         return jax.eval_shape(pipe.init_params, key)["maskgit"]
     pipe = ARPipeline.create(jcfg.nuscenes_ar_config(), use_pallas=False)
-    return jax.eval_shape(pipe.init_params, key)["gpt"]
+    tree = jax.eval_shape(pipe.init_params, key)["gpt"]
+    return _int8_gpt_shapes(tree) if name.endswith("_int8") else tree
 
 
 def _path(path):
@@ -123,12 +146,14 @@ def _jax_plan(path, leaf, tp):
 
 
 # the one leaf kind where the port's plan departs from JAX's: the GEGLU's
-# [a | gate] output at F = 2730 does not split into 2 x 4 parts
-DEPARTURES = {4: r"proj_in/kernel"}
+# [a | gate] output at F = 2730 does not split into 2 x 4 parts (in the
+# int8 tree its kernel_q and its per-output scale)
+DEPARTURES = {4: r"proj_in/(kernel|kernel_q|scale)$"}
 
 
 @pytest.mark.parametrize("tp", [2, 4])
-@pytest.mark.parametrize("tree", ["argoverse_muse", "nuscenes_ar"])
+@pytest.mark.parametrize("tree", ["argoverse_muse", "nuscenes_ar",
+                                  "argoverse_muse_int8", "nuscenes_ar_int8"])
 def test_tp_plan_matches_jax_on_every_leaf(tree, tp):
     leaves = jax.tree_util.tree_leaves_with_path(_full_tree(tree))
     split = departed = 0
@@ -136,15 +161,21 @@ def test_tp_plan_matches_jax_on_every_leaf(tree, tp):
         name = _path(path)
         got, want = tshd.tp_plan(name, leaf.shape, tp), _jax_plan(path, leaf, tp)
         if got != want:
-            assert tp in DEPARTURES and name.endswith(DEPARTURES[tp]), name
-            assert want == (None, "tp") and got == (None, None), name
+            assert tp in DEPARTURES and re.search(DEPARTURES[tp], name), name
+            assert "tp" in want and set(got) == {None}, name
             departed += 1
             continue
         split += "tp" in got
     assert split > len(leaves) // 4
     # every layer's proj_in, and nothing else
-    n_ff = sum(_path(p).endswith("proj_in/kernel") for p, _ in leaves)
+    n_ff = sum(bool(re.search(DEPARTURES[4], _path(p))) for p, _ in leaves)
     assert departed == (n_ff if tp == 4 else 0)
+    if tree.endswith("_int8"):   # the int8 leaves are cut by the same rules
+        names = [_path(p) for p, _ in leaves]
+        assert any(n.endswith("kernel_q") for n in names)
+        assert not any(n.endswith("/kernel") for n in names
+                       if re.search(r"(to_q|to_kv|to_out|proj_in|proj_out|"
+                                    r"query|key|value|mlp_fc|mlp_proj)/", n))
 
 
 def test_moment_axes_match_jax_at_dp2_tp2(monkeypatch):
@@ -586,25 +617,11 @@ def test_pop_mesh_exits_on_what_tp_cannot_run(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "4")
     monkeypatch.delenv("BEVGEN_NUM_PROCESSES", raising=False)
     tf = tiny_configs()[1].transformer
-    for args, t, quant, message in (
-            ({"tp": "4"}, tf, "none", "num_heads=2 is not divisible by tp"),
-            ({"tp": "2"}, tf.replace(use_fused_glue=True), "none",
-             "ROADMAP item 3c"),
-            ({"tp": "2"}, tf, "int8", "ROADMAP item 3c"),
-            ({"tp": "2", "dp": "1"}, tf, "none", "must equal the 4 processes")):
+    for args, message in (
+            ({"tp": "4"}, "num_heads=2 is not divisible by tp"),
+            ({"tp": "2", "dp": "1"}, "must equal the 4 processes")):
         with pytest.raises(SystemExit, match=message):
-            cli.pop_mesh(dict(args), "cpu", t, quant)
-
-
-def test_tp_refuses_glue_and_int8_modules():
-    """The modules themselves refuse what does not run under tp (a mesh of
-    tp = 2 that is never used for a collective)."""
-    mesh = tshd.Mesh(1, 1, 0, None, None, torch.device("cpu"), tp=2)
-    for tf in (tiny_configs(glue=True)[1].transformer,
-               tiny_configs()[1].transformer.replace(quant="int8")):
-        model = MaskGit(tf, tiny_configs()[1].muse, torch.float32)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 3c"):
-            tten.shard_module_(model, mesh)
+            cli.pop_mesh(dict(args), "cpu", tf)
 
 
 def test_mesh_groups_follow_the_jax_rank_order():

@@ -1,14 +1,15 @@
 """One rank of the port's multi-process checks (driven by
-tests/test_torch_distributed.py, two ranks, and in tp mode by
-tests/test_torch_tensor_parallel.py, four ranks as dp=2 x tp=2; not
-collected by pytest).
+tests/test_torch_distributed.py, two ranks, in tp mode by
+tests/test_torch_tensor_parallel.py, four ranks as dp=2 x tp=2, and in tp2
+mode by tests/test_torch_tp_glue_int8.py, two ranks as dp=1 x tp=2: the
+fused glue and int8 serving under tp; not collected by pytest).
 
 Joins a gloo group through a file rendezvous, runs every check on the CPU
 at fp32 on the inputs the parent wrote (`inputs.pt`: configs, numpy weight
 trees, batches), and writes its results to `rank<r>.pt`; the parent holds
 them against the JAX package and one-process runs of the port.
 
-Usage: python tests/torch_distributed_worker.py <rank> <world> <outdir> [tp]
+Usage: python tests/torch_distributed_worker.py <rank> <world> <outdir> [tp|tp2]
 """
 import contextlib
 import dataclasses
@@ -220,17 +221,18 @@ def flat(tree, prefix=""):
     return out
 
 
-def tp_step(mesh, remat=False):
+def tp_step(mesh, remat=False, cfg_key="muse", tree_key="muse_tree",
+            tag="ck_tp_step"):
     """The first step's loss and merged gradients with the draws fixed, then
     STEPS sharded MaskGit steps: metrics, merged parameters, EMA and
     moments as JAX trees, the rank's own slices, the replicated parameters'
-    equality; with a checkpoint tag written (remat off)."""
-    cfg = inp["configs"]["muse"]
+    equality; with a checkpoint tag written under `tag` (remat off)."""
+    cfg = inp["configs"][cfg_key]
     cfg = dataclasses.replace(cfg, transformer=cfg.transformer.replace(
         remat=remat))
     model = MaskGit(cfg.transformer, dataclasses.replace(
         cfg.muse, cond_drop_prob=0.0), dtype=torch.float32)
-    load_jax_params(model, inp["muse_tree"])
+    load_jax_params(model, inp[tree_key])
     local = data_rows(inp["muse_batch"], mesh)
     mask = local.pop("mask")
     gz = torch.zeros(mask.shape + (cfg.transformer.vocab_size,))
@@ -267,8 +269,8 @@ def tp_step(mesh, remat=False):
            "moments": moments, "slices": export_jax_params(model),
            "replicated_equal": replicated_equal(mesh, model),
            "sliced": len(tensor.tp_layout(model))}
-    if not remat:
-        mgr = CheckpointManager(str(out / "ck_tp_step"), mesh=mesh)
+    if not remat and tag:
+        mgr = CheckpointManager(str(out / tag), mesh=mesh)
         mgr.save_step(STEPS, state, force=True, ema=state.ema)
     return res
 
@@ -313,6 +315,133 @@ def tp_generates(mesh):
     return ids
 
 
+# ---- tp2 mode: a dp=1 x tp=2 mesh, the fused glue and int8 serving ---------
+
+
+def glue_forward(mesh):
+    """The glue MaskGit's gathered logits, and every delta the residual +
+    LayerNorm glue received (each rank's, in call order)."""
+    from bevgen_torch.models.stage2 import transformer as ttr
+    model = tp_model(mesh, inp["configs"]["glue"], inp["glue_tree"])
+    x = data_rows(inp["logit_inputs"], mesh)
+    deltas = []
+    real = ttr.residual_layernorm
+
+    def recording(x_, d, gamma):
+        deltas.append(d.detach().clone())
+        return real(x_, d, gamma)
+
+    ttr.residual_layernorm = recording
+    try:
+        with torch.no_grad():
+            logits = model(x["ids"], x["cond"], x["ii"], x["ei"]).logits
+    finally:
+        ttr.residual_layernorm = real
+    return {"logits": logits.numpy(), "deltas": [d.numpy() for d in deltas],
+            "split": tensor.is_split(model.transformer.layers_0_ff.proj_in)}
+
+
+def int8_model(mesh):
+    """The int8 MaskGit: the whole tree quantized, loaded, then cut."""
+    from bevgen_torch.ops.quant import quantize_dense_tree
+    cfg = inp["configs"]["muse"]
+    model = MaskGit(cfg.transformer.replace(quant="int8"), cfg.muse,
+                    dtype=torch.float32)
+    load_jax_params(model, quantize_dense_tree(inp["muse_tree"]))
+    return tensor.shard_module_(model, mesh)
+
+
+def int8_forward(mesh):
+    """The int8 MaskGit's gathered logits and slices; layer 0's row-split
+    to_out and proj_out on this rank's columns of the parent's inputs, and
+    the to_out row scale over tp."""
+    from bevgen_torch.ops import quant as tq
+    model = int8_model(mesh)
+    x = data_rows(inp["logit_inputs"], mesh)
+    tr = model.transformer
+    prods = {}
+    with torch.no_grad():
+        logits = model(x["ids"], x["cond"], x["ii"], x["ei"]).logits
+        for name, mod in (("to_out", tr.layers_0_attn.to_out),
+                          ("proj_out", tr.layers_0_ff.proj_out)):
+            full = torch.from_numpy(inp["row_split_inputs"][name])
+            part = tensor.take_part(full, 1, 1, mesh.tp, mesh.tp_rank)
+            prods[name] = {"out": mod(part).numpy(),
+                           "split": tensor.split_axis(mod)}
+            if name == "to_out":
+                prods[name]["scale"] = tq.row_scale(tensor.max_over_tp(
+                    tq.row_amax(part), mesh)).numpy()
+    # the whole int8 tree loaded into a cut model (`load_jax_params(mesh=)`)
+    # and the tree's `split_tp` slice: the slices `shard_module_` cut
+    from bevgen_torch.ops.quant import quantize_dense_tree
+    cfg = inp["configs"]["muse"]
+    cut = tensor.shard_module_(MaskGit(cfg.transformer.replace(quant="int8"),
+                                       cfg.muse, dtype=torch.float32), mesh)
+    whole = quantize_dense_tree(inp["muse_tree"])
+    load_jax_params(cut, whole, mesh=mesh)
+    mine = flat(export_jax_params(model))
+    loaded = flat(export_jax_params(cut))
+    split = flat(convert.split_tp(whole["params"], mesh.tp, mesh.tp_rank))
+    return {"logits": logits.numpy(), "products": prods,
+            "slices": export_jax_params(model),
+            "mesh_load_equal": all(np.array_equal(mine[k], loaded[k])
+                                   for k in mine) and mine.keys() == loaded.keys(),
+            "split_equal": all(np.array_equal(mine[k], split[k]) for k in mine)
+            and mine.keys() == split.keys()}
+
+
+def int8_gpt(mesh):
+    """The int8 GPT cut over tp: its slices, and the fused q|k|v biases of
+    `fuse_qkv` (the rank's parts)."""
+    from bevgen_torch.models.stage2.ar_cached import fuse_qkv
+    from bevgen_torch.ops.quant import quantize_gpt_tree
+    cfg = inp["configs"]["ar_pipe"].transformer
+    model = SparseGPT(cfg.replace(quant="int8"), dtype=torch.float32)
+    load_jax_params(model, quantize_gpt_tree(inp["ar_pipe_tree"]["gpt"]))
+    tensor.shard_module_(model, mesh)
+    probe = torch.zeros(1, cfg.num_embed)
+    with torch.no_grad():
+        # the fused product of a zero input is its bias
+        biases = [fb.qkv(probe)[0].numpy() for fb in fuse_qkv(model)]
+    return {"slices": export_jax_params(model), "qkv_bias": biases}
+
+
+def tp2_generates(mesh):
+    """Greedy MUSE ids with the glue and with int8, and AR cached int8 ids,
+    of the global fake batch through the sharded pipelines (int8: the whole
+    pipeline quantized, then cut by shard_params)."""
+    from bevgen_torch.data.fake import fake_batch
+    ids = {}
+    for name, (cfg_key, tree, quant, kw) in inp["tp2_generates"].items():
+        ar = name.startswith("ar")
+        cfg = inp["configs"][cfg_key]
+        pipe = (ar_generate.ARPipeline if ar else generate.BEVGenPipeline
+                ).create(cfg, device="cpu", dtype=torch.float32)
+        load_jax_params(pipe, inp[tree])
+        if quant:
+            pipe = pipe.quantized()
+        make = (ar_generate.make_sharded_ar_generate if ar
+                else generate.make_sharded_generate)
+        run, shard_params, shard_batch = make(pipe, mesh)
+        shard_params(pipe)
+        batch = fake_batch(cfg, 2, seed=0)
+        arrays = shard_batch(batch["segmentation"], batch["intrinsics_inv"],
+                             batch["extrinsics_inv"])
+        _, got = run(*arrays, torch.Generator().manual_seed(0), **kw)
+        ids[name] = mesh.gather_rows(got).numpy()
+    return ids
+
+
+def tp2_clis():
+    from bevgen_torch.scripts import generate as gen_cli
+    from bevgen_torch.scripts import train_stage2
+    logs = {name: cli(train_stage2.main, inp["train_args"] + ["tp=2"] + args)
+            for name, args in inp["train_runs"].items()}
+    for name, args in inp["generate_runs"].items():
+        logs[name] = cli(gen_cli.main, inp["generate_args"] + ["tp=2"] + args)
+    return logs
+
+
 def tp_clis():
     from bevgen_torch.scripts import generate as gen_cli
     from bevgen_torch.scripts import train_stage2
@@ -325,12 +454,21 @@ def tp_clis():
     return logs
 
 
-if MODE == "tp":
+if MODE in ("tp", "tp2"):
     from bevgen_torch.core import convert  # noqa: E402
     from bevgen_torch.models.stage2.maskgit import maskgit_loss  # noqa: E402
     from bevgen_torch.parallel import tensor  # noqa: E402
     from bevgen_torch.training.checkpoints import CheckpointManager  # noqa: E402
     import numpy as np  # noqa: E402
+if MODE == "tp2":
+    mesh = sharding.make_mesh(dp=1, tp=2)
+    res = {"mesh": mesh.shape, "tp_rank": mesh.tp_rank,
+           "glue": glue_forward(mesh),
+           "glue_step": tp_step(mesh, cfg_key="glue", tree_key="glue_tree",
+                                tag=None),
+           "int8": int8_forward(mesh), "int8_gpt": int8_gpt(mesh),
+           "ids": tp2_generates(mesh), "logs": tp2_clis()}
+elif MODE == "tp":
     mesh = sharding.make_mesh(dp=2, tp=2)
     res = {"mesh": mesh.shape, "tp_rank": mesh.tp_rank,
            "data_rank": mesh.data_rank, "forward": tp_forward(mesh),
