@@ -4,7 +4,8 @@ Pure numpy, cached on the hashable MultiViewConfig. A copy of the parts of
 the reference module (`bevgen_tpu/models/masks.py`) that the port reads:
 `camera_bias_matrix` (MUSE and the AR GPT's camera bias) and
 `sparse_masks` (the AR GPT's per-head block layouts and multiplicative
-mask), with what they call. The legacy probability matrix keeps the
+mask), with what they call, and `dense_attention_mask` (no caller; the
+mask plots of `utils/logging.py` draw the others). The legacy probability matrix keeps the
 reference's `rad2deg` of a cosine *distance*, bit for bit, and the
 per-head layouts are drawn by the same numpy calls from
 `cfg.layout_seed`, so they equal the reference's exactly.
@@ -211,3 +212,11 @@ def sparse_masks(cfg: MultiViewConfig) -> SparseMasks:
     return SparseMasks(layouts=layouts, allowed=allowed_f,
                        static_layout=static_layout,
                        prob_layout=prob_layout)
+
+
+def dense_attention_mask(cfg: MultiViewConfig) -> np.ndarray:
+    """[L, L] float 0/1 mask for the dense fallback: per-head layout OR-ed
+    with causality (what the reference's mul-mask * layout achieves),
+    head-independent static part only. No path of the port calls it (nor
+    of the JAX package)."""
+    return sparse_masks(cfg).allowed

@@ -75,7 +75,8 @@ class Stage1Pipeline(nn.Module):
         raises without a GPU) in `dtype` (default: config.dtype). Weights
         are uninitialised until `init_params` or `load_jax_params`."""
         dev = resolve_device(device)
-        pipe = cls(config, resolve_dtype(dtype or config.dtype))
+        with dev:   # the layers' own (discarded) default init runs there
+            pipe = cls(config, resolve_dtype(dtype or config.dtype))
         return pipe.to(dev).eval()
 
     @property
@@ -88,7 +89,8 @@ class Stage1Pipeline(nn.Module):
         stage-2 weights are unset."""
         cfg = dataclasses.replace(self.config, transformer=self.config.
                                   transformer.replace(quant=quant))
-        pipe = type(self)(cfg, self.dtype)
+        with self.device:
+            pipe = type(self)(cfg, self.dtype)
         pipe.first_stage, pipe.cond_stage = self.first_stage, self.cond_stage
         return pipe.to(self.device).eval()
 

@@ -86,8 +86,10 @@ def muse_call(mode: str, cfg, x: dict, dev) -> Callable:
                                                     maskgit_loss)
     # training keeps fp32 parameters, as the port's trainer does
     param_dtype = torch.float32 if mode == "train" else None
-    model = init_weights(MaskGit(cfg.transformer, cfg.muse, torch.bfloat16,
-                                 param_dtype), 0).to(dev)
+    with dev:   # the layers' own (discarded) default init runs there
+        model = MaskGit(cfg.transformer, cfg.muse, torch.bfloat16,
+                        param_dtype).to(dev)
+    init_weights(model, 0)
     tokens, cond, ii, ei = x["tokens"], x["cond"], x["ii"], x["ei"]
     gen = torch.Generator(device=dev)
     if mode == "forward":
@@ -144,10 +146,13 @@ def ar_call(mode: str, cfg, x: dict, dev) -> Callable:
     from bevgen_torch.ops.quant import quantize_gpt_tree
     tf = cfg.transformer
     param_dtype = torch.float32 if mode == "ar_train" else None
-    gpt = init_weights(SparseGPT(tf, torch.bfloat16, param_dtype), 0).to(dev)
+    with dev:   # the layers' own (discarded) default init runs there
+        gpt = SparseGPT(tf, torch.bfloat16, param_dtype).to(dev)
+    init_weights(gpt, 0)
     if mode == "ar_decode_int8":
         # int8 weights halve the bytes the cached decode's products read
-        int8 = SparseGPT(tf.replace(quant="int8"), torch.bfloat16).to(dev)
+        with dev:
+            int8 = SparseGPT(tf.replace(quant="int8"), torch.bfloat16).to(dev)
         gpt = load_jax_params(int8, quantize_gpt_tree(export_jax_params(gpt)))
     gpt.eval()
     tokens, cond, ii, ei = x["tokens"], x["cond"], x["ii"], x["ei"]

@@ -148,8 +148,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"mesh: {mesh.shape} over {mesh.world} processes")
     dev = resolve_device(device)
 
-    model = MaskGit(tf, cfg.muse, dtype=resolve_dtype(cfg.dtype),
-                    param_dtype=torch.float32)
+    with dev:   # the layers' own (discarded) default init runs there
+        model = MaskGit(tf, cfg.muse, dtype=resolve_dtype(cfg.dtype),
+                        param_dtype=torch.float32)
     init_weights(model, seed).to(dev)
 
     if fake:

@@ -71,17 +71,19 @@ Phases, each of which fails the run (exit code not 0) when it fails:
  13. `nuscenes_ar` at full width (24 layers, width 1024, 16 heads, 6
      cameras), b=1, seeded random weights: the SparseGPT forward through the
      block-sparse kernel (exactly 24 launches) against the same forward with
-     the plain version, then `teacher_forced_logits` through the decode
-     kernel (exactly 24 x 2100 = 50,400 launches) against the full forward;
- 14. `ARPipeline.generate_fn` end to end at `nuscenes_ar`, b=2, KV-cached,
+     the plain version; then, with seed-0 weights at 4 layers,
+     `teacher_forced_logits` through the decode kernel (exactly 4 x 2100 =
+     8,400 launches) against the full forward, kernel and plain;
+ 14. `ARPipeline.generate_fn` end to end at `nuscenes_ar` full width cut
+     to 12 layers, b=2, KV-cached,
      top_k=100: a warm-up of encode_bev, the prefill and decode_tokens
      (phases 12-13 warmed the decode step), then one generate by stages
-     (encode_bev, the AR decode, decode_tokens, each timed); exactly 50,400
+     (encode_bev, the AR decode, decode_tokens, each timed); exactly 25,200
      decode and 0
      block-sparse launches per generate, ids in range, images finite;
- 15. greedy decoding on the card at nuScenes widths with 2 layers, b=1: the
+ 15. greedy decoding on the card at nuScenes widths with 1 layer, b=1: the
      reference-parity sampler (`cached=False`, 2100 full forwards through
-     the block-sparse kernel, exactly 4200 launches) against the KV-cached
+     the block-sparse kernel, exactly 2100 launches) against the KV-cached
      one, step by step on the full sampler's trajectory, and one full
      forward over that trajectory, which must replay the sampler's choices;
  16. the block-sparse backward's resources (dq and dk/dv kernels, as in
@@ -197,20 +199,22 @@ Phases, each of which fails the run (exit code not 0) when it fails:
      versions' (the eager chains), F.linear with bf16 weights for w8_linear,
      the bytes bound; torch._int_mm on the padded operands exact;
  36. `BEVGenPipeline.quantized()` of the seed-0 `argoverse_muse_7cam`
-     pipeline at b=2: one forward through the int8 kernels against the
+     pipeline, full width cut to 4 layers, at b=2: one forward through the
+     int8 kernels against the
      plain int8 route (the same cache), int8 against bf16 logits (cosine,
      top-1 where the bf16 top-2 gap exceeds the int8 error); generates in
      turns with bf16 (one warm-up, two timed each): images/s, MaskGit
-     weight MB, peak above the resident set, exactly 2485 quantize_static,
-     994 quantize_dynamic, 3479 int8_epilogue and 980 row-1 launches per
-     int8 generate; the same with `use_fused_glue=true` (1470 residual +
+     weight MB, peak above the resident set, exactly 735 quantize_static,
+     284 quantize_dynamic, 1019 int8_epilogue and 280 row-1 launches per
+     int8 generate; the same with `use_fused_glue=true` (420 residual +
      LayerNorm, 0 GEGLU + LayerNorm launches: the GEGLU glue is off under
      int8);
  37. `ARPipeline.quantized()` of the seed-0 `nuscenes_ar` pipeline, b=2,
-     KV-cached, top_k=100, full width and depth: one timed generate
-     (images/s, peak above the resident set, against phase 14's bf16),
-     GPT weight MB int8 against bf16, exactly 50,400 row-11 and 153,421
-     w8_linear launches and no block-sparse or W8A8 launch per generate;
+     KV-cached, top_k=100, full width cut to 2 layers: one timed generate
+     (images/s, peak above the resident set, against one bf16 generate at
+     the same depth), GPT weight MB int8 against bf16, exactly 4,200 row-11
+     and 14,711 w8_linear launches and no block-sparse or W8A8 launch per
+     generate;
      then greedy decoding cut to 1 layer: the plain int8 route's choice
      at every step of the kernels' trajectory (ties counted, >= 0.97);
  38. the generate CLI with `quant=int8` and `quant=auto` for MUSE (full
@@ -293,7 +297,7 @@ kernel:
      before: 112 row-1 and 168 row-8 with remat against 56 and 168; 166
      and 56 glue launches against 84 and 28); each one's step time and
      peak; then the plain form with remat at the largest power-of-two batch
-     up to 32 that fits (named), its step time, image tokens/s and peak,
+     up to 16 that fits (named), its step time, image tokens/s and peak,
      and rows 1 and 8 at that batch's shapes against their plain versions;
  48. `scripts/train_stage2.py` at `argoverse_muse_7cam` b=8, full width
      cut to 7 layers, 1 step with
@@ -318,10 +322,10 @@ Phases 50-51 run data parallelism on torch.distributed
      `argoverse_muse_7cam` width cut to 4 layers, global b=8 (4 a rank), 2
      steps, exactly 16 row-1 and 48 row-8 launches per rank per step;
      `make_sharded_generate` at global b=2, exactly 280 row-1 launches per
-     rank; `make_ar_sharded_train_step` at full `nuscenes_ar` width and
-     depth, global b=4, exactly 24 row-9 and 48 row-10 per rank per step;
-     `make_sharded_ar_generate` at global b=2, full width cut to 2 layers,
-     exactly 2 x 2100 row-11 per rank. Both ranks hold equal parameters
+     rank; `make_ar_sharded_train_step` at full `nuscenes_ar` width cut
+     to 4 layers, global b=4, exactly 4 row-9 and 8 row-10 per rank per
+     step; `make_sharded_ar_generate` at global b=2, full width cut to 1
+     layer, exactly 2100 row-11 per rank. Both ranks hold equal parameters
      after the steps; each step's final parameters equal, bit for bit
      (else each parameter group within 1e-6 of its largest entry, named),
      one process that sums the two
@@ -331,20 +335,23 @@ Phases 50-51 run data parallelism on torch.distributed
      one process's `generate_fn` on that rank's row with the same draws.
      Then rows 1, 8, 9, 10 at each rank's shapes against their plain
      versions. Each rank's peak GB and seconds are printed (two ranks share
-     one card: no scaling number);
+     one card: no scaling number). Phase 52's ranks and phase 53's run at
+     the same time, as two more pairs of processes, each pair a group of
+     its own;
  51. the same four entry points through an nccl group of one process (a
      MaskGit and an AR step at the ranks' batches and the MUSE generate at
-     b=2, all at phase 50's 4 layers, the AR generate at b=1 cut to 2
-     layers), each equal bit for bit to the
+     b=2, all at phase 50's 4 layers, the AR generate at b=1 cut to 1
+     layer), each equal bit for bit to the
      unsharded function.
 
 Phase 52 runs tensor parallelism (`parallel/tensor.py`), which adds no
 kernel: the attention kernels run at the heads of one tp rank.
  52. (a) rows 1 (self and cross, b=2 and b=4), 8 (b=4) and 11 (every
      bucket) at 8 heads, and rows 1 and 11 (pl 512, 2368) at 4 heads,
-     against their plain versions; then phase 50's two rank processes as a
-     dp=1 x tp=2 mesh (gloo, CUDA tensors) at `argoverse_muse` full width
-     and depth: (b) one bf16 teacher-forced forward, whose gathered logits
+     against their plain versions; then phase 50's "tp" pair of rank
+     processes as a dp=1 x tp=2 mesh (gloo, CUDA tensors) at
+     `argoverse_muse` full width cut to 4 layers: (b) one bf16
+     teacher-forced forward, whose gathered logits
      lie no farther from a one-process fp32 forward (on the CPU) than twice
      the one-process bf16 logits do (relative L2); (c) a b=2 generate, the
      two ranks' ids and images equal bit for bit, the share of ids equal to
@@ -353,11 +360,11 @@ kernel: the attention kernels run at the heads of one tp rank.
      cosine per group at least 0.999, every replicated parameter equal
      on both ranks bit for bit, exactly 4L row-1 and 12L row-8 launches
      per rank per step, all at 8 heads; (e) `make_sharded_ar_generate` at
-     `nuscenes_ar` full width cut to 2 layers, b=1: the ranks' ids equal,
-     exactly 2 x 2100 row-11 launches per rank, at 8 heads; (f)
+     `nuscenes_ar` full width cut to 1 layer, b=1: the ranks' ids equal,
+     exactly 2100 row-11 launches per rank, at 8 heads; (f)
      `make_ar_sharded_train_step` on the tp mesh (the GPT whole on both
-     ranks, as in the JAX package) at full width cut to 2 layers, b=2, 2
-     steps: exactly 2 row-9 and 4 row-10 launches per rank per step, the
+     ranks, as in the JAX package) at full width cut to 1 layer, b=2, 2
+     steps: exactly 1 row-9 and 2 row-10 launches per rank per step, the
      ranks' parameters equal. Each
      rank's seconds and peak GB are printed (two ranks share one card, and
      gloo copies every collective through the host: no NVLink or scaling
@@ -398,6 +405,32 @@ form's raw product and its tail around a bf16 sum).
      `mlp_proj`'s N = 1024, K = 2048), as many `w8_tail`, and L x 2100 row
      11 at 8 heads.
 
+Phase 54 runs the scene editor (`scripts/edit_scene.py`,
+`scripts/edit_server.py`) at `argoverse_muse_7cam` full width and depth
+with BEVGEN_NATIVE_RASTER=1: the card's machine has no cv2, so the rasters
+are drawn by the native C++ core (`bevgen_torch/native.py`, host code built
+with g++ from `bevgen_torch/csrc/rasterize.cpp`; no kernel).
+ 54. (a) the native core's build time; its polygon fills and polylines
+     equal, pixel for pixel, an even-odd scanline fill and Bresenham lines
+     written here in numpy (three seeded sets of 30 polygons and 30
+     polylines, and the editor's cuboid quads); tests/test_native.py's
+     city-scale case within 1 s each and only the crossing row drawn;
+     `rasterize_scene`'s ms per scene (median of 50). (b) `edit_scene.run`
+     at b=1 and the default 18 steps: finite images of the 7 cameras, the
+     added vehicle in channel 0 ahead of the ego, exactly 490 + 490 row-1
+     launches. (c) one `EditSession` behind `make_server(port=0)` on
+     127.0.0.1 in a thread: `GET /`, `GET /api/annotations`, then `POST
+     /api/generate` with the default table, the same again, a vehicle
+     added, and a malformed body: the repeated request equal bit for bit,
+     the added vehicle changing the raster and the ids, HTTP 400 with an
+     `error`, every PNG data URI decoding (zlib, here) to the config's
+     image size, the served images equal to a direct `generate_fn` call on
+     the same raster, poses and generator bit for bit, and exactly 490 +
+     490 row-1 launches (no other kernel) per request; the ms per request
+     over HTTP, split into rasterize, generate and encode, beside the
+     session's `generate_fn` at b=1 and 2 called from the main thread.
+     Then row 1 at the editor's b=1 shapes against its plain version.
+
 Prints each phase's seconds (`[time]` lines) and their sum, the kernels'
 JSON line, then the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`. Without a CUDA device,
@@ -431,6 +464,10 @@ TOP1_AGREE_MIN = 0.90
 
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3 rate
+# host bytes of seeded weights kept for rebuilds (`models/init.py:
+# reuse_draws`), in this process and in each of phase 50's rank processes
+INIT_REUSE_BYTES = 20e9
+RANK_INIT_REUSE_BYTES = 6e9
 
 
 def gpu_name_and_power() -> str:
@@ -965,6 +1002,14 @@ def check_function_grads(B, H, N, D, seed=11):
     return cos
 
 
+def on_card(cls, *args, device="cuda", **kw):
+    """`cls(*args, **kw)` built on `device`: the layers' own default init,
+    which seeded or loaded weights replace, runs there, not on the host."""
+    import torch
+    with torch.device(device):
+        return cls(*args, **kw).to(device)
+
+
 def to_device(batch):
     import numpy as np
     import torch
@@ -993,9 +1038,9 @@ def train_phase(cfg):
         raise SystemExit("the launch counts need self_cond_prob 0 or 1")
     forwards = 2 + int(tf.self_cond and cfg.muse.self_cond_prob == 1.0)
     t0 = time.perf_counter()
-    model = MaskGit(tf, cfg.muse, dtype=torch.bfloat16,
+    model = on_card(MaskGit, tf, cfg.muse, dtype=torch.bfloat16,
                     param_dtype=torch.float32)
-    init_weights(model, seed=0).to("cuda")
+    init_weights(model, seed=0)
     state = trainer.create_train_state(
         model, optim.maskgit_optimizer(model, 1e-4, warmup_steps=1))
     step = trainer.make_train_step()
@@ -1177,10 +1222,12 @@ LSE_TOL = 5e-3
 DECODE_TOL = 2e-2
 DECODE_REL_TOL = 2e-2
 DECODE_MEAN_REL_TOL = 1e-2
-# Full-width AR logits at b=1: the kernels against the plain versions and
-# the cached decode against the full forward, bf16 through 24 layers.
+# Full-width AR logits at b=1: the kernels against the plain versions (bf16
+# through 24 layers) and the cached decode against the full forward.
 AR_COS_MIN = 0.99
 AR_TOP1_MIN = 0.90
+# phase 13's teacher-forced cached decode: full width, this many layers
+AR_CACHED_LAYERS = 4
 # Greedy decode, the cached decoder against the full-forward sampler: at
 # every step of the full sampler's own trajectory, the token it chose must
 # be among the cached decoder's best (the bound of the reference's
@@ -1191,6 +1238,8 @@ AR_TOP1_MIN = 0.90
 # resolves differently somewhere in 2100 steps and the trajectories part
 # there.
 GREEDY_AGREE_MIN = 0.97
+AR_GREEDY_LAYERS = 1    # phase 15's depth, full width
+AR_E2E_LAYERS = 12      # phase 14's depth, full width
 AR_BATCH = 2
 # 8 caches of b=2, H=16, 2368 x 64 bf16 K and V: 155 MB, three times the L2
 DECODE_CACHES = 8
@@ -1503,11 +1552,22 @@ def decode_phase(cfg):
     return stats
 
 
+_cpu_mark = [0.0]
+
+
+def _host_cpu_s():
+    """This process's CPU seconds (all its threads) since the last call."""
+    now = time.process_time()
+    spent, _cpu_mark[0] = now - _cpu_mark[0], now
+    return spent
+
+
 def phase_time(phase, t0):
-    """Print the seconds since `t0` as phase `phase`'s; return the time
-    now."""
+    """Print the seconds since `t0` as phase `phase`'s, with this process's
+    CPU seconds since the last phase; return the time now."""
     now = time.perf_counter()
-    print(f"[time] phase {phase}: {now - t0:.1f} s", flush=True)
+    print(f"[time] phase {phase}: {now - t0:.1f} s (host CPU "
+          f"{_host_cpu_s():.1f} s)", flush=True)
     return now
 
 
@@ -1515,9 +1575,10 @@ def timed_phase(phase, fn, *args):
     """Run one phase, free the card's cached memory, print its time."""
     import torch
     t0 = time.perf_counter()
+    _host_cpu_s()
     result = fn(*args)
     torch.cuda.empty_cache()
-    print(f"[time] phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_time(phase, t0)
     return result
 
 
@@ -1558,7 +1619,7 @@ def ar_forward_phase(cfg):
     from bevgen_torch.ops import decode_attention as da
     tf = cfg.transformer
     t0 = time.perf_counter()
-    model = init_weights(SparseGPT(tf, torch.bfloat16), seed=0).to("cuda").eval()
+    model = init_weights(on_card(SparseGPT, tf, torch.bfloat16), seed=0).eval()
     ids, cond, ii, ei, _ = ar_inputs(cfg, 1, seed=7)
     layouts = torch.from_numpy(model.attn.layout)
     blk, nc, npad = tf.sparse_block_size, tf.num_cond_tokens, tf.num_pad_tokens
@@ -1583,6 +1644,20 @@ def ar_forward_phase(cfg):
     if n_fwd != tf.num_layers:
         raise SystemExit(f"expected {tf.num_layers} block-sparse launches per "
                          f"forward, got {n_fwd}")
+    # the cached decoder (2100 host-bound steps) on a seed-0 model of
+    # AR_CACHED_LAYERS layers, against its kernel and plain forwards
+    del model
+    tc = tf.replace(num_layers=AR_CACHED_LAYERS)
+    model = init_weights(on_card(SparseGPT, tc, torch.bfloat16), seed=0).eval()
+    with torch.inference_mode():
+        lk = model(ids, cond, ii, ei, sampling=True)
+        kernel_attn = model.attn
+        model.attn = lambda q, k, v, bias: bs.block_sparse_attention_reference(
+            q, k, v, layouts, blk, nc, npad, bias)
+        try:
+            lp = model(ids, cond, ii, ei, sampling=True)
+        finally:
+            model.attn = kernel_attn
     da.reset_launch_counts()
     t0 = time.perf_counter()
     lc = ar_cached.teacher_forced_logits(model, ids, cond, ii, ei)
@@ -1591,12 +1666,13 @@ def ar_forward_phase(cfg):
     n_dec = da.decode_attention_cuda.launches
     cos_c, top1_c = logit_agreement(lc, lk)
     cos_cp, top1_cp = logit_agreement(lc, lp)
-    print(f"[ar] teacher-forced cached decode ({tf_s:.2f} s): vs the kernel "
-          f"forward cosine {cos_c:.6f} top-1 {top1_c:.4f}; vs the plain "
-          f"forward cosine {cos_cp:.6f} top-1 {top1_cp:.4f}; {n_dec} decode "
-          f"launches", flush=True)
-    if n_dec != tf.num_layers * tf.num_img_tokens:
-        raise SystemExit(f"expected {tf.num_layers * tf.num_img_tokens} decode "
+    print(f"[ar] teacher-forced cached decode, full width cut to "
+          f"{AR_CACHED_LAYERS} of {tf.num_layers} layers ({tf_s:.2f} s): vs "
+          f"the kernel forward cosine {cos_c:.6f} top-1 {top1_c:.4f}; vs the "
+          f"plain forward cosine {cos_cp:.6f} top-1 {top1_cp:.4f}; {n_dec} "
+          f"decode launches", flush=True)
+    if n_dec != tc.num_layers * tc.num_img_tokens:
+        raise SystemExit(f"expected {tc.num_layers * tc.num_img_tokens} decode "
                          f"launches, got {n_dec}")
     if not (min(cos_p, cos_c) >= AR_COS_MIN and min(top1_p, top1_c) >= AR_TOP1_MIN):
         raise SystemExit("full-width AR logits disagree (kernel vs plain, or "
@@ -1605,12 +1681,14 @@ def ar_forward_phase(cfg):
 
 
 def ar_generate_phase(cfg):
-    """Phase 14: ARPipeline.generate_fn end to end at b=2."""
+    """Phase 14: ARPipeline.generate_fn end to end at b=2, full width cut
+    to AR_E2E_LAYERS layers."""
     import torch
     from bevgen_torch.models.stage2 import ar_cached
     from bevgen_torch.ops import block_sparse as bs
     from bevgen_torch.ops import decode_attention as da
     from bevgen_torch.pipelines.ar_generate import ARPipeline
+    cfg = cut_depth(cfg, AR_E2E_LAYERS)
     tf = cfg.transformer
     B = AR_BATCH
     t0 = time.perf_counter()
@@ -1658,7 +1736,8 @@ def ar_generate_phase(cfg):
     n_bs = bs.block_sparse_attention_cuda.launches
     med = t[3] - t[0]
     n_img = B * tf.num_cams
-    print(f"[ar-e2e] generate_fn b={B} cached top_k=100: one run by stages "
+    print(f"[ar-e2e] generate_fn b={B} cached top_k=100, {tf.num_layers} "
+          f"layers: one run by stages "
           f"{med:.4f} s = {n_img / med:.4f} images/s, peak above the resident "
           f"set {peak / 1e6:.1f} MB; launches: decode {n_dec} {by_pl}, "
           f"block-sparse {n_bs}", flush=True)
@@ -1681,15 +1760,14 @@ def ar_generate_phase(cfg):
 
 
 def ar_greedy_phase(cfg):
-    """Phase 15: greedy decoding at nuScenes widths with 2 layers, b=1, the
-    full-forward sampler (block-sparse kernel) against the cached one."""
-    import dataclasses
+    """Phase 15: greedy decoding at nuScenes widths with AR_GREEDY_LAYERS
+    layers, b=1, the full-forward sampler (block-sparse kernel) against the
+    cached one."""
     import torch
     from bevgen_torch.models.stage2 import ar_cached
     from bevgen_torch.ops import block_sparse as bs
     from bevgen_torch.pipelines.ar_generate import ARPipeline
-    cfg = dataclasses.replace(cfg, transformer=cfg.transformer.replace(
-        num_layers=2))
+    cfg = cut_depth(cfg, AR_GREEDY_LAYERS)
     tf = cfg.transformer
     pipe = ARPipeline.create(cfg, device="cuda").init_params(seed=1)
     _, _, _, _, batch = ar_inputs(cfg, 1, seed=1)
@@ -1740,8 +1818,9 @@ def ar_greedy_phase(cfg):
     top2 = lf.topk(2, dim=-1).values
     tied = (top2[..., 0] == top2[..., 1]).float().mean().item()
     n_diff = int(differ.sum())
-    print(f"[ar-greedy] 2 layers b=1 top_k=1: full-forward sampler {full_s:.2f} s "
-          f"({n_bs} block-sparse launches), cached {cached_s:.2f} s; per-step "
+    print(f"[ar-greedy] {tf.num_layers} layer(s) b=1 top_k=1: full-forward "
+          f"sampler {full_s:.2f} s ({n_bs} block-sparse launches), cached "
+          f"{cached_s:.2f} s; per-step "
           f"greedy agreement on the full sampler's trajectory {step_agree:.4f} "
           f"(min {GREEDY_AGREE_MIN}), the full forward replays it at "
           f"{replay:.4f}; free-running token agreement {agree:.4f}, first "
@@ -1967,8 +2046,8 @@ def ar_train_phase(cfg):
     tf = cfg.transformer
     B = AR_TRAIN_BATCH
     t0 = time.perf_counter()
-    model = init_weights(SparseGPT(tf, torch.bfloat16, param_dtype=torch.float32),
-                         seed=0).to("cuda")
+    model = init_weights(on_card(SparseGPT, tf, torch.bfloat16,
+                                 param_dtype=torch.float32), seed=0)
     state = trainer.create_ar_train_state(
         model, optim.maskgit_optimizer(model, 1e-4, warmup_steps=1))
     step = trainer.make_ar_train_step()
@@ -2041,8 +2120,8 @@ def ar_model_grads_phase(cfg):
     from bevgen_torch.ops import block_sparse as bs
     from bevgen_torch.scripts.train_stage2 import fake_batches
     tf = cfg.transformer.replace(num_layers=AR_GRAD_LAYERS)
-    model = init_weights(SparseGPT(tf, torch.bfloat16, param_dtype=torch.float32),
-                         seed=1).to("cuda")
+    model = init_weights(on_card(SparseGPT, tf, torch.bfloat16,
+                                 param_dtype=torch.float32), seed=1)
     batch = to_device(next(fake_batches(tf, 1, seed=4)))
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
@@ -2432,8 +2511,9 @@ def glue_grads_phase(cfg):
     tf = cfg.transformer
     models = {}
     for glue in (False, True):
-        models[glue] = MaskGit(tf.replace(use_fused_glue=glue), cfg.muse,
-                               dtype=torch.bfloat16, param_dtype=torch.float32)
+        models[glue] = on_card(MaskGit, tf.replace(use_fused_glue=glue),
+                               cfg.muse, dtype=torch.bfloat16,
+                               param_dtype=torch.float32)
     init_weights(models[False], seed=0)
     models[True].load_state_dict(models[False].state_dict())
     batch = to_device(next(fake_batches(tf, 1, seed=4)))
@@ -2987,7 +3067,7 @@ def seeded_vq(s1cfg, seed, device):
     """A fp32 `VQModel` with seeded random weights on `device`."""
     from bevgen_torch.models.init import init_weights
     from bevgen_torch.models.stage1.vq import VQModel
-    return init_weights(VQModel(s1cfg), seed).to(device).eval()
+    return init_weights(on_card(VQModel, s1cfg, device=device), seed).eval()
 
 
 def encode_phase(cfg):
@@ -3269,7 +3349,9 @@ INT8_COS_MIN = 0.995
 INT8_GAP_RMS = 4.0
 INT8_DECIDED_TOP1_MIN = 0.99
 INT8_TIMED = 2          # MUSE generates per mode, in turns, after a warm-up
+INT8_MUSE_LAYERS = 4    # phase 36's depth, full width
 AR_INT8_TIMED = 1       # AR int8 generates (the first counts the launches)
+AR_INT8_LAYERS = 2      # their depth, full width
 AR_INT8_GREEDY_LAYERS = 1
 # inputs cycled through while a kernel is timed, so that they exceed the
 # 50 MB L2 (the serving path finds each layer's weights and activations cold)
@@ -3578,14 +3660,15 @@ def muse_int8_modes(cfg, bf16, int8, label, inputs, want_counts, glue=False):
 
 def int8_muse_phase(cfg):
     """Phase 36: `quantized()` of the seed-0 `argoverse_muse_7cam` pipeline
-    at b=2: one forward through the int8 kernels against the plain int8
-    route, int8 against bf16 logits, then generates in turns (bf16, int8)
-    with images/s, peak memory and launch counts; the same with
-    use_fused_glue=true."""
+    at full width cut to INT8_MUSE_LAYERS layers, b=2: one forward through
+    the int8 kernels against the plain int8 route, int8 against bf16
+    logits, then generates in turns (bf16, int8) with images/s, peak memory
+    and launch counts; the same with use_fused_glue=true."""
     import torch
     from bevgen_torch.data.fake import fake_batch
     from bevgen_torch.ops import quant as tq
     from bevgen_torch.pipelines.generate import BEVGenPipeline
+    cfg = cut_depth(cfg, INT8_MUSE_LAYERS)
     tf = cfg.transformer
     bf16 = BEVGenPipeline.create(cfg, device="cuda").init_params(seed=0)
     t0 = time.perf_counter()
@@ -3655,30 +3738,42 @@ def ar_int8_launches(cfg):
     return (5 * tf.num_layers + 1) + tf.num_img_tokens * (3 * tf.num_layers + 1)
 
 
-def int8_ar_phase(cfg, bf16_e2e):
-    """Phase 37: `quantized()` of the seed-0 `nuscenes_ar` pipeline, b=2,
-    KV-cached, top_k=100: AR_INT8_TIMED generates (images/s, peak memory,
-    launches of row 11, w8_linear and row 9), weight bytes against bf16;
-    then greedy int8 decoding through the kernels against the plain int8
-    route, cut to AR_INT8_GREEDY_LAYERS layers."""
+def int8_ar_phase(cfg):
+    """Phase 37: `quantized()` of the seed-0 `nuscenes_ar` pipeline at full
+    width cut to AR_INT8_LAYERS layers, b=2, KV-cached, top_k=100: one bf16
+    generate, then AR_INT8_TIMED int8 ones (images/s, peak memory, launches
+    of row 11, w8_linear and row 9), weight bytes against bf16; then greedy
+    int8 decoding through the kernels against the plain int8 route, cut to
+    AR_INT8_GREEDY_LAYERS layers."""
     import torch
     from bevgen_torch.models.stage2 import ar_cached
     from bevgen_torch.ops import block_sparse as bs
     from bevgen_torch.ops import decode_attention as da
     from bevgen_torch.ops import quant as tq
     from bevgen_torch.pipelines.ar_generate import ARPipeline
+    full_layers = cfg.transformer.num_layers
+    cfg = cut_depth(cfg, AR_INT8_LAYERS)
     tf = cfg.transformer
     B = AR_BATCH
+    _, _, _, _, batch = ar_inputs(cfg, B, seed=0)
+    inputs = (batch["segmentation"], batch["intrinsics_inv"],
+              batch["extrinsics_inv"])
     bf16 = ARPipeline.create(cfg, device="cuda").init_params(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    bf16.generate_fn(*inputs, torch.Generator(device="cuda").manual_seed(1),
+                     top_k=100)
+    torch.cuda.synchronize()
+    bf16_s = time.perf_counter() - t0
+    bf16_peak = torch.cuda.max_memory_allocated() - before
     t0 = time.perf_counter()
     int8 = bf16.quantized()
     q_s = time.perf_counter() - t0
     wb = {"bf16": tq.weight_bytes(bf16.gpt), "int8": tq.weight_bytes(int8.gpt)}
     del bf16
     torch.cuda.empty_cache()
-    _, _, _, _, batch = ar_inputs(cfg, B, seed=0)
-    inputs = (batch["segmentation"], batch["intrinsics_inv"],
-              batch["extrinsics_inv"])
     times, peak = [], 0
     for i in range(AR_INT8_TIMED):
         if i == 0:
@@ -3706,16 +3801,16 @@ def int8_ar_phase(cfg, bf16_e2e):
     med = sorted(times)[len(times) // 2]
     n_img = B * tf.num_cams
     want_w8 = ar_int8_launches(cfg)
-    print(f"[int8-ar] quantized() in {q_s:.2f} s; GPT weights bf16 "
+    print(f"[int8-ar] nuscenes_ar full width cut to {AR_INT8_LAYERS} of "
+          f"{full_layers} layers: quantized() in {q_s:.2f} s; GPT weights bf16 "
           f"{wb['bf16'] / 1e6:.1f} MB, int8 {wb['int8'] / 1e6:.1f} MB; "
-          f"generate_fn b={B} cached top_k=100, {AR_INT8_TIMED} timed (no "
-          f"warm-up: phase 14 warmed the path) "
+          f"generate_fn b={B} cached top_k=100 (no warm-up: phase 14 warmed "
+          f"the path), bf16 one {bf16_s:.4f} s = {n_img / bf16_s:.4f} "
+          f"images/s, int8 {AR_INT8_TIMED} timed "
           f"{', '.join(f'{t:.4f}' for t in times)} s, median {med:.4f} s = "
-          f"{n_img / med:.4f} images/s (bf16, phase 14: "
-          f"{bf16_e2e.get('images_per_s', float('nan')):.4f}); peak above the "
-          f"resident set {peak / 1e6:.1f} MB (bf16, phase 14: "
-          f"{bf16_e2e.get('peak_mb', float('nan')):.1f} MB); launches in the "
-          f"first: decode "
+          f"{n_img / med:.4f} images/s; peak above the resident set int8 "
+          f"{peak / 1e6:.1f} MB, bf16 {bf16_peak / 1e6:.1f} MB; launches in "
+          f"the first int8: decode "
           f"{n_dec} (expected {tf.num_layers * tf.num_img_tokens}), w8_linear "
           f"{n_w8} (expected {want_w8}) {w8_shapes}, block-sparse {n_bs}, "
           f"W8A8 kernels {other}", flush=True)
@@ -3759,7 +3854,7 @@ def int8_ar_phase(cfg, bf16_e2e):
     step_agree = best(lp).float().mean().item()
     free = (ids_k == ids_p).float().mean().item()
     print(f"[int8-ar] greedy top_k=1 b=1, full width cut to "
-          f"{AR_INT8_GREEDY_LAYERS} of {tf.num_layers} layers (time): kernels "
+          f"{AR_INT8_GREEDY_LAYERS} of {full_layers} layers (time): kernels "
           f"{k_s:.2f} s; the plain int8 route's choice at every step of the "
           f"kernels' trajectory agrees at {step_agree:.4f} (min "
           f"{GREEDY_AGREE_MIN}, ties counted); free-running token agreement "
@@ -4036,8 +4131,8 @@ def vqgan_phase(s1cfg, base_lr, lpips_npz, tf32):
     card = gpu_name_and_power()
     B = STAGE1_BATCH
     with tf32_flags(*tf32):
-        model = init_weights(VQModel(s1cfg), 39).cuda()
-        disc = init_weights(NLayerDiscriminator(), 40).cuda()
+        model = init_weights(on_card(VQModel, s1cfg), 39)
+        disc = init_weights(on_card(NLayerDiscriminator), 40)
         metric = LPIPSMetric(str(lpips_npz), device="cuda")
         if not metric.available:
             raise SystemExit(f"LPIPSMetric found no weights at {lpips_npz}")
@@ -4101,12 +4196,12 @@ def vqvae_phase(s1cfg, base_lr, tf32):
                            device="cuda") < 0.2).float()
     with tf32_flags(*tf32):
         step = stage1_trainer.make_seg_train_step()
-        model = init_weights(VQSegmentationModel(s1cfg), 41).cuda()
+        model = init_weights(on_card(VQSegmentationModel, s1cfg), 41)
         state = stage1_trainer.create_stage1_state(model, None,
                                                    scaled_lr(base_lr, B))
         res, metrics = stage1_step_report("BEV VQ-VAE step (BCE)", step,
                                           state, batch, card, tf32)
-        model = init_weights(VQSegmentationModel(s1cfg), 41).cuda()
+        model = init_weights(on_card(VQSegmentationModel, s1cfg), 41)
         state = stage1_trainer.create_stage1_state(model, None, SEG_FALL_LR)
         x = batch(0)
         _, fall = timed_steps(step, state, [x] * SEG_FALL_STEPS)
@@ -4871,7 +4966,7 @@ def inference_kernel_entries(res, bsb_stats):
 # Against remat off on the same weights, batch and generator the loss and
 # the gradients must be equal bit for bit (the recomputation reruns the
 # same kernels on the same inputs; the port's kernels use no atomics).
-REMAT_BATCH_MAX = 32
+REMAT_BATCH_MAX = 16
 REMAT_TIMED = 3
 # where a cuBLAS product made the two differ after all, max |dg| of a
 # parameter group within 1e-6 of its max |g| (the phase names the group)
@@ -4899,9 +4994,9 @@ def _maskgit(tf, cfg, seed=0):
     import torch
     from bevgen_torch.models.init import init_weights
     from bevgen_torch.models.stage2.maskgit import MaskGit
-    model = MaskGit(tf, cfg.muse, dtype=torch.bfloat16,
+    model = on_card(MaskGit, tf, cfg.muse, dtype=torch.bfloat16,
                     param_dtype=torch.float32)
-    return (model if seed is None else init_weights(model, seed)).to("cuda")
+    return model if seed is None else init_weights(model, seed)
 
 
 def _launch_counts():
@@ -5324,10 +5419,13 @@ DP_TIMEOUT_S = 480           # a rank slower than this fails the phase
 DP_PARAM_RTOL = 1e-6
 DP_LOSS_RTOL = 1e-3          # dp=2 against one process at the global batch
 DP_GRAD_COS_MIN = 0.999
-NCCL_AR_LAYERS = 2           # phase 51's AR generate, full width
-DP_AR_GEN_LAYERS = 2         # phase 50's AR generate, full width
+NCCL_AR_LAYERS = 1           # phase 51's AR generate, full width
+DP_AR_GEN_LAYERS = 1         # phase 50's AR generate, full width
+DP_AR_TRAIN_LAYERS = 4       # phases 50-51's AR steps, full width
 DP_MUSE_LAYERS = 4           # phases 50-51's MaskGit steps and generates
 TP_WAYS = 2                  # phase 52: dp=1 x tp=2 on phase 50's ranks
+TP_MUSE_LAYERS = 4           # phase 52's MUSE forward, generate and steps
+TP_AR_LAYERS = 1             # phase 52's AR generate and steps
 TP_GEN_BATCH = 2
 TP_TRAIN_BATCH = 4           # the global batch; every tp rank computes it
 TP_AR_TRAIN_BATCH = 2
@@ -5400,10 +5498,10 @@ def dp_train(mesh, cfg, out, ar):
     B = DP_AR_TRAIN_BATCH if ar else DP_TRAIN_BATCH
     seed = 0 if mesh.rank == 0 else None
     if ar:
-        model = SparseGPT(tf, torch.bfloat16, param_dtype=torch.float32)
+        model = on_card(SparseGPT, tf, torch.bfloat16,
+                        param_dtype=torch.float32)
         if seed is not None:
             init_weights(model, seed)
-        model = model.to("cuda")
         opt = optim.maskgit_optimizer(model, 1e-4, warmup_steps=1)
         step, state = trainer.make_ar_sharded_train_step(
             model, opt, mesh, trainer.create_ar_train_state(model, opt))
@@ -5482,17 +5580,30 @@ def dp_muse_cfg(cfg):
     return cut_depth(cfg, DP_MUSE_LAYERS)
 
 
+def dp_ar_cfg(ar_cfg):
+    """Phases 50-51's AR train config: full width, DP_AR_TRAIN_LAYERS deep."""
+    return cut_depth(ar_cfg, DP_AR_TRAIN_LAYERS)
+
+
 def dp_ar_gen_cfg(ar_cfg):
     """Phase 50's AR generate config: full width, DP_AR_GEN_LAYERS deep."""
     return dataclasses.replace(ar_cfg, transformer=ar_cfg.transformer.replace(
         num_layers=DP_AR_GEN_LAYERS))
 
 
-def dp_rank_main(rank, world, rdv, out):
+def dp_rank_main(rank, world, rdv, out, role):
     """Phase 50's rank process: joins a gloo group of `world` ranks on
-    cuda:0 (file rendezvous `rdv`), checks the collectives, runs the MaskGit
-    and AR sharded steps and the MUSE and AR sharded generates, and writes
-    its results to `out`/rank<r>.json. Any failure exits non-zero."""
+    cuda:0 (file rendezvous `rdv`); as a "dp" rank it checks the
+    collectives and runs the MaskGit and AR sharded steps and the MUSE and
+    AR sharded generates, as a "tp" or "tp53" rank phase 52's or 53's part
+    (`tp_rank_work`); it writes its results to `out`/<role>_rank<r>.json.
+    Any failure exits non-zero."""
+    from bevgen_torch.models.init import reuse_draws
+    with reuse_draws(RANK_INIT_REUSE_BYTES):
+        return dp_rank_work(rank, world, rdv, out, role)
+
+
+def dp_rank_work(rank, world, rdv, out, role):
     import datetime
     import torch
     from bevgen_torch.core.config import (argoverse_muse_7cam_config,
@@ -5503,8 +5614,15 @@ def dp_rank_main(rank, world, rdv, out):
     distributed.initialize(f"file://{rdv}", world, rank, backend="gloo",
                            device="cuda:0",
                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    if role != "dp":
+        res = {"rank": rank, role: tp_rank_work(out, role)}
+        with open(os.path.join(out, f"{role}_rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        distributed.shutdown()
+        return 0
     mesh = sharding.make_mesh(dp=world, device="cuda:0")
-    cfg, ar_cfg = dp_muse_cfg(argoverse_muse_7cam_config()), nuscenes_ar_config()
+    cfg = dp_muse_cfg(argoverse_muse_7cam_config())
+    ar_cfg = dp_ar_cfg(nuscenes_ar_config())
     res = {"rank": rank, "collectives": dp_collectives(mesh)}
     for key, fn, c, ar in (("muse_train", dp_train, cfg, False),
                            ("muse_generate", dp_generate, cfg, False),
@@ -5518,28 +5636,34 @@ def dp_rank_main(rank, world, rdv, out):
               f"{ {k: v for k, v in res[key].items() if k != 'metrics'} }",
               flush=True)
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    res["tp"] = tp_rank_work(out)
-    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+    with open(os.path.join(out, f"{role}_rank{rank}.json"), "w") as f:
         json.dump(res, f)
     distributed.shutdown()
     return 0
 
 
+RANK_ROLES = ("dp", "tp", "tp53")
+
+
 def run_ranks(world, tmp, meanwhile):
-    """Start `world` rank processes (`dp_rank_main`) from this checkout, run
-    `meanwhile()` here while they run, and wait for them; a rank that fails
-    or outlives DP_TIMEOUT_S fails the phase, and the others are killed at
-    once (they would wait in a collective until the group's timeout).
-    Returns (their output directory, each rank's results, meanwhile's)."""
+    """Start a group of `world` rank processes (`dp_rank_main`) for each of
+    RANK_ROLES from this checkout, all at once, run `meanwhile()` here while
+    they run, and wait for them; a rank that fails or outlives DP_TIMEOUT_S
+    fails the phase, and the others are killed at once (they would wait in
+    a collective until the group's timeout). Returns (their output
+    directory, each rank's results, both roles' merged, meanwhile's)."""
     repo = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(tmp, "dp")
     os.makedirs(out, exist_ok=True)
-    logs = [open(os.path.join(out, f"rank{r}.log"), "w") for r in range(world)]
+    runs = [(role, r) for role in RANK_ROLES for r in range(world)]
+    logs = [open(os.path.join(out, f"{role}_rank{r}.log"), "w")
+            for role, r in runs]
     procs = [subprocess.Popen(
         [sys.executable, "-c", f"import sys, chip_smoke as cs; sys.exit("
-         f"cs.dp_rank_main({r}, {world}, {os.path.join(out, 'rdv')!r}, "
-         f"{out!r}))"], cwd=repo, stdout=logs[r], stderr=subprocess.STDOUT)
-        for r in range(world)]
+         f"cs.dp_rank_main({r}, {world}, "
+         f"{os.path.join(out, f'{role}_rdv')!r}, {out!r}, {role!r}))"],
+        cwd=repo, stdout=log, stderr=subprocess.STDOUT)
+        for (role, r), log in zip(runs, logs)]
     deadline = time.monotonic() + DP_TIMEOUT_S
     try:
         extra = meanwhile()
@@ -5555,19 +5679,19 @@ def run_ranks(world, tmp, meanwhile):
             p.wait()
         for f in logs:
             f.close()
-    for r in range(world):
-        with open(os.path.join(out, f"rank{r}.log")) as f:
+    for role, r in runs:
+        with open(os.path.join(out, f"{role}_rank{r}.log")) as f:
             for line in f.read().splitlines():
-                print(line if line.startswith("[dp ")
-                      else f"[dp rank {r} out] {line}", flush=True)
+                print(line if line.startswith(("[dp ", "[tp ", "[tp53 "))
+                      else f"[{role} rank {r} out] {line}", flush=True)
     codes = [p.returncode for p in procs]
     if any(c != 0 for c in codes):
         raise SystemExit(f"data-parallel ranks failed or ran past "
                          f"{DP_TIMEOUT_S} s (exit codes {codes})")
-    ranks = []
-    for r in range(world):
-        with open(os.path.join(out, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
+    ranks = [{} for _ in range(world)]
+    for role, r in runs:
+        with open(os.path.join(out, f"{role}_rank{r}.json")) as f:
+            ranks[r].update(json.load(f))
     return out, ranks, extra
 
 
@@ -5637,8 +5761,8 @@ def seeded_train_model(cfg, ar):
     from bevgen_torch.models.stage2.gpt import SparseGPT
     if not ar:
         return _maskgit(cfg.transformer, cfg)
-    return init_weights(SparseGPT(cfg.transformer, torch.bfloat16,
-                                  param_dtype=torch.float32), 0).to("cuda")
+    return init_weights(on_card(SparseGPT, cfg.transformer, torch.bfloat16,
+                                param_dtype=torch.float32), 0)
 
 
 def fresh_train_state(seeded, ar):
@@ -5867,8 +5991,8 @@ def dp_phase(cfg, ar_cfg, tmp):
               f"{res['muse_train']['moments_sliced']} / "
               f"{res['ar_train']['moments_sliced']} tensors; parameters equal "
               f"to rank 0's; peak {res['peak_gb']:.2f} GB", flush=True)
-    print(f"[dp] the two ranks: {ranks_s:.1f} s (two ranks sharing one card: "
-          f"no scaling number)", flush=True)
+    print(f"[dp] the three pairs of ranks: {ranks_s:.1f} s (six ranks "
+          f"sharing one card: no scaling number)", flush=True)
     ref = {"muse_generate": dp_generate_check(out, False, refs[False][1]),
            "ar_generate": dp_generate_check(out, True, refs[True][1])}
     seeded = {}
@@ -6066,16 +6190,15 @@ def dp_kernel_entries(cfg, ar_cfg, dp, nccl, serve_stats, row11_stats):
 
 
 def tp_cfg():
+    """argoverse_muse at full width, TP_MUSE_LAYERS deep."""
     from bevgen_torch.core.config import argoverse_muse_config
-    return argoverse_muse_config()
+    return cut_depth(argoverse_muse_config(), TP_MUSE_LAYERS)
 
 
 def tp_ar_cfg():
-    import dataclasses as dc
+    """nuscenes_ar at full width, TP_AR_LAYERS deep."""
     from bevgen_torch.core.config import nuscenes_ar_config
-    c = nuscenes_ar_config()
-    return dc.replace(c, transformer=c.transformer.replace(
-        num_layers=NCCL_AR_LAYERS))
+    return cut_depth(nuscenes_ar_config(), TP_AR_LAYERS)
 
 
 def tp_forward_inputs(cfg):
@@ -6224,9 +6347,9 @@ def tp_train(mesh, out, cfg=None, tag="tp"):
 
 
 def tp_ar(mesh, out):
-    """(e) and (f) on one tp rank: the AR cached generate at b=1, 2 layers
+    """(e) and (f) on one tp rank: the AR cached generate at b=1, 1 layer
     (rank 0's seed-0 pipeline, the GPT cut over tp), ids saved; then the AR
-    step on the tp mesh (the GPT whole, 2 layers, b=2, TP_STEPS steps) with
+    step on the tp mesh (the GPT whole, 1 layer, b=2, TP_STEPS steps) with
     its launches and the ranks' parameters compared."""
     import torch
     from bevgen_torch.data.fake import fake_batch
@@ -6258,10 +6381,9 @@ def tp_ar(mesh, out):
     del pipe
     torch.cuda.empty_cache()
     tf = c.transformer
-    model = SparseGPT(tf, torch.bfloat16, param_dtype=torch.float32)
+    model = on_card(SparseGPT, tf, torch.bfloat16, param_dtype=torch.float32)
     if mesh.rank == 0:
         init_weights(model, 0)
-    model = model.to("cuda")
     opt = optim.maskgit_optimizer(model, 1e-4, warmup_steps=1)
     step, state = trainer.make_ar_sharded_train_step(
         model, opt, mesh, trainer.create_ar_train_state(model, opt))
@@ -6280,13 +6402,16 @@ def tp_ar(mesh, out):
     return res
 
 
-def tp_rank_work(out):
-    """Phase 52's part in each of phase 50's rank processes: the group as a
-    dp=1 x tp=TP_WAYS mesh; (b)-(c), (d), (e)-(f) with their seconds, then
-    phase 53's part (`tp53`), and the peak GB of both."""
+def tp_rank_work(out, role):
+    """Phase 52's part (role "tp") or phase 53's ("tp53") in each of one of
+    phase 50's pairs of rank processes: the group as a dp=1 x tp=TP_WAYS
+    mesh; for phase 52 (b)-(c), (d), (e)-(f) with their seconds and the
+    peak GB."""
     import torch
     from bevgen_torch.parallel import sharding
     mesh = sharding.make_mesh(dp=1, tp=TP_WAYS, device="cuda:0")
+    if role == "tp53":
+        return tp53_rank_work(mesh, out)
     torch.cuda.reset_peak_memory_stats()
     t_all = time.perf_counter()
     res = {"mesh": mesh.shape, "tp_rank": mesh.tp_rank}
@@ -6299,7 +6424,6 @@ def tp_rank_work(out):
               f"{ {k: v for k, v in res[key].items() if k == 's' or k.endswith('_s')} }",
               flush=True)
     res["s"] = time.perf_counter() - t_all
-    res["tp53"] = tp53_rank_work(mesh, out)
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return res
 
@@ -6385,7 +6509,7 @@ def _rel_l2(a, b):
 
 def tp_phase(dp):
     """Phase 52: (a) the kernels at a tp rank's heads, then the checks of
-    the ranks' part of the phase (run in phase 50's processes) against the
+    the ranks' part of the phase (run in phase 50's "tp" pair) against the
     one-process references."""
     import torch
     cfg, ar_cfg = tp_cfg(), tp_ar_cfg()
@@ -6407,7 +6531,7 @@ def tp_phase(dp):
                                                              ref["fp32"])
     tp_max = float((got[0] - ref["fp32"]).abs().max())
     bf16_max = float((ref["bf16"] - ref["fp32"]).abs().max())
-    print(f"[tp] (b) argoverse_muse full width and depth, b=1, bf16 on a "
+    print(f"[tp] (b) argoverse_muse full width, {nl} layers, b=1, bf16 on a "
           f"dp=1 x tp={TP_WAYS} mesh: gathered logits vs one-process fp32 "
           f"(CPU): rel L2 {tp_err:.4e} (max abs {tp_max:.4e}); one-process "
           f"bf16 vs fp32: rel L2 {bf16_err:.4e} (max abs {bf16_max:.4e}); "
@@ -6551,7 +6675,7 @@ def tp_kernel_entries(tp, dp_checks):
         bs.BWD_SOURCE, bs.BWD_REPLACES, ar_step["row10"], dp_checks["row10"])
     ha = at.num_heads // TP_WAYS
     total = r0["ar"]["generate_launches"]["row11"].get(str(ha), 0)
-    # the 2-layer generate's launches by prefix bucket: each step's layers
+    # the cut generate's launches by prefix bucket: each step's layers
     from bevgen_torch.models.stage2.ar_cached import PREFIX_BUCKET, bucket_ranges
     per_pl = {pl: (t1 - t0) * at.num_layers for t0, t1, pl in bucket_ranges(
         L, at.num_cond_tokens, at.num_img_tokens, PREFIX_BUCKET)}
@@ -7083,7 +7207,7 @@ def _check_rule(what, got, want):
 def tp53_phase(dp):
     """Phase 53: (a) the new kernels at a tp=2 rank's shapes against their
     plain versions, then the checks of the ranks' part (run in phase 50's
-    processes after phase 52's) against the one-process references."""
+    "tp53" pair) against the one-process references."""
     import torch
     cfg, ac = tp53_cfg(), tp53_ar_cfg()
     tf, at = cfg.transformer, ac.transformer
@@ -7098,7 +7222,7 @@ def tp53_phase(dp):
           f"{time.perf_counter() - t1:.1f} s", flush=True)
     out, ref = dp["out"], dp["tp53_refs"]
     fp32 = ref["fp32"]
-    ranks = [r["tp"]["tp53"] for r in dp["ranks"]]
+    ranks = [r["tp53"] for r in dp["ranks"]]
     card = gpu_name_and_power()
     rel = {}
     for name in ("glue", "int8"):
@@ -7210,9 +7334,9 @@ def tp53_phase(dp):
 
 
 def tp53_rank_work(mesh, out):
-    """Phase 53's part in each rank process (after phase 52's): the glue
-    and int8 forwards and generates, the glue steps, the int8 AR generate;
-    each with its seconds."""
+    """Phase 53's part in each of its rank processes: the glue and int8
+    forwards and generates, the glue steps, the int8 AR generate; each with
+    its seconds."""
     import torch
     t_all = time.perf_counter()
     res = {}
@@ -7273,11 +7397,488 @@ def tp53_kernel_entries(tp53):
     return out
 
 
+# ---- phase 54: the scene editor on the native rasterizer ---------------------
+
+# tests/test_native.py's city-scale case (5000 segments kilometres off the
+# raster and one crossing it; 2000 triangles off it) must end within this
+# many seconds on the host, as the JAX test requires
+CITY_SCALE_S = 1.0
+RASTER_REPS = 50
+# a vehicle the editor's requests add behind and to the right of the ego
+ADDED_CAR = {"category": "REGULAR_VEHICLE", "x": -12.0, "y": -6.0,
+             "yaw": 0.5, "length": 4.5, "width": 2.0}
+
+
+def bresenham_numpy(out, p0, p1):
+    """One Bresenham segment into `out` (1 where drawn), the native core's
+    walk for segments inside its 256-pixel clip margin."""
+    h, w = out.shape
+    x0, y0, x1, y1 = int(p0[0]), int(p0[1]), int(p1[0]), int(p1[1])
+    if max(x0, x1) < 0 or min(x0, x1) >= w or max(y0, y1) < 0 or \
+            min(y0, y1) >= h:
+        return
+    if min(x0, x1, y0, y1) < -256 or max(x0, x1) > w - 1 + 256 or \
+            max(y0, y1) > h - 1 + 256:
+        raise ValueError("the numpy reference draws no clipped segment")
+    dx, dy = abs(x1 - x0), -abs(y1 - y0)
+    sx, sy = (1 if x0 < x1 else -1), (1 if y0 < y1 else -1)
+    err = dx + dy
+    while True:
+        if 0 <= x0 < w and 0 <= y0 < h:
+            out[y0, x0] = 1
+        if x0 == x1 and y0 == y1:
+            break
+        e2 = 2 * err
+        if e2 >= dy:
+            err += dy
+            x0 += sx
+        if e2 <= dx:
+            err += dx
+            y0 += sy
+
+
+def numpy_fill_polygons(polys, shape):
+    """Even-odd scanline fills in numpy: each integer row's edge crossings,
+    sorted and paired, fill the pixel centres within half a pixel of the
+    span; the outline is drawn too (cv2.fillPoly's). The reference the
+    native core is held to on the card's machine, which has no cv2."""
+    h, w = shape
+    out = np.zeros(shape, np.uint8)
+    for p in polys:
+        p = np.asarray(p, np.int64).reshape(-1, 2)
+        if len(p) < 3:
+            continue
+        if p[:, 0].max() < 0 or p[:, 0].min() >= w or p[:, 1].max() < 0 or \
+                p[:, 1].min() >= h:
+            continue
+        x0, y0 = p[:, 0].astype(np.float64), p[:, 1].astype(np.float64)
+        x1, y1 = np.roll(x0, -1), np.roll(y0, -1)
+        for y in range(max(int(p[:, 1].min()), 0),
+                       min(int(p[:, 1].max()), h - 1) + 1):
+            yc = float(y)
+            hit = ((y0 <= yc) & (y1 > yc)) | ((y1 <= yc) & (y0 > yc))
+            xs = np.sort(x0[hit] + (yc - y0[hit]) / (y1[hit] - y0[hit])
+                         * (x1[hit] - x0[hit]))
+            for xa, xb in zip(xs[0::2], xs[1::2]):
+                a = int(max(0.0, math.ceil(xa - 0.5)))
+                b = int(min(w - 1.0, math.floor(xb + 0.5)))
+                if b >= a:
+                    out[y, a:b + 1] = 1
+        for i in range(len(p)):
+            bresenham_numpy(out, p[i], p[(i + 1) % len(p)])
+    return out
+
+
+def numpy_draw_polylines(lines, shape):
+    out = np.zeros(shape, np.uint8)
+    for line in lines:
+        line = np.asarray(line, np.int64).reshape(-1, 2)
+        for i in range(len(line) - 1):
+            bresenham_numpy(out, line[i], line[i + 1])
+    return out
+
+
+def editor_scene_polygons(seed):
+    """Seeded star-shaped and self-intersecting polygons and polylines
+    around and across a 256x256 raster (inside the core's clip margin)."""
+    rng = np.random.default_rng(seed)
+    polys = []
+    for i in range(30):
+        k = int(rng.integers(3, 9))
+        ang = rng.uniform(0, 2 * np.pi, k)
+        if i % 2 == 0:
+            ang = np.sort(ang)
+        center, r = rng.uniform(-40, 296, 2), rng.uniform(2, 90, k)
+        polys.append(np.stack([center[0] + r * np.cos(ang),
+                               center[1] + r * np.sin(ang)], 1)
+                     .astype(np.int32))
+    lines = [rng.integers(-200, 456, (int(rng.integers(2, 7)), 2))
+             .astype(np.int32) for _ in range(30)]
+    return polys, lines
+
+
+def native_raster_checks():
+    """54(a): build the native core (timed), hold its fills and lines to
+    the numpy reference exactly, run the city-scale case within its bound,
+    and time `rasterize_scene` per scene."""
+    from bevgen_torch import native
+    from bevgen_torch.data import rasterize
+    from bevgen_torch.scripts import edit_scene, edit_server
+    t0 = time.perf_counter()
+    built = native.available()
+    build_s = time.perf_counter() - t0
+    print(f"[editor] native rasterizer: g++ build and load "
+          f"{build_s:.2f} s -> {native.library_path(native.SRC).name}, "
+          f"available={built}", flush=True)
+    if not built:
+        raise SystemExit(f"the native rasterizer did not build: "
+                         f"{native.build_error()}")
+    shape = (256, 256)
+    quads = [rasterize.ego_to_bev_px(q) for _, q in edit_server.cuboid_quads(
+        edit_server._DEFAULT_CUBOIDS + [ADDED_CAR])]
+    n_px = 0
+    for seed in (0, 1, 2):
+        polys, lines = editor_scene_polygons(seed)
+        for what, got, want in (
+                ("fill", native.fill_polygons(polys, shape),
+                 numpy_fill_polygons(polys, shape)),
+                ("lines", native.draw_polylines(lines, shape),
+                 numpy_draw_polylines(lines, shape)),
+                ("editor quads", native.fill_polygons(quads, shape),
+                 numpy_fill_polygons(quads, shape))):
+            if not np.array_equal(got, want) or not want.any():
+                raise SystemExit(f"native {what} (seed {seed}) differs from "
+                                 f"the numpy reference in "
+                                 f"{int((got != want).sum())} pixels")
+            n_px += int(want.sum())
+    print(f"[editor] native fill_polygons and draw_polylines equal the numpy "
+          f"even-odd fill and Bresenham lines exactly (3 seeds x 30 polygons "
+          f"+ 30 polylines + the editor's quads, {n_px} pixels set)",
+          flush=True)
+    rng = np.random.default_rng(0)
+    far = rng.integers(5_000, 30_000, (5000, 2, 2)).astype(np.int32)
+    crossing = np.array([[-20_000, 128], [20_000, 128]], np.int32)
+    t0 = time.perf_counter()
+    img = native.draw_polylines([s for s in far] + [crossing], shape)
+    line_s = time.perf_counter() - t0
+    polys = [s.reshape(-1, 2) for s in
+             rng.integers(5_000, 30_000, (2000, 3, 2)).astype(np.int32)]
+    t0 = time.perf_counter()
+    pimg = native.fill_polygons(polys, shape)
+    poly_s = time.perf_counter() - t0
+    print(f"[editor] city-scale case: 5001 polylines {line_s * 1e3:.3f} ms, "
+          f"2000 polygons {poly_s * 1e3:.3f} ms (bound {CITY_SCALE_S} s "
+          f"each); crossing row {int(img[128].sum())} of 256 pixels, "
+          f"{int(img.sum())} in all, polygons {int(pimg.sum())}", flush=True)
+    if not (line_s < CITY_SCALE_S and poly_s < CITY_SCALE_S
+            and img.sum() == 256 and img[128].sum() == 256
+            and pimg.sum() == 0):
+        raise SystemExit("the native city-scale case failed")
+    scenes = {"editor table (2 cuboids)": edit_server.cuboid_quads(
+        edit_server._DEFAULT_CUBOIDS)}
+    busy = [(("REGULAR_VEHICLE", "BUS", "PEDESTRIAN", "BICYCLE")[i % 4],
+             edit_scene.cuboid_quad(*rng.uniform(-40, 40, 2),
+                                    rng.uniform(0, 6.3), 4.5, 2.0))
+            for i in range(60)]
+    scenes["60 cuboids"] = busy
+    raster_ms = {}
+    for name, cuboids in scenes.items():
+        times = []
+        for _ in range(RASTER_REPS):
+            t0 = time.perf_counter()
+            edit_scene.rasterize_cuboids(cuboids, 256)
+            times.append((time.perf_counter() - t0) * 1e3)
+        raster_ms[name] = sorted(times)[len(times) // 2]
+    print(f"[editor] rasterize_scene on the native route, median of "
+          f"{RASTER_REPS}: " + ", ".join(f"{k} {v:.4f} ms"
+                                         for k, v in raster_ms.items()),
+          flush=True)
+    return {"build_s": build_s, "raster_ms": raster_ms}
+
+
+def _row1_by_batch():
+    from bevgen_torch.ops import cosine_attention as ca
+    return dict(ca.cosine_attention_cuda.launches_by_batch_shape)
+
+
+def _other_launches():
+    """Every kernel count but row 1's (all 0 on the editor's path)."""
+    from bevgen_torch.ops import block_sparse as bs
+    from bevgen_torch.ops import decode_attention as da
+    from bevgen_torch.ops import layernorm as ln
+    counts = {"row8": _launch_counts()[1],
+              "row9": bs.block_sparse_attention_cuda.launches,
+              "row10": bs.block_sparse_attention_bwd_cuda.launches,
+              "row11": da.decode_attention_cuda.launches,
+              "row14": ln.layernorm_cuda.launches}
+    for k, v in _glue_int8_counts().items():
+        counts[k] = sum(v.values()) if isinstance(v, dict) else v
+    return {k: v for k, v in counts.items() if v}
+
+
+def _reset_editor_counts():
+    from bevgen_torch.ops import layernorm as ln
+    _reset_all_counts()
+    ln.reset_launch_counts()
+
+
+def png_pixels(uri):
+    """A data URI's PNG decoded with zlib: (h, w, channels) uint8. Reads the
+    editor's encoding (8-bit gray, RGB or RGBA, unfiltered rows) and checks
+    every chunk's CRC."""
+    import base64
+    import struct
+    import zlib
+    head = "data:image/png;base64,"
+    if not uri.startswith(head):
+        raise SystemExit(f"not a PNG data URI: {uri[:40]!r}")
+    data = base64.b64decode(uri[len(head):])
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise SystemExit("bad PNG signature")
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        chunk = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + chunk) & 0xFFFFFFFF != crc:
+            raise SystemExit(f"bad PNG CRC in {kind!r}")
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", chunk)
+        elif kind == b"IDAT":
+            idat += chunk
+        pos += 12 + n
+    w, h, depth, ctype, _, _, interlace = hdr
+    c = {0: 1, 2: 3, 6: 4}[ctype]
+    if depth != 8 or interlace:
+        raise SystemExit(f"PNG depth {depth}, interlace {interlace}")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * c)
+    if raw[:, 0].any():
+        raise SystemExit("PNG rows filtered: the editor writes filter 0")
+    return raw[:, 1:].reshape(h, w, c)
+
+
+def _http(url, body=None):
+    """(status, body bytes, ms) of one GET, or POST of `body`."""
+    import urllib.error
+    import urllib.request
+    headers = {"Content-Type": "application/json"} if body is not None else {}
+    req = urllib.request.Request(url, data=body, headers=headers)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, data = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, data = e.code, e.read()
+    return code, data, (time.perf_counter() - t0) * 1e3
+
+
+def edit_scene_run(cfg):
+    """54(b): the edit_scene CLI's run at b=1, its default steps, a vehicle
+    added 10 m ahead."""
+    import torch
+    from bevgen_torch.scripts import edit_scene
+    tf = cfg.transformer
+    N, NC = tf.num_img_tokens, tf.num_cond_tokens
+    edits = json.dumps([{"op": "add", "category": "REGULAR_VEHICLE", "x": 10,
+                         "y": 0, "yaw": 0, "length": 4.5, "width": 2.0}])
+    _reset_editor_counts()
+    t0 = time.perf_counter()
+    images, batch, raster = edit_scene.run(
+        ["preset=argoverse_muse_7cam", "device=cuda", f"edits={edits}"])
+    run_s = time.perf_counter() - t0
+    row1, others = _row1_by_batch(), _other_launches()
+    want = {(1, N, N): (2 * cfg.muse.sample_iterations - 1) * tf.num_layers,
+            (1, N, NC): (2 * cfg.muse.sample_iterations - 1) * tf.num_layers}
+    H_img, W_img = tf.cam_res
+    car = np.nonzero(raster[..., 0])
+    print(f"[editor] edit_scene.run b=1, {cfg.muse.sample_iterations} steps: "
+          f"{run_s:.2f} s (pipeline build, init and generate); images "
+          f"{images.shape}, finite {bool(np.isfinite(images).all())}; the "
+          f"added vehicle {len(car[0])} pixels of channel 0, rows "
+          f"{car[0].min() if len(car[0]) else None}-"
+          f"{car[0].max() if len(car[0]) else None}; row-1 launches {row1}, "
+          f"others {others}", flush=True)
+    if images.shape != (1, tf.num_cams, H_img, W_img, 3) or \
+            not np.isfinite(images).all():
+        raise SystemExit("edit_scene.run: bad images")
+    if not len(car[0]) or car[0].max() >= 128 or \
+            not np.array_equal(batch["segmentation"][0], raster):
+        raise SystemExit("edit_scene.run: the added vehicle is not in "
+                         "channel 0 ahead of the ego")
+    if row1 != want or others:
+        raise SystemExit(f"edit_scene.run launched {row1} row-1 kernels "
+                         f"(want {want}) and {others} others")
+    torch.cuda.synchronize()
+    return {"launches": row1, "s": run_s}
+
+
+def edit_server_phase(cfg):
+    """54(c): one EditSession behind make_server(port=0) on 127.0.0.1, in
+    a thread: the page, the annotations, three generates (the default
+    table, the same again, a vehicle added) and a malformed body."""
+    import threading
+    import torch
+    from bevgen_torch.data import camera_geometry as cg
+    from bevgen_torch.data.fake import fake_batch
+    from bevgen_torch.scripts import edit_server
+    tf = cfg.transformer
+    N, NC = tf.num_img_tokens, tf.num_cond_tokens
+    per_shape = (2 * cfg.muse.sample_iterations - 1) * tf.num_layers
+    want_row1 = {(1, N, N): per_shape, (1, N, NC): per_shape}
+    t0 = time.perf_counter()
+    session = edit_server.EditSession(cfg, device="cuda")
+    print(f"[editor] EditSession built in {time.perf_counter() - t0:.2f} s "
+          f"({session.pipe.dtype})", flush=True)
+    srv = edit_server.make_server(session, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    served = {}
+    try:
+        code, page, _ = _http(f"{base}/")
+        if code != 200 or b"scene editor" not in page or \
+                b"/api/generate" not in page:
+            raise SystemExit(f"GET / gave {code}")
+        code, anns, _ = _http(f"{base}/api/annotations")
+        anns = json.loads(anns)
+        if code != 200 or anns != edit_server._DEFAULT_CUBOIDS:
+            raise SystemExit(f"GET /api/annotations gave {code} {anns}")
+        for name, rows in (("default", anns), ("repeat", anns),
+                           ("added", anns + [ADDED_CAR])):
+            _reset_editor_counts()
+            code, body, http_ms = _http(f"{base}/api/generate", json.dumps(
+                {"cuboids": rows, "seed": 0}).encode())
+            row1, others = _row1_by_batch(), _other_launches()
+            if code != 200:
+                raise SystemExit(f"POST {name} gave {code}: {body[:300]!r}")
+            out = json.loads(body)
+            last = session.last
+            served[name] = {"out": out, "http_ms": http_ms, "row1": row1,
+                            "ms": dict(last["ms"]),
+                            "seg": last["segmentation"].copy(),
+                            "ids": last["ids"].clone(),
+                            "images": last["images"].copy()}
+            if row1 != want_row1 or others:
+                raise SystemExit(f"request {name} launched {row1} row-1 "
+                                 f"kernels (want {want_row1}) and {others}")
+        code, body, _ = _http(f"{base}/api/generate", b"{not json")
+        bad = json.loads(body)
+        if code != 400 or "error" not in bad:
+            raise SystemExit(f"a malformed body gave {code} {bad}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+
+    H_img, W_img = tf.cam_res
+    res = cfg.cond_stage.resolution
+    names = [str(n) for n in tf.camera_names]
+    for name, s in served.items():
+        out = s["out"]
+        if list(out["cameras"]) != names:
+            raise SystemExit(f"{name}: cameras {list(out['cameras'])}")
+        for cam, uri in out["cameras"].items():
+            if png_pixels(uri).shape != (H_img, W_img, 3):
+                raise SystemExit(f"{name} {cam}: PNG of the wrong size")
+        if png_pixels(out["bev"]).shape != (res, res, 3):
+            raise SystemExit(f"{name}: BEV PNG of the wrong size")
+        if not np.isfinite(s["images"]).all():
+            raise SystemExit(f"{name}: non-finite images")
+    a, b, c = served["default"], served["repeat"], served["added"]
+    same = (a["out"]["bev"] == b["out"]["bev"]
+            and a["out"]["cameras"] == b["out"]["cameras"]
+            and torch.equal(a["ids"], b["ids"])
+            and np.array_equal(a["images"], b["images"]))
+    moved = (int(c["seg"][..., 0].sum()) > int(a["seg"][..., 0].sum())
+             and not torch.equal(a["ids"], c["ids"]))
+    ids_changed = float((a["ids"] != c["ids"]).float().mean())
+    # the served images against one generate_fn call on the same raster,
+    # poses and generator
+    batch = fake_batch(cfg, batch_size=1, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    images, ids = session.pipe.generate_fn(
+        a["seg"][None], batch["intrinsics_inv"], batch["extrinsics_inv"], gen)
+    images = images.float().cpu().numpy()[0]
+    direct = (np.array_equal(images, a["images"])
+              and torch.equal(ids.cpu(), a["ids"]))
+    # the same generate from this thread, at b=1 and at phase 4's b=2, to
+    # set the served generate's time beside the pipeline's own
+    direct_ms = {}
+    for b in (1, 2, 1, 2):
+        fb = fake_batch(cfg, batch_size=b, seed=0)
+        seg = np.broadcast_to(a["seg"][None], (b,) + a["seg"].shape)
+        t0 = time.perf_counter()
+        out_b, _ = session.pipe.generate_fn(
+            seg, fb["intrinsics_inv"], fb["extrinsics_inv"],
+            torch.Generator(device="cuda").manual_seed(1))
+        out_b.float().cpu()
+        direct_ms.setdefault(b, []).append((time.perf_counter() - t0) * 1e3)
+    for i, cam in enumerate(names):
+        rgb = np.clip(cg.denormalize_image(images[i]), 0, 1)
+        direct = direct and np.array_equal(
+            png_pixels(a["out"]["cameras"][cam]), (rgb * 255).astype(np.uint8))
+    print(f"[editor] served: GET / and /api/annotations ok; the repeated "
+          f"request equal bit for bit: {same}; the added vehicle changes the "
+          f"raster (channel 0 {int(a['seg'][..., 0].sum())} -> "
+          f"{int(c['seg'][..., 0].sum())} pixels) and {ids_changed:.4f} of "
+          f"the ids: {moved}; a malformed body: HTTP 400 with an error; "
+          f"every PNG decodes to {H_img}x{W_img} (BEV {res}x{res}); the "
+          f"served images equal a direct generate_fn call bit for bit: "
+          f"{direct}; row-1 launches per request {a['row1']}", flush=True)
+    for name, s in served.items():
+        ms = s["ms"]
+        print(f"[editor] request {name}: {s['http_ms']:.1f} ms over HTTP = "
+              f"rasterize {ms['rasterize']:.3f} + generate "
+              f"{ms['generate']:.1f} + encode {ms['encode']:.1f} ms "
+              f"(server side {s['out']['ms']:.1f} ms)", flush=True)
+    print(f"[editor] the session's generate_fn called from the main thread "
+          f"(inputs to the images on the host): " + ", ".join(
+              f"b={b} {', '.join(f'{t:.1f}' for t in ts)} ms"
+              for b, ts in direct_ms.items()), flush=True)
+    if not (same and moved and direct):
+        raise SystemExit("the edit server's results failed their checks")
+    del session
+    return {"launches": a["row1"], "ms": {k: s["ms"] for k, s in served.items()},
+            "http_ms": {k: s["http_ms"] for k, s in served.items()},
+            "direct_ms": direct_ms}
+
+
+def editor_phase():
+    """Phase 54: the scene editor at `argoverse_muse_7cam` full width and
+    depth with BEVGEN_NATIVE_RASTER=1; row 1 at the editor's b=1 shapes
+    against its plain version."""
+    from bevgen_torch.core.config import argoverse_muse_7cam_config
+    cfg = argoverse_muse_7cam_config()
+    tf = cfg.transformer
+    B, H, D = 1, tf.num_heads, tf.dim_head
+    N, NC = tf.num_img_tokens, tf.num_cond_tokens
+    old = os.environ.get("BEVGEN_NATIVE_RASTER")
+    os.environ["BEVGEN_NATIVE_RASTER"] = "1"
+    try:
+        native = native_raster_checks()
+        run = edit_scene_run(cfg)
+        served = edit_server_phase(cfg)
+    finally:
+        if old is None:
+            os.environ.pop("BEVGEN_NATIVE_RASTER")
+        else:
+            os.environ["BEVGEN_NATIVE_RASTER"] = old
+    stats = {"self": check_kernel("editor self b1", B, H, N, N, D, True,
+                                  None, 54),
+             "cross": check_kernel("editor cross b1", B, H, N, NC, D, True,
+                                   None, 55)}
+    return {"native": native, "run": run, "served": served, "stats": stats,
+            "N": N, "NC": NC}
+
+
+def editor_kernel_entries(ed):
+    from bevgen_torch.ops import cosine_attention as ca
+    N, NC = ed["N"], ed["NC"]
+    out = []
+    for what, counts in (("edit_scene", ed["run"]["launches"]),
+                         ("edit-server request", ed["served"]["launches"])):
+        for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
+            out.append({
+                "name": f"cosine_attention_fwd[{what} serve {shape} b1 "
+                        f"{n}x{m}]",
+                "route": "cuda", "source": ca.SOURCE, "replaces": ca.REPLACES,
+                "launches": counts.get((1, n, m), 0), **ed["stats"][shape]})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    from bevgen_torch.models.init import reuse_draws
+    # the phases build the same seeded models many times: draw each once
+    with reuse_draws(INIT_REUSE_BYTES):
+        return smoke()
+
+
+def smoke() -> int:
+    import torch
     from bevgen_torch.core.config import argoverse_muse_7cam_config
     from bevgen_torch.data.fake import fake_batch
     from bevgen_torch.models.stage2.transformer import CosineAttention
@@ -7579,7 +8180,7 @@ def main() -> int:
     # the MUSE and the AR int8 generates, the generate CLI's quant=
     int8_stats = timed_phase(35, int8_kernels_phase, cfg, ar_cfg)
     int8_muse = timed_phase(36, int8_muse_phase, cfg)
-    int8_ar = timed_phase(37, int8_ar_phase, ar_cfg, ar_e2e)
+    int8_ar = timed_phase(37, int8_ar_phase, ar_cfg)
     timed_phase(38, int8_cli_phase, cfg, ar_cfg)
 
     # 39-42. stage-1 training: the VQ-GAN and VQ-VAE steps at full width,
@@ -7617,16 +8218,22 @@ def main() -> int:
 
     # 50-51. data parallelism: two gloo ranks on the one card, then the
     # sharded entry points through an nccl group of one process
-    # 52. tensor parallelism: its ranks' part runs in phase 50's processes
-    # 53. the fused glue and int8 serving under tp: so does its ranks' part
+    # 52. tensor parallelism: its ranks' part runs in phase 50's "tp" pair
+    # 53. the fused glue and int8 serving under tp: in its "tp53" pair
     with tempfile.TemporaryDirectory() as tmp:
-        dp = timed_phase(50, dp_phase, dp_muse_cfg(cfg), ar_cfg, tmp)
-        nccl = timed_phase(51, nccl_phase, dp_muse_cfg(cfg), ar_cfg, tmp, dp)
+        dp = timed_phase(50, dp_phase, dp_muse_cfg(cfg), dp_ar_cfg(ar_cfg),
+                        tmp)
+        nccl = timed_phase(51, nccl_phase, dp_muse_cfg(cfg),
+                          dp_ar_cfg(ar_cfg), tmp, dp)
         del dp["seeded"], dp["muse_pipe"]
         tp = timed_phase(52, tp_phase, dp)
         tp53 = timed_phase(53, tp53_phase, dp)
     del dp["tp_refs"], dp["tp53_refs"]
     torch.cuda.empty_cache()
+
+    # 54. the scene editor on the native rasterizer: edit_scene, then one
+    # EditSession served over HTTP
+    editor = timed_phase(54, editor_phase)
 
     kernels = []
     for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
@@ -7756,11 +8363,13 @@ def main() -> int:
     kernels.extend(inference_kernel_entries(inference_res, bsb_stats))
     kernels.extend(knob_kernel_entries(cfg, remat, ckpt_async, drill,
                                        train_fwd_stats, bwd_stats, glue_stats))
-    kernels.extend(dp_kernel_entries(dp_muse_cfg(cfg), ar_cfg, dp, nccl, stats,
+    kernels.extend(dp_kernel_entries(dp_muse_cfg(cfg), dp_ar_cfg(ar_cfg), dp,
+                                     nccl, stats,
                                      inference_res["checks"]["row11"]))
     kernels.extend(tp_kernel_entries(tp, dp["checks"]))
     kernels.extend(tp53_kernel_entries(tp53))
-    print(f"[time] phases 1-53: {time.perf_counter() - t_start:.1f} s",
+    kernels.extend(editor_kernel_entries(editor))
+    print(f"[time] phases 1-54: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

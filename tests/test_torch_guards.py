@@ -841,3 +841,83 @@ def test_cuda_int8_kernels_match_plain_versions():
         # three bf16 roundings, each within 2^-8 of the value's size
         assert (got.float() - want).abs().max().item() <= \
             2.0 ** -6 * max(1.0, want.abs().max().item())
+
+
+# the scene editor and the host-side scripts (their own guards)
+EDITOR_AND_HOST_MODULES = (
+    "native.py", "data/rasterize.py", "models/masks.py",
+    "models/conditioning.py", "utils/logging.py", "scripts/edit_scene.py",
+    "scripts/edit_server.py", "scripts/preprocess.py", "scripts/curate.py",
+    "scripts/make_figures.py", "scripts/pseudo_seg.py")
+
+
+def test_editor_and_host_modules_import_no_jax_or_reference_package():
+    """The import guard's walk covers the editor's and the host scripts'
+    modules, and none imports JAX or the JAX package; the native core's
+    source is the port's own copy."""
+    checked = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for module in EDITOR_AND_HOST_MODULES:
+        path = f"bevgen_torch/{module}"
+        assert path in checked, module
+        assert not set(_imported_roots(ROOT / path)) & FORBIDDEN, module
+    from bevgen_torch import native
+    assert native.SRC == ROOT / "bevgen_torch" / "csrc" / "rasterize.cpp"
+    assert native.BUILD_DIR == ROOT / "bevgen_torch" / "build"
+
+
+def test_editor_and_pseudo_seg_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    """The edit_scene CLI, `EditSession`, the edit server's CLI and
+    pseudo_seg raise without a card before they draw, build, serve or
+    write anything."""
+    from bevgen_torch.scripts import edit_scene, edit_server, pseudo_seg
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = tmp_path / "seg.pt"
+    for call in (
+            lambda: edit_scene.main(["preset=tiny_test",
+                                     f"out_dir={tmp_path / 'e'}"]),
+            lambda: edit_scene.run(["preset=tiny_test", "platform=gpu"]),
+            lambda: edit_server.EditSession(tcfg.tiny_test_config()),
+            lambda: edit_server.main(["preset=tiny_test", "port=0"]),
+            lambda: pseudo_seg.main([f"image_root={tmp_path}",
+                                     f"save_dir={tmp_path / 's'}",
+                                     f"model_path={model}"]),
+            lambda: pseudo_seg._load_model(str(model))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not any(tmp_path.iterdir())
+    session = edit_server.EditSession(tcfg.tiny_test_config(), device="cpu")
+    assert session.pipe.device.type == "cpu"
+
+
+def test_editor_on_the_native_route_imports_no_host_data_packages(tmp_path):
+    """In a fresh interpreter with BEVGEN_NATIVE_RASTER=1, as chip_smoke.py
+    runs the editor: `edit_scene.run`, an `EditSession` request and the
+    server's construction pull in none of cv2, pandas, pyarrow, PIL, yaml or
+    rich, which the card's machine is not known to have."""
+    import json
+    import subprocess
+    import sys
+    code = f"""
+import json, os, sys
+sys.path.insert(0, {str(ROOT)!r})
+from bevgen_torch.core.config import tiny_test_config, apply_overrides
+from bevgen_torch.scripts import edit_scene, edit_server
+images, batch, raster = edit_scene.run(
+    ["preset=tiny_test", "device=cpu", "muse.sample_iterations=2",
+     'edits=[{{"op":"add","x":-34,"y":34,"length":4,"width":4}}]'])
+assert raster[..., 0].sum() > 0
+cfg = apply_overrides(tiny_test_config(), {{"muse.sample_iterations": 2}})
+session = edit_server.EditSession(cfg, device="cpu")
+out = session.generate(session.annotations, seed=1)
+assert len(out["cameras"]) == 3
+srv = edit_server.make_server(session, port=0)
+srv.server_close()
+print(json.dumps(sorted(m for m in {HOST_DATA_PACKAGES!r} if m in sys.modules)))
+"""
+    env = dict(__import__("os").environ, BEVGEN_NATIVE_RASTER="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=300,
+                         env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
