@@ -1,7 +1,9 @@
-// The int8 serving path's kernels for Hopper (sm_90a). The port-only part
-// of int8 serving: on the TPU, XLA fuses each of these into the int8 dot
-// (bevgen_tpu/ops/quant.py, no Pallas kernel); eager PyTorch cannot, and
-// without them an int8 product would cost 4-8 launches where bf16 costs one.
+// The int8 serving path's pointwise kernels for Hopper (sm_90a). The
+// port-only part of int8 serving: on the TPU, XLA fuses each of these into
+// the int8 dot (bevgen_tpu/ops/quant.py, no Pallas kernel). The products
+// themselves, `w8_linear` and the fused W8A8 `int8_linear` (which runs the
+// quantizers and the epilogue below inside it, for every product that is
+// not split by rows under tp), are in csrc/int8_gemm.cu.
 //
 //   quantize_static   q = int8(clip(round(x * (1 / in_scale[k])), +-127))
 //                     (bevgen_tpu/ops/quant.py:66): x (rows, K) bf16,
@@ -15,14 +17,12 @@
 //                     (quant.py:100-110): acc (rows, Np) int32 from
 //                     torch._int_mm, out (rows, N) in bf16 (the path's) or
 //                     fp32, without the N padding.
-//   w8_linear         out = bf16(bf16(bf16(x @ Wq^T) * bf16(scale)) + bias),
-//                     the AR tree's weight-only int8 product
-//                     (bevgen_tpu/models/stage2/ar_cached.py:41-49):
-//                     x (M, K) bf16, Wq (N, K) int8, fp32 accumulation.
 //
-// Under tensor parallelism (tp) a row-split product holds the rank's
-// columns of x and rows of the weight, and the sum over tp comes between
-// the pieces above (ops/quant.py):
+// With torch._int_mm between them they make the three-launch chain of a
+// W8A8 product, which serves the products split by rows under tensor
+// parallelism (tp) and is the card's comparison route for `int8_linear`.
+// A row-split product holds the rank's columns of x and rows of the
+// weight, and the sum over tp comes between the pieces (ops/quant.py):
 //
 //   row_amax          the dynamic path's first half: amax (rows,) fp32 of the
 //                     rank's columns; the caller takes the max over tp;
@@ -32,10 +32,9 @@
 //                     The int32 accumulators are then summed over tp (exact)
 //                     before one int8_epilogue, so the output equals one
 //                     process's bit for bit;
-//   w8_linear, raw    scale NULL: bf16(x @ Wq^T) alone, the partial product
-//                     that the bf16 sum over tp adds up;
-//   w8_tail           then the tail, bf16(bf16(y * bf16(scale)) + bias), on
-//                     the summed y, the bias added once.
+//   w8_tail           the AR product's tail, bf16(bf16(y * bf16(scale)) +
+//                     bias), on the sum over tp of the raw products
+//                     (`w8_linear` without a scale), the bias added once.
 //
 // Bit-exactness with the reference: the static path multiplies by the fp32
 // reciprocal (1 / in_scale, correctly rounded, nvcc's default -prec-div),
@@ -45,30 +44,18 @@
 // values, row scales and the epilogue's fp32 values equal the plain
 // PyTorch versions' and the JAX package's.
 //
-// What bounds them on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): bytes, for
-// all four at the serving shapes. quantize_* read 2 bytes and write 1 per
-// element (3584 x 1024 bf16 at MUSE b=2: 11.0 MB, 3.3 us); the epilogue
-// reads 4 and writes 2 per output element (3584 x 5460: 117 MB, 35 us). At
-// the AR decode's M = 2, w8_linear reads its int8 weights once (1 byte per
-// weight, half of bf16's 2): qkv 3 MB, 0.94 us. The tp pieces are bytes
-// bound too: row_amax reads 2 bytes per element (a tp = 2 rank's to_out
-// input, 1536 x 512 at b = 2: 1.6 MB, 0.47 us), quantize_scaled 2 and
-// writes 1, w8_tail reads 2 and writes 2 per element.
+// What bounds them on an H100 SXM (3.35 TB/s): bytes, for all of them at
+// the serving shapes. quantize_* read 2 bytes and write 1 per element (3584
+// x 1024 bf16 at MUSE b=2: 11.0 MB, 3.3 us); the epilogue reads 4 and
+// writes 2 per output element (3584 x 5460: 117 MB, 35 us). The tp pieces:
+// row_amax reads 2 bytes per element (a tp = 2 rank's to_out input, 1536 x
+// 512 at b = 2: 1.6 MB, 0.47 us), quantize_scaled 2 and writes 1, w8_tail
+// reads 2 and writes 2 per element.
 //
-// Design, a first version. The quantizers and the epilogue are one pass each,
-// 8 (quantize) or 4 (epilogue) consecutive elements a thread, with 16-byte
-// loads where the row length and the address allow, scalar accesses
-// otherwise. w8_linear has two forms: for M <= 8 rows (the AR decode steps
-// and its head) one warp per output column, each lane reading 16 int8
-// weights at a time and the M rows of x from L1, a shuffle reduction at the
-// end; for more rows (the prefill, M = b * 256) 64 x 64 output tiles, the
-// int8 tile converted to bf16 in shared memory and multiplied with mma.sync
-// m16n8k16 (fp32 accumulation), one K step of 32 at a time, loads not
-// overlapped (rows whose K or alignment the tiles do not take go to the
-// per-column form in groups of 8 rows). Only bf16 activations: the port's
-// attention kernels take nothing else, so no other dtype reaches these on
-// the card. Left for later: an s8 wgmma product fed by the quantizer (the
-// whole W8A8 chain in one kernel), overlapped loads.
+// Design. One pass each, 8 (quantize) or 4 (epilogue) consecutive elements
+// a thread, with 16-byte loads where the row length and the address allow,
+// scalar accesses otherwise. Only bf16 activations: the port's attention
+// kernels take nothing else, so no other dtype reaches these on the card.
 //
 // C interface: each function returns cudaGetLastError() after the launch;
 // the Python wrapper (bevgen_torch/ops/quant.py) raises if it is not 0.
@@ -76,8 +63,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "mma_common.cuh"
 
 namespace {
 
@@ -280,165 +265,17 @@ int8_epilogue_kernel(const int32_t* __restrict__ acc,
   }
 }
 
-// the AR product's tail on fp32 accumulator `a` of column n: bf16(a), times
-// bf16(scale), plus the bias, each step rounded to bf16. Without a scale
-// (the row-split product under tp) bf16(a) alone: the tail then runs after
-// the sum over tp (w8_tail_kernel)
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// the AR product's tail on `a` of column n: bf16(a), times bf16(scale),
+// plus the bias, each step rounded to bf16 (int8_gemm.cu's w8_finish)
 __device__ __forceinline__ bf16 w8_finish(float a, const float* scale,
                                           const bf16* bias, int n) {
-  using mma_common::round_bf16;
-  if (scale == nullptr) return __float2bfloat16_rn(a);
   float o = round_bf16(__fmul_rn(round_bf16(a), round_bf16(scale[n])));
   if (bias != nullptr) o = __fadd_rn(o, __bfloat162float(bias[n]));
   return __float2bfloat16_rn(o);
-}
-
-// w8_linear for up to MR rows of x: one warp per output column n, lanes
-// striding over K in 16-weight chunks (VEC: K % 16 == 0 and 16-byte aligned
-// rows of x and Wq), the MR dot products reduced across the warp
-template <int MR, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-w8_gemv_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-               const float* __restrict__ scale, const bf16* __restrict__ bias,
-               bf16* __restrict__ out, int M, int N, int K) {
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
-  const int m0 = blockIdx.y * MR;
-  if (n >= N) return;
-  const int8_t* wr = w + static_cast<size_t>(n) * K;
-  float acc[MR];
-#pragma unroll
-  for (int m = 0; m < MR; ++m) acc[m] = 0.f;
-  if constexpr (VEC) {
-#pragma unroll 2
-    for (int k = lane * 16; k < K; k += 32 * 16) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(wr + k));
-      const int8_t* wb = reinterpret_cast<const int8_t*>(&u);
-      float wf[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) wf[j] = static_cast<float>(wb[j]);
-#pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        if (m0 + m < M) {
-          float xv[16];
-          const bf16* xr = x + static_cast<size_t>(m0 + m) * K + k;
-          load8<true>(xr, 0, 8, xv);
-          load8<true>(xr, 8, 16, xv + 8);
-#pragma unroll
-          for (int j = 0; j < 16; ++j) acc[m] = fmaf(xv[j], wf[j], acc[m]);
-        }
-      }
-    }
-  } else {
-    for (int k = lane; k < K; k += 32) {
-      const float wf = static_cast<float>(wr[k]);
-#pragma unroll
-      for (int m = 0; m < MR; ++m)
-        if (m0 + m < M)
-          acc[m] = fmaf(__bfloat162float(x[static_cast<size_t>(m0 + m) * K + k]),
-                        wf, acc[m]);
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < MR; ++m) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], off);
-  }
-  if (lane < MR && m0 + lane < M) {
-    float a = acc[0];
-#pragma unroll
-    for (int m = 1; m < MR; ++m)
-      if (lane == m) a = acc[m];
-    out[static_cast<size_t>(m0 + lane) * N + n] = w8_finish(a, scale, bias, n);
-  }
-}
-
-// w8_linear with many rows: a 64 x 64 output tile per block of 4 warps (16
-// rows each), K in steps of 32; x's tile and the int8 tile, converted to
-// bf16, in shared memory with a row stride of 40 (conflict-free fragment
-// loads); mma.sync m16n8k16 with fp32 accumulation. K % 8 == 0 and 16-byte
-// aligned x and Wq rows (the dispatch checks).
-constexpr int GT = 64;       // tile rows and columns
-constexpr int GK = 32;       // K step
-constexpr int GLD = GK + 8;  // shared row stride (bf16)
-
-__global__ void __launch_bounds__(128)
-w8_gemm_bf16_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-                    const float* __restrict__ scale,
-                    const bf16* __restrict__ bias, bf16* __restrict__ out,
-                    int M, int N, int K) {
-  __shared__ __align__(16) bf16 xs[GT * GLD];
-  __shared__ __align__(16) bf16 ws[GT * GLD];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * GT, n0 = blockIdx.x * GT;
-  float c[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += GK) {
-    // x tile: 64 rows x 32 columns = 256 vectors of 8 bf16, 2 a thread;
-    // int8 tile: 64 rows of Wq x 32 = 256 vectors of 8, 2 a thread
-    uint4 xv[2];
-    uint2 wv[2];
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int i = tid + it * 128;
-      const int r = i >> 2, cc = (i & 3) * 8;
-      xv[it] = make_uint4(0u, 0u, 0u, 0u);
-      wv[it] = make_uint2(0u, 0u);
-      if (m0 + r < M && k0 + cc < K)
-        xv[it] = *reinterpret_cast<const uint4*>(
-            x + static_cast<size_t>(m0 + r) * K + k0 + cc);
-      if (n0 + r < N && k0 + cc < K)
-        wv[it] = *reinterpret_cast<const uint2*>(
-            w + static_cast<size_t>(n0 + r) * K + k0 + cc);
-    }
-    __syncthreads();  // the previous step's fragments are read
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int i = tid + it * 128;
-      const int r = i >> 2, cc = (i & 3) * 8;
-      *reinterpret_cast<uint4*>(xs + r * GLD + cc) = xv[it];
-      const int8_t* b = reinterpret_cast<const int8_t*>(&wv[it]);
-      uint4 h;
-      h.x = mma_common::pack_bf16(b[0], b[1]);
-      h.y = mma_common::pack_bf16(b[2], b[3]);
-      h.z = mma_common::pack_bf16(b[4], b[5]);
-      h.w = mma_common::pack_bf16(b[6], b[7]);
-      *reinterpret_cast<uint4*>(ws + r * GLD + cc) = h;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GK; kk += 16) {
-      const bf16* xa = xs + (warp * 16 + g) * GLD + kk + 2 * t;
-      uint32_t a[4];
-      a[0] = mma_common::lds32(xa);
-      a[1] = mma_common::lds32(xa + 8 * GLD);
-      a[2] = mma_common::lds32(xa + 8);
-      a[3] = mma_common::lds32(xa + 8 * GLD + 8);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bf16* wb = ws + (j * 8 + g) * GLD + kk + 2 * t;
-        mma_common::mma_16816(c[j], a, mma_common::lds32(wb),
-                              mma_common::lds32(wb + 8));
-      }
-    }
-  }
-  // c[j]: (row g, cols 8j + 2t, +1) and (row g + 8, the same cols)
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int m = m0 + warp * 16 + g + (e >> 1) * 8;
-      const int n = n0 + j * 8 + 2 * t + (e & 1);
-      if (m < M && n < N)
-        out[static_cast<size_t>(m) * N + n] = w8_finish(c[j][e], scale, bias, n);
-    }
-  }
 }
 
 // the tail alone, on the bf16 product summed over tp: w8_finish per element
@@ -477,17 +314,6 @@ int epilogue_t(const void* acc, const void* w_scale, const void* x_scale,
   };
   vec ? args(int8_epilogue_kernel<T, true>) : args(int8_epilogue_kernel<T, false>);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int MR>
-void gemv_launch(const bf16* x, const int8_t* w, const float* scale,
-                 const bf16* bias, bf16* out, int M, int N, int K, bool vec,
-                 cudaStream_t s) {
-  const dim3 grid((N + THREADS / 32 - 1) / (THREADS / 32), (M + MR - 1) / MR);
-  auto args = [&](auto kernel) {
-    kernel<<<grid, THREADS, 0, s>>>(x, w, scale, bias, out, M, N, K);
-  };
-  vec ? args(w8_gemv_kernel<MR, true>) : args(w8_gemv_kernel<MR, false>);
 }
 
 }  // namespace
@@ -568,38 +394,6 @@ extern "C" int int8_epilogue(const void* acc, const void* w_scale,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return out_fp32 ? epilogue_t<float>(acc, w_scale, x_scale, out, rows, N, Np, s)
                   : epilogue_t<bf16>(acc, w_scale, x_scale, out, rows, N, Np, s);
-}
-
-// x (M, K) contiguous bf16; w (N, K) int8; scale (N,) fp32; bias (N,) bf16
-// or NULL; out (M, N) bf16. scale NULL (bias NULL too): the raw product
-// bf16(x @ Wq^T), whose tail `w8_tail` applies after the sum over tp.
-extern "C" int w8_linear(const void* x, const void* w, const void* scale,
-                         const void* bias, void* out, long long M, int N, int K,
-                         void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int m = static_cast<int>(M);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const int8_t* wq = static_cast<const int8_t*>(w);
-  const float* sc = static_cast<const float*>(scale);
-  const bf16* bb = static_cast<const bf16*>(bias);
-  bf16* o = static_cast<bf16*>(out);
-  const bool aligned = aligned16(x) && aligned16(w);
-  if (m > 8 && K % 8 == 0 && aligned) {
-    const dim3 grid((N + GT - 1) / GT, (m + GT - 1) / GT);
-    w8_gemm_bf16_kernel<<<grid, 128, 0, s>>>(xb, wq, sc, bb, o, m, N, K);
-  } else {
-    const bool vec = K % 16 == 0 && aligned;
-    if (m <= 1) {
-      gemv_launch<1>(xb, wq, sc, bb, o, m, N, K, vec, s);
-    } else if (m <= 2) {
-      gemv_launch<2>(xb, wq, sc, bb, o, m, N, K, vec, s);
-    } else if (m <= 4) {
-      gemv_launch<4>(xb, wq, sc, bb, o, m, N, K, vec, s);
-    } else {
-      gemv_launch<8>(xb, wq, sc, bb, o, m, N, K, vec, s);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // y (M, N) contiguous bf16, the raw product summed over tp; scale (N,) fp32;

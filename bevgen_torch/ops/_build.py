@@ -29,7 +29,7 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("cosine_attention", "attention_bwd", "block_sparse",
            "block_sparse_bwd", "decode_attention", "fused_glue", "layernorm",
-           "int8")
+           "int8", "int8_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -27,44 +27,48 @@ constant 1/127 (XLA's algebraic simplifier turns the reference's division by
 the constant 127 into that product, and the two differ in the last bit for
 some rows), then it divides by the scale; both round half to even. On the
 same fp32 inputs they give the jitted reference's int8 values and outputs
-bit for bit. On CUDA tensors the hand-written kernels of `csrc/int8.cu`
-take their place:
+bit for bit. On CUDA tensors the hand-written kernels take their place:
 
-  * `quantize_static` / `quantize_dynamic`: the int8 activations, with the
-    columns padded with zeros to a multiple of 8 (and the row scales);
-  * the W8A8 product is `torch._int_mm` on the padded operands, which needs
-    K and N multiples of 8 and more than 16 rows (the reference leaves this
-    product to an XLA dot; the weight is padded with zero rows and columns
-    once, `QuantDense.operand`, which changes no sum);
-  * `int8_epilogue`: acc -> f32 * w_scale[col] (* x_scale[row]) -> the
-    compute dtype, dropping the N padding;
-  * `w8_linear`: the AR tree's weight-only product
+  * `int8_linear` (`csrc/int8_gemm.cu`): the whole W8A8 product in one
+    launch, the quantizer in its prologue, int8 `wgmma` with int32 sums in
+    registers, the epilogue acc -> f32 * w_scale[col] (* x_scale[row]) ->
+    the compute dtype in registers; its tiles and grid are
+    `int8_linear_plan`'s. It equals the three-launch chain below bit for
+    bit (the same fp32 operations; int32 sums are exact in any order);
+  * the chain, `int8_dense_chain` (`csrc/int8.cu`): `quantize_static` /
+    `quantize_dynamic` (the int8 activations, columns padded with zeros to
+    a multiple of 8, and the row scales), `torch._int_mm` on the padded
+    operands (K and N multiples of 8, more than 16 rows; the weight is
+    padded with zero rows and columns once, `QuantDense.operand`, which
+    changes no sum) and `int8_epilogue`;
+  * `w8_linear` (`csrc/int8_gemm.cu`): the AR tree's weight-only product
     dtype(dtype(x @ Wq^T) * dtype(scale)) + bias
     (`bevgen_tpu/models/stage2/ar_cached.py:41-49`), the int8 weights read
-    once and converted in registers.
+    once and widened to bf16 on their way to the tensor cores; its form
+    (decode, M <= 8, or prefill) and grid are `w8_plan`'s.
 
 Under tensor parallelism (`parallel/tensor.py`) a column-split product runs
-as it is on the rank's outputs. A row-split one (`to_out`, `proj_out`;
-the AR tree's `mlp_proj`) holds the rank's columns of the input and rows
-of the weight, and sums over tp inside the product (the `mesh` argument):
+as it is on the rank's outputs (`int8_linear`). A row-split one (`to_out`,
+`proj_out`; the AR tree's `mlp_proj`) holds the rank's columns of the input
+and rows of the weight, and sums over tp inside the product (the `mesh`
+argument):
 
-  * W8A8: the int32 accumulators are summed over tp (`sum_int_over_tp`,
-    exact) before the epilogue, once; on the static path the rank's part of
-    in_scale quantizes its columns; on the dynamic path the row scale comes
-    from the amax over every rank's columns, as GSPMD reduces the
-    reference's `quantize_activations` over the split axis: `row_amax`, a
-    max over tp (`max_over_tp`), then `quantize_scaled`. The output equals
-    one process's bit for bit;
+  * W8A8: the chain, with the int32 accumulators summed over tp
+    (`sum_int_over_tp`, exact) before the epilogue, once; on the static path
+    the rank's part of in_scale quantizes its columns; on the dynamic path
+    the row scale comes from the amax over every rank's columns, as GSPMD
+    reduces the reference's `quantize_activations` over the split axis:
+    `row_amax`, a max over tp (`max_over_tp`), then `quantize_scaled`. The
+    output equals one process's bit for bit;
   * the AR form: the raw product dtype(x @ Wq^T) of each rank (`w8_linear`
     with no scale), its sum over tp in the compute dtype, then the tail
     `w8_tail` (times dtype(scale), plus the bias, once), in the reference's
     order.
 
-On the TPU, XLA fuses each of these into the dot; eager PyTorch cannot, and
-the kernels keep an int8 product to 3 launches (2 for the AR form's 1).
-What bounds them on an H100 and their design are in `csrc/int8.cu`. Each
-wrapper counts its launches; CPU tensors take the plain versions, CUDA
-tensors launch the kernels or raise.
+On the TPU, XLA fuses each of these into the dot; eager PyTorch cannot.
+What bounds the kernels on an H100 and their design are in `csrc/int8.cu`
+and `csrc/int8_gemm.cu`. Each wrapper counts its launches; CPU tensors take
+the plain versions, CUDA tensors launch the kernels or raise.
 
 `QuantDense` is the reference's module (kernel_q stored (out, in) like a
 Linear weight, scale, and in_scale on the static path); `Int8WeightDense`
@@ -75,6 +79,7 @@ parameters take no gradient. Both take a `tp_ready` hook
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from collections import Counter
 from typing import Callable, Mapping, Optional, Sequence
@@ -87,12 +92,14 @@ from bevgen_torch.ops import _build
 from bevgen_torch.parallel import tensor as tpar
 
 SOURCE = "bevgen_torch/csrc/int8.cu"
+GEMM_SOURCE = "bevgen_torch/csrc/int8_gemm.cu"
 # the JAX functions the kernels stand in for (XLA fuses them into the dot on
 # the TPU; none is a Pallas kernel)
 QUANTIZE_STATIC_REPLACES = "bevgen_tpu/ops/quant.py:66"
 QUANTIZE_DYNAMIC_REPLACES = "bevgen_tpu/ops/quant.py:57"
 EPILOGUE_REPLACES = "bevgen_tpu/ops/quant.py:100"
 W8_LINEAR_REPLACES = "bevgen_tpu/models/stage2/ar_cached.py:41"
+INT8_LINEAR_REPLACES = "bevgen_tpu/ops/quant.py:132"
 
 # dense-layer module names eligible for int8 (the hot products; the small
 # geometry embeds, embeddings and norms stay in the compute dtype)
@@ -103,14 +110,17 @@ CLIP_SIGMA = 8.0
 # the AR sparse GPT's dense layers (its attention has no output projection)
 GPT_QUANT_LAYER_NAMES = ("query", "key", "value", "mlp_fc", "mlp_proj",
                          "head")
-# `torch._int_mm` takes more than 16 rows, and K and N multiples of 8
+# `torch._int_mm` takes more than 16 rows, and K and N multiples of 8;
+# `int8_linear` reads the weight's rows in 16-byte pieces, so the operand's
+# K is padded to a multiple of 16
 INT_MM_MIN_ROWS = 17
 PAD = 8
+K_PAD = 16
 
 
-def padded(n: int) -> int:
-    """n rounded up to a multiple of 8."""
-    return -(-n // PAD) * PAD
+def padded(n: int, multiple: int = PAD) -> int:
+    """n rounded up to a multiple of `multiple` (8 by default)."""
+    return -(-n // multiple) * multiple
 
 
 # ---- host side: the reference's tree conversions, in numpy -----------------
@@ -344,6 +354,116 @@ def w8_linear_reference(x: torch.Tensor, w_q: torch.Tensor,
     return w8_tail_reference(y, scale, bias)
 
 
+# ---- the kernels' plans (pure Python: the CPU tests check them) ---------------
+
+SMS = 132                   # the H100 SXM's streaming multiprocessors
+SMEM_MAX = 232448           # shared memory one block can take, bytes
+# w8_linear's decode form: 16 weight rows a block, K split over a cluster of
+# up to 8 blocks while the columns give fewer than W8_FILL blocks
+W8_DECODE_MAX_M = 8
+W8_DECODE_ROWS = 16
+W8_FILL = 128
+W8_SPLITS = (1, 2, 4, 8)
+W8_MIN_SPLIT_K = 128
+# its prefill form: 64 rows of x a warpgroup, 64 columns, K steps of 64, a
+# ring of 6 stages
+W8_PREFILL_BN = 64
+W8_PREFILL_BK = 64
+W8_PREFILL_STAGES = 6
+# int8_linear: 128 x 128 output tiles, K steps of 128, a ring of 5 Wq
+# stages; the A panel resident up to 8 k-tiles, else 3 streamed slots
+I8_TILE = 128
+I8_B_STAGES = 5
+I8_A_SLOTS = 3
+I8_RESIDENT_K_TILES = 8
+# the blocks that share 128 rows and quantize their resident panel together
+# (one thread block cluster, the portable maximum)
+I8_MAX_CLUSTER = 8
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _w8_row_strides(kc: int):
+    """The decode form's staged row strides in bytes for a K range of kc
+    (csrc/int8_gemm.cu:dec::w_ld, x_ld): the panel's a multiple of 16 with
+    an odd quotient, x's a multiple of 32 with an odd quotient."""
+    wld = kc + (16 if (kc // 16) % 2 == 0 else 32)
+    xld = 2 * kc + (32 if (2 * kc // 32) % 2 == 0 else 64)
+    return wld, xld
+
+
+@functools.lru_cache(maxsize=None)
+def w8_plan(M: int, N: int, K: int) -> dict:
+    """How `w8_linear` runs an (M, K) x (N, K)^T product: the decode form
+    for M <= 8 (16 weight rows a block, K split over a cluster of
+    `splits` blocks, the fewest that give W8_FILL blocks), else the prefill
+    form (64 columns a block, `warpgroups` x 64 rows of x, two warpgroups
+    where one wave of single ones would fill the card). K must be a
+    multiple of 16."""
+    if min(M, N, K) <= 0 or K % 16:
+        raise ValueError(f"w8_linear takes M, N, K > 0 and K % 16 == 0, got "
+                         f"{(M, N, K)}")
+    if M <= W8_DECODE_MAX_M:
+        cols = _cdiv(N, W8_DECODE_ROWS)
+        splits = 1
+        for s in W8_SPLITS[1:]:
+            if (cols * splits >= W8_FILL or K % (16 * s)
+                    or K // s < W8_MIN_SPLIT_K):
+                break
+            splits = s
+        kc = K // splits
+        wld, xld = _w8_row_strides(kc)
+        return {"form": "decode", "param": splits, "splits": splits,
+                "rows_per_block": W8_DECODE_ROWS, "k_per_block": kc,
+                "grid": (cols * splits,), "blocks": cols * splits,
+                "smem": W8_DECODE_ROWS * wld + M * xld}
+    wgs = 2 if _cdiv(M, 128) * _cdiv(N, W8_PREFILL_BN) >= SMS else 1
+    grid = (_cdiv(N, W8_PREFILL_BN), _cdiv(M, 64 * wgs))
+    stage = wgs * 64 * 128 + W8_PREFILL_BN * W8_PREFILL_BK
+    return {"form": "prefill", "param": wgs, "warpgroups": wgs,
+            "bm": 64 * wgs, "bn": W8_PREFILL_BN, "bk": W8_PREFILL_BK,
+            "k_steps": _cdiv(K, W8_PREFILL_BK), "grid": grid,
+            "blocks": grid[0] * grid[1],
+            "smem": 1024 + W8_PREFILL_STAGES * stage + 2 * 64 * 128}
+
+
+@functools.lru_cache(maxsize=None)
+def int8_linear_plan(rows: int, N: int, K: int) -> dict:
+    """How `int8_linear` runs a (rows, K) x (N, K)^T W8A8 product: 128 x
+    128 output tiles; each block takes 128 rows and `tiles_per_block`
+    consecutive column tiles, `groups` blocks per 128 rows, as many as
+    fill the card's SMS with one block each. The quantized A panel stays in
+    shared memory (`resident`) where its k-tiles fit, quantized once by the
+    `cluster` of the groups' blocks (at most 8) and shared between them;
+    else it streams, each block quantizing it again for each tile."""
+    if min(rows, N, K) <= 0:
+        raise ValueError(f"int8_linear takes rows, N, K > 0, got {(rows, N, K)}")
+    k_tiles = _cdiv(K, I8_TILE)
+    resident = k_tiles <= I8_RESIDENT_K_TILES
+    m_blocks, n_tiles = _cdiv(rows, I8_TILE), _cdiv(N, I8_TILE)
+    if m_blocks > 65535:
+        raise ValueError(f"int8_linear takes at most {65535 * I8_TILE} rows")
+    groups = max(1, min(n_tiles, SMS // m_blocks,
+                        I8_MAX_CLUSTER if resident else n_tiles))
+    per_block = _cdiv(n_tiles, groups)
+    groups = _cdiv(n_tiles, per_block)
+    smem = (1024 + (k_tiles if resident else I8_A_SLOTS) * I8_TILE * I8_TILE
+            + I8_B_STAGES * I8_TILE * I8_TILE
+            + 4 * max(k_tiles * I8_TILE, 2 * I8_TILE))
+    if smem > SMEM_MAX:
+        raise ValueError(f"int8_linear at K = {K} needs {smem} bytes of "
+                         f"shared memory, above {SMEM_MAX}")
+    return {"form": "resident" if resident else "streamed",
+            "resident": resident, "cluster": groups if resident else 1,
+            "bm": I8_TILE, "bn": I8_TILE, "bk": I8_TILE,
+            "k_tiles": k_tiles, "m_blocks": m_blocks, "n_tiles": n_tiles,
+            "groups": groups, "tiles_per_block": per_block,
+            "grid": (groups, m_blocks), "blocks": groups * m_blocks,
+            "smem": smem}
+
+
 # ---- device side: the kernels -----------------------------------------------
 
 _I64 = ctypes.c_longlong
@@ -351,8 +471,8 @@ _INT = ctypes.c_int
 _PTR = ctypes.c_void_p
 
 
-def _launch(symbol: str, argtypes, dev, *args) -> None:
-    fn = _build.function("int8", symbol, list(argtypes) + [_PTR])
+def _launch(symbol: str, argtypes, dev, *args, lib: str = "int8") -> None:
+    fn = _build.function(lib, symbol, list(argtypes) + [_PTR])
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -487,20 +607,27 @@ def int8_epilogue_cuda(acc: torch.Tensor, w_scale: torch.Tensor,
     return out
 
 
+def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous at a 16-byte aligned address (a copy where needed)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def w8_linear_cuda(x: torch.Tensor, w_q: torch.Tensor,
                    scale: Optional[torch.Tensor],
                    bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """Launch `w8_linear`: x (M, K) contiguous bf16, w_q (N, K) contiguous
-    int8, scale (N,) fp32, bias (N,) bf16 or None -> (M, N) bf16,
-    `w8_linear_reference`'s function. scale None (and bias None): the raw
-    product bf16(x @ w_q^T), a row-split rank's part before the sum over tp
-    (counted in `raw_launches` as well)."""
+    """Launch `w8_linear` (`csrc/int8_gemm.cu`) in `w8_plan`'s form: x (M,
+    K) contiguous bf16, w_q (N, K) contiguous int8, both 16-byte aligned, K
+    a multiple of 16, scale (N,) fp32, bias (N,) bf16 or None -> (M, N)
+    bf16, `w8_linear_reference`'s function. scale None (and bias None): the
+    raw product bf16(x @ w_q^T), a row-split rank's part before the sum
+    over tp (counted in `raw_launches` as well)."""
     _check_cuda(x, "w8_linear_cuda")
     M, K = x.shape
     N = w_q.shape[0]
     dev = x.device
-    _build.check("x", x, torch.bfloat16, (M, K), dev, align=2)
-    _build.check("w_q", w_q, torch.int8, (N, K), dev, align=1)
+    _build.check("x", x, torch.bfloat16, (M, K), dev)
+    _build.check("w_q", w_q, torch.int8, (N, K), dev)
     if scale is not None:
         _build.check("scale", scale, torch.float32, (N,), dev, align=4)
     elif bias is not None:
@@ -509,14 +636,61 @@ def w8_linear_cuda(x: torch.Tensor, w_q: torch.Tensor,
         _build.check("bias", bias, torch.bfloat16, (N,), dev, align=2)
     out = torch.empty(M, N, dtype=x.dtype, device=dev)
     if M:
-        _launch("w8_linear", [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT],
+        plan = w8_plan(M, N, K)
+        _launch("w8_linear",
+                [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT, _INT, _INT],
                 dev, x.data_ptr(), w_q.data_ptr(),
                 None if scale is None else scale.data_ptr(),
                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                M, N, K)
+                M, N, K, 0 if plan["form"] == "decode" else 1, plan["param"],
+                lib="int8_gemm")
+        w8_linear_cuda.launches_by_form[plan["form"]] += 1
     w8_linear_cuda.launches += 1
     w8_linear_cuda.launches_by_shape[(M, N, K)] += 1
     w8_linear_cuda.raw_launches += scale is None
+    return out
+
+
+def int8_linear_cuda(x: torch.Tensor, w_q: torch.Tensor,
+                     scale: torch.Tensor, in_scale: Optional[torch.Tensor],
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch `int8_linear` (`csrc/int8_gemm.cu`) with `int8_linear_plan`'s
+    tiles: x (rows, K) contiguous bf16; w_q the (>= N, ldw) contiguous int8
+    operand, 16-byte aligned, ldw a multiple of 16 >= K (`QuantDense.
+    operand`; columns past K are not read); scale (N,) fp32; in_scale (K,)
+    fp32 (static) or None (dynamic) -> (rows, N) in out_dtype (bf16 or
+    fp32): `int8_dense_reference`'s function in one launch, equal to the
+    chain's output bit for bit."""
+    _check_cuda(x, "int8_linear_cuda")
+    rows, K = x.shape
+    N = scale.numel()
+    dev = x.device
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype {out_dtype}: bfloat16 or float32")
+    _build.check("x", x, torch.bfloat16, (rows, K), dev, align=2)
+    ldw = w_q.shape[1]
+    if (w_q.dtype != torch.int8 or w_q.dim() != 2 or w_q.shape[0] < N
+            or ldw < K or ldw % K_PAD):
+        raise ValueError(f"w_q must be int8 (>= {N}, a multiple of 16 >= "
+                         f"{K}), got {w_q.dtype} {tuple(w_q.shape)}")
+    _build.check("w_q", w_q, torch.int8, tuple(w_q.shape), dev)
+    _build.check("scale", scale, torch.float32, (N,), dev, align=4)
+    if in_scale is not None:
+        _build.check("in_scale", in_scale, torch.float32, (K,), dev, align=4)
+    out = torch.empty(rows, N, dtype=out_dtype, device=dev)
+    if rows:
+        plan = int8_linear_plan(rows, N, K)
+        _launch("int8_linear",
+                [_PTR, _PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT, _INT, _INT,
+                 _INT, _INT, _INT, _INT], dev,
+                x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                None if in_scale is None else in_scale.data_ptr(),
+                out.data_ptr(), rows, N, K, ldw,
+                int(out_dtype == torch.float32), plan["groups"],
+                plan["tiles_per_block"], int(plan["resident"]),
+                plan["cluster"], lib="int8_gemm")
+    int8_linear_cuda.launches += 1
+    int8_linear_cuda.launches_by_shape[(rows, N, K, in_scale is None)] += 1
     return out
 
 
@@ -544,17 +718,21 @@ def w8_tail_cuda(y: torch.Tensor, scale: torch.Tensor,
 
 
 KERNELS = (quantize_static_cuda, quantize_dynamic_cuda, int8_epilogue_cuda,
-           w8_linear_cuda, row_amax_cuda, quantize_scaled_cuda, w8_tail_cuda)
+           w8_linear_cuda, row_amax_cuda, quantize_scaled_cuda, w8_tail_cuda,
+           int8_linear_cuda)
 
 
 def reset_launch_counts() -> None:
     """Zero each wrapper's `launches` and its `launches_by_shape`: (rows, K)
     for the quantizers and row_amax, (rows, N, dynamic) for the epilogue,
-    (M, N, K) for w8_linear (and its `raw_launches`), (M, N) for w8_tail."""
+    (M, N, K) for w8_linear (and its `raw_launches` and `launches_by_form`,
+    decode or prefill), (M, N) for w8_tail, (rows, N, K, dynamic) for
+    int8_linear."""
     for k in KERNELS:
         k.launches = 0
         k.launches_by_shape = Counter()
     w8_linear_cuda.raw_launches = 0
+    w8_linear_cuda.launches_by_form = Counter()
 
 
 reset_launch_counts()
@@ -569,16 +747,34 @@ def launch_counts() -> dict:
 def int8_dense(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
                in_scale: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
     """`QuantDense`'s product in x's dtype. CPU tensors take the plain
-    version; CUDA tensors launch quantize_static (in_scale given) or
-    quantize_dynamic, `torch._int_mm` and int8_epilogue, with w_q the padded
-    (Np, Kp) operand (`QuantDense.operand`). With a tensor-parallel `mesh`
-    (a row-split product, `int8_dense_reference`'s), the dynamic path
-    launches row_amax and quantize_scaled around a max over tp, and the
-    int32 accumulators are summed over tp before the epilogue."""
+    version; CUDA tensors launch `int8_linear` with w_q the padded (Np, Kp)
+    operand (`QuantDense.operand`), or, with a tensor-parallel `mesh` (a
+    row-split product, `int8_dense_reference`'s), the chain with its sums
+    over tp (`int8_dense_chain`)."""
     if x.device.type == "cpu":
         return int8_dense_reference(x, w_q, scale, in_scale, mesh)
     if x.device.type != "cuda":
         raise ValueError(f"no int8 product for device {x.device}")
+    if tpar.active(mesh):
+        return int8_dense_chain(x, w_q, scale, in_scale, mesh)
+    lead, K = x.shape[:-1], x.shape[-1]
+    out = int8_linear_cuda(x.reshape(-1, K).contiguous(), w_q, scale,
+                           in_scale, x.dtype)
+    return out.reshape(*lead, scale.numel())
+
+
+def int8_dense_chain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                     in_scale: Optional[torch.Tensor],
+                     mesh=None) -> torch.Tensor:
+    """`QuantDense`'s product on CUDA tensors in three launches and a
+    library call: quantize_static (in_scale given) or quantize_dynamic,
+    `torch._int_mm` and int8_epilogue, with w_q the padded (Np, Kp)
+    operand. With a tensor-parallel `mesh` (a row-split product) the
+    dynamic path launches row_amax and quantize_scaled around a max over
+    tp, and the int32 accumulators are summed over tp before the epilogue.
+    The route of the row-split products, and the card's comparison route
+    for `int8_linear`."""
+    _check_cuda(x, "int8_dense_chain")
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K).contiguous()
     rows, k_pad = x2.shape[0], w_q.shape[1]
@@ -608,7 +804,7 @@ def w8_linear(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no int8 product for device {x.device}")
     lead, K = x.shape[:-1], x.shape[-1]
-    x2, w_q = x.reshape(-1, K).contiguous(), w_q.contiguous()
+    x2, w_q = _aligned_rows(x.reshape(-1, K)), _aligned_rows(w_q)
     b = None if bias is None else bias.to(x.dtype).contiguous()
     if tpar.active(mesh):
         y = tpar.reduce_from_tp(w8_linear_cuda(x2, w_q, None, None), mesh)
@@ -661,13 +857,14 @@ class QuantDense(nn.Module):
 
     def operand(self) -> torch.Tensor:
         """kernel_q itself on the CPU; on the card the (Np, Kp) operand of
-        `torch._int_mm`, K and N padded with zeros to multiples of 8. Where
-        it is padded, kernel_q becomes a view into it (so a load into
-        kernel_q writes the operand too, and no second copy is kept); it is
-        made again once kernel_q has moved or been replaced."""
+        `int8_linear` and `torch._int_mm`, N padded with zeros to a multiple
+        of 8 and K to a multiple of 16. Where it is padded, kernel_q becomes
+        a view into it (so a load into kernel_q writes the operand too, and
+        no second copy is kept); it is made again once kernel_q has moved or
+        been replaced."""
         w = self.kernel_q
         N, K = w.shape
-        if w.device.type == "cpu" or (N % PAD == 0 and K % PAD == 0):
+        if w.device.type == "cpu" or (N % PAD == 0 and K % K_PAD == 0):
             return w
         op = self._operand
         if (op is None or op.device != w.device or
@@ -675,8 +872,8 @@ class QuantDense(nn.Module):
             # a normal tensor even under inference_mode, so that a later
             # load into kernel_q may write it
             with torch.inference_mode(False), torch.no_grad():
-                op = torch.zeros(padded(N), padded(K), dtype=torch.int8,
-                                 device=w.device)
+                op = torch.zeros(padded(N), padded(K, K_PAD),
+                                 dtype=torch.int8, device=w.device)
                 op[:N, :K] = w.data
                 w.data = op[:N, :K]
             self._operand = op

@@ -10,7 +10,7 @@
 Builds the pipeline (`pipeline=muse`, default, or `pipeline=ar`, whose
 default preset is nuscenes_ar and which decodes KV-cached with top_k=100)
 with seeded random weights (`quant=int8`: then its `quantized()` int8 form,
-whose int8 kernels are a category of their own), runs one warm-up generate,
+whose int8 kernels are categories of their own), runs one warm-up generate,
 then traces one more
 with `torch.profiler` (CPU and CUDA activities for MUSE; CUDA alone for AR,
 whose generate launches some 800,000 kernels).
@@ -46,10 +46,14 @@ def category(name: str) -> str:
         return "attention backward kernels"
     if "glue_" in n:
         return "glue kernels (residual/GEGLU + LayerNorm)"
+    if "int8_linear_kernel" in n:
+        return "int8_linear (the fused W8A8 product)"
+    if "w8_decode_kernel" in n or "w8_prefill_kernel" in n:
+        return "w8_linear (the int8-weight product)"
     if any(t in n for t in ("quantize_static_kernel", "quantize_dynamic_kernel",
-                            "int8_epilogue_kernel", "w8_gemv_kernel",
-                            "w8_gemm_bf16_kernel")):
-        return "int8 kernels (quantize, epilogue, w8_linear)"
+                            "int8_epilogue_kernel", "row_amax_kernel",
+                            "quantize_scaled_kernel", "w8_tail_kernel")):
+        return "int8 pointwise kernels (quantize, epilogue, the tp pieces)"
     if any(t in n for t in ("gemm", "cutlass", "xmma", "cublas", "gemv", "nvjet")):
         if any(t in n for t in ("s8", "i8", "imma", "int8")):
             return "matmul int8 (torch._int_mm)"

@@ -464,6 +464,7 @@ TOP1_AGREE_MIN = 0.90
 
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3 rate
+PEAK_INT8_OPS = 1979e12     # H100 SXM dense int8 tensor-core rate
 # host bytes of seeded weights kept for rebuilds (`models/init.py:
 # reuse_draws`), in this process and in each of phase 50's rank processes
 INIT_REUSE_BYTES = 20e9
@@ -696,8 +697,8 @@ def attention_cols(B, M, keep):
     return [1 if (keep is not None and not keep[b]) else M for b in range(B)]
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -3350,7 +3351,7 @@ INT8_GAP_RMS = 4.0
 INT8_DECIDED_TOP1_MIN = 0.99
 INT8_TIMED = 2          # MUSE generates per mode, in turns, after a warm-up
 INT8_MUSE_LAYERS = 4    # phase 36's depth, full width
-AR_INT8_TIMED = 1       # AR int8 generates (the first counts the launches)
+AR_INT8_PAIRS = 3       # AR int8 and bf16 generates in alternating pairs
 AR_INT8_LAYERS = 2      # their depth, full width
 AR_INT8_GREEDY_LAYERS = 1
 # inputs cycled through while a kernel is timed, so that they exceed the
@@ -3448,9 +3449,10 @@ def check_epilogue(name, rows, N, dynamic, seed):
 
 
 def check_w8(name, M, N, K, seed):
-    """w8_linear against its plain version in fp32 (W8_TOL), timed over
-    weight sets beyond the L2; library_ms: F.linear with the bf16 weights
-    cast once."""
+    """w8_linear against its plain version in fp32 (W8_TOL), in its full
+    and its raw mode (no scale, no bias: bf16(x @ Wq^T)), timed over weight
+    sets beyond the L2; library_ms: F.linear with the bf16 weights cast
+    once."""
     import itertools
     import torch
     import torch.nn.functional as F
@@ -3468,7 +3470,12 @@ def check_w8(name, M, N, K, seed):
     err = (got.float() - want).abs()
     max_err, max_ref = err.max().item(), want.abs().max().item()
     ok = bool(torch.isfinite(got).all()) and max_err <= W8_TOL * max_ref
-    del err, want
+    raw = tq.w8_linear_cuda(x, w, None, None)
+    want_raw = x.float() @ w.float().T
+    raw_err = (raw.float() - want_raw).abs().max().item()
+    raw_ref = want_raw.abs().max().item()
+    ok &= bool(torch.isfinite(raw).all()) and raw_err <= W8_TOL * raw_ref
+    del err, want, raw, want_raw
     bf16_sets = [(wq.bfloat16(), s.bfloat16(), b) for wq, s, b in sets]
     cycle, bcycle = itertools.cycle(sets), itertools.cycle(bf16_sets)
     ms = time_ms(lambda: tq.w8_linear_cuda(x, *next(cycle)), iters=50)
@@ -3480,35 +3487,139 @@ def check_w8(name, M, N, K, seed):
     lib_ms = time_ms(library, iters=50)
     nbytes = M * K * 2 + N * K + N * 4 + N * 2 + M * N * 2
     bms, bound_by = bound(2.0 * M * N * K, nbytes)
-    print(f"[int8] w8_linear {name}: M={M} N={N} K={K} max_abs_err="
-          f"{max_err:.3e} (max |out| {max_ref:.3f}, bound {W8_TOL:.4f} of it) "
-          f"ms={ms:.5f} plain_ms={plain_ms:.5f} (eager: cast, matmul, scale, "
-          f"bias) library_ms={lib_ms:.5f} (F.linear, bf16 weights) bound_ms="
-          f"{bms:.5f} ({bound_by}: {nbytes / 1e6:.2f} MB, "
-          f"{2.0 * M * N * K / 1e9:.3f} GFLOP) timed over {len(sets)} weight "
-          f"set(s) -> {'ok' if ok else 'FAIL'}", flush=True)
+    plan = tq.w8_plan(M, N, K)
+    form = (f"decode, {plan['splits']} split(s), {plan['blocks']} blocks"
+            if plan["form"] == "decode" else
+            f"prefill, {plan['warpgroups']} warpgroup(s), {plan['blocks']} "
+            f"blocks")
+    print(f"[int8] w8_linear {name}: M={M} N={N} K={K} ({form}) max_abs_err="
+          f"{max_err:.3e} (max |out| {max_ref:.3f}, bound {W8_TOL:.4f} of it), "
+          f"raw mode {raw_err:.3e} (max {raw_ref:.1f}) ms={ms:.5f} plain_ms="
+          f"{plain_ms:.5f} (eager: cast, matmul, scale, bias) library_ms="
+          f"{lib_ms:.5f} (F.linear, bf16 weights) bound_ms={bms:.5f} "
+          f"({bound_by}: {nbytes / 1e6:.2f} MB, {2.0 * M * N * K / 1e9:.3f} "
+          f"GFLOP) timed over {len(sets)} weight set(s) -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise SystemExit(f"w8_linear {name} disagrees with its plain version")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
+def check_int8_linear(name, rows, N, K, dynamic, seed):
+    """int8_linear against the three-launch chain (quantize, torch._int_mm,
+    int8_epilogue) and the plain version, bit for bit, in bf16 and fp32
+    outputs; timed over (x, weight) sets beyond the L2 beside the chain,
+    the plain version and two library calls: F.linear on the bf16 weights
+    and torch._int_mm alone on the quantized operands."""
+    import itertools
+    import torch
+    import torch.nn.functional as F
+    from bevgen_torch.ops import quant as tq
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Np, Kp = tq.padded(N), tq.padded(K, tq.K_PAD)
+    gamma = 1.0 + 0.1 * torch.randn(K, generator=g, device="cuda")
+    in_scale = None if dynamic else (gamma.abs() * (tq.CLIP_SIGMA / 127.0))
+
+    def make(i):
+        w = torch.zeros(Np, Kp, dtype=torch.int8, device="cuda")
+        w[:N, :K] = torch.randint(-127, 128, (N, K), generator=g,
+                                  device="cuda", dtype=torch.int8)
+        x = (torch.randn(rows, K, generator=g, device="cuda") * gamma).bfloat16()
+        return x, w
+    sets = _cold_sets(rows * K * 2 + Np * Kp, make)
+    scale = torch.rand(N, generator=g, device="cuda") * 1e-3 + 1e-4
+    x, w = sets[0]
+    exact = True
+    for dt in (torch.bfloat16, torch.float32):
+        got = tq.int8_linear_cuda(x, w, scale, in_scale, dt)
+        if dynamic:
+            xq, xs = tq.quantize_dynamic_cuda(x, Kp)
+        else:
+            xq, xs = tq.quantize_static_cuda(x, in_scale, Kp), None
+        chain = tq.int8_epilogue_cuda(torch._int_mm(xq, w.t()), scale, xs,
+                                      rows, dt)
+        plain = tq.int8_dense_reference(x.to(dt), w, scale, in_scale)
+        exact &= torch.equal(got, chain) and torch.equal(got, plain)
+    exact &= torch.equal(tq.int8_dense_chain(x, w, scale, in_scale),
+                         tq.int8_linear_cuda(x, w, scale, in_scale, x.dtype))
+    torch.cuda.synchronize()
+    cycle = itertools.cycle(sets)
+    ms = time_ms(lambda: tq.int8_linear_cuda(*next(cycle), scale, in_scale,
+                                             torch.bfloat16), iters=50)
+    chain_ms = time_ms(lambda: tq.int8_dense_chain(*next(cycle), scale,
+                                                   in_scale), iters=50)
+    plain_ms = time_ms(lambda: tq.int8_dense_reference(*next(cycle), scale,
+                                                       in_scale), iters=10)
+    bf = itertools.cycle([(xx, ww[:N, :K].bfloat16()) for xx, ww in sets])
+    lib_ms = time_ms(lambda: F.linear(*next(bf)), iters=50)
+    qsets = itertools.cycle([(tq.quantize_static_cuda(xx, in_scale, Kp) if
+                              in_scale is not None else
+                              tq.quantize_dynamic_cuda(xx, Kp)[0], ww)
+                             for xx, ww in sets])
+
+    def int_mm():
+        q, ww = next(qsets)
+        return torch._int_mm(q, ww.t())
+    mm_ms = time_ms(int_mm, iters=50)
+    nbytes = (rows * K * 2 + N * K + N * 4 + (0 if dynamic else K * 4)
+              + rows * N * 2)
+    bms, bound_by = bound(2.0 * rows * N * K, nbytes, PEAK_INT8_OPS)
+    plan = tq.int8_linear_plan(rows, N, K)
+    print(f"[int8] int8_linear {name}: rows={rows} N={N} K={K} "
+          f"{'dynamic' if dynamic else 'static'} ({plan['form']} A panel, "
+          f"{plan['groups']} x {plan['m_blocks']} blocks of "
+          f"{plan['tiles_per_block']} tile(s), {plan['smem']} B shared) bf16 "
+          f"and fp32 bit-exact against the chain and the plain version="
+          f"{exact} ms={ms:.5f} chain_ms={chain_ms:.5f} (quantize, "
+          f"torch._int_mm, int8_epilogue) plain_ms={plain_ms:.5f} "
+          f"library_ms={lib_ms:.5f} (F.linear, bf16 weights) "
+          f"int_mm_ms={mm_ms:.5f} (torch._int_mm alone) bound_ms={bms:.5f} "
+          f"({bound_by}: {nbytes / 1e6:.2f} MB, "
+          f"{2.0 * rows * N * K / 1e9:.2f} GOP int8) timed over {len(sets)} "
+          f"input set(s) -> {'ok' if exact else 'FAIL'}", flush=True)
+    if not exact:
+        raise SystemExit(f"int8_linear {name} disagrees with the chain")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms,
+            "chain_ms": chain_ms, "int_mm_ms": mm_ms}
+
+
 def int8_shapes(cfg, ar_cfg):
     """The int8 kernels' shapes on the int8 paths: the MUSE b=2 generate's
-    (rows = 2 x cameras x 256 image tokens, 2 x 256 BEV tokens for the
-    cross-attention K/V) and the AR b=2 generate's (decode M = 2, prefill M
-    = 2 x 256)."""
+    products (rows = 2 x cameras x 256 image tokens, 2 x 256 BEV tokens for
+    the cross-attention K/V) as int8_linear runs them (rows, N, K, dynamic)
+    and as the chain's kernels would, the AR b=2 generate's (decode M = 2,
+    prefill M = 2 x 256), and a tp=2 rank's (phase 53's argoverse_muse, b =
+    TP_GEN_BATCH): its column-split products (int8_linear at half the N)
+    and its row-split ones' quantize_static and epilogue (the chain)."""
     tf, at = cfg.transformer, ar_cfg.transformer
     rows, ctx = 2 * tf.num_img_tokens, 2 * tf.num_cond_tokens
     d, inner = tf.num_embed, int(tf.num_embed * tf.ff_mult * 2 / 3)
     h = tf.num_heads * tf.dim_head
     ad, ahid, pre = at.num_embed, at.hidden_size, 2 * at.num_cond_tokens
+    tt = tp53_cfg().transformer
+    trows, tctx = TP_GEN_BATCH * tt.num_img_tokens, TP_GEN_BATCH * tt.num_cond_tokens
+    td, th = tt.num_embed, tt.num_heads * tt.dim_head
+    tinner = int(td * tt.ff_mult * 2 / 3)
+    linear = [(rows, d, d, False), (rows, 2 * h, d, False),
+              (rows, 2 * inner, d, False), (rows, d, inner, False),
+              (rows, d, h, True), (ctx, 2 * h, d, True)]
+    if tf.vocab_size != d:
+        linear.append((rows, tf.vocab_size, d, False))
     return {
         "static": [(rows, d), (rows, inner)],
         "dynamic": [(rows, h), (ctx, d)],
         "epilogue": [(rows, d, False), (rows, 2 * h, False),
                      (rows, 2 * inner, False), (rows, d, True),
                      (ctx, 2 * h, True)],
+        "linear": linear,
+        "linear_ragged": [(13, 1365, 1003, False), (13, 1365, 1003, True)],
+        "linear_tp": [(trows, td // TP_WAYS, td, False),
+                      (trows, th, td, False), (trows, tinner, td, False),
+                      (tctx, th, td, True)],
+        "static_tp": [(trows, tinner // TP_WAYS)],
+        "epilogue_tp": [(trows, td, False), (trows, td, True)],
         "w8": [(2, 3 * ahid, ad), (2, 4 * ad, ad), (2, ad, 4 * ad),
                (2, at.vocab_size, ad), (pre, ahid, ad), (pre, 4 * ad, ad),
                (pre, ad, 4 * ad)],
@@ -3516,20 +3627,31 @@ def int8_shapes(cfg, ar_cfg):
 
 
 def int8_kernels_phase(cfg, ar_cfg):
-    """Phase 35: the four int8 kernels against their plain versions at the
-    int8 paths' full-width shapes, and torch._int_mm on the padded operands
-    against the exact int32 product."""
+    """Phase 35: the int8 kernels against their plain versions at the
+    int8 paths' full-width shapes: int8_linear against the chain and the
+    plain version (MUSE b=2, a ragged case, a tp=2 rank's column-split
+    products), the chain's own kernels (tp=1 shapes, the comparison route;
+    a tp=2 rank's row-split shapes, its path), w8_linear in both forms, and
+    torch._int_mm on the padded operands against the exact int32 product."""
     import torch
     from bevgen_torch.ops import quant as tq
     shapes = int8_shapes(cfg, ar_cfg)
     stats = {}
-    for i, (rows, K) in enumerate(shapes["static"]):
+    for i, (rows, N, K, dyn) in enumerate(shapes["linear"]):
+        stats[("linear", rows, N, K, dyn)] = check_int8_linear(
+            f"{rows}x{K}->{N}", rows, N, K, dyn, 70 + i)
+    for i, (rows, N, K, dyn) in enumerate(shapes["linear_ragged"]):
+        check_int8_linear(f"ragged {rows}x{K}->{N}", rows, N, K, dyn, 80 + i)
+    for i, (rows, N, K, dyn) in enumerate(shapes["linear_tp"]):
+        stats[("linear", rows, N, K, dyn)] = check_int8_linear(
+            f"tp=2 rank {rows}x{K}->{N}", rows, N, K, dyn, 85 + i)
+    for i, (rows, K) in enumerate(shapes["static"] + shapes["static_tp"]):
         stats[("static", rows, K)] = check_quantize(f"{rows}x{K}", rows, K,
                                                     True, 40 + i)
     for i, (rows, K) in enumerate(shapes["dynamic"]):
         stats[("dynamic", rows, K)] = check_quantize(f"{rows}x{K}", rows, K,
                                                      False, 42 + i)
-    for i, (rows, N, dyn) in enumerate(shapes["epilogue"]):
+    for i, (rows, N, dyn) in enumerate(shapes["epilogue"] + shapes["epilogue_tp"]):
         stats[("epilogue", rows, N, dyn)] = check_epilogue(
             f"{rows}x{N}", rows, N, dyn, 44 + i)
     for i, (M, N, K) in enumerate(shapes["w8"]):
@@ -3561,19 +3683,23 @@ def int8_kernels_phase(cfg, ar_cfg):
 
 
 def muse_int8_launches(cfg):
-    """The int8 kernels' launches per b=2 generate: (quantize_static by (rows,
-    K), quantize_dynamic by (rows, K), int8_epilogue by (rows, N, dynamic))."""
+    """int8_linear's launches per b=2 generate by (rows, N, K, dynamic): each
+    of the f forwards runs 7L + 1 products (to_q, the self-attention K/V,
+    the cross-attention q, proj_in, proj_out and two to_out a layer, and
+    to_logits), and the cross-attention K/V (dynamic) is built once a layer:
+    f (7L + 1) + L in all."""
+    from collections import Counter
     tf = cfg.transformer
     L, f = tf.num_layers, 2 * cfg.muse.sample_iterations - 1
-    shp = int8_shapes(cfg, cfg)
-    (rs, d), (_, inner) = shp["static"]
-    _, (ctx, _) = shp["dynamic"]
-    e = shp["epilogue"]
-    static = {(rs, d): f * (4 * L + 1), (rs, inner): f * L}
-    dynamic = {(rs, d): f * 2 * L, (ctx, d): L}
-    epi = {e[0]: f * (3 * L + 1), e[1]: f * L, e[2]: f * L, e[3]: f * 2 * L,
-           e[4]: L}
-    return static, dynamic, epi
+    rows, ctx = 2 * tf.num_img_tokens, 2 * tf.num_cond_tokens
+    d, inner = tf.num_embed, int(tf.num_embed * tf.ff_mult * 2 / 3)
+    h = tf.num_heads * tf.dim_head
+    want = Counter({(rows, d, d, False): f * 2 * L, (rows, 2 * h, d, False): f * L,
+                    (rows, 2 * inner, d, False): f * L,
+                    (rows, d, inner, False): f * L, (rows, d, h, True): f * 2 * L,
+                    (ctx, 2 * h, d, True): L})
+    want[(rows, tf.vocab_size, d, False)] += f
+    return dict(want)
 
 
 def _generate_timed(pipe, inputs, seed):
@@ -3592,7 +3718,8 @@ def _int8_counts():
     return ({k: v for k, v in tq.quantize_static_cuda.launches_by_shape.items()},
             {k: v for k, v in tq.quantize_dynamic_cuda.launches_by_shape.items()},
             {k: v for k, v in tq.int8_epilogue_cuda.launches_by_shape.items()},
-            tq.w8_linear_cuda.launches)
+            tq.w8_linear_cuda.launches,
+            {k: v for k, v in tq.int8_linear_cuda.launches_by_shape.items()})
 
 
 def muse_int8_modes(cfg, bf16, int8, label, inputs, want_counts, glue=False):
@@ -3638,14 +3765,16 @@ def muse_int8_modes(cfg, bf16, int8, label, inputs, want_counts, glue=False):
     steps = cfg.muse.sample_iterations
     want_row1 = (2 * steps - 1) * tf.num_layers * 2
     want_glue = ((2 * steps - 1) * 3 * tf.num_layers, 0) if glue else (0, 0)
-    static, dynamic, epi, w8 = counts
+    static, dynamic, epi, w8, linear = counts
     print(f"[int8-muse] {label} launches in the first timed int8 generate: "
-          f"quantize_static {static}, quantize_dynamic {dynamic}, "
-          f"int8_epilogue {epi}, w8_linear {w8}, row 1 {row1} (expected "
-          f"{want_row1}), residual + LayerNorm and GEGLU + LayerNorm {glue_n} "
-          f"(expected {want_glue})", flush=True)
-    if (static, dynamic, epi, w8) != (*want_counts, 0) or row1 != want_row1 \
-            or glue_n != want_glue:
+          f"int8_linear {sum(linear.values())} {linear} (expected "
+          f"{sum(want_counts.values())} {want_counts}), quantize_static "
+          f"{static}, quantize_dynamic {dynamic}, int8_epilogue {epi}, "
+          f"w8_linear {w8} (expected none of these four), row 1 {row1} "
+          f"(expected {want_row1}), residual + LayerNorm and GEGLU + LayerNorm "
+          f"{glue_n} (expected {want_glue})", flush=True)
+    if (static, dynamic, epi, w8) != ({}, {}, {}, 0) or linear != want_counts \
+            or row1 != want_row1 or glue_n != want_glue:
         raise SystemExit(f"int8 generate ({label}) launch counts differ from "
                          f"{want_counts} / {want_row1} / {want_glue}")
     if not torch.isfinite(q_images).all() or q_ids.min() < 0 or \
@@ -3717,6 +3846,31 @@ def int8_muse_phase(cfg):
         raise SystemExit("the int8 kernels disagree with the plain int8 route")
     if not (cos_qb >= INT8_COS_MIN and top_dec >= INT8_DECIDED_TOP1_MIN):
         raise SystemExit("int8 logits do not track bf16")
+    # the same pipeline routed through the three-launch chain: the same ids
+    # and images, bit for bit
+    gen = torch.Generator(device="cuda")
+    tq.reset_launch_counts()
+    for m in mods:
+        m.route = tq.int8_dense_chain
+    chain_images, chain_ids = int8.generate_fn(*inputs, gen.manual_seed(9))
+    chain_counts = tq.launch_counts()
+    for m in mods:
+        m.route = tq.int8_dense
+    tq.reset_launch_counts()
+    fused_images, fused_ids = int8.generate_fn(*inputs, gen.manual_seed(9))
+    fused_counts = tq.launch_counts()
+    same_gen = (torch.equal(chain_ids, fused_ids)
+                and torch.equal(chain_images, fused_images))
+    print(f"[int8-muse] b=2 generate through int8_linear against the same "
+          f"pipeline through the chain, seed 9: ids and images bit for bit "
+          f"{same_gen}; launches int8_linear {fused_counts['int8_linear']} vs "
+          f"chain quantize_static {chain_counts['quantize_static']} + "
+          f"quantize_dynamic {chain_counts['quantize_dynamic']} + "
+          f"int8_epilogue {chain_counts['int8_epilogue']} (and as many "
+          f"torch._int_mm)", flush=True)
+    del chain_images, fused_images
+    if not same_gen:
+        raise SystemExit("int8_linear's generate differs from the chain's")
     want = muse_int8_launches(cfg)
     res = {"plain": muse_int8_modes(cfg, bf16, int8, "glue off", inputs, want)}
     glue_cfg = dataclasses.replace(cfg, transformer=tf.replace(
@@ -3738,13 +3892,53 @@ def ar_int8_launches(cfg):
     return (5 * tf.num_layers + 1) + tf.num_img_tokens * (3 * tf.num_layers + 1)
 
 
+def ar_int8_pairs(pipes, inputs, around_first_int8=contextlib.nullcontext):
+    """AR_INT8_PAIRS pairs of KV-cached top_k=100 generates of pipes["int8"]
+    and pipes["bf16"] on `inputs`, in alternating order (int8 first in the
+    odd pairs), each timed by the host clock around a synchronised generate:
+    (seconds by mode, the int8/bf16 ratio of each pair, peak memory above
+    the resident set by mode, (images, ids) of the first int8 generate,
+    which runs inside `around_first_int8()`). Uses only the pipelines'
+    public entry points, so it also times an older tree of the package."""
+    import torch
+    times = {m: [] for m in ("int8", "bf16")}
+    peak, ratios, first = {m: 0 for m in times}, [], None
+    for i in range(AR_INT8_PAIRS):
+        order = ("int8", "bf16") if i % 2 == 0 else ("bf16", "int8")
+        pair = {}
+        for mode in order:
+            ctx = (around_first_int8() if i == 0 and mode == "int8"
+                   else contextlib.nullcontext())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            with ctx:
+                t0 = time.perf_counter()
+                out = pipes[mode].generate_fn(*inputs, torch.Generator(
+                    device="cuda").manual_seed(1 + i), top_k=100)
+                torch.cuda.synchronize()
+                pair[mode] = time.perf_counter() - t0
+            times[mode].append(pair[mode])
+            peak[mode] = max(peak[mode], torch.cuda.max_memory_allocated() - before)
+            if i == 0 and mode == "int8":
+                first = out
+        ratios.append(pair["int8"] / pair["bf16"])
+        print(f"[int8-ar] pair {i + 1} ({order[0]} first): int8 "
+              f"{pair['int8']:.4f} s, bf16 {pair['bf16']:.4f} s, int8/bf16 "
+              f"{ratios[-1]:.4f}", flush=True)
+    return times, ratios, peak, first
+
+
 def int8_ar_phase(cfg):
     """Phase 37: `quantized()` of the seed-0 `nuscenes_ar` pipeline at full
-    width cut to AR_INT8_LAYERS layers, b=2, KV-cached, top_k=100: one bf16
-    generate, then AR_INT8_TIMED int8 ones (images/s, peak memory, launches
-    of row 11, w8_linear and row 9), weight bytes against bf16; then greedy
-    int8 decoding through the kernels against the plain int8 route, cut to
-    AR_INT8_GREEDY_LAYERS layers."""
+    width cut to AR_INT8_LAYERS layers, b=2, KV-cached, top_k=100:
+    AR_INT8_PAIRS pairs of int8 and bf16
+    generates in alternating order (the int8/bf16 time ratio of each pair
+    and their median; images/s; peak memory; launches of row 11, w8_linear
+    by form and row 9 in the first int8 one), weight bytes against bf16;
+    then greedy int8 decoding through the kernels against the plain int8
+    route, cut to AR_INT8_GREEDY_LAYERS layers."""
+    import statistics
     import torch
     from bevgen_torch.models.stage2 import ar_cached
     from bevgen_torch.ops import block_sparse as bs
@@ -3759,69 +3953,62 @@ def int8_ar_phase(cfg):
     inputs = (batch["segmentation"], batch["intrinsics_inv"],
               batch["extrinsics_inv"])
     bf16 = ARPipeline.create(cfg, device="cuda").init_params(seed=0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    bf16.generate_fn(*inputs, torch.Generator(device="cuda").manual_seed(1),
-                     top_k=100)
-    torch.cuda.synchronize()
-    bf16_s = time.perf_counter() - t0
-    bf16_peak = torch.cuda.max_memory_allocated() - before
     t0 = time.perf_counter()
     int8 = bf16.quantized()
     q_s = time.perf_counter() - t0
     wb = {"bf16": tq.weight_bytes(bf16.gpt), "int8": tq.weight_bytes(int8.gpt)}
-    del bf16
-    torch.cuda.empty_cache()
-    times, peak = [], 0
-    for i in range(AR_INT8_TIMED):
-        if i == 0:
-            tq.reset_launch_counts()
-            da.reset_launch_counts()
-            bs.reset_launch_counts()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        images, ids = int8.generate_fn(*inputs, torch.Generator(
-            device="cuda").manual_seed(1 + i), top_k=100)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        peak = max(peak, torch.cuda.max_memory_allocated() - before)
-        if i == 0:
-            n_dec = da.decode_attention_cuda.launches
-            by_pl = dict(da.decode_attention_cuda.launches_by_shape)
-            n_bs = bs.block_sparse_attention_cuda.launches
-            n_w8 = tq.w8_linear_cuda.launches
-            w8_shapes = dict(tq.w8_linear_cuda.launches_by_shape)
-            other = (tq.quantize_static_cuda.launches,
-                     tq.quantize_dynamic_cuda.launches,
-                     tq.int8_epilogue_cuda.launches)
-    med = sorted(times)[len(times) // 2]
+    pipes = {"bf16": bf16, "int8": int8}
+    counted = {}
+
+    @contextlib.contextmanager
+    def count_first_int8():
+        tq.reset_launch_counts()
+        da.reset_launch_counts()
+        bs.reset_launch_counts()
+        yield
+        counted.update(
+            n_dec=da.decode_attention_cuda.launches,
+            by_pl=dict(da.decode_attention_cuda.launches_by_shape),
+            n_bs=bs.block_sparse_attention_cuda.launches,
+            n_w8=tq.w8_linear_cuda.launches,
+            w8_shapes=dict(tq.w8_linear_cuda.launches_by_shape),
+            w8_forms=dict(tq.w8_linear_cuda.launches_by_form),
+            other=(tq.quantize_static_cuda.launches,
+                   tq.quantize_dynamic_cuda.launches,
+                   tq.int8_epilogue_cuda.launches,
+                   tq.int8_linear_cuda.launches))
+
+    # no warm-up: phase 14 warmed the AR path and phase 35 the int8 kernels
+    times, ratios, peak, (q_images, q_ids) = ar_int8_pairs(
+        pipes, inputs, count_first_int8)
+    n_dec, by_pl, n_bs, n_w8, w8_shapes, w8_forms, other = (
+        counted[k] for k in ("n_dec", "by_pl", "n_bs", "n_w8", "w8_shapes",
+                             "w8_forms", "other"))
+    med = {m: statistics.median(v) for m, v in times.items()}
     n_img = B * tf.num_cams
     want_w8 = ar_int8_launches(cfg)
     print(f"[int8-ar] nuscenes_ar full width cut to {AR_INT8_LAYERS} of "
           f"{full_layers} layers: quantized() in {q_s:.2f} s; GPT weights bf16 "
           f"{wb['bf16'] / 1e6:.1f} MB, int8 {wb['int8'] / 1e6:.1f} MB; "
-          f"generate_fn b={B} cached top_k=100 (no warm-up: phase 14 warmed "
-          f"the path), bf16 one {bf16_s:.4f} s = {n_img / bf16_s:.4f} "
-          f"images/s, int8 {AR_INT8_TIMED} timed "
-          f"{', '.join(f'{t:.4f}' for t in times)} s, median {med:.4f} s = "
-          f"{n_img / med:.4f} images/s; peak above the resident set int8 "
-          f"{peak / 1e6:.1f} MB, bf16 {bf16_peak / 1e6:.1f} MB; launches in "
-          f"the first int8: decode "
+          f"generate_fn b={B} cached top_k=100, {AR_INT8_PAIRS} pairs: "
+          f"int8/bf16 time ratio median "
+          f"{statistics.median(ratios):.4f} (pairs "
+          f"{', '.join(f'{r:.4f}' for r in ratios)}); median int8 "
+          f"{med['int8']:.4f} s = {n_img / med['int8']:.4f} images/s, bf16 "
+          f"{med['bf16']:.4f} s = {n_img / med['bf16']:.4f} images/s; peak "
+          f"above the resident set int8 {peak['int8'] / 1e6:.1f} MB, bf16 "
+          f"{peak['bf16'] / 1e6:.1f} MB; launches in the first int8: decode "
           f"{n_dec} (expected {tf.num_layers * tf.num_img_tokens}), w8_linear "
-          f"{n_w8} (expected {want_w8}) {w8_shapes}, block-sparse {n_bs}, "
-          f"W8A8 kernels {other}", flush=True)
+          f"{n_w8} (expected {want_w8}) by form {w8_forms} {w8_shapes}, "
+          f"block-sparse {n_bs}, W8A8 kernels {other}", flush=True)
     if (n_dec, n_w8, n_bs, other) != (tf.num_layers * tf.num_img_tokens,
-                                      want_w8, 0, (0, 0, 0)):
+                                      want_w8, 0, (0, 0, 0, 0)):
         raise SystemExit("AR int8 generate launch counts differ")
-    if not torch.isfinite(images).all() or ids.min() < 0 or \
-            ids.max() >= tf.vocab_size:
+    if not torch.isfinite(q_images).all() or q_ids.min() < 0 or \
+            q_ids.max() >= tf.vocab_size:
         raise SystemExit("AR int8 generate: non-finite images or ids out of "
                          "range")
-    del int8
+    del int8, bf16, pipes, q_images
     torch.cuda.empty_cache()
 
     # greedy, kernels vs the plain int8 route, at a cut depth
@@ -3862,9 +4049,11 @@ def int8_ar_phase(cfg):
     if not step_agree >= GREEDY_AGREE_MIN:
         raise SystemExit("AR int8 greedy decoding disagrees between the "
                          "kernels and the plain int8 route")
-    return {"images_per_s": n_img / med, "s": med, "peak_mb": peak / 1e6,
+    return {"images_per_s": n_img / med["int8"], "s": med["int8"],
+            "bf16_s": med["bf16"], "ratio": statistics.median(ratios),
+            "peak_mb": peak["int8"] / 1e6,
             "weights_mb": {k: v / 1e6 for k, v in wb.items()},
-            "w8_shapes": w8_shapes, "by_pl": by_pl}
+            "w8_shapes": w8_shapes, "w8_forms": w8_forms, "by_pl": by_pl}
 
 
 def int8_cli_phase(cfg, ar_cfg):
@@ -3907,7 +4096,7 @@ def int8_cli_phase(cfg, ar_cfg):
             arrays = [dict(np.load(p)) for p in paths]
             finite = all(np.isfinite(a["images"]).all() for a in arrays)
             launched = (counts["w8_linear"] > 0 if kind == "ar"
-                        else counts["int8_epilogue"] > 0)
+                        else counts["int8_linear"] > 0)
             ok = served == want and finite and launched == (want == "int8")
             print(f"[int8-cli] {kind} quant={quant}: served {served} "
                   f"(expected {want}), {len(paths)} batch(es), images finite "
@@ -3925,40 +4114,32 @@ def int8_cli_phase(cfg, ar_cfg):
 
 def int8_kernel_entries(cfg, ar_cfg, stats, muse, ar, row1_stats, dec_stats,
                         glue_stats):
-    """The kernels line's entries of the int8 paths: the four int8 kernels at
-    their shapes (phase 35's numbers, the launches of phase 36's first timed
-    int8 generate and phase 37's), and rows 1, 11 and 12 with the int8 paths'
-    launches (their numbers from phases 3, 12 and 21)."""
+    """The kernels line's entries of the int8 paths: int8_linear and
+    w8_linear at their shapes (phase 35's numbers, the launches of phase
+    36's first timed int8 generate and phase 37's), and rows 1, 11 and 12
+    with the int8 paths' launches (their numbers from phases 3, 12 and
+    21). The chain's kernels run on no tp=1 path (they are phase 35's
+    comparison route): their entries are phase 53's, at a tp=2 rank's
+    row-split shapes."""
     from bevgen_torch.ops import cosine_attention as ca
     from bevgen_torch.ops import decode_attention as da
     from bevgen_torch.ops import fused_glue as fg
     from bevgen_torch.ops import quant as tq
     tf, at = cfg.transformer, ar_cfg.transformer
     shp = int8_shapes(cfg, ar_cfg)
-    static_n, dynamic_n, epi_n, _ = muse["plain"]["counts"]
+    linear_n = muse["plain"]["counts"][4]
     out = []
-    for rows, K in shp["static"]:
-        out.append({"name": f"quantize_static[muse int8 b2 {rows}x{K}]",
-                    "route": "cuda", "source": tq.SOURCE,
-                    "replaces": tq.QUANTIZE_STATIC_REPLACES,
-                    "launches": static_n.get((rows, K), 0),
-                    **stats[("static", rows, K)]})
-    for rows, K in shp["dynamic"]:
-        out.append({"name": f"quantize_dynamic[muse int8 b2 {rows}x{K}]",
-                    "route": "cuda", "source": tq.SOURCE,
-                    "replaces": tq.QUANTIZE_DYNAMIC_REPLACES,
-                    "launches": dynamic_n.get((rows, K), 0),
-                    **stats[("dynamic", rows, K)]})
-    for rows, N, dyn in shp["epilogue"]:
-        out.append({"name": f"int8_epilogue[muse int8 b2 {rows}x{N} "
+    for rows, N, K, dyn in shp["linear"]:
+        st = {k: v for k, v in stats[("linear", rows, N, K, dyn)].items()
+              if k not in ("chain_ms", "int_mm_ms")}
+        out.append({"name": f"int8_linear[muse int8 b2 {rows}x{K}->{N} "
                             f"{'dynamic' if dyn else 'static'}]",
-                    "route": "cuda", "source": tq.SOURCE,
-                    "replaces": tq.EPILOGUE_REPLACES,
-                    "launches": epi_n.get((rows, N, dyn), 0),
-                    **stats[("epilogue", rows, N, dyn)]})
+                    "route": "cuda", "source": tq.GEMM_SOURCE,
+                    "replaces": tq.INT8_LINEAR_REPLACES,
+                    "launches": linear_n.get((rows, N, K, dyn), 0), **st})
     for M, N, K in shp["w8"]:
         out.append({"name": f"w8_linear[ar int8 b2 {M}x{N}x{K}]",
-                    "route": "cuda", "source": tq.SOURCE,
+                    "route": "cuda", "source": tq.GEMM_SOURCE,
                     "replaces": tq.W8_LINEAR_REPLACES,
                     "launches": ar["w8_shapes"].get((M, N, K), 0),
                     **stats[("w8", M, N, K)]})
@@ -4943,7 +5124,7 @@ def inference_kernel_entries(res, bsb_stats):
         for (M, n, k), count in sorted(shapes.get("w8", {}).items()):
             out.append({
                 "name": f"w8_linear[inference {mode} b{b} {M}x{n}x{k}]",
-                "route": "cuda", "source": tq.SOURCE,
+                "route": "cuda", "source": tq.GEMM_SOURCE,
                 "replaces": tq.W8_LINEAR_REPLACES, "launches": count,
                 **checks["w8"][(M, n, k)]})
         listed = sum(e["launches"] for e in out[first:])
@@ -6732,6 +6913,9 @@ def _glue_int8_counts():
             "row_amax": _json_counts(tq.row_amax_cuda.launches_by_shape),
             "quantize_scaled": _json_counts(tq.quantize_scaled_cuda.launches_by_shape),
             "epilogue": tq.int8_epilogue_cuda.launches,
+            "epilogue_shapes": _json_counts(tq.int8_epilogue_cuda.launches_by_shape),
+            "int8_linear": tq.int8_linear_cuda.launches,
+            "int8_linear_shapes": _json_counts(tq.int8_linear_cuda.launches_by_shape),
             "w8": tq.w8_linear_cuda.launches,
             "w8_raw": tq.w8_linear_cuda.raw_launches,
             "w8_shapes": _json_counts(tq.w8_linear_cuda.launches_by_shape),
@@ -7169,16 +7353,20 @@ def tp53_kernel_checks():
 
 def _rule_forward(nl, int8, rows, ctx, Fl, h8, d):
     """The launches of one tp rank's full forward (the decode cache built
-    inside it), glue or int8."""
+    inside it), glue or int8: the column-split products (to_q, the
+    self-attention K/V, the cross-attention q, proj_in, to_logits; the
+    cross-attention K/V) are one int8_linear each, the row-split ones
+    (proj_out; the two to_out) the chain with its sums over tp."""
     if not int8:
         return {"row1": {h8: 2 * nl}, "geglu_stats": nl, "geglu_norm": nl,
                 "geglu_ln": 0, "residual_ln": 3 * nl}
     return {"row1": {h8: 2 * nl},
-            "quantize_static": {f"{rows}x{d}": 4 * nl + 1, f"{rows}x{Fl}": nl},
-            "quantize_dynamic": {f"{ctx}x{d}": nl},
+            "int8_linear": 5 * nl + 1,
+            "quantize_static": {f"{rows}x{Fl}": nl},
+            "quantize_dynamic": {},
             "row_amax": {f"{rows}x{d // TP_WAYS}": 2 * nl},
             "quantize_scaled": {f"{rows}x{d // TP_WAYS}": 2 * nl},
-            "epilogue": 8 * nl + 1, "geglu_ln": 0, "geglu_stats": 0,
+            "epilogue": 3 * nl, "geglu_ln": 0, "geglu_stats": 0,
             "residual_ln": 0}
 
 
@@ -7189,12 +7377,12 @@ def _rule_generate(nl, f, int8, rows, ctx, Fl, h8, d):
         return {"row1": {h8: 2 * f * nl}, "geglu_stats": f * nl,
                 "geglu_norm": f * nl, "geglu_ln": 0, "residual_ln": 3 * f * nl}
     return {"row1": {h8: 2 * f * nl},
-            "quantize_static": {f"{rows}x{d}": f * (4 * nl + 1),
-                                f"{rows}x{Fl}": f * nl},
-            "quantize_dynamic": {f"{ctx}x{d}": nl},
+            "int8_linear": f * (4 * nl + 1) + nl,
+            "quantize_static": {f"{rows}x{Fl}": f * nl},
+            "quantize_dynamic": {},
             "row_amax": {f"{rows}x{d // TP_WAYS}": 2 * f * nl},
             "quantize_scaled": {f"{rows}x{d // TP_WAYS}": 2 * f * nl},
-            "epilogue": 7 * f * nl + f + nl, "geglu_ln": 0, "geglu_stats": 0,
+            "epilogue": 3 * f * nl, "geglu_ln": 0, "geglu_stats": 0,
             "residual_ln": 0}
 
 
@@ -7299,7 +7487,7 @@ def tp53_phase(dp):
         _check_rule(f"rank {r} tp bf16 generate",
                     g["serve"]["bf16_generate_launches"],
                     {"row1": {h8: 2 * f * nl}, "geglu_stats": 0,
-                     "residual_ln": 0, "epilogue": 0})
+                     "residual_ln": 0, "epilogue": 0, "int8_linear": 0})
         for i, st in enumerate(g["train"]["launches"]):
             _check_rule(f"rank {r} tp glue step {i + 1}", st, {
                 "row1": {h8: 4 * nl}, "row8": {h8: 12 * nl},
@@ -7311,7 +7499,7 @@ def tp53_phase(dp):
             "w8": ar_int8_launches(ac), "w8_raw": al * (1 + steps),
             "w8_tail": {f"1x{at.num_embed}": al * steps,
                         f"{at.num_cond_tokens}x{at.num_embed}": al},
-            "epilogue": 0, "row9": 0})
+            "epilogue": 0, "int8_linear": 0, "row9": 0})
         # the row-split mlp_proj's (M, N, K): no other product of the rank
         # has it, so these are its raw launches, one before each tail
         _check_rule(f"rank {r} tp int8 AR generate, w8_linear by shape",
@@ -7352,9 +7540,11 @@ def tp53_rank_work(mesh, out):
     return res
 
 
-def tp53_kernel_entries(tp53):
-    """The kernels line's entries of phase 53: the new kernels at a tp=2
-    rank's shapes with rank 0's launches."""
+def tp53_kernel_entries(tp53, int8_stats):
+    """The kernels line's entries of phase 53: the kernels at a tp=2 rank's
+    shapes with rank 0's launches (int8_linear, quantize_static and
+    int8_epilogue with phase 35's numbers)."""
+    from bevgen_torch.core.config import argoverse_muse_7cam_config
     from bevgen_torch.ops import fused_glue as fg
     from bevgen_torch.ops import quant as tq
     cfg, ac = tp_cfg(), tp53_ar_cfg()
@@ -7384,10 +7574,29 @@ def tp53_kernel_entries(tp53):
         add(f"{op}[tp=2 rank to_out serve b{TP_GEN_BATCH} {rows}x{k}]",
             tq.SOURCE, rep, int8[op].get(f"{rows}x{k}", 0),
             checks["int8"][TP_GEN_BATCH][op])
+    shp = int8_shapes(argoverse_muse_7cam_config(), ac)
+    for rows_, N_, K_, dyn in shp["linear_tp"]:
+        st = {k: v for k, v in int8_stats[("linear", rows_, N_, K_, dyn)].items()
+              if k not in ("chain_ms", "int_mm_ms")}
+        add(f"int8_linear[tp=2 rank serve b{TP_GEN_BATCH} {rows_}x{K_}->{N_} "
+            f"{'dynamic' if dyn else 'static'}]", tq.GEMM_SOURCE,
+            tq.INT8_LINEAR_REPLACES,
+            int8["int8_linear_shapes"].get(f"{rows_}x{N_}x{K_}x{dyn}", 0), st)
+    for rows_, K_ in shp["static_tp"]:
+        add(f"quantize_static[tp=2 rank proj_out serve b{TP_GEN_BATCH} "
+            f"{rows_}x{K_}]", tq.SOURCE, tq.QUANTIZE_STATIC_REPLACES,
+            int8["quantize_static"].get(f"{rows_}x{K_}", 0),
+            int8_stats[("static", rows_, K_)])
+    for rows_, N_, dyn in shp["epilogue_tp"]:
+        add(f"int8_epilogue[tp=2 rank {'to_out' if dyn else 'proj_out'} serve "
+            f"b{TP_GEN_BATCH} {rows_}x{N_} {'dynamic' if dyn else 'static'}]",
+            tq.SOURCE, tq.EPILOGUE_REPLACES,
+            int8["epilogue_shapes"].get(f"{rows_}x{N_}x{dyn}", 0),
+            int8_stats[("epilogue", rows_, N_, dyn)])
     K = 4 * at.num_embed // TP_WAYS
     for M in (1, at.num_cond_tokens):
         add(f"w8_linear[raw, tp=2 rank mlp_proj M{M} N{at.num_embed} K{K}]",
-            tq.SOURCE, tq.W8_LINEAR_REPLACES,
+            tq.GEMM_SOURCE, tq.W8_LINEAR_REPLACES,
             ar["w8_shapes"].get(f"{M}x{at.num_embed}x{K}", 0),
             checks["w8"][M]["raw"])
         add(f"w8_tail[tp=2 rank mlp_proj M{M} N{at.num_embed}]", tq.SOURCE,
@@ -8367,7 +8576,7 @@ def smoke() -> int:
                                      nccl, stats,
                                      inference_res["checks"]["row11"]))
     kernels.extend(tp_kernel_entries(tp, dp["checks"]))
-    kernels.extend(tp53_kernel_entries(tp53))
+    kernels.extend(tp53_kernel_entries(tp53, int8_stats))
     kernels.extend(editor_kernel_entries(editor))
     print(f"[time] phases 1-54: {time.perf_counter() - t_start:.1f} s",
           flush=True)

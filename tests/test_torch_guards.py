@@ -794,12 +794,14 @@ def _int8_cuda_case(rows, K, N, static, seed):
 
 @pytest.mark.cuda
 def test_cuda_int8_kernels_match_plain_versions():
-    """The int8 serving kernels (`csrc/int8.cu`) on the card against their
-    plain versions on bf16 activations: the quantizers bit for bit (int8
-    values, zero padding, row scales), `torch._int_mm` on the padded
-    operands equal to the exact int32 product, the epilogue bit for bit in
-    fp32 and bf16, and `w8_linear` (the per-column and the mma.sync form)
-    within its rounding."""
+    """The int8 serving kernels (`csrc/int8.cu`, `csrc/int8_gemm.cu`) on the
+    card against their plain versions on bf16 activations: the quantizers
+    bit for bit (int8 values, zero padding, row scales), `torch._int_mm` on
+    the padded operands equal to the exact int32 product, the epilogue bit
+    for bit in fp32 and bf16, `int8_linear` bit for bit against that chain
+    and the plain version in both output types, and `w8_linear` (the decode
+    and the prefill form) within its rounding; a K that w8_linear's 16-byte
+    copies cannot take raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     from bevgen_torch.ops import quant as tq
@@ -832,8 +834,15 @@ def test_cuda_int8_kernels_match_plain_versions():
                                                  None if xs is None else xs[:, None],
                                                  dtype)
                 assert torch.equal(out, ref)
+                op = torch.zeros(Np, tq.padded(K, tq.K_PAD), dtype=torch.int8,
+                                 device="cuda")
+                op[:N, :K] = w
+                fused = tq.int8_linear_cuda(x, op, scale, in_scale, dtype)
+                assert torch.equal(fused, out)
+                assert torch.equal(fused, tq.int8_dense_reference(
+                    x.to(dtype), op, scale, in_scale))
     for M, K, N in ((2, 1024, 3072), (512, 1024, 4096), (2, 4096, 1024),
-                    (3, 24, 20), (40, 24, 20)):
+                    (3, 32, 20), (40, 32, 20)):
         x, w, scale, _ = _int8_cuda_case(M, K, N, False, M + N)
         bias = (torch.randn(N, device="cuda") * 0.1).bfloat16()
         got = tq.w8_linear_cuda(x, w, scale, bias)
@@ -841,6 +850,9 @@ def test_cuda_int8_kernels_match_plain_versions():
         # three bf16 roundings, each within 2^-8 of the value's size
         assert (got.float() - want).abs().max().item() <= \
             2.0 ** -6 * max(1.0, want.abs().max().item())
+    x, w, scale, _ = _int8_cuda_case(3, 24, 20, False, 0)
+    with pytest.raises(ValueError, match="K % 16"):
+        tq.w8_linear_cuda(x, w, scale, None)
 
 
 # the scene editor and the host-side scripts (their own guards)
