@@ -56,9 +56,20 @@
 // 10,920 bytes, so 16-byte vectors would not stay aligned), the row kept
 // as fp32 in shared memory between the two passes, so the inputs are read
 // from memory once. Left for later: 16-byte accesses where rows allow,
-// several rows per block and a persistent grid. The split pair keeps the
-// block-per-row walk without the shared-memory row: the statistics kernel
-// needs no second pass, and the norm kernel reads y once.
+// several rows per block and a persistent grid.
+//
+// The split pair keeps the block-per-row walk without the shared-memory
+// row: the statistics kernel needs no second pass, and the norm kernel reads
+// y once. It takes y at any 2-byte alignment: bf16x2 accesses where Fl is
+// even and y (and out) are 4-byte aligned, single elements otherwise. A
+// redesign for Hopper was built and measured slower at a tp = 2 rank's rows
+// (1536 and 3072 x 1365), so it was not kept: each row's 16-byte aligned
+// span by one TMA bulk copy into a shared-memory ring, a producer warp and
+// teams of warps on the block's rows, one persistent block per SM, warp
+// shuffle sums and gamma staged once per block. The pair is held back by
+// geglu_h's instructions (erff), which it runs twice per element of the
+// rank, and not by its bytes: with y hot in L2 it takes about 80% of its
+// cold time. What could still pay is in PERF.md, section 7.
 //
 // C interface: each function returns cudaGetLastError() after the launch;
 // the Python wrapper (bevgen_torch/ops/fused_glue.py) raises if it is not 0.
@@ -190,6 +201,8 @@ int launch_split(Kernel kernel, long long rows, int Fl, cudaStream_t stream,
   return static_cast<int>(cudaGetLastError());
 }
 
+bool aligned4(const void* p) { return reinterpret_cast<uintptr_t>(p) % 4 == 0; }
+
 }  // namespace
 
 // x, d, xo, no: (rows, F) contiguous bf16; gamma (F,) contiguous fp32.
@@ -222,8 +235,8 @@ extern "C" int geglu_layernorm_bf16(const void* y, const void* gamma,
                     : args(glue_geglu_norm_kernel<1>);
 }
 
-// y: (rows, 2 Fl) contiguous bf16, [a | gate] of a rank's columns;
-// stats: (rows, 2) contiguous fp32.
+// y: (rows, 2 Fl) contiguous bf16, [a | gate] of a rank's columns, at any
+// 2-byte alignment; stats: (rows, 2) contiguous fp32, 8-byte aligned.
 extern "C" int geglu_stats_bf16(const void* y, void* stats, long long rows,
                                 int Fl, void* stream) {
   auto args = [&](auto kernel) {
@@ -231,13 +244,13 @@ extern "C" int geglu_stats_bf16(const void* y, void* stats, long long rows,
                         static_cast<const __nv_bfloat16*>(y),
                         static_cast<float2*>(stats), Fl);
   };
-  return Fl % 2 == 0 ? args(glue_geglu_stats_kernel<2>)
-                     : args(glue_geglu_stats_kernel<1>);
+  return Fl % 2 == 0 && aligned4(y) ? args(glue_geglu_stats_kernel<2>)
+                                     : args(glue_geglu_stats_kernel<1>);
 }
 
-// y: (rows, 2 Fl) contiguous bf16; stats: (rows, 2) fp32, summed over tp;
-// gamma (Fl,) contiguous fp32; out (rows, Fl) contiguous bf16; F the whole
-// width (Fl * tp).
+// y: (rows, 2 Fl) contiguous bf16, at any 2-byte alignment; stats: (rows,
+// 2) fp32, summed over tp, 8-byte aligned; gamma (Fl,) contiguous fp32; out
+// (rows, Fl) contiguous bf16; F the whole width (Fl * tp).
 extern "C" int geglu_norm_bf16(const void* y, const void* stats,
                                const void* gamma, void* out, long long rows,
                                int Fl, int F, void* stream) {
@@ -249,6 +262,7 @@ extern "C" int geglu_norm_bf16(const void* y, const void* stats,
                         static_cast<const float*>(gamma),
                         static_cast<__nv_bfloat16*>(out), Fl, F);
   };
-  return Fl % 2 == 0 ? args(glue_geglu_norm_split_kernel<2>)
-                     : args(glue_geglu_norm_split_kernel<1>);
+  return Fl % 2 == 0 && aligned4(y) && aligned4(out)
+             ? args(glue_geglu_norm_split_kernel<2>)
+             : args(glue_geglu_norm_split_kernel<1>);
 }

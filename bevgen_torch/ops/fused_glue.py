@@ -192,13 +192,13 @@ def _split_input(y: torch.Tensor, what: str) -> int:
         raise ValueError(f"{what} takes CUDA tensors, got {dev}")
     if y.shape[-1] % 2:
         raise ValueError(f"y's last dim {y.shape[-1]} is not [a | gate] (odd)")
-    _build.check("y", y, torch.bfloat16, y.shape, dev)
+    _build.check("y", y, torch.bfloat16, y.shape, dev, align=2)
     return y.shape[-1] // 2
 
 
 def geglu_stats_cuda(y: torch.Tensor) -> torch.Tensor:
     """Launch the GEGLU statistics kernel. y: contiguous bf16 (..., 2Fl) on a
-    CUDA device, [a | gate] of a rank's columns. Returns fp32 (..., 2), the
+    CUDA device, [a | gate] of a rank's columns, at any address. Returns fp32 (..., 2), the
     row's (sum h, sum h^2). Raises on anything the kernel does not take and
     on a failed launch."""
     Fl = _split_input(y, "geglu_stats_cuda")
@@ -217,13 +217,14 @@ def geglu_stats_cuda(y: torch.Tensor) -> torch.Tensor:
 def geglu_norm_cuda(y: torch.Tensor, stats: torch.Tensor, gamma: torch.Tensor,
                     width: int) -> torch.Tensor:
     """Launch the split GEGLU + LayerNorm kernel. y: contiguous bf16 (...,
-    2Fl) on a CUDA device; stats: contiguous fp32 (..., 2), summed over all
-    `width` columns; gamma: contiguous fp32 (Fl,), the rank's gains.
-    Returns bf16 (..., Fl). Raises on anything the kernel does not take and
-    on a failed launch."""
+    2Fl) on a CUDA device, at any address; stats: contiguous fp32 (..., 2),
+    8-byte aligned, summed over all `width` columns; gamma: contiguous fp32
+    (Fl,), the rank's gains. Returns bf16 (..., Fl). Raises on anything the
+    kernel does not take and on a failed launch."""
     Fl = _split_input(y, "geglu_norm_cuda")
     dev = y.device
-    _build.check("stats", stats, torch.float32, y.shape[:-1] + (2,), dev)
+    _build.check("stats", stats, torch.float32, y.shape[:-1] + (2,), dev,
+                 align=8)
     _build.check("gamma", gamma, torch.float32, (Fl,), dev, align=4)
     out = torch.empty(y.shape[:-1] + (Fl,), dtype=y.dtype, device=dev)
     rows = out.numel() // Fl

@@ -379,7 +379,11 @@ form's raw product and its tail around a bf16 sum).
  53. (a) `geglu_stats` + `geglu_norm` at a tp=2 rank's serve (b=2) and
      train (b=4) rows of `argoverse_muse` (F = 2730, 1365 columns a rank)
      against their plain versions and, joined over both ranks, against the
-     whole kernel, with the whole kernel's and the eager chain's times;
+     whole kernel; the pair, the whole kernel, the plain versions and the
+     eager chain timed on the same cold inputs, the pair also hot in the
+     L2; the same checks untimed at Fl = 910 (tp=3), at 1537 rows, at Fl =
+     3 and 1 (rows under 16 bytes) and on a y view 2 bytes off 16;
+     `residual_layernorm` at the rank's 1536 x 1024 and 3072 x 1024 rows;
      `row_amax` + `quantize_scaled` at `to_out`'s (rows, 512) bit for bit
      against their plain versions and against `quantize_dynamic` on the
      whole rows; the `w8_linear` raw mode and `w8_tail` at `mlp_proj`'s
@@ -7115,60 +7119,91 @@ def tp53_references():
     return res
 
 
-def glue_split_case(rows, F, seed):
-    """A rank's inputs of the split GEGLU + LayerNorm at tp = 2: input sets
-    of the whole y (rows, 2F) beyond the L2, rank 0's contiguous part of
-    each (rows, 2 * F/2), the gains and rank 0's part of them."""
+def glue_split_case(rows, F, seed, ways=TP_WAYS, offset=0, cold=True):
+    """A rank's inputs of the split GEGLU + LayerNorm at tp = `ways`: input
+    sets of the whole y (rows, 2F) (beyond the L2 where `cold`, else one
+    set), every rank's contiguous part of each (rows, 2 * F/ways), the gains
+    and each rank's part of them. With `offset`, each rank's part is a view
+    that starts `offset` bf16 into its storage (2 bytes off 16 at offset
+    1)."""
     import torch
     from bevgen_torch.parallel.tensor import take_part
     g = torch.Generator(device="cuda").manual_seed(seed)
     n_sets = max(1, min(16, math.ceil(GLUE_COLD_BYTES / (rows * F * 2))))
     whole = [torch.randn(rows, 2 * F, generator=g, device="cuda").bfloat16()
-             for _ in range(n_sets)]
-    parts = [[take_part(y, 1, 2, TP_WAYS, r).contiguous() for r in range(TP_WAYS)]
-             for y in whole]
+             for _ in range(n_sets if cold else 1)]
+
+    def part(y, r):
+        t = take_part(y, 1, 2, ways, r)
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device="cuda")
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    parts = [[part(y, r) for r in range(ways)] for y in whole]
     gamma = 1.0 + 0.1 * torch.randn(F, generator=g, device="cuda")
-    return whole, parts, gamma, take_part(gamma, 0, 1, TP_WAYS, 0).contiguous()
+    gparts = [take_part(gamma, 0, 1, ways, r).contiguous() for r in range(ways)]
+    return whole, parts, gamma, gparts
 
 
-def check_glue_split(name, rows, F, seed):
-    """geglu_stats and geglu_norm on rank 0's columns against their plain
-    versions (the statistics summed over both ranks' kernel outputs, as
-    the sum over tp gives them), and the pair against the whole kernel at
-    the same rows: times, bounds, the eager chain's time."""
+def check_glue_split(name, rows, F, seed, ways=TP_WAYS, offset=0, timed=True):
+    """geglu_stats and geglu_norm on every rank's columns at tp = `ways`
+    against their plain versions (rank 0; the statistics summed over the
+    ranks' kernel outputs, as the sum over tp gives them), and the ranks
+    joined against the whole kernel at the same rows. `timed`: the pair, the
+    whole kernel, the plain versions and the eager chain on the same cold
+    input sets, the pair again on one set hot in the L2, with the bounds."""
     import itertools
     import torch
     import torch.nn.functional as F_
     from bevgen_torch.ops import fused_glue as fg
-    whole, parts, gamma, g0 = glue_split_case(rows, F, seed)
-    Fl = F // TP_WAYS
-    y0, y1 = parts[0]
-    stats = fg.geglu_stats_cuda(y0)
-    total = stats + fg.geglu_stats_cuda(y1)
+    whole, parts, gamma, gparts = glue_split_case(rows, F, seed, ways, offset,
+                                                  cold=timed)
+    Fl = F // ways
+    y0, g0 = parts[0][0], gparts[0]
+    stats = [fg.geglu_stats_cuda(p) for p in parts[0]]
     want_stats = fg.geglu_stats_reference(y0)
-    s_err = float(((stats - want_stats).abs() / want_stats.abs().clamp_min(1.0)
-                   ).max())
-    got = fg.geglu_norm_cuda(y0, total, g0, F)
+    s_err = float(((stats[0] - want_stats).abs()
+                   / want_stats.abs().clamp_min(1.0)).max())
+    total = sum(stats[1:], stats[0])
+    normed = [fg.geglu_norm_cuda(p, total, g, F)
+              for p, g in zip(parts[0], gparts)]
     want = fg.geglu_norm_reference(y0.float(), total, g0, F)
-    err = (got.float() - want).abs()
+    err = (normed[0].float() - want).abs()
     max_err, mean_err = err.max().item(), err.mean().item()
     within = bool((err <= torch.clamp(2.0 ** -7 * want.abs(),
                                       min=GLUE_MAX_ABS_TOL)).all())
-    # the joined ranks against the whole kernel on the whole rows
-    g1 = gamma[Fl:].contiguous()
-    joined = torch.cat([got, fg.geglu_norm_cuda(y1, total, g1, F)], dim=-1)
-    w_err = (joined.float() - fg.geglu_layernorm_cuda(whole[0], gamma).float()
+    finite = all(bool(torch.isfinite(n).all()) for n in normed)
+    w_err = (torch.cat(normed, dim=-1).float()
+             - fg.geglu_layernorm_cuda(whole[0], gamma).float()
              ).abs().max().item()
-    finite = bool(torch.isfinite(got).all())
-    del err, want
+    del err, want, normed
+    ok = (s_err <= TP53_STATS_RTOL and within and finite
+          and mean_err <= GLUE_MEAN_ABS_TOL)
+    print(f"[tp53] geglu_stats + geglu_norm {name}: rows={rows} Fl={Fl} of "
+          f"F={F} (tp={ways}{f', y {2 * offset} bytes off 16' if offset else ''}"
+          f"): stats max rel err {s_err:.3e} (max {TP53_STATS_RTOL}); norm "
+          f"max_abs_err={max_err:.3e} mean {mean_err:.3e} (max "
+          f"{GLUE_MAX_ABS_TOL} or 2^-7 |out|, mean {GLUE_MEAN_ABS_TOL}); the "
+          f"ranks joined vs the whole kernel max abs {w_err:.3e} -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"the split glue kernels disagree at {name}")
+    if not timed:
+        return None
     sets = [p[0] for p in parts]
-    totals = [fg.geglu_stats_cuda(p[0]) + fg.geglu_stats_cuda(p[1])
-              for p in parts]
+    totals = [sum((fg.geglu_stats_cuda(q) for q in p[1:]),
+                  fg.geglu_stats_cuda(p[0])) for p in parts]
     cyc, tcyc, wcyc = (itertools.cycle(x) for x in (sets, totals, whole))
     stats_ms = time_ms(lambda: fg.geglu_stats_cuda(next(cyc)), iters=50)
     norm_ms = time_ms(lambda: fg.geglu_norm_cuda(next(cyc), next(tcyc), g0, F),
                       iters=50)
     whole_ms = time_ms(lambda: fg.geglu_layernorm_cuda(next(wcyc), gamma),
+                       iters=50)
+    # the same calls on one input set, hot in the 50 MB L2: what is left is
+    # the arithmetic and the kernels' fixed costs
+    hot_stats = time_ms(lambda: fg.geglu_stats_cuda(sets[0]), iters=50)
+    hot_norm = time_ms(lambda: fg.geglu_norm_cuda(sets[0], totals[0], g0, F),
                        iters=50)
     stats_plain = time_ms(lambda: fg.geglu_stats_reference(next(cyc)), iters=10)
     norm_plain = time_ms(lambda: fg.geglu_norm_reference(
@@ -7196,20 +7231,14 @@ def check_glue_split(name, rows, F, seed):
                     "bound_ms": max(t_ops, t_bytes) * 1e3,
                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                     "library_ms": None}
-    ok = (s_err <= TP53_STATS_RTOL and within and finite
-          and mean_err <= GLUE_MEAN_ABS_TOL)
-    print(f"[tp53] geglu_stats + geglu_norm {name}: rows={rows} Fl={Fl} of "
-          f"F={F}: stats max rel err {s_err:.3e} (max {TP53_STATS_RTOL}); "
-          f"norm max_abs_err={max_err:.3e} mean {mean_err:.3e}; both ranks "
-          f"joined vs the whole kernel max abs {w_err:.3e}; ms stats "
-          f"{stats_ms:.5f} + norm {norm_ms:.5f} = {stats_ms + norm_ms:.5f} "
-          f"against the whole kernel at the same rows {whole_ms:.5f}; plain "
-          f"{stats_plain:.5f} + {norm_plain:.5f}; eager chain {chain_ms:.5f}; "
-          f"bound {st['stats']['bound_ms']:.5f} + {st['norm']['bound_ms']:.5f} "
+    print(f"[tp53] geglu_stats + geglu_norm {name} ms: stats {stats_ms:.5f} + "
+          f"norm {norm_ms:.5f} = {stats_ms + norm_ms:.5f} (hot in L2 "
+          f"{hot_stats:.5f} + {hot_norm:.5f}) against the whole kernel at the "
+          f"same rows {whole_ms:.5f}; plain {stats_plain:.5f} + "
+          f"{norm_plain:.5f}; eager chain {chain_ms:.5f}; bound "
+          f"{st['stats']['bound_ms']:.5f} + {st['norm']['bound_ms']:.5f} "
           f"(bytes: {s_bytes / 1e6:.2f} + {n_bytes / 1e6:.2f} MB) timed over "
-          f"{len(sets)} input set(s) -> {'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        raise SystemExit(f"the split glue kernels disagree at {name}")
+          f"{len(sets)} input set(s)", flush=True)
     return st
 
 
@@ -7338,9 +7367,24 @@ def tp53_kernel_checks():
     tf, at = cfg.transformer, ac.transformer
     N, F = tf.num_img_tokens, int(tf.num_embed * tf.ff_mult * 2 / 3)
     inner = tf.num_heads * tf.dim_head
-    out = {"glue": {}, "int8": {}, "w8": {}}
+    out = {"glue": {}, "int8": {}, "w8": {}, "residual": {}}
     for i, b in enumerate((TP_GEN_BATCH, TP_TRAIN_BATCH)):
         out["glue"][b] = check_glue_split(f"tp=2 rank b{b}", b * N, F, 160 + i)
+    # edges: an even Fl (tp = 3 of F = 2730: bf16x2 accesses, and single
+    # ones on a view 2 bytes off 4), a row count that is not a multiple of
+    # 4 or 8, rows of 4 Fl < 16 bytes, and the serving rows 2 bytes off 16
+    check_glue_split("tp=3 rank", 300, F, 166, ways=3, timed=False)
+    check_glue_split("tp=3 rank, misaligned", 300, F, 174, ways=3, offset=1,
+                     timed=False)
+    check_glue_split("tp=2 rank, 1537 rows", 1537, F, 167, timed=False)
+    check_glue_split("Fl=3 (tp=4), 71 rows", 71, 12, 168, ways=4, timed=False)
+    check_glue_split("Fl=1 (tp=8), 333 rows", 333, 8, 169, ways=8, timed=False)
+    check_glue_split("tp=2 rank b2, misaligned", TP_GEN_BATCH * N, F, 170,
+                     offset=1, timed=False)
+    # row 12 at a tp rank's rows: the stream is whole on every rank
+    for i, b in enumerate((TP_GEN_BATCH, TP_TRAIN_BATCH)):
+        out["residual"][b] = check_glue(f"tp=2 rank b{b}", "residual", b * N,
+                                        tf.num_embed, 171 + i)
     out["int8"][TP_GEN_BATCH] = check_amax_scaled(
         f"tp=2 rank to_out b{TP_GEN_BATCH}", TP_GEN_BATCH * N,
         inner // TP_WAYS, 162)
@@ -7568,6 +7612,9 @@ def tp53_kernel_entries(tp53, int8_stats):
             add(f"{op}[tp=2 rank {run} b{b} {b * N}x{Fl} of "
                 f"{Fl * TP_WAYS}]", fg.SOURCE, fg.GEGLU_LN_REPLACES,
                 counts[op], checks["glue"][b][kind])
+        add(f"residual_layernorm[tp=2 rank {run} b{b} {b * N}x{d}]",
+            fg.SOURCE, fg.RES_LN_REPLACES, counts["residual_ln"],
+            {k: v for k, v in checks["residual"][b].items() if k != "variant"})
     rows, k = TP_GEN_BATCH * N, d // TP_WAYS
     for op, rep in (("row_amax", tq.QUANTIZE_DYNAMIC_REPLACES),
                     ("quantize_scaled", tq.QUANTIZE_DYNAMIC_REPLACES)):

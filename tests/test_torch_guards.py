@@ -781,6 +781,40 @@ def test_cuda_layernorm_variants_match_plain_version():
         assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3
 
 
+@pytest.mark.cuda
+def test_cuda_glue_split_matches_plain_versions():
+    """Row 13's split pair on the card against the plain versions, at odd and
+    even Fl, at rows that are not a multiple of 4 or 8 and on views 2 bytes
+    off 16: the statistics within 1e-4 of their magnitude, the norm within
+    the glue's bound, and a misaligned view's outputs (single-element
+    accesses) equal bit for bit to an aligned copy's (bf16x2 at even Fl)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from bevgen_torch.ops import fused_glue as fg
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cases = [(64, 1365), (37, 910), (1537, 1365), (71, 3), (33, 64)]
+    for rows, Fl in cases:
+        buf = (2 * torch.randn(rows * 2 * Fl + 1, generator=g,
+                               device="cuda")).bfloat16()
+        gamma = 1 + 0.1 * torch.randn(Fl, generator=g, device="cuda")
+        F = 2 * Fl
+        for off in (0, 1):
+            y = buf[off:off + rows * 2 * Fl].view(rows, 2 * Fl)
+            assert y.data_ptr() % 16 == 2 * off
+            stats = fg.geglu_stats_cuda(y)
+            total = stats * 2                     # another rank's the same
+            got = fg.geglu_norm_cuda(y, total, gamma, F)
+            ref = fg.geglu_stats_reference(y)
+            assert ((stats - ref).abs() <= 1e-4 * ref.abs().clamp_min(1.0)).all()
+            want_n = fg.geglu_norm_reference(y.float(), total, gamma, F)
+            err = (got.float() - want_n).abs()
+            assert (err <= torch.clamp(2.0 ** -7 * want_n.abs(), min=2e-2)).all()
+        # the same statistics: the two kinds of access give the same bits
+        assert torch.equal(fg.geglu_norm_cuda(y, total, gamma, F),
+                           fg.geglu_norm_cuda(y.clone(), total, gamma, F)), (
+            rows, Fl)
+
+
 def _int8_cuda_case(rows, K, N, static, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn(rows, K, generator=g, device="cuda") * 2).bfloat16()
