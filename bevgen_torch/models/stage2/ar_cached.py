@@ -34,7 +34,8 @@ and the logits are gathered (`SparseGPTBlock.merge_heads`,
 `SparseGPT.logits`), so every rank samples the same token.
 
 Not ported: the `stacked` decode variant (one scan over stacked weights,
-env `BEVGEN_AR_DECODE`).
+env `BEVGEN_AR_DECODE`) and the bucket width's env `BEVGEN_AR_PREFIX_BUCKET`,
+departures recorded in `ROADMAP.md` §3.
 """
 from __future__ import annotations
 

@@ -31,7 +31,8 @@ plan, so each listed tile pair is visited once by each pass.
 autograd differentiates); CUDA tensors launch the kernels or raise, through
 `BlockSparseAttentionFn` when a gradient is needed and straight to the
 forward kernel (no logsumexp) when not. The TPU package sends layouts that
-coarsen to dense 128-tiles to XLA; there is no such switch here.
+coarsen to dense 128-tiles to XLA; there is no such switch here (a
+departure with the card's times, `ROADMAP.md` §3).
 """
 from __future__ import annotations
 

@@ -32,6 +32,9 @@ the prologue's outputs and chains the result through the prologue.
 
 `cosine_attention` dispatches: CPU tensors take the plain versions, CUDA
 tensors launch the kernels or raise. There is no fallback between them.
+`make_cosine_attention_nhd` is the (B, L, H, D) entry over the same
+function (the reference's :1241, whose forward :1160 is row 1's kernel
+read through other strides).
 """
 from __future__ import annotations
 
@@ -247,3 +250,41 @@ def cosine_attention(q, k, v, null_kv, q_scale, k_scale,
                                        bias, keep, sm_scale)
     return _forward(q, k, v, null_kv, q_scale, k_scale, bias, keep,
                     sm_scale)[0]
+
+
+def make_cosine_attention_nhd(sm_scale: float = 8.0,
+                              use_kernel: Optional[bool] = None):
+    """`attn(q, k, v, null_kv, q_scale, k_scale, bias=None, keep=None)` in
+    the (B, L, H, D) layout, the counterpart of the reference's
+    `make_cosine_attention_nhd` (`fused_attention.py:1241-1307`, its kernel
+    `fused_cosine_attention_fwd_nhd` :1160): q (B, N, H, D), k and v (B, M,
+    H, D) with k raw (normed here, as the reference's entry norms it), the
+    rest as `cosine_attention` takes them; returns (B, N, H * D).
+
+    k is normed with k_scale into a new (B, M, H, D) tensor; q, v and that
+    tensor reach `cosine_attention` as (B, H, L, D) views (`transpose(1,
+    2)`), which row 1's kernel reads through their strides with no copy,
+    and its (B, H, N, D) output, a view of a (B, N, H, D) tensor, comes back
+    as a (B, N, H * D) view. Gradients go through `CosineAttentionFn` and
+    autograd through the norm of k. `use_kernel` None takes the device's
+    route: the kernels for CUDA tensors, the plain version for CPU ones;
+    True or False raises where the tensors' device has no such route (the
+    plain version serves the CPU only). No path of the port calls it."""
+
+    def attn(q, k, v, null_kv, q_scale, k_scale,
+             bias: Optional[torch.Tensor] = None,
+             keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        on_cuda = q.device.type == "cuda"
+        if use_kernel is not None and bool(use_kernel) != on_cuda:
+            raise ValueError(
+                f"make_cosine_attention_nhd(use_kernel={use_kernel}) on "
+                f"{q.device} tensors: the kernels take CUDA tensors and the "
+                f"plain version CPU ones")
+        B, N, H, D = q.shape
+        kf = (_l2n(k) * k_scale.float()).to(q.dtype)
+        out = cosine_attention(q.transpose(1, 2), kf.transpose(1, 2),
+                               v.transpose(1, 2), null_kv, q_scale, k_scale,
+                               bias, keep, sm_scale)
+        return out.transpose(1, 2).reshape(B, N, H * D)
+
+    return attn

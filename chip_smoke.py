@@ -435,6 +435,13 @@ with g++ from `bevgen_torch/csrc/rasterize.cpp`; no kernel).
      session's `generate_fn` at b=1 and 2 called from the main thread.
      Then row 1 at the editor's b=1 shapes against its plain version.
 
+Phase 55 drives the last entry of the JAX package's surface.
+ 55. `make_cosine_attention_nhd` at `argoverse_muse`'s serve b=2 and train
+     b=8 shapes: equal to the (B, H, L, D) entry bit for bit, q, v and the
+     output not copied, row 1's bounds against plain, timed beside row 1;
+     at b=8 its seven gradients against the plain version (cosine >=
+     0.995) with 1 row-1 and 3 row-8 launches.
+
 Prints each phase's seconds (`[time]` lines) and their sum, the kernels'
 JSON line, then the card's name and power limit, and
 as its last line `{"ok": true, "device": {...}}`. Without a CUDA device,
@@ -8122,6 +8129,163 @@ def editor_kernel_entries(ed):
     return out
 
 
+# Phase 55: the (B, L, H, D) cosine entry against the (B, H, L, D) one
+# (bit for bit, no input copied) and its gradients against the plain
+# version.
+
+
+def nhd_case(name, B, N, M, seed, grads):
+    """make_cosine_attention_nhd on (B, L, H, D) bf16 inputs at
+    argoverse_muse's width: its output equal to the (B, H, L, D) entry's on
+    the same data bit for bit, q and v reaching the kernel uncopied and the
+    output a view of the kernel's; against the plain version; timed beside
+    row 1 on contiguous inputs; with `grads`, the seven gradients against
+    autograd through the plain version."""
+    import torch
+    from bevgen_torch.ops import _build
+    from bevgen_torch.ops import cosine_attention as ca
+    from bevgen_torch.ops.cosine_attention import _l2n
+    H, D = 16, 64
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, N, H, D, generator=g, device="cuda").bfloat16()
+    k = torch.randn(B, M, H, D, generator=g, device="cuda").bfloat16()
+    v = torch.randn(B, M, H, D, generator=g, device="cuda").bfloat16()
+    null_kv = torch.randn(2, H, 1, D, generator=g, device="cuda")
+    qs = 1.0 + 0.1 * torch.randn(D, generator=g, device="cuda")
+    ks = 1.0 + 0.1 * torch.randn(D, generator=g, device="cuda")
+    bias = torch.rand(N, M, generator=g, device="cuda") * 2.0
+    nhd = ca.make_cosine_attention_nhd()
+    # what the forward's `_build.rows` hands the kernel for q, k and v: the
+    # tensor it was given (no copy) or a copy
+    rows, handed = _build.rows, []
+
+    def spy(t):
+        r = rows(t)
+        handed.append((t.data_ptr(), r.data_ptr()))
+        return r
+    # no_grad, not inference_mode: views keep their `_base` (checked below)
+    with torch.no_grad():
+        ca.reset_launch_counts()
+        _build.rows = spy
+        try:
+            out = nhd(q, k, v, null_kv, qs, ks, bias)
+        finally:
+            _build.rows = rows
+        counts = (ca.cosine_attention_cuda.launches, 0)
+    with torch.inference_mode():
+        kf = (_l2n(k) * ks).to(q.dtype)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, kf, v))
+        entry = ca.cosine_attention(qh, kh, vh, null_kv, qs, ks, bias)
+        same = torch.equal(out.reshape(B, N, H, D), entry.transpose(1, 2))
+        ref = ca.cosine_attention_reference(qh.float(), kh.float(), vh.float(),
+                                            null_kv, qs, ks, bias)
+        err = (out.reshape(B, N, H, D).float() - ref.transpose(1, 2)).abs()
+        max_err, mean_err = err.max().item(), err.mean().item()
+        del ref, err
+        views = (q.transpose(1, 2), kf.transpose(1, 2), v.transpose(1, 2),
+                 null_kv, qs, ks, bias)
+        ms = time_ms(lambda: ca.cosine_attention_cuda(*views))
+        entry_ms = time_ms(lambda: nhd(q, k, v, null_kv, qs, ks, bias))
+        row1_ms = time_ms(lambda: ca.cosine_attention_cuda(qh, kh, vh, null_kv,
+                                                           qs, ks, bias))
+        plain_ms = time_ms(lambda: ca.cosine_attention_reference(
+            qh.float(), kh.float(), vh.float(), null_kv, qs, ks, bias), iters=5)
+        lib_ms = time_ms(sdpa_call(qh, kh, vh, null_kv, qs, ks, bias))
+    # q and v reach the kernel as themselves, k's normed tensor too; the
+    # result is a view of the kernel's (B, N, H, D) output
+    base = out._base
+    parts = (all(a == b for a, b in handed),
+             [a for a, _ in handed][::2] == [q.data_ptr(), v.data_ptr()],
+             base is not None and tuple(base.shape) == (B, N, H, D)
+             and out.data_ptr() == base.data_ptr())
+    uncopied = all(parts)
+    bms, bound_by, _, _ = bound_ms(B, H, N, M, D, True, None)
+    line = (f"[nhd] {name}: B={B} N={N} M={M} H={H} D={D}: equal to the "
+            f"(B, H, L, D) entry bit for bit {same}, q, v and out uncopied "
+            f"{uncopied}; vs plain max_abs_err={max_err:.3e} "
+            f"mean_abs_err={mean_err:.3e}; kernel ms at the entry's strides "
+            f"{ms:.4f}, on contiguous inputs (row 1) {row1_ms:.4f}, the whole "
+            f"entry (k normed) {entry_ms:.4f}; plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({bound_by})")
+    if grads:
+        ca.reset_launch_counts()
+        from bevgen_torch.ops import attention_bwd as ab
+        ab.reset_launch_counts()
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (q, k, v, null_kv, qs, ks, bias)]
+        w = torch.randn(B, N, H * D, generator=g, device="cuda")
+        got = torch.autograd.grad((nhd(*leaves).float() * w).sum(), leaves)
+        torch.cuda.synchronize()
+        counts = (ca.cosine_attention_cuda.launches,
+                  ab.attention_bwd_cuda.launches)
+        kf32 = (_l2n(leaves[1].float()) * leaves[5]).transpose(1, 2)
+        refo = ca.cosine_attention_reference(
+            leaves[0].float().transpose(1, 2), kf32,
+            leaves[2].float().transpose(1, 2), *leaves[3:])
+        want = torch.autograd.grad(
+            (refo.transpose(1, 2).reshape(B, N, H * D) * w).sum(), leaves)
+        names = ("q", "k", "v", "null_kv", "q_scale", "k_scale", "bias")
+        cos = {n: torch.nn.functional.cosine_similarity(
+            a.float().flatten(), b.float().flatten(), dim=0).item()
+            for n, a, b in zip(names, got, want)}
+        line += (f"; one forward + backward: {counts[0]} row-1 and {counts[1]}"
+                 f" row-8 launches; gradient cosine "
+                 + " ".join(f"{n}={c:.6f}" for n, c in cos.items()))
+        if counts != (1, 3):
+            raise SystemExit(f"nhd {name}: expected 1 row-1 and 3 row-8 "
+                             f"launches, got {counts}")
+        if not min(cos.values()) >= GRAD_COS_MIN:
+            raise SystemExit(f"nhd {name}: gradients disagree with the plain "
+                             f"version's (min {GRAD_COS_MIN})")
+    print(line, flush=True)
+    if not (same and uncopied and max_err <= MAX_ABS_TOL
+            and mean_err <= MEAN_ABS_TOL):
+        raise SystemExit(f"nhd {name}: not equal to the (B, H, L, D) entry, "
+                         f"an input copied, or off the plain version")
+    return counts, {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def nhd_phase():
+    """Phase 55: the nhd entry at argoverse_muse's serve b=2 shapes and
+    its train b=8 ones, with the launches of each case's drive of the
+    entry (a serve forward; a train forward + backward)."""
+    from bevgen_torch.core.config import argoverse_muse_config
+    tf = argoverse_muse_config().transformer
+    N, NC = tf.num_img_tokens, tf.num_cond_tokens
+    stats = {}
+    for b, grads in ((2, False), (TRAIN_BATCH, True)):
+        for shape, m in (("self", N), ("cross", NC)):
+            stats[(b, shape)] = nhd_case(f"{'train' if grads else 'serve'} "
+                                         f"{shape} b{b} {N}x{m}", b, N, m,
+                                         100 + b + (shape == "cross"), grads)
+    return {"stats": stats, "shape": (N, NC)}
+
+
+def nhd_kernel_entries(nhd, row8):
+    """The kernels line's phase-55 entries: rows 1 and 8 through the nhd
+    entry."""
+    from bevgen_torch.ops import attention_bwd as ab
+    from bevgen_torch.ops import cosine_attention as ca
+    out = []
+    N, NC = nhd["shape"]
+    for (b, shape), (counts, st) in nhd["stats"].items():
+        m = N if shape == "self" else NC
+        run = "train" if b != 2 else "serve"
+        out.append({
+            "name": f"cosine_attention_fwd[nhd {run} {shape} b{b} {N}x{m}]",
+            "route": "cuda", "source": ca.SOURCE,
+            "replaces": "bevgen_tpu/ops/pallas/fused_attention.py:1160",
+            "launches": counts[0], **st})
+        if run == "train":
+            out.append({
+                "name": f"attention_bwd[nhd train {shape} b{b} {N}x{m + 1}, "
+                        f"3 kernels]",
+                "route": "cuda", "source": ab.SOURCE, "replaces": ab.REPLACES,
+                "launches": counts[1], **row8[shape]})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8491,6 +8655,9 @@ def smoke() -> int:
     # EditSession served over HTTP
     editor = timed_phase(54, editor_phase)
 
+    # 55. the (B, L, H, D) cosine entry
+    nhd = timed_phase(55, nhd_phase)
+
     kernels = []
     for shape, (n, m) in (("self", (N, N)), ("cross", (N, NC))):
         kernels.append({
@@ -8625,7 +8792,8 @@ def smoke() -> int:
     kernels.extend(tp_kernel_entries(tp, dp["checks"]))
     kernels.extend(tp53_kernel_entries(tp53, int8_stats))
     kernels.extend(editor_kernel_entries(editor))
-    print(f"[time] phases 1-54: {time.perf_counter() - t_start:.1f} s",
+    kernels.extend(nhd_kernel_entries(nhd, inference_res["checks"]["row8"]))
+    print(f"[time] phases 1-55: {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
